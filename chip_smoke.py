@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on an NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
+
+  1. prints the card's name and power limit (nvidia-smi);
+  2. builds the CUDA kernels from gpujpeg_tpu_torch/csrc and prints the
+     build seconds and each kernel's ptxas resource line;
+  3. runs each kernel against its plain PyTorch version on the card at the
+     8K (7680x4320) shapes of the main path: the preprocessor and the DCT
+     must match bit for bit, the Huffman coder's rows and row lengths
+     exactly, on a seeded gradient-plus-noise frame and a uniform-noise
+     frame;
+  4. encodes a 1920x1080 frame with Encoder(device="cuda") and with
+     Encoder(device="cpu") and requires identical bytes;
+  5. encodes three seeded 8K RGB frames through Encoder.encode at Q75,
+     restart interval auto (the reference GPUJPEG's headline
+     configuration), checks SOI/EOI and that the RST count equals segments
+     minus scans, and prints per-frame wall ms (those three and nine more
+     frames), a stage breakdown and each kernel's CUDA-event time;
+  6. prints one JSON line of per-kernel records (launches during step 5,
+     error against the plain version, times, the bound from this run's
+     inputs, the PyTorch library yardstick where one exists);
+  7. prints {"ok": true, "device": {...}} as its last line.
+
+Any failure raises and exits non-zero; with no CUDA device, or without the
+package beside it, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+H8K, W8K = 4320, 7680
+QUALITY = 75
+#: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, non-tensor f32
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def make_frame(torch, kind: str, seed: int, h: int, w: int, dev):
+    """Seeded (h, w, 3) uint8 frame made on the device: 'gradient' =
+    smooth ramps plus +-24 noise (photographic-like density at Q75),
+    'noise' = uniform bytes (densest coefficients, heavy stuffing)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if kind == "noise":
+        return torch.randint(0, 256, (h, w, 3), generator=g, device=dev,
+                             dtype=torch.uint8)
+    yy = torch.arange(h, device=dev, dtype=torch.int32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.int32)[None, :]
+    base = torch.stack([xx * 255 // w + 0 * yy, yy * 255 // h + 0 * xx,
+                        (xx + yy) * 255 // (w + h)], dim=-1)
+    noise = torch.randint(-24, 25, (h, w, 3), generator=g, device=dev,
+                          dtype=torch.int32)
+    return torch.clamp(base + noise, 0, 255).to(torch.uint8)
+
+
+def event_ms(torch, fn, reps: int, flush=None) -> float:
+    """Mean CUDA-event time of fn() over reps runs, each timed on its own;
+    `flush` (a large tensor) is rewritten before each run so that the run
+    finds its inputs outside the 50 MB L2, as the encoder does."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.add_(1)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one card",
+              file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import gpujpeg_tpu_torch as gt
+    from gpujpeg_tpu_torch.ops import _kernels, fusedpack, prepost_kernel
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # -- 1. the card ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {kind}")
+
+    # -- 2. build --------------------------------------------------------------
+    build_s = _kernels.build()
+    log(f"[build] kernels built in {build_s:.1f} s")
+    for name, text in _kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    enc = gt.Encoder(device=dev)
+    params = gt.Parameters(quality=QUALITY, restart_interval=gt.RESTART_AUTO)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+
+    # -- 3. kernels against their plain versions at 8K -------------------------
+    kernels = {
+        "pre_rgb_to_planes": dict(
+            source="gpujpeg_tpu_torch/csrc/pre_rgb_to_planes.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:88",
+            bound_by="bytes", library_ms=None, err=0),
+        "fdct_quant": dict(
+            source="gpujpeg_tpu_torch/csrc/fdct_quant.cu",
+            replaces="gpujpeg_tpu/ops/fusedpack.py:459",
+            bound_by="operations", err=0),
+        "huffman_segments": dict(
+            source="gpujpeg_tpu_torch/csrc/huffman_segments.cu",
+            replaces="gpujpeg_tpu/ops/fusedpack.py:459",
+            bound_by="bytes", library_ms=None, err=0),
+    }
+    for fkind, seed in (("gradient", 11), ("noise", 12)):
+        frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
+        geo = enc.resolve(frame, params)
+        pi = geo.param_image
+        planes = prepost_kernel.preprocess_packed(frame, geo, pi)
+        ref = prepost_kernel.preprocess_packed_plain(frame, geo, pi)
+        torch.cuda.synchronize()
+        err = max(int((a.int() - b.int()).abs().max())
+                  for a, b in zip(planes, ref))
+        kernels["pre_rgb_to_planes"]["err"] = max(
+            kernels["pre_rgb_to_planes"]["err"], err)
+        if err:
+            raise AssertionError(f"pre kernel differs from plain ({fkind})")
+        if fkind == "gradient":
+            kernels["pre_rgb_to_planes"]["plain_ms"] = event_ms(
+                torch, lambda: prepost_kernel.preprocess_packed_plain(
+                    frame, geo, pi), 3)
+        for c in geo.components:
+            tabs = enc.class_tables(QUALITY, c.table_index == 0)
+            rst = c.segment_mcu_count
+            coefs = fusedpack.fdct_quant(planes[c.index], tabs, rst)
+            p_coefs = fusedpack.fdct_quant_plain(planes[c.index], tabs, rst)
+            torch.cuda.synchronize()
+            err = int((coefs.int() - p_coefs.int()).abs().max())
+            kernels["fdct_quant"]["err"] = max(kernels["fdct_quant"]["err"],
+                                               err)
+            if err:
+                raise AssertionError(
+                    f"fdct kernel differs from plain ({fkind}, comp "
+                    f"{c.index}): {int((coefs != p_coefs).sum())} "
+                    "coefficients")
+            rows, rb, needs = fusedpack.huffman_segments(
+                coefs, c.mcu_count, tabs)
+            p_rows, p_rb, p_needs = fusedpack.huffman_segments_plain(
+                coefs, c.mcu_count, tabs)
+            torch.cuda.synchronize()
+            stride = rows.shape[1]
+            inside = torch.arange(stride, device=dev)[None, :] < rb[:, None]
+            err = max(int((rb - p_rb).abs().max()),
+                      int((needs - p_needs).abs().max()),
+                      int((rows[inside].int() - p_rows[inside].int())
+                          .abs().max()) if torch.equal(rb, p_rb) else 255)
+            kernels["huffman_segments"]["err"] = max(
+                kernels["huffman_segments"]["err"], err)
+            if err:
+                raise AssertionError(
+                    f"huffman kernel differs from plain ({fkind}, comp "
+                    f"{c.index})")
+            if fkind == "gradient" and c.index == 0:
+                kernels["fdct_quant"]["plain_ms"] = event_ms(
+                    torch, lambda: fusedpack.fdct_quant_plain(
+                        planes[0], tabs, rst), 3)
+                kernels["huffman_segments"]["plain_ms"] = event_ms(
+                    torch, lambda: fusedpack.huffman_segments_plain(
+                        coefs, c.mcu_count, tabs), 2)
+            log(f"[kernels] 8K {fkind} comp {c.index}: pre, fdct, huffman "
+                f"equal to plain; max row {int(needs[1])} B, stuffed "
+                f"zeros <= {int(needs[0])}, stride {stride} B")
+        del planes, ref, coefs, p_coefs, rows, p_rows
+
+    # -- 4. HD bytes: card == CPU ----------------------------------------------
+    hd = make_frame(torch, "gradient", 21, 1080, 1920, dev).cpu().numpy()
+    out_cuda = enc.encode(hd, params)
+    out_cpu = gt.Encoder(device="cpu").encode(hd, params)
+    if out_cuda != out_cpu:
+        raise AssertionError("HD encode on the card differs from the CPU")
+    log(f"[hd] 1920x1080 Q75: {len(out_cuda)} bytes, card == cpu")
+
+    # -- 5. main path: three 8K frames through Encoder.encode ------------------
+    frames = [make_frame(torch, "gradient", 100 + i, H8K, W8K, dev)
+              .cpu().numpy() for i in range(3)]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    walls, sizes = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        out = enc.encode(f, params)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        sizes.append(len(out))
+        geo = enc.resolve(f, params)
+        data = np.frombuffer(out, np.uint8)
+        if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
+            raise AssertionError("8K stream lacks SOI/EOI")
+        ff = np.nonzero(data[:-1] == 0xFF)[0]
+        nrst = int(((data[ff + 1] >= 0xD0) & (data[ff + 1] <= 0xD7)).sum())
+        if nrst != geo.segment_count - geo.scan_count:
+            raise AssertionError(f"RST count {nrst} != "
+                                 f"{geo.segment_count - geo.scan_count}")
+    launches = dict(_kernels.LAUNCHES)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "main path")
+    log(f"[8k] {len(frames)} frames 7680x4320 Q75 rst "
+        f"{geo.param.restart_interval}: bytes {sizes}, segments "
+        f"{geo.segment_count}, RST markers ok, launches {launches}")
+    # nine more frames (after the launch counts were read) for the spread
+    for i in range(9):
+        t0 = time.perf_counter()
+        enc.encode(frames[i % 3], params)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q = np.percentile(walls, [25, 50, 75])
+    log(f"[8k] wall ms per frame (host frame in, bytes out), {len(walls)} "
+        f"frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / {q[2]:.3f}; "
+        + ", ".join(f"{w:.3f}" for w in walls))
+
+    # stage breakdown of one more frame (after the launch counts were read)
+    f = frames[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    x = torch.from_numpy(f).to(dev)
+    ev[1].record()
+    planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
+    ev[2].record()
+    coefs = []
+    for c in geo.components:
+        tabs = enc.class_tables(QUALITY, c.table_index == 0)
+        coefs.append(fusedpack.fdct_quant(planes[c.index], tabs,
+                                          c.segment_mcu_count))
+    ev[3].record()
+    rows, rbs = [], []
+    for c, co in zip(geo.components, coefs):
+        tabs = enc.class_tables(QUALITY, c.table_index == 0)
+        r, rb, _ = fusedpack.huffman_segments(co, c.mcu_count, tabs)
+        rows.append(r)
+        rbs.append(rb)
+    ev[4].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = enc.assemble(geo, {"rows": rows, "row_bytes": rbs})
+    t2 = time.perf_counter()
+    if out != enc.encode(f, params):
+        raise AssertionError("stage-by-stage encode differs from encode()")
+    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+                  pre_ms=ev[1].elapsed_time(ev[2]),
+                  fdct_3_planes_ms=ev[2].elapsed_time(ev[3]),
+                  huffman_3_planes_ms=ev[3].elapsed_time(ev[4]),
+                  device_wall_ms=(t1 - t0) * 1e3,
+                  assemble_d2h_host_ms=(t2 - t1) * 1e3)
+    log("[8k] stages (CUDA events; assembly on the host clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # per-kernel CUDA-event times at the main path's shapes (frame 0)
+    c0 = geo.components[0]
+    kernels["pre_rgb_to_planes"]["ms"] = event_ms(
+        torch, lambda: prepost_kernel.preprocess_packed(
+            x, geo, geo.param_image), 20, flush)
+    ms_f, ms_h, bound_f, bound_h, lib_f = [], [], [], [], []
+    for c, co, rb in zip(geo.components, coefs, rbs):
+        tabs = enc.class_tables(QUALITY, c.table_index == 0)
+        ms_f.append(event_ms(torch, lambda: fusedpack.fdct_quant(
+            planes[c.index], tabs, c.segment_mcu_count), 10, flush))
+        ms_h.append(event_ms(torch, lambda: fusedpack.huffman_segments(
+            co, c.mcu_count, tabs), 10, flush))
+        ncoef = co.numel()
+        b_bytes = planes[c.index].numel() + ncoef * 2 + 64 * 65 * 4
+        bound_f.append(max(b_bytes / PEAK_BYTES_S,
+                           2 * 64 * ncoef / PEAK_F32_FLOP_S) * 1e3)
+        h_bytes = ncoef * 2 + 272 * 4 + int(rb.sum()) + 4 * rb.numel()
+        bound_h.append(h_bytes / PEAK_BYTES_S * 1e3)
+        # yardstick: one float32 product of the same blocks (TF32 off);
+        # timed here only, never called by the port
+        blocks = planes[c.index].reshape(
+            c.data_height // 8, 8, c.data_width // 8, 8).permute(
+            0, 2, 1, 3).reshape(-1, 64).float()
+        lib_f.append(event_ms(torch, lambda: torch.matmul(blocks, tabs.mq),
+                              10, flush))
+        del blocks
+    kernels["fdct_quant"].update(ms=sum(ms_f) / 3, library_ms=sum(lib_f) / 3)
+    kernels["huffman_segments"]["ms"] = sum(ms_h) / 3
+    kernels["fdct_quant"]["bound_ms"] = sum(bound_f) / 3
+    kernels["huffman_segments"]["bound_ms"] = sum(bound_h) / 3
+    pre_bytes = x.numel() + 3 * c0.data_height * c0.data_width
+    kernels["pre_rgb_to_planes"]["bound_ms"] = pre_bytes / PEAK_BYTES_S * 1e3
+    for name, k in kernels.items():
+        log(f"[time] {name}: {k['ms']:.4f} ms per launch (bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
+            f"{k['plain_ms']:.3f} ms, library "
+            f"{'-' if k['library_ms'] is None else format(k['library_ms'], '.4f')}"
+            " ms")
+
+    # -- 6. kernels line -----------------------------------------------------
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": k["source"],
+         "replaces": k["replaces"], "launches": launches[name],
+         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+         "library_ms": k["library_ms"]}
+        for name, k in kernels.items()]}
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps(line))
+    # -- 7. result -----------------------------------------------------------
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""gpujpeg_tpu_torch: the PyTorch/CUDA port of gpujpeg_tpu.
+
+A baseline-JPEG encoder whose device stages are hand-written CUDA kernels
+for Hopper (csrc/), each with a plain PyTorch version beside it that the
+CPU runs.  The JAX package gpujpeg_tpu is the reference: the port imports
+nothing from it and writes the same bytes.
+"""
+
+__version__ = "0.1.0"
+
+from .types import (  # noqa: F401
+    ColorSpace,
+    ImageParameters,
+    Parameters,
+    PixelFormat,
+    RESTART_AUTO,
+    from_reference,
+)
+
+from .models.encoder import Encoder  # noqa: F401

@@ -1,0 +1,181 @@
+"""Encoder session of the PyTorch port (gpujpeg_tpu.models.encoder).
+
+The device pipeline for a non-interleaved baseline encode:
+
+    preprocess (colour + planes)      ops/prepost_kernel.preprocess_packed
+    per component:
+      forward DCT + quantization      ops/fusedpack.fdct_quant
+      Huffman coding of segment rows  ops/fusedpack.huffman_segments
+
+then host assembly: headers (stream/writer.py) and the rows of each scan,
+cut to their byte counts (native.assemble_rows).  On CUDA every stage is a
+hand-written kernel; with device="cpu" every stage runs its plain PyTorch
+version.  The bytes are the same either way and equal the JAX package's.
+
+This slice covers the reference GPUJPEG's headline configuration: 8-bit
+RGB P444_U8_P012 input, 3 components at 4:4:4, non-interleaved scans, a
+restart interval > 0 (auto picks 8 up to Q92), the tuned Huffman family.
+Everything else raises NotImplementedError naming the ROADMAP item that
+ports it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import native
+from ..device import resolve_device
+from ..ops import fusedpack, prepost_kernel
+from ..stream import writer as jwriter
+from ..types import (ColorSpace, ImageParameters, Parameters, PixelFormat,
+                     RESTART_AUTO, pixel_format_comp_count,
+                     pixel_format_sampling)
+from ..utils.geometry import Geometry, get_geometry, suggest_restart_interval
+
+
+def adjust_params(param: Parameters, pi: ImageParameters) -> Parameters:
+    """Resolve auto values (comp count, sampling, restart interval)
+    (gpujpeg_encoder.c:319-348)."""
+    if param.comp_count == 0:
+        n = min(pixel_format_comp_count(pi.pixel_format), 3) \
+            if pi.pixel_format != PixelFormat.P4444_U8_P0123 else 4
+        samp = pixel_format_sampling(pi.pixel_format)
+        param = param.chroma_subsampled(samp[:n])
+    if param.restart_interval == RESTART_AUTO:
+        sf = param.sampling_factor[: param.comp_count]
+        subsampled = any(s.horizontal != sf[0].horizontal
+                         or s.vertical != sf[0].vertical for s in sf)
+        bpm = sum(s.horizontal * s.vertical for s in sf)
+        param = param.with_(restart_interval=suggest_restart_interval(
+            pi, param.comp_count, subsampled, param.interleaved, bpm,
+            param.quality))
+    if param.comp_count == 1:
+        # grayscale always luminance; internal color space irrelevant
+        param = param.with_(interleaved=False)
+    return param
+
+
+def check_supported(geo: Geometry) -> None:
+    """Raise NotImplementedError for a configuration outside this slice,
+    naming the ROADMAP item (queue 1) that ports it."""
+    param, pi = geo.param, geo.param_image
+    if pi.pixel_format != PixelFormat.P444_U8_P012 or pi.width_padding:
+        raise NotImplementedError(
+            f"pixel format {pi.pixel_format.name}"
+            f"{' with width_padding' if pi.width_padding else ''}: only "
+            "P444_U8_P012 is ported (ROADMAP queue 1 item 6)")
+    if geo.comp_count != 3 or any(c.samp_h != 1 or c.samp_v != 1
+                                  for c in geo.components):
+        raise NotImplementedError(
+            "chroma subsampling and component counts other than 3 at "
+            "4:4:4 are not ported (ROADMAP queue 1 item 6)")
+    if geo.interleaved:
+        raise NotImplementedError(
+            "interleaved scans are not ported (ROADMAP queue 1 item 8)")
+    if param.restart_interval == 0:
+        raise NotImplementedError(
+            "restart_interval == 0 (host entropy path) is not ported "
+            "(ROADMAP queue 1 item 9)")
+    if param.huffman_tables != "tuned":
+        raise NotImplementedError(
+            f"huffman_tables={param.huffman_tables!r}: only the tuned "
+            "family is ported (ROADMAP queue 1 item 7)")
+
+
+class Encoder:
+    """Persistent encoder session (create once, encode many frames).
+
+    device: None runs on the current CUDA device and raises when there is
+    none; "cpu" runs the plain PyTorch versions of the kernels."""
+
+    def __init__(self, device=None) -> None:
+        self.device = resolve_device(device)
+        self._tables: Dict[Tuple[int, bool], fusedpack.ClassTables] = {}
+
+    def set_option(self, key: str, value: str) -> None:
+        """Reference-compatible string options (gpujpeg_encoder.c:736-795)
+        are not ported yet."""
+        item = {"enc_opt_flipped": 6, "enc_opt_channel_remap": 6,
+                "enc_exif_tag": 11, "enc_hdr": 10, "enc_metadata": 10}
+        raise NotImplementedError(
+            f"encoder option {key!r} is not ported (ROADMAP queue 1 item "
+            f"{item.get(key, 10)})")
+
+    def class_tables(self, quality: int,
+                     luma: bool) -> fusedpack.ClassTables:
+        key = (quality, luma)
+        tabs = self._tables.get(key)
+        if tabs is None:
+            tabs = fusedpack.class_tables(quality, luma, self.device)
+            self._tables[key] = tabs
+        return tabs
+
+    def resolve(self, image, param: Optional[Parameters] = None,
+                param_image: Optional[ImageParameters] = None) -> Geometry:
+        if param_image is None:
+            if image.ndim < 2:
+                raise ValueError("param_image required for flat buffers")
+            h, w = image.shape[:2]
+            ncomp = image.shape[2] if image.ndim == 3 else 1
+            pf = {1: PixelFormat.U8, 3: PixelFormat.P444_U8_P012,
+                  4: PixelFormat.P4444_U8_P0123}[ncomp]
+            cs = ColorSpace.RGB if ncomp >= 3 else ColorSpace.NONE
+            param_image = ImageParameters(width=w, height=h, color_space=cs,
+                                          pixel_format=pf)
+        param = adjust_params(param or Parameters(), param_image)
+        return get_geometry(param, param_image)
+
+    def encode_to_device(self, image, param: Optional[Parameters] = None,
+                         param_image: Optional[ImageParameters] = None):
+        """Device-side encode.  Returns (geo, res): res["rows"] holds one
+        (segments, stride) uint8 tensor per scan and res["row_bytes"] one
+        (segments,) int32 tensor per scan, still on the device."""
+        geo = self.resolve(image, param, param_image)
+        check_supported(geo)
+        if isinstance(image, torch.Tensor):
+            x = image.to(self.device)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        planes = prepost_kernel.preprocess_packed(x.contiguous(), geo,
+                                                  geo.param_image)
+        rows, row_bytes = [], []
+        for c in geo.components:
+            tabs = self.class_tables(geo.param.quality, c.table_index == 0)
+            r, rb, _needs = fusedpack.entropy_fused_u8(
+                planes[c.index], tabs, c.segment_mcu_count)
+            rows.append(r)
+            row_bytes.append(rb)
+        return geo, {"rows": rows, "row_bytes": row_bytes}
+
+    def assemble(self, geo: Geometry, res) -> bytes:
+        """Host codestream assembly: headers, then each scan's rows cut to
+        their byte counts (RST markers and stuffing come from the
+        device).  Each scan's rows are sliced to the longest row on the
+        device before the copy to the host."""
+        rb_all = torch.cat(res["row_bytes"]).cpu().numpy()
+        out = bytearray(jwriter.write_header(geo))
+        for k in range(geo.scan_count):
+            b0, b1 = (int(geo.scan_seg_bounds[k]),
+                      int(geo.scan_seg_bounds[k + 1]))
+            rb = rb_all[b0:b1]
+            width = int(rb.max()) if len(rb) else 0
+            by = res["rows"][k][:, :width].contiguous().cpu().numpy()
+            if geo.param.segment_info:
+                offs = np.concatenate([[0], np.cumsum(rb)]).astype(np.int64)
+                out += jwriter.write_segment_info_headers(k, offs)
+            out += jwriter.write_scan_header(geo, k)
+            out += native.assemble_rows(by, rb)
+        out += b"\xff\xd9"
+        return bytes(out)
+
+    def encode(self, image, param: Optional[Parameters] = None,
+               param_image: Optional[ImageParameters] = None) -> bytes:
+        """Encode one raw image to a JPEG codestream.
+
+        image: (H, W, 3) uint8 numpy array or torch tensor (any device; it
+        is moved to the session's device)."""
+        geo, res = self.encode_to_device(image, param, param_image)
+        return self.assemble(geo, res)

@@ -1,0 +1,166 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into a build
+directory that ``.gitignore`` lists (``native.build_dir("kernels")``); all
+sources compile in parallel.  A library's file name carries a hash of its
+source, so an edited kernel is rebuilt.  The libraries are loaded with
+ctypes: every pointer and the stream pass as ``c_void_p``, every C function
+returns ``cudaGetLastError()`` after its launch, and ``launch`` raises when
+that is not 0.  Nothing here runs when the module is imported, and nothing
+runs on the CPU: the wrappers in prepost_kernel.py and fusedpack.py take
+their plain versions for CPU tensors and call ``launch`` for CUDA tensors.
+
+``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
+that adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .. import native
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+#: kernel name -> argtypes of its C entry point gj_<name>
+_SIGNATURES: Dict[str, List] = {
+    # raw, H, W, data_h, data_w, params (host int32[26]), out, stream
+    "pre_rgb_to_planes": [_P, _I, _I, _I, _I, _P, _P, _P],
+    # plane, data_h, data_w, nblocks_out, mq, bias, out, stream
+    "fdct_quant": [_P, _I, _I, _I64, _P, _P, _P, _P],
+    # coefs, nseg, rst, nblocks, luts, stride, rows, row_bytes, needs,
+    # stream
+    "huffman_segments": [_P, _I64, _I, _I64, _P, _I, _P, _P, _P, _P],
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+#: launches per kernel since the last reset_launches()
+LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: ptxas resource reports of the last build, by kernel name
+BUILD_LOG: Dict[str, str] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def source_path(name: str) -> str:
+    return os.path.join(_CSRC, f"{name}.cu")
+
+
+def nvcc() -> str:
+    """Path of nvcc; raises when the CUDA toolkit is missing."""
+    cands = [os.path.join(d, "bin", "nvcc")
+             for d in (os.environ.get("CUDA_HOME"),
+                       os.environ.get("CUDA_PATH"), "/usr/local/cuda") if d]
+    found = shutil.which("nvcc")
+    if found:
+        cands.insert(0, found)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "CUDA is present but nvcc was not found (looked on PATH, in "
+        "$CUDA_HOME and in /usr/local/cuda); the port's kernels are built "
+        "from csrc/ with nvcc and there is no fallback")
+
+
+def _lib_path(name: str) -> str:
+    with open(source_path(name), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(native.build_dir("kernels"),
+                        f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> float:
+    """Compile every kernel whose library is missing, all nvcc processes at
+    once; returns the seconds spent.  Raises with nvcc's output on a
+    failed build."""
+    names = list(names or _SIGNATURES)
+    todo = [(n, _lib_path(n)) for n in names if not os.path.exists(
+        _lib_path(n))]
+    t0 = time.perf_counter()
+    if not todo:
+        return 0.0
+    exe = nvcc()
+    procs = []
+    for name, out in todo:
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [exe, *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for name, out, tmp, p in procs:
+        log, _ = p.communicate()
+        BUILD_LOG[name] = log
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not os.path.exists(path):
+            build()
+        lib = ctypes.CDLL(path)
+        fn = getattr(lib, f"gj_{name}")
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream of the first tensor's
+    device with C arguments `args` (tensors pass as device pointers, numpy
+    arrays as host pointers), count it, and raise on a launch error."""
+    fn = getattr(_lib(name), f"gj_{name}")
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
+              else a.ctypes.data if isinstance(a, np.ndarray) else a
+              for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Check what a kernel takes: CUDA tensors, contiguous, on one
+    device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all tensors must lie on one CUDA "
+                             f"device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

@@ -1,0 +1,81 @@
+"""Huffman tokenization of segment rows in plain PyTorch.
+
+The semantics of the JAX package's entropy megakernel tokenizer
+(gpujpeg_tpu.ops.fusedpack._entropy_kernel_body): each of the 64 zig-zag
+slots of every block emits zero or one token of at most 27 bits,
+
+  slot 0:            DC code (size category of the DC difference to the
+                     previous block of the same segment row; the first
+                     block predicts from 0) + value bits
+  slot i, coef != 0: AC code ((run & 15) << 4 | size) + value bits
+  slot i, coef == 0: ZRL (0xF0) iff this zero is the 16th/32nd/48th of its
+                     run *and* a nonzero coefficient follows in the block
+  slot 63, coef==0:  EOB (0x00)
+  otherwise:         nothing (length 0)
+
+with value bits vb = (v < 0 ? v - 1 : v) & ((1 << size) - 1).  This is the
+plain version of the token walk inside the CUDA Huffman kernel
+(csrc/huffman_segments.cu), which makes the same tokens sequentially.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def tokenize_rows(rows: torch.Tensor, dc_lut: torch.Tensor,
+                  ac_lut: torch.Tensor, nvalid: torch.Tensor):
+    """Tokenize restart-segment rows of ONE table class.
+
+    rows:   (R, B, 64) integer quantized zig-zag coefficients, one restart
+            segment per row, blocks in stream order
+    dc_lut: (>= 12,) integer (len << 16 | code) per DC size category
+    ac_lut: (256,) integer (len << 16 | code) per (run << 4 | size) symbol
+    nvalid: (R,) number of leading blocks of each row that emit tokens
+
+    Returns (bits, lens): (R, B*64) int64 right-aligned code-then-value
+    bits and int32 bit lengths (0 = no token in that slot).
+    """
+    dev = rows.device
+    R, B, _ = rows.shape
+    v = rows.to(torch.int32)
+    dc = v[:, :, 0]
+    pred = F.pad(dc, (1, 0))[:, :-1]
+    v = torch.cat([(dc - pred)[..., None], v[..., 1:]], dim=2)
+
+    av = v.abs()
+    # bit-size category: the frexp exponent is exact for |v| < 2^24 and 0
+    # for v == 0
+    size = torch.frexp(av.to(torch.float32))[1].to(torch.int32)
+    mask = (torch.ones_like(size) << size) - 1
+    vb = torch.where(v < 0, v - 1, v) & mask
+
+    zz = torch.arange(64, device=dev, dtype=torch.int32)
+    is_dc = zz == 0
+    nz = v != 0
+    marker = torch.where(nz | is_dc, zz, torch.full_like(v, -1))
+    last_incl = torch.cummax(marker, dim=2).values
+    last_before = F.pad(last_incl, (1, 0))[..., :-1]   # slot 0: unused
+    run = zz - last_before - 1
+    zri = zz - last_before                    # zeros up to and incl. slot
+    has_after = last_incl[..., 63:64] > zz
+
+    is_code = nz & ~is_dc
+    is_zrl = ~nz & ~is_dc & has_after & ((zri & 15) == 0)
+    is_eob = ~nz & (zz == 63)
+
+    sym = torch.where(is_code, ((run & 15) << 4) | torch.clamp(size, max=15),
+                      torch.where(is_zrl, 0xF0, 0))
+    ac_e = ac_lut.to(dev, torch.int64)[sym.long()]
+    dc_e = dc_lut.to(dev, torch.int64)[torch.clamp(size, max=11).long()]
+    entry = torch.where(is_dc, dc_e, ac_e)
+    clen = (entry >> 16).to(torch.int32)
+    code = entry & 0xFFFF
+
+    blk = torch.arange(B, device=dev)[None, :, None]
+    valid = blk < nvalid.to(dev)[:, None, None]
+    token = (is_dc | is_code | is_zrl | is_eob) & valid
+    lens = torch.where(token, clen + size, 0)
+    bits = torch.where(token, (code << size.long()) | vb.long(), 0)
+    return bits.reshape(R, B * 64), lens.reshape(R, B * 64)
