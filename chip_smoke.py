@@ -20,10 +20,24 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      configuration), checks SOI/EOI and that the RST count equals segments
      minus scans, and prints per-frame wall ms (those three and nine more
      frames), a stage breakdown and each kernel's CUDA-event time;
-  6. prints one JSON line of per-kernel records (launches during step 5,
-     error against the plain version, times, the bound from this run's
-     inputs, the PyTorch library yardstick where one exists);
-  7. prints {"ok": true, "device": {...}} as its last line.
+  6. decodes on the card (gpujpeg_tpu_torch.Decoder), fed by step 5's 8K
+     streams and one 8K noise stream:
+     a. each decode kernel (phase-A scan, phase-C block decode, fused
+        dequantization + IDCT + colour) against its plain version on the
+        gradient and the noise stream: bstart/err, coefficients/err and
+        pixels must match exactly;
+     b. decodes a 1920x1080 stream with Decoder(device="cuda") and with
+        Decoder(device="cpu") and requires identical pixels;
+     c. decodes the three 8K streams through Decoder.decode (launch counts
+        read over those three), prints their PSNR against the source
+        frames, per-frame wall ms (those three and nine more, bytes in to
+        a host array out) and a stage breakdown;
+     d. times each decode kernel at the main path's shapes;
+  7. prints one JSON line of per-kernel records, encode and decode
+     (launches during its main path, error against the plain version,
+     times, the bound from this run's inputs, the PyTorch library
+     yardstick where one exists);
+  8. prints {"ok": true, "device": {...}} as its last line.
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -84,6 +98,210 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def psnr(np, a, b) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
+
+
+def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
+                  flush):
+    """Step 6; returns (kernel records, launches over the main path)."""
+    from gpujpeg_tpu_torch.models import decoder as tdec
+    from gpujpeg_tpu_torch.ops import _kernels, huffdec_kernel as thd
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    dec = gt.Decoder(device=dev)
+    kernels = {
+        "huffdec_scan": dict(
+            source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:590",
+            bound_by="bytes", library_ms=None, err=0),
+        "huffdec_block": dict(
+            source="gpujpeg_tpu_torch/csrc/huffdec_block.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:283",
+            bound_by="bytes", library_ms=None, err=0),
+        "dpost_rgb": dict(
+            source="gpujpeg_tpu_torch/csrc/dpost_rgb.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:379",
+            bound_by="operations", err=0),
+    }
+
+    def inputs(hf):
+        p = hf.plan
+        words = torch.from_numpy(hf.words).to(dev)
+        nbits = torch.from_numpy(hf.nbits).to(dev)
+        return p, words, nbits, (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+
+    def once_ms(fn):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e)
+
+    def record_err(name, err, what):
+        kernels[name]["err"] = max(kernels[name]["err"], err)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({what})")
+
+    # -- a. kernels against their plain versions at 8K ---------------------
+    for what, data in (("gradient", streams[0]), ("noise", noise_stream)):
+        hf = dec.prepare(data)
+        p, words, nbits, args = inputs(hf)
+        bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps)
+        (p_bstart, p_err_a), ms_a = once_ms(lambda: thd.scan_segments_plain(
+            words, nbits, *args, p.bps))
+        record_err("huffdec_scan", max(
+            int((bstart - p_bstart).abs().max()),
+            int((err_a != p_err_a).sum())), what)
+        coefs, err_c = thd.decode_blocks(words, bstart, *args)
+        (p_coefs, p_err_c), ms_c = once_ms(lambda: thd.decode_blocks_plain(
+            words, bstart, *args))
+        record_err("huffdec_block", max(
+            int((coefs.int() - p_coefs.int()).abs().max()),
+            int((err_c - p_err_c).abs().max())), what)
+        if bool(err_a.any()) or bool(err_c.any()):
+            raise AssertionError(f"8K {what} stream decodes with errors")
+        del p_coefs
+        coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
+        geo, pi = p.geo, hf.out_pi
+        img = prepost_kernel.decode_post(coefs, p.qtabs, geo, pi)
+        p_img, ms_d = once_ms(lambda: prepost_kernel.decode_post_plain(
+            coefs, p.qtabs, geo, pi))
+        record_err("dpost_rgb", int((img.int() - p_img.int()).abs().max()),
+                   what)
+        if what == "gradient":
+            kernels["huffdec_scan"]["plain_ms"] = ms_a
+            kernels["huffdec_block"]["plain_ms"] = ms_c
+            kernels["dpost_rgb"]["plain_ms"] = ms_d
+        log(f"[dec kernels] 8K {what}: scan, block, dpost equal to plain; "
+            f"{words.shape[0]} segments x {words.shape[1]} words, "
+            f"{coefs.shape[1]} block slots; plain ms {ms_a:.1f} / "
+            f"{ms_c:.1f} / {ms_d:.1f}")
+        del coefs, img, p_img, words, bstart, p_bstart
+
+    # -- b. HD pixels: card == CPU -----------------------------------------
+    hd = make_frame(torch, "gradient", 22, 1080, 1920, dev).cpu().numpy()
+    hd_stream = gt.Encoder(device="cpu").encode(hd, gt.Parameters(
+        quality=QUALITY, restart_interval=gt.RESTART_AUTO))
+    got = dec.decode(hd_stream)
+    if not np.array_equal(got, gt.Decoder(device="cpu").decode(hd_stream)):
+        raise AssertionError("HD decode on the card differs from the CPU")
+    log(f"[dec hd] 1920x1080 Q75 {len(hd_stream)} bytes: card == cpu, "
+        f"PSNR {psnr(np, got, hd):.2f} dB")
+
+    # -- c. main path: the three 8K streams through Decoder.decode ---------
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    walls, psnrs = [], []
+    for data, f in zip(streams, frames):
+        t0 = time.perf_counter()
+        out = dec.decode(data)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if out.shape != f.shape or out.dtype != np.uint8:
+            raise AssertionError(f"8K decode gave {out.shape} {out.dtype}")
+        psnrs.append(psnr(np, out, f))
+    launches = {n: _kernels.LAUNCHES[n] for n in kernels}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "decode main path")
+    if min(psnrs) < 20:
+        raise AssertionError(f"8K decode PSNR {psnrs} dB: not the frames")
+    log(f"[dec 8k] {len(streams)} streams 7680x4320 Q75: PSNR vs source "
+        + ", ".join(f"{v:.2f}" for v in psnrs) + f" dB, launches {launches}")
+    for i in range(9):
+        t0 = time.perf_counter()
+        dec.decode(streams[i % 3])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q = np.percentile(walls, [25, 50, 75])
+    log(f"[dec 8k] wall ms per frame (bytes in, host array out), "
+        f"{len(walls)} frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / "
+        f"{q[2]:.3f}; " + ", ".join(f"{w:.3f}" for w in walls))
+
+    # stage breakdown of one more frame
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hf = dec.prepare(streams[0])
+    t1 = time.perf_counter()
+    p = hf.plan
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    ev[0].record()
+    words = torch.from_numpy(hf.words).to(dev)
+    nbits = torch.from_numpy(hf.nbits).to(dev)
+    ev[1].record()
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps)
+    ev[2].record()
+    coefs, _ec = thd.decode_blocks(words, bstart, *args)
+    ev[3].record()
+    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
+    ev[4].record()
+    img = prepost_kernel.decode_post(coefs, p.qtabs, p.geo, hf.out_pi)
+    ev[5].record()
+    host = img.cpu()
+    ev[6].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not np.array_equal(host.numpy(), dec.decode(streams[0])):
+        raise AssertionError("stage-by-stage decode differs from decode()")
+    stages = dict(parse_unstuff_host_ms=(t1 - t0) * 1e3,
+                  h2d_words_ms=ev[0].elapsed_time(ev[1]),
+                  scan_ms=ev[1].elapsed_time(ev[2]),
+                  block_ms=ev[2].elapsed_time(ev[3]),
+                  dc_fixup_ms=ev[3].elapsed_time(ev[4]),
+                  dpost_ms=ev[4].elapsed_time(ev[5]),
+                  d2h_image_ms=ev[5].elapsed_time(ev[6]),
+                  device_wall_ms=(t2 - t1) * 1e3)
+    log(f"[dec 8k] stages (parse + unstuff on the host clock, the rest CUDA "
+        f"events; {words.numel() * 4} B of words, {img.numel()} B of "
+        "pixels): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # -- d. per-kernel times at the main path's shapes ---------------------
+    kernels["huffdec_scan"]["ms"] = event_ms(
+        torch, lambda: thd.scan_segments(words, nbits, *args, p.bps), 20,
+        flush)
+    kernels["huffdec_block"]["ms"] = event_ms(
+        torch, lambda: thd.decode_blocks(words, bstart, *args), 20, flush)
+    kernels["dpost_rgb"]["ms"] = event_ms(
+        torch, lambda: prepost_kernel.decode_post(coefs, p.qtabs, p.geo,
+                                                  hf.out_pi), 20, flush)
+    nseg, W = words.shape
+    L = coefs.shape[1]
+    seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4   # nbits + 3 flags
+    kernels["huffdec_scan"]["bound_ms"] = (
+        words.numel() * 4 + seg_bytes + bstart.numel() * 4 + nseg) \
+        / PEAK_BYTES_S * 1e3
+    kernels["huffdec_block"]["bound_ms"] = (
+        words.numel() * 4 + seg_bytes + bstart.numel() * 4 + L * 64 * 2
+        + L * 4) / PEAK_BYTES_S * 1e3
+    nblk = sum(c.mcu_count for c in p.geo.components)
+    d_ops = 2 * 64 * 64 * nblk
+    d_bytes = nblk * 64 * 2 + img.numel() + 3 * 64 * 4 + 64 * 64 * 4
+    kernels["dpost_rgb"]["bound_ms"] = max(
+        d_ops / PEAK_F32_FLOP_S, d_bytes / PEAK_BYTES_S) * 1e3
+    # yardstick: one f32 product of each component's (blocks, 64)
+    # dequantized coefficients by the IDCT matrix (TF32 off); timed here
+    # only, never called by the port
+    nmat = prepost_kernel.idct_matrix(dev)
+    ys = [(coefs[:, f0:f0 + n].T.float() * p.qtabs[c]).contiguous()
+          for c, (f0, n) in enumerate(
+              prepost_kernel.component_columns(p.geo))]
+    kernels["dpost_rgb"]["library_ms"] = event_ms(
+        torch, lambda: [torch.matmul(y, nmat) for y in ys], 10, flush)
+    del ys
+    for name, k in kernels.items():
+        log(f"[dec time] {name}: {k['ms']:.4f} ms per launch (bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
+            f"{k['plain_ms']:.3f} ms, library "
+            f"{'-' if k['library_ms'] is None else format(k['library_ms'], '.4f')}"
+            " ms")
+    return kernels, launches
 
 
 def main() -> int:
@@ -213,12 +431,13 @@ def main() -> int:
               .cpu().numpy() for i in range(3)]
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    walls, sizes = [], []
+    walls, sizes, streams = [], [], []
     for f in frames:
         t0 = time.perf_counter()
         out = enc.encode(f, params)
         walls.append((time.perf_counter() - t0) * 1e3)
         sizes.append(len(out))
+        streams.append(out)
         geo = enc.resolve(f, params)
         data = np.frombuffer(out, np.uint8)
         if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
@@ -228,7 +447,7 @@ def main() -> int:
         if nrst != geo.segment_count - geo.scan_count:
             raise AssertionError(f"RST count {nrst} != "
                                  f"{geo.segment_count - geo.scan_count}")
-    launches = dict(_kernels.LAUNCHES)
+    launches = {name: _kernels.LAUNCHES[name] for name in kernels}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -323,7 +542,16 @@ def main() -> int:
             f"{'-' if k['library_ms'] is None else format(k['library_ms'], '.4f')}"
             " ms")
 
-    # -- 6. kernels line -----------------------------------------------------
+    # -- 6. decode ------------------------------------------------------------
+    del x, planes, coefs, rows
+    noise_stream = enc.encode(
+        make_frame(torch, "noise", 13, H8K, W8K, dev).cpu().numpy(), params)
+    dec_kernels, dec_launches = decode_phases(
+        torch, np, gt, dev, streams, frames, noise_stream, flush)
+    kernels.update(dec_kernels)
+    launches.update(dec_launches)
+
+    # -- 7. kernels line -----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -333,7 +561,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 7. result -----------------------------------------------------------
+    # -- 8. result -----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,159 @@
+// Fused decode back half for Hopper (sm_90a): quantized zig-zag
+// coefficients of 3 components at 4:4:4 -> interleaved 8-bit pixels.
+// Dequantization, inverse DCT, the colour transform and the store in one
+// pass.
+//
+// Replaces the JAX package's Pallas decode tail
+// (gpujpeg_tpu/ops/prepost_kernel.py: _dpost_kernel_body, launched by
+// _cached_dpost_kernel through decode_post_fused) for dx = dy = 1.  On the
+// TPU the IDCT was an MXU matmul over 128-lane-aligned tiles of block rows,
+// followed by sublane-strided stores to fold blocks into raster rows and
+// an RGBX word store that the caller sliced to RGB; here one thread
+// computes one sample of one block for all three components and stores
+// its 3 bytes where they belong, so the block count needs no alignment
+// and a ragged last segment is simply skipped.
+//
+// The result must equal the plain version (ops/dct.dequantize_idct, then
+// ops/sample.postprocess) bit for bit, so the arithmetic order is fixed:
+//     y[k] = coef[k] * q[k]                      (float32, exact)
+//     acc = 0;  for k = 0..63: acc = fmaf(y[k], N[k][s], acc)
+//     v = clamp(rintf(__fadd_rn(acc, 128.f)), 0, 255)
+// then the integer colour transform of colorspace.cuh.  Never build this
+// with --use_fast_math, and never replace the chain by a tensor-core or
+// TF32 product.
+//
+// Design, after fdct_quant.cu: a CTA of 256 threads takes 32 blocks of
+// each component at a time (grid-stride), loads their coefficients from
+// the (64, L) layout (a warp reads one coefficient of 32 neighbouring
+// blocks, 64 contiguous bytes), dequantizes them into shared memory as
+// rows of 64 floats, and then thread (j, s) computes sample s of blocks
+// j, j+4, ..., keeping column s of N in 64 registers for the whole launch
+// and reading the dequantized rows as float4 broadcasts.  The three
+// components' FMA chains run side by side.
+//
+// Bound: operations.  At 8K every one of 3 x 33.2 M samples takes 64 FMA:
+// 12.7 GFLOP, about 0.19 ms at 67 TFLOP/s of non-tensor f32.  The bytes
+// (199.1 MB of coefficients in, 99.5 MB of pixels out) take about
+// 0.089 ms at 3.35 TB/s.
+//
+// Plain C interface for ctypes; launches on the caller's stream and
+// returns cudaGetLastError().
+
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+#include "colorspace.cuh"
+
+namespace {
+
+constexpr int kGroup = 32;        // blocks per component per iteration
+constexpr int kThreads = 256;
+constexpr int kRow = 68;          // floats per dequantized row (16B-aligned)
+
+__device__ __forceinline__ int to_sample(float acc) {
+    return (int)fminf(fmaxf(rintf(__fadd_rn(acc, 128.f)), 0.f), 255.f);
+}
+
+struct Offsets {
+    int64_t c[3];
+};
+
+__global__ void __launch_bounds__(kThreads)
+dpost_rgb_kernel(const int16_t* __restrict__ coefs, int64_t L, Offsets off,
+                 int64_t nblk, int bpr, int H, int W,
+                 const float* __restrict__ qtabs,
+                 const float* __restrict__ nmat, gj::ColorParams p,
+                 uint8_t* __restrict__ out) {
+    __shared__ __align__(16) float ys[3][kGroup][kRow];
+    __shared__ float qs[3][64];
+    const int tid = threadIdx.x;
+    const int s = tid & 63;          // sample: row s >> 3, column s & 7
+    const int jj = tid >> 6;
+    for (int i = tid; i < 3 * 64; i += kThreads) qs[i >> 6][i & 63] =
+        qtabs[i];
+    float n[64];
+#pragma unroll
+    for (int k = 0; k < 64; ++k) n[k] = nmat[k * 64 + s];
+    __syncthreads();
+    const int64_t ngroups = (nblk + kGroup - 1) / kGroup;
+    for (int64_t g = blockIdx.x; g < ngroups; g += gridDim.x) {
+        const int64_t i0 = g * kGroup;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            for (int e = tid; e < 64 * kGroup; e += kThreads) {
+                const int k = e / kGroup;
+                const int gi = e % kGroup;
+                const int64_t i = i0 + gi;
+                const int v = i < nblk ? coefs[k * L + off.c[c] + i] : 0;
+                ys[c][gi][k] = (float)v * qs[c][k];
+            }
+        }
+        __syncthreads();
+        for (int gi = jj; gi < kGroup; gi += kThreads / 64) {
+            const int64_t i = i0 + gi;
+            if (i >= nblk) break;
+            float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+#pragma unroll
+            for (int k = 0; k < 64; k += 4) {
+                const float4 y0 = *reinterpret_cast<const float4*>(
+                    &ys[0][gi][k]);
+                const float4 y1 = *reinterpret_cast<const float4*>(
+                    &ys[1][gi][k]);
+                const float4 y2 = *reinterpret_cast<const float4*>(
+                    &ys[2][gi][k]);
+                a0 = fmaf(y0.x, n[k], a0);
+                a1 = fmaf(y1.x, n[k], a1);
+                a2 = fmaf(y2.x, n[k], a2);
+                a0 = fmaf(y0.y, n[k + 1], a0);
+                a1 = fmaf(y1.y, n[k + 1], a1);
+                a2 = fmaf(y2.y, n[k + 1], a2);
+                a0 = fmaf(y0.z, n[k + 2], a0);
+                a1 = fmaf(y1.z, n[k + 2], a1);
+                a2 = fmaf(y2.z, n[k + 2], a2);
+                a0 = fmaf(y0.w, n[k + 3], a0);
+                a1 = fmaf(y1.w, n[k + 3], a1);
+                a2 = fmaf(y2.w, n[k + 3], a2);
+            }
+            int v0 = to_sample(a0), v1 = to_sample(a1), v2 = to_sample(a2);
+            gj::convert(p, v0, v1, v2);
+            const int64_t by = i / bpr, bx = i - by * bpr;
+            const int64_t y = by * 8 + (s >> 3), x = bx * 8 + (s & 7);
+            if (y < H && x < W) {
+                uint8_t* px = out + (y * W + x) * 3;
+                px[0] = (uint8_t)v0;
+                px[1] = (uint8_t)v1;
+                px[2] = (uint8_t)v2;
+            }
+        }
+        __syncthreads();
+    }
+}
+
+}  // namespace
+
+extern "C" int gj_dpost_rgb(const void* coefs, int64_t L,
+                            const int64_t* offsets, int64_t nblk, int bpr,
+                            int H, int W, const void* qtabs,
+                            const void* nmat, const int* params, void* out,
+                            void* stream) {
+    // coefs: (64, L) i16 with DC integrated; offsets: host int64[3], the
+    // column of each component's first block; nblk: blocks a component,
+    // bpr of them a block row; qtabs: (3, 64) f32 zig-zag; nmat: (64, 64)
+    // f32, N[k][s]; params: host int32[26] (ops/color.kernel_params);
+    // out: (H, W, 3) u8
+    gj::ColorParams p;
+    static_assert(sizeof(gj::ColorParams) == 26 * sizeof(int), "layout");
+    std::memcpy(&p, params, sizeof(p));
+    Offsets off;
+    for (int c = 0; c < 3; ++c) off.c[c] = offsets[c];
+    const int64_t ngroups = (nblk + kGroup - 1) / kGroup;
+    if (ngroups > 0) {
+        const int64_t grid = ngroups < 4096 ? ngroups : 4096;
+        dpost_rgb_kernel<<<(unsigned)grid, kThreads, 0,
+                           (cudaStream_t)stream>>>(
+            (const int16_t*)coefs, L, off, nblk, bpr, H, W,
+            (const float*)qtabs, (const float*)nmat, p, (uint8_t*)out);
+    }
+    return (int)cudaGetLastError();
+}

@@ -9,7 +9,7 @@
 // plain elementwise pass: one thread per group of 4 output samples reads 4
 // pixels (12 bytes), applies the reference's fixed-point transform
 // (gpujpeg_colorspace.h:64-101, the same integer matrices as
-// ops/color.py) and stores one 32-bit word into each of the 3 planes.
+// ops/color.py; colorspace.cuh) and stores one 32-bit word into each of the 3 planes.
 // Samples past the image's real width or height are written as 0, which is
 // the zero padding up to (data_h, data_w).
 //
@@ -25,60 +25,12 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "colorspace.cuh"
+
 namespace {
 
-struct ColorParams {
-    int from_m[9];
-    int from_b[3];
-    int to_m[9];
-    int to_b[3];
-    int use_from;
-    int use_to;
-};
-
-__device__ __forceinline__ int scale_255_to_256(int c) {
-    // c * 256 / 255 with C truncation for c in (-255, 256)
-    return c + (c >= 255 ? 1 : 0);
-}
-
-__device__ __forceinline__ int clamp255(int v) {
-    return min(max(v, 0), 255);
-}
-
-__device__ __forceinline__ void convert(const ColorParams& p, int& c0,
-                                        int& c1, int& c2) {
-    if (p.use_from) {
-        const int r0 = scale_255_to_256(c0 - p.from_b[0]);
-        const int r1 = scale_255_to_256(c1 - p.from_b[1]);
-        const int r2 = scale_255_to_256(c2 - p.from_b[2]);
-        int o[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            // >> on a negative int is an arithmetic shift, as in the
-            // reference and in ops/color.py
-            o[i] = clamp255((r0 * p.from_m[3 * i] + r1 * p.from_m[3 * i + 1]
-                             + r2 * p.from_m[3 * i + 2] + 128) >> 8);
-        }
-        c0 = o[0];
-        c1 = o[1];
-        c2 = o[2];
-    }
-    if (p.use_to) {
-        const int r0 = scale_255_to_256(c0);
-        const int r1 = scale_255_to_256(c1);
-        const int r2 = scale_255_to_256(c2);
-        int o[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            o[i] = clamp255(((r0 * p.to_m[3 * i] + r1 * p.to_m[3 * i + 1]
-                              + r2 * p.to_m[3 * i + 2] + 128) >> 8)
-                            + p.to_b[i]);
-        }
-        c0 = o[0];
-        c1 = o[1];
-        c2 = o[2];
-    }
-}
+using gj::ColorParams;
+using gj::convert;
 
 __global__ void __launch_bounds__(256)
 pre_rgb_to_planes_kernel(const uint8_t* __restrict__ raw, int H, int W,

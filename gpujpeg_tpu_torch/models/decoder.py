@@ -1,0 +1,421 @@
+"""Decoder session of the PyTorch port (gpujpeg_tpu.models.decoder).
+
+The decode of one codestream:
+
+    host: parse markers, split and unstuff the restart segments into a
+          (segments, words) matrix                stream/reader, segments
+    device:
+      phase A, block boundaries of each segment   huffdec_kernel.scan_segments
+      phase C, coefficients of each block         huffdec_kernel.decode_blocks
+      differential DC -> absolute (torch cumsum)  _dc_fixup_t
+      dequantization + IDCT + colour + store      prepost_kernel.decode_post
+
+On CUDA every stage but the DC integration is a hand-written kernel; with
+device="cpu" every stage runs its plain PyTorch version.  The pixels are
+the same either way and equal the JAX package's.  Phase C decodes each
+block straight out of its segment's row (the segment-row contract), so
+the JAX package's phase B (the split into per-block buffers) and its
+capacity protocol do not exist here.
+
+This slice decodes what the port's encoder writes in the reference
+GPUJPEG's headline configuration: baseline, 3 components at 4:4:4 in
+non-interleaved scans, a restart interval > 0, the tuned Huffman family
+(AC tables of a trained bucket, DC tables with identity values), output
+P444_U8_P012.  Everything else raises NotImplementedError naming the
+ROADMAP item (queue 1) that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import logging
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops import huffdec_kernel, prepost_kernel
+from ..stream import reader, segments as segprep
+from ..types import (ColorSpace, CorruptStreamError, ImageInfo,
+                     ImageParameters, PixelFormat, PixelFormatRequest,
+                     YCBCR_JPEG, from_reference, pixel_format_unit_size)
+from ..utils import tables
+from ..utils.geometry import Geometry, get_geometry
+
+log = logging.getLogger("gpujpeg_tpu_torch")
+
+
+def default_output(ps: reader.ParsedStream) -> ImageParameters:
+    """Default output: interleaved RGB (or U8 for grayscale), like the
+    reference CLI default (gpujpeg_decoder.c output selection)."""
+    if ps.comp_count == 1:
+        pf, cs = PixelFormat.U8, ColorSpace.NONE
+    elif ps.comp_count == 4:
+        pf, cs = PixelFormat.P4444_U8_P0123, ColorSpace.RGB
+    else:
+        pf, cs = PixelFormat.P444_U8_P012, ColorSpace.RGB
+    return ImageParameters(width=ps.width, height=ps.height,
+                           color_space=cs, pixel_format=pf)
+
+
+def _native_pixel_format(ps: reader.ParsedStream) -> PixelFormat:
+    """Pixel format nearest the stream's internal subsampling
+    (get_native_pixel_format, gpujpeg_reader.c:1507-1552)."""
+    if ps.comp_count == 4:
+        return PixelFormat.P4444_U8_P0123
+    samp = list(ps.sampling[:3])
+    hg = functools.reduce(math.gcd, (h for h, _ in samp))
+    vg = functools.reduce(math.gcd, (v for _, v in samp))
+    samp = [(h // hg, v // vg) for h, v in samp]
+    if samp[1] == (1, 1) and samp[2] == (1, 1):
+        key = (ps.interleaved, samp[0][0], samp[0][1])
+        table = {
+            (True, 1, 1): PixelFormat.P444_U8_P012,
+            (False, 1, 1): PixelFormat.P444_U8_P0P1P2,
+            (True, 2, 1): PixelFormat.P422_U8_P1020,
+            (False, 2, 1): PixelFormat.P422_U8_P0P1P2,
+            (True, 2, 2): PixelFormat.P420_U8_P0P1P2,
+            (False, 2, 2): PixelFormat.P420_U8_P0P1P2,
+        }
+        if key in table:
+            return table[key]
+    return (PixelFormat.P444_U8_P012 if ps.interleaved
+            else PixelFormat.P444_U8_P0P1P2)
+
+
+def resolve_output(ps: reader.ParsedStream,
+                   param_image: Optional[ImageParameters],
+                   alignment_bytes: int = 0) -> ImageParameters:
+    """Resolve the requested output ImageParameters against the stream:
+    pseudo pixel formats AUTODETECT / NO_ALPHA / STD / NATIVE
+    (gpujpeg_decoder.h:233-246), CS_DEFAULT / NONE color-space rules and
+    row-alignment padding (adjust_params, gpujpeg_reader.c:1555-1616)."""
+    req_pf = param_image.pixel_format if param_image else \
+        PixelFormatRequest.AUTODETECT
+    req_cs = param_image.color_space if param_image else ColorSpace.NONE
+
+    unresolved = isinstance(req_pf, PixelFormatRequest) or \
+        req_pf == PixelFormat.NONE
+
+    # color space: NONE = CS_DEFAULT (grayscale stays luma, else RGB)
+    if req_cs == ColorSpace.NONE:
+        cs = YCBCR_JPEG if ps.comp_count == 1 else ColorSpace.RGB
+    else:
+        cs = req_cs
+
+    if unresolved:
+        if req_pf == PixelFormat.NONE:
+            req_pf = PixelFormatRequest.AUTODETECT
+        if ps.comp_count == 1:
+            pf = PixelFormat.U8
+        elif req_pf == PixelFormatRequest.NATIVE:
+            pf = _native_pixel_format(ps)
+        elif req_pf == PixelFormatRequest.STD and cs != ColorSpace.RGB:
+            samp = tuple(ps.sampling[:3])
+            if samp == ((2, 2), (1, 1), (1, 1)):
+                pf = PixelFormat.P420_U8_P0P1P2
+            elif samp == ((2, 1), (1, 1), (1, 1)):
+                pf = PixelFormat.P422_U8_P0P1P2
+            else:
+                pf = PixelFormat.P444_U8_P0P1P2
+        elif ps.comp_count == 4 and req_pf != PixelFormatRequest.NO_ALPHA:
+            pf = PixelFormat.P4444_U8_P0123
+        else:
+            pf = PixelFormat.P444_U8_P012
+    else:
+        pf = req_pf
+
+    # width_padding is BYTES appended per row (gpujpeg_reader.c:1610-1615)
+    width_padding = param_image.width_padding if param_image else 0
+    if alignment_bytes:
+        unit = pixel_format_unit_size(pf)
+        if unit:  # row alignment applies to packed formats only
+            linesize = unit * ps.width
+            aligned = -(-linesize // alignment_bytes) * alignment_bytes
+            width_padding = aligned - linesize
+
+    return ImageParameters(width=ps.width, height=ps.height,
+                           color_space=cs, pixel_format=pf,
+                           width_padding=width_padding)
+
+
+def _comp_tables(ps: reader.ParsedStream, ncomp: int):
+    """Each component's (dc, ac) Huffman table ids from the scans."""
+    comp_dc = np.zeros(ncomp, np.int32)
+    comp_ac = np.zeros(ncomp, np.int32)
+    for scan in ps.scans:
+        for ci, d, a in zip(scan.comp_indices, scan.dc_table, scan.ac_table):
+            comp_dc[ci], comp_ac[ci] = d, a
+    return comp_dc, comp_ac
+
+
+def _tuned_family(ps, dc_ids, ac_ids) -> bool:
+    """True when the stream's tables are the ones this slice decodes: AC
+    tables byte-equal to a trained tuned bucket, DC tables with identity
+    values (gpujpeg_tpu.models.decoder._plan_kernel_consts)."""
+    for i in (0, 1):
+        ab, av = ps.huff_ac[ac_ids[min(i, len(ac_ids) - 1)]]
+        if tables.match_affine_ac(ab, av) is None:
+            return False
+        _db, dv = ps.huff_dc[dc_ids[min(i, len(dc_ids) - 1)]]
+        if not tables.dc_values_identity(dv):
+            return False
+    return True
+
+
+def check_supported(ps: reader.ParsedStream, geo: Geometry,
+                    out_pi: ImageParameters) -> None:
+    """Raise NotImplementedError for a stream or an output outside this
+    slice, naming every ROADMAP item (queue 1) it needs."""
+    missing = []
+    if (ps.comp_count != 3
+            or any(tuple(s) != (1, 1) for s in ps.sampling[:3])):
+        missing.append(
+            f"{ps.comp_count} components with sampling {list(ps.sampling)}"
+            " (only 3 at 4:4:4 are ported; item 6)")
+    if (out_pi.pixel_format != PixelFormat.P444_U8_P012
+            or out_pi.width_padding):
+        missing.append(
+            f"output {out_pi.pixel_format.name}"
+            f"{' with width_padding' if out_pi.width_padding else ''} "
+            "(only P444_U8_P012 is ported; item 6)")
+    if ps.interleaved or geo.interleaved:
+        missing.append("interleaved scans (item 8)")
+    if ps.restart_interval == 0:
+        missing.append("restart_interval == 0 (item 9)")
+    comp_dc, comp_ac = _comp_tables(ps, geo.comp_count)
+    dc_ids = sorted(set(comp_dc.tolist()))
+    ac_ids = sorted(set(comp_ac.tolist()))
+    if len(dc_ids) > 2 or len(ac_ids) > 2:
+        missing.append("more than 2 Huffman table sets (item 9)")
+    elif not _tuned_family(ps, dc_ids, ac_ids):
+        missing.append("Huffman tables outside the tuned family, such as "
+                       "Annex-K (item 7)")
+    if missing:
+        raise NotImplementedError(
+            "not ported yet (ROADMAP queue 1): " + "; ".join(missing))
+
+
+def _table_key(ps: reader.ParsedStream) -> tuple:
+    """Everything of the stream's tables a plan depends on."""
+    key = []
+    for tabs in (ps.huff_dc, ps.huff_ac):
+        for tid in sorted(tabs):
+            b, v = tabs[tid]
+            key.append((tid, np.asarray(b, np.int64).tobytes(),
+                        np.asarray(v, np.int64).tobytes()))
+    for tid in sorted(ps.quant_tables):
+        key.append((tid, np.asarray(ps.quant_tables[tid]).tobytes()))
+    comp_dc, comp_ac = _comp_tables(ps, ps.comp_count)
+    return (tuple(key), tuple(ps.quant_map), comp_dc.tobytes(),
+            comp_ac.tobytes())
+
+
+@dataclasses.dataclass
+class Plan:
+    """The per-segment constants of one (geometry, tables) combination,
+    on the session's device: the kernels' inputs that do not change from
+    frame to frame."""
+
+    geo: Geometry
+    bps: int                  # block slots a segment row (restart interval)
+    nblocks: torch.Tensor     # (nseg,) int32 real blocks a segment
+    dc_luma: torch.Tensor     # (nseg,) int32 1 = DC table set 0
+    ac_luma: torch.Tensor     # (nseg,) int32 1 = AC table set 0
+    tables: torch.Tensor      # (4, DECODE_TABLE_WORDS) int32
+    qtabs: torch.Tensor       # (3, 64) float32 zig-zag quant tables
+
+
+def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
+    comp_dc, comp_ac = _comp_tables(ps, geo.comp_count)
+    dc_ids = sorted(set(comp_dc.tolist()))
+    ac_ids = sorted(set(comp_ac.tolist()))
+
+    def pick(tabs, ids, i):
+        return tabs[ids[min(i, len(ids) - 1)]]
+
+    tab = huffdec_kernel.decode_tables(
+        pick(ps.huff_dc, dc_ids, 0), pick(ps.huff_dc, dc_ids, 1),
+        pick(ps.huff_ac, ac_ids, 0), pick(ps.huff_ac, ac_ids, 1))
+    bps = geo.max_blocks_per_seg
+    nb, dcl, acl = [], [], []
+    for c in geo.components:
+        S, rst = c.segment_count, c.segment_mcu_count
+        nb.append(np.clip(c.mcu_count - rst * np.arange(S), 0, rst))
+        dcl.append(np.full(S, comp_dc[c.index] == dc_ids[0]))
+        acl.append(np.full(S, comp_ac[c.index] == ac_ids[0]))
+    qtabs = np.stack([ps.quant_tables[ps.quant_map[c.index]]
+                      for c in geo.components]).astype(np.float32)
+
+    def dev(a, dtype=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.concatenate(a) if isinstance(a, list) else a, dtype)).to(
+            device)
+
+    return Plan(geo=geo, bps=bps, nblocks=dev(nb), dc_luma=dev(dcl),
+                ac_luma=dev(acl), tables=dev(tab),
+                qtabs=dev(qtabs, np.float32))
+
+
+@dataclasses.dataclass
+class HostFrame:
+    """One parsed stream, ready for the device: its plan and its unstuffed
+    segment matrix."""
+
+    plan: Plan
+    out_pi: ImageParameters
+    words: np.ndarray         # (nseg, W) int32 host-order rows
+    nbits: np.ndarray         # (nseg,) int32 bits of each segment
+
+
+def _dc_fixup_t(coefs_t: torch.Tensor, nseg: int, bps: int) -> torch.Tensor:
+    """Integrate differential DC along each segment row of the (64, L)
+    layout, in place (every slot of a row belongs to one component in a
+    non-interleaved scan; the predictor resets at each restart marker,
+    T.81 F.1.1.5.1)."""
+    dc = coefs_t[0].reshape(nseg, bps)
+    coefs_t[0] = torch.cumsum(dc, dim=1, dtype=torch.int32).reshape(-1).to(
+        torch.int16)
+    return coefs_t
+
+
+class Decoder:
+    """Persistent decoder session (create once, decode many streams).
+
+    device: None runs on the current CUDA device and raises when there is
+    none; "cpu" runs the plain PyTorch versions of the kernels."""
+
+    def __init__(self, device=None) -> None:
+        self.device = resolve_device(device)
+        self._plans: Dict[tuple, Plan] = {}
+
+    def set_option(self, key: str, value: str) -> None:
+        """Reference-compatible string options (gpujpeg_decoder.c:485-524)
+        are not ported yet."""
+        item = 6 if key in ("dec_opt_flipped", "dec_opt_channel_remap",
+                            "dec_opt_alignment_bytes") else 10
+        raise NotImplementedError(f"decoder option {key!r} is not ported "
+                                  f"(ROADMAP queue 1 item {item})")
+
+    def get_image_info(self, data: bytes) -> ImageInfo:
+        return reader.get_image_info(data)
+
+    # -- host ------------------------------------------------------------------
+    def prepare(self, data: bytes,
+                param_image: Optional[ImageParameters] = None) -> HostFrame:
+        """Host half of a decode: parse, check the slice's limits, look up
+        the plan, unstuff the segments into the word matrix."""
+        if param_image is not None and not isinstance(param_image,
+                                                      ImageParameters):
+            param_image = from_reference(param_image)
+        ps = reader.parse(data)
+        if not ps.scans:
+            raise CorruptStreamError("no scan in stream")
+        param = reader.parsed_to_parameters(ps)
+        out_pi = resolve_output(ps, param_image)
+        geo = get_geometry(param, out_pi.with_(width_padding=0))
+        check_supported(ps, geo, out_pi)
+        key = (geo, _table_key(ps))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = _make_plan(ps, geo, self.device)
+            self._plans[key] = plan
+        bounds = self._segment_bounds(ps, geo)
+        max_words = (int((bounds[1] - bounds[0]).max()) + 3) // 4
+        words, nbits = segprep.pack_segments_matrix(ps.data, bounds,
+                                                    max_words)
+        return HostFrame(plan=plan, out_pi=out_pi, words=words.view(np.int32),
+                         nbits=np.ascontiguousarray(nbits, np.int32))
+
+    @staticmethod
+    def _segment_bounds(ps, geo):
+        """(starts, ends) int64 1-D arrays over all scans; scans whose
+        segment count differs from the geometry's (recovered corrupt
+        streams) are padded with empty segments or truncated."""
+        expected = np.diff(geo.scan_seg_bounds)
+        if len(ps.scans) != geo.scan_count:
+            raise CorruptStreamError(
+                f"scan count mismatch: stream has {len(ps.scans)}, "
+                f"geometry expects {geo.scan_count}")
+        if all(s.segment_count == int(expected[k])
+               for k, s in enumerate(ps.scans)):
+            if len(ps.scans) == 1:
+                return ps.scans[0].segment_bounds()
+            ss, es = zip(*(s.segment_bounds() for s in ps.scans))
+            return np.concatenate(ss), np.concatenate(es)
+        r = Decoder._segment_ranges(ps, geo)
+        return np.ascontiguousarray(r[:, 0]), np.ascontiguousarray(r[:, 1])
+
+    @staticmethod
+    def _segment_ranges(ps, geo) -> np.ndarray:
+        """Per-scan segment ranges padded/truncated to the geometry's
+        expected counts, as one (total, 2) int64 array: missing segments
+        decode as empty instead of failing the whole frame."""
+        expected = np.diff(geo.scan_seg_bounds)
+        ranges = []
+        for k, scan in enumerate(ps.scans):
+            segs = np.asarray(scan.segments, np.int64).reshape(-1, 2)
+            want = int(expected[k])
+            if len(segs) != want:
+                log.warning("scan %d: %d segments in stream, geometry "
+                            "expects %d (padding/truncating)", k,
+                            len(segs), want)
+                if len(segs) > want:
+                    segs = segs[:want]
+                else:
+                    segs = np.concatenate(
+                        [segs, np.zeros((want - len(segs), 2), np.int64)])
+            ranges.append(segs)
+        return np.concatenate(ranges) if ranges \
+            else np.zeros((0, 2), np.int64)
+
+    # -- device ----------------------------------------------------------------
+    def coefficients_t(self, hf: HostFrame):
+        """Phases A and C and the DC integration on the session's device:
+        -> (coefs_t (64, nseg*bps) int16, errA (nseg,) bool, errC
+        (nseg*bps,) int32)."""
+        p = hf.plan
+        words = torch.from_numpy(hf.words).to(self.device)
+        nbits = torch.from_numpy(hf.nbits).to(self.device)
+        bstart, err_a = huffdec_kernel.scan_segments(
+            words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps)
+        coefs_t, err_c = huffdec_kernel.decode_blocks(
+            words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+        return _dc_fixup_t(coefs_t, words.shape[0], p.bps), err_a, err_c
+
+    def decode_to_device(self, data: bytes,
+                         param_image: Optional[ImageParameters] = None
+                         ) -> torch.Tensor:
+        """Decode to an (H, W, 3) uint8 tensor on the session's device.
+        A corrupt segment is decoded as far as it goes and logged as a
+        warning; the rest of the frame is unaffected."""
+        hf = self.prepare(data, param_image)
+        coefs_t, err_a, err_c = self.coefficients_t(hf)
+        out = prepost_kernel.decode_post(coefs_t, hf.plan.qtabs,
+                                         hf.plan.geo, hf.out_pi)
+        if bool(err_a.any()) or bool(err_c.any()):
+            log.warning("corrupt segment(s) during Huffman decode")
+        return out
+
+    def decode(self, data: bytes,
+               param_image: Optional[ImageParameters] = None) -> np.ndarray:
+        """Decode to an (H, W, 3) uint8 numpy array."""
+        return self.decode_to_device(data, param_image).cpu().numpy()
+
+    def decode_coefficients(self, data: bytes) -> List[np.ndarray]:
+        """Decoded QUANTIZED DCT coefficients, per component: a list of
+        (nby, nbx, 64) int16 arrays in raster block order with zig-zag
+        coefficient order (gpujpeg_tpu Decoder.decode_coefficients)."""
+        hf = self.prepare(data)
+        coefs_t, _ea, _ec = self.coefficients_t(hf)
+        coefs = coefs_t.T.cpu().numpy()
+        geo = hf.plan.geo
+        out = []
+        for c, (first, n) in zip(geo.components,
+                                 prepost_kernel.component_columns(geo)):
+            out.append(coefs[first:first + n].reshape(
+                c.data_height // 8, c.data_width // 8, 64))
+        return out

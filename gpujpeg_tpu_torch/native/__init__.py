@@ -1,7 +1,9 @@
 """Native C++ host runtime (ctypes-bound; numpy fallback when unavailable).
 
-A copy of gpujpeg_tpu.native for the port, trimmed to what the encode path
-calls: ``assemble_rows``.  ``stream.cpp`` is the JAX package's source as it
+A copy of gpujpeg_tpu.native for the port, trimmed to what the encode and
+decode paths call: ``assemble_rows`` (encode), ``scan_split``,
+``parse_offsets`` (stream/reader.py) and ``unstuff_rows``
+(stream/segments.py).  ``stream.cpp`` is the JAX package's source as it
 is; it builds into the port's own directory under its own library name, so
 the two packages never load each other's shared object.
 """
@@ -66,10 +68,29 @@ def lib() -> Optional[ctypes.CDLL]:
         L.gj_assemble_rows.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        L.gj_scan_split.restype = ctypes.c_int64
+        L.gj_scan_split.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p]
+        L.gj_unstuff_rows.restype = None
+        L.gj_unstuff_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64]
+        L.gj_parse_offsets.restype = ctypes.c_int64
+        L.gj_parse_offsets.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p]
         _LIB = L
     except OSError:
         _LIB = None
     return _LIB
+
+
+def available() -> bool:
+    return lib() is not None
 
 
 def _ptr(a: np.ndarray):
@@ -94,3 +115,79 @@ def assemble_rows(rows_bytes: np.ndarray, row_bytes: np.ndarray) -> bytes:
     L.gj_assemble_rows(_ptr(rows_bytes), nseg, stride, _ptr(row_bytes),
                        _ptr(offsets), _ptr(out))
     return out.tobytes()
+
+
+def scan_split(data: np.ndarray, start: int, max_segments: int):
+    """Split scan entropy data at RST markers (native memchr loop).
+
+    Returns (segments (n, 2) int64 [abs_start, abs_end) rows, end_pos,
+    bad_markers) or None when the native library is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    data = np.ascontiguousarray(data)
+    sub = data[start:]
+    starts = np.zeros(max_segments, np.int64)
+    ends = np.zeros(max_segments, np.int64)
+    end_pos = ctypes.c_int64(0)
+    bad = ctypes.c_int64(0)
+    n = L.gj_scan_split(_ptr(sub), len(sub), _ptr(starts), _ptr(ends),
+                        max_segments, ctypes.byref(end_pos),
+                        ctypes.byref(bad))
+    segs = np.stack([starts[:n], ends[:n]], axis=1) + start
+    return segs, int(end_pos.value) + start, int(bad.value)
+
+
+def unstuff_rows(data: np.ndarray, ranges, row_words: int):
+    """Unstuff segments into a (nseg, row_words) u32 matrix of host-order
+    words (stream byte k is byte k of the row).
+
+    ranges: (nseg, 2) int64 [start, end) rows (or a list of pairs), or a
+    (starts, ends) tuple of contiguous int64 1-D arrays (the copy-free
+    form ScanInfo.segment_bounds produces).
+    Row bytes past the payload are not zeroed: the decode kernels gate
+    every bit they commit by the segment's bit count, so the tail is never
+    decoded into a result.
+    Returns (words, nbits) or None when the native library is missing."""
+    L = lib()
+    if L is None:
+        return None
+    if isinstance(ranges, tuple):
+        starts, ends = ranges
+        starts = np.ascontiguousarray(starts, np.int64)
+        ends = np.ascontiguousarray(ends, np.int64)
+        nseg = len(starts)
+    else:
+        r = np.asarray(ranges, np.int64).reshape(-1, 2)
+        nseg = len(r)
+        starts = np.ascontiguousarray(r[:, 0])
+        ends = np.ascontiguousarray(r[:, 1])
+    mat = np.empty((nseg, row_words * 4), np.uint8)
+    out_bytes = np.zeros(nseg, np.int32)
+    data = np.ascontiguousarray(data)
+    L.gj_unstuff_rows(_ptr(data), nseg, _ptr(starts), _ptr(ends),
+                      _ptr(mat), row_words, _ptr(out_bytes), 0)
+    return mat.view(np.uint32), (out_bytes * 8).astype(np.int32)
+
+
+def parse_offsets(data: np.ndarray, chunks, base: int):
+    """Decode APP13 segment-info chunks (list of (offset, byte_len) into
+    `data`) to absolute int64 positions + monotonicity flag: (offsets,
+    bad) or None when the native library is unavailable or a chunk is
+    malformed."""
+    L = lib()
+    if L is None or not chunks:
+        return None
+    offs = np.ascontiguousarray([c[0] for c in chunks], np.int64)
+    lens = np.ascontiguousarray([c[1] for c in chunks], np.int64)
+    if (lens % 4).any():
+        return None
+    total = int(lens.sum()) // 4
+    out = np.empty(total, np.int64)
+    bad = ctypes.c_int64(0)
+    data = np.ascontiguousarray(data)
+    n = L.gj_parse_offsets(_ptr(data), len(offs), _ptr(offs), _ptr(lens),
+                           base, _ptr(out), ctypes.byref(bad))
+    if n < 0:
+        return None
+    return out, int(bad.value)

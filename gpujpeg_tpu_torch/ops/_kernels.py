@@ -4,12 +4,14 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into a build
 directory that ``.gitignore`` lists (``native.build_dir("kernels")``); all
 sources compile in parallel.  A library's file name carries a hash of its
-source, so an edited kernel is rebuilt.  The libraries are loaded with
-ctypes: every pointer and the stream pass as ``c_void_p``, every C function
-returns ``cudaGetLastError()`` after its launch, and ``launch`` raises when
-that is not 0.  Nothing here runs when the module is imported, and nothing
-runs on the CPU: the wrappers in prepost_kernel.py and fusedpack.py take
-their plain versions for CPU tensors and call ``launch`` for CUDA tensors.
+source and of the shared headers (``csrc/*.cuh``), so an edited kernel is
+rebuilt.  The libraries are loaded with ctypes: every pointer and the
+stream pass as ``c_void_p``, every C function returns
+``cudaGetLastError()`` after its launch, and ``launch`` raises when that
+is not 0.  Nothing here runs when the module is imported, and nothing runs
+on the CPU: the wrappers in prepost_kernel.py, fusedpack.py and
+huffdec_kernel.py take their plain versions for CPU tensors and call
+``launch`` for CUDA tensors.
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.
@@ -44,6 +46,15 @@ _SIGNATURES: Dict[str, List] = {
     # coefs, nseg, rst, nblocks, luts, stride, rows, row_bytes, needs,
     # stream
     "huffman_segments": [_P, _I64, _I, _I64, _P, _I, _P, _P, _P, _P],
+    # words, nseg, W, nbits, nblocks, dc_luma, ac_luma, tables, bps,
+    # bstart, err, stream
+    "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    # words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, tables,
+    # coefs, err, stream
+    "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    # coefs, L, offsets (host int64[3]), nblocks, blocks per row, H, W,
+    # qtabs, idct matrix, params (host int32[26]), out, stream
+    "dpost_rgb": [_P, _I64, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -86,8 +97,12 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source_path(name)] + sorted(
+            os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+            if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(native.build_dir("kernels"),
                         f"lib{name}_{digest.hexdigest()[:16]}.so")
 

@@ -1,0 +1,289 @@
+"""Huffman decode of restart segments: phase A (block boundaries) and phase
+C (coefficients), the decoder's two entropy kernels.
+
+Counterparts of the JAX package's Pallas kernels in
+gpujpeg_tpu.ops.huffdec_kernel:
+
+  scan_segments   csrc/huffdec_scan.cu   _scan_kernel_body (phase A)
+  decode_blocks   csrc/huffdec_block.cu  _block_kernel_body, segment-row
+                                         mode (with_cursor=True)
+
+The JAX package's default path splits every segment row into per-block
+buffers between the two phases (phase B, huffdec2.make_split_fn) with a
+grow-and-retry capacity protocol.  The port takes the segment-row
+contract instead: a block decodes straight out of its segment's row, from
+phase A's bit cursor to the next boundary, which costs nothing on the
+card (a thread indexes its segment's row).  Phase B and its capacities do
+not exist here; the coefficients are the same.
+
+Both kernels take canonical tables (tables.kernel_decode_table), four of
+them stacked as (4, DECODE_TABLE_WORDS) int32 in the order DC luma, DC
+chroma, AC luma, AC chroma; a segment picks its DC and AC table by its
+dc_luma / ac_luma flags.  For the tuned AC family with identity DC
+values, which is what the decoder gates on, the canonical decode gives
+the same (code length, symbol) as the JAX package's arithmetic decode
+(affine_ac_decode / dc_identity_decode) on every 16-bit peek, invalid
+codes included (code length 0); tests/test_torch_huffdec.py checks all
+65,536 peeks.
+
+Words are the host-order rows of stream/segments.pack_segments_matrix
+(stream byte k is byte k of the row) as int32; the kernels and the plain
+versions byteswap a word as they load it, and read zeros past the row.
+Every bit a token commits is checked against the segment's bit count (or
+the block's end), so bytes past a segment's data never reach a result.
+
+For CPU tensors each wrapper runs its plain version below, which repeats
+the kernel's arithmetic vectorised over segments (phase A) or blocks
+(phase C); for CUDA tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..utils import tables
+from . import _kernels
+
+#: phase C decodes at most this many AC tokens per block (63 AC + slack),
+#: as the JAX package's block kernel (huffdec_kernel.MAX_AC_STEPS)
+MAX_AC_STEPS = 66
+
+_MONO, _VALOFF, _HUFFVAL = 0, 17, 34
+
+
+def decode_tables(dc_l, dc_c, ac_l, ac_c) -> np.ndarray:
+    """(4, DECODE_TABLE_WORDS) int32 from four (bits, values) DHT tables:
+    DC luma, DC chroma, AC luma, AC chroma."""
+    return np.stack([tables.kernel_decode_table(*t)
+                     for t in (dc_l, dc_c, ac_l, ac_c)])
+
+
+# --- plain versions -----------------------------------------------------------
+
+def _word_be(words: torch.Tensor, seg: torch.Tensor,
+             wi: torch.Tensor) -> torch.Tensor:
+    """Big-endian value (int64) of word wi of each lane's segment row;
+    0 past the row."""
+    W = words.shape[1]
+    inside = wi < W
+    w = words.reshape(-1)[seg * W + torch.clamp(wi, max=W - 1)]
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    be = (((w & 0xFF) << 24) | (((w >> 8) & 0xFF) << 16)
+          | (((w >> 16) & 0xFF) << 8) | (w >> 24))
+    return torch.where(inside, be, 0)
+
+
+def _peek32(words, seg, cursor):
+    """The 32 bits of each lane's row from bit `cursor` on (int64)."""
+    wi = cursor >> 5
+    r = cursor & 31
+    hi = _word_be(words, seg, wi)
+    lo = _word_be(words, seg, wi + 1)
+    return ((hi << r) | (lo >> (32 - r))) & 0xFFFFFFFF
+
+
+def _decode_token(tab: torch.Tensor, t: torch.Tensor, peek16: torch.Tensor):
+    """(clen, sym) of one token per lane from table t (lane-wise index into
+    tab (4, DECODE_TABLE_WORDS) int64); clen == 0 marks an invalid code."""
+    clen = torch.ones_like(peek16)
+    for l in range(1, 16):
+        clen += peek16 > tab[t, _MONO + l]
+    invalid = peek16 > tab[t, _MONO + 16]
+    code = peek16 >> (16 - clen)
+    idx = torch.clamp(code + tab[t, _VALOFF + clen], 0, 255)
+    sym = tab[t, _HUFFVAL + idx]
+    return torch.where(invalid, 0, clen), sym
+
+
+def _value_bits(peek, clen, size):
+    """Sign-extended `size` value bits after a `clen`-bit code (T.81
+    F.2.2.1), as huffdec_kernel.value_bits."""
+    vu = ((peek << clen) & 0xFFFFFFFF) >> torch.clamp(32 - size, 0, 31)
+    vu = torch.where(size == 0, 0, vu)
+    one = torch.ones_like(size)
+    half = torch.where(size > 0, one << torch.clamp(size - 1, min=0), 1)
+    return torch.where((size > 0) & (vu < half), vu - (one << size) + 1, vu)
+
+
+def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
+                        bps: int):
+    """Plain version of scan_segments, on any device: one lane per
+    segment, one token per lane and step until every lane has finished
+    its blocks or failed."""
+    dev = words.device
+    nseg = words.shape[0]
+    tab = tab.to(torch.int64)
+    nbits = nbits.to(torch.int64)
+    nblk = nblocks.to(torch.int64)
+    dct = torch.where(dc_luma != 0, 0, 1).to(torch.int64)
+    act = torch.where(ac_luma != 0, 2, 3).to(torch.int64)
+    seg = torch.arange(nseg, device=dev)
+    cursor = torch.zeros(nseg, dtype=torch.int64, device=dev)
+    blk = torch.zeros_like(cursor)
+    pos = torch.zeros_like(cursor)
+    err = torch.zeros(nseg, dtype=torch.bool, device=dev)
+    bstart = torch.zeros((nseg, bps + 1), dtype=torch.int64, device=dev)
+    live = seg[blk < nblk]
+    while live.numel():
+        c, p = cursor[live], pos[live]
+        peek16 = _peek32(words, live, c) >> 16
+        is_dc = p == 0
+        clen, sym = _decode_token(tab, torch.where(is_dc, dct[live],
+                                                   act[live]), peek16)
+        run, size = sym >> 4, sym & 15
+        after = c + clen + size
+        is_eob = ~is_dc & (sym == 0)
+        is_zrl = ~is_dc & (sym == 0xF0)
+        coef_idx = torch.where(is_dc, 0, p + run)
+        new_pos = torch.where(is_dc, 1, torch.where(
+            is_eob, 64, torch.where(is_zrl, p + 16, coef_idx + 1)))
+        bad = ((clen == 0) | (after > nbits[live]) | (coef_idx > 63)
+               | (new_pos > 64))
+        done = ~bad & (new_pos >= 64)
+        b = blk[live]
+        bstart[live[done], b[done] + 1] = after[done]
+        err[live] = bad
+        cursor[live] = torch.where(bad, c, after)
+        blk[live] = b + done.to(torch.int64)
+        pos[live] = torch.where(bad | done, torch.where(bad, p, 0), new_pos)
+        live = live[~bad & (blk[live] < nblk[live])]
+    err = err | (blk < nblk)
+    # entries past the last decoded block hold the segment's end
+    col = torch.arange(bps + 1, device=dev)[None, :]
+    bstart = torch.where(col > blk[:, None], nbits[:, None], bstart)
+    return bstart.to(torch.int32), err
+
+
+def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab):
+    """Plain version of decode_blocks, on any device: one lane per block
+    slot, the DC token, then up to MAX_AC_STEPS AC tokens."""
+    dev = words.device
+    nseg, bps1 = bstart.shape
+    bps = bps1 - 1
+    L = nseg * bps
+    tab = tab.to(torch.int64)
+    seg = torch.arange(L, device=dev) // bps
+    j = torch.arange(L, device=dev) % bps
+    bst = bstart.to(torch.int64)
+    cur = bst[:, :bps].reshape(-1)
+    bend = bst[:, 1:].reshape(-1)
+    valid = j < nblocks.to(torch.int64)[seg]
+    coefs = torch.zeros((64, L), dtype=torch.int64, device=dev)
+    # DC token
+    peek = _peek32(words, seg, cur)
+    clen, sym = _decode_token(
+        tab, torch.where(dc_luma[seg] != 0, 0, 1).to(torch.int64),
+        peek >> 16)
+    size = sym & 15
+    after = cur + clen + size
+    err = valid & ((clen == 0) | (after > bend) | (sym > 15))
+    ok = valid & ~err
+    coefs[0] = torch.where(ok & (size > 0), _value_bits(peek, clen, size),
+                           0)
+    cur = torch.where(ok, after, cur)
+    done = ~valid | err | (cur >= bend)
+    pos = torch.ones(L, dtype=torch.int64, device=dev)
+    act = torch.where(ac_luma[seg] != 0, 2, 3).to(torch.int64)
+    live = torch.nonzero(~done)[:, 0]
+    for _ in range(MAX_AC_STEPS):
+        if not live.numel():
+            break
+        c, p = cur[live], pos[live]
+        peek = _peek32(words, seg[live], c)
+        clen, sym = _decode_token(tab, act[live], peek >> 16)
+        run, size = sym >> 4, sym & 15
+        after = c + clen + size
+        is_eob = sym == 0
+        is_zrl = sym == 0xF0
+        coef_idx = p + run
+        new_pos = torch.where(is_eob, 64,
+                              torch.where(is_zrl, p + 16, coef_idx + 1))
+        bad = ((clen == 0) | (after > bend[live]) | (coef_idx > 63)
+               | (new_pos > 64))
+        write = ~bad & ~is_eob & ~is_zrl & (size > 0)
+        coefs[coef_idx[write], live[write]] = _value_bits(
+            peek, clen, size)[write]
+        err[live] = bad
+        cur[live] = torch.where(bad, c, after)
+        pos[live] = torch.where(bad, p, new_pos)
+        fin = ~bad & (new_pos >= 64)
+        done[live] = bad | fin
+        live = live[~bad & ~fin]
+    # a block still unfinished after MAX_AC_STEPS is corrupt
+    err = valid & (err | ~done)
+    return coefs.to(torch.int16), err.to(torch.int32)
+
+
+# --- wrappers -----------------------------------------------------------------
+
+def _check(name: str, words, tab, *rows):
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError(f"{name}: words must be a 2-D int32 tensor")
+    if tuple(tab.shape) != (4, tables.DECODE_TABLE_WORDS) or \
+            tab.dtype != torch.int32:
+        raise ValueError(f"{name}: tables must be (4, "
+                         f"{tables.DECODE_TABLE_WORDS}) int32")
+    for r in rows:
+        if r.dtype != torch.int32 or tuple(r.shape) != (words.shape[0],):
+            raise ValueError(f"{name}: per-segment arrays must be "
+                             f"({words.shape[0]},) int32")
+
+
+def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
+                  nblocks: torch.Tensor, dc_luma: torch.Tensor,
+                  ac_luma: torch.Tensor, tab: torch.Tensor,
+                  bps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase A: (words (nseg, W) int32 host-order rows; nbits, nblocks,
+    dc_luma, ac_luma (nseg,) int32; tab (4, DECODE_TABLE_WORDS) int32) ->
+    (bstart (nseg, bps+1) int32, err (nseg,) bool).
+
+    bstart[s, 0] = 0 and bstart[s, b+1] is the bit cursor after block b;
+    entries past the last decoded block hold nbits[s].  err[s] is set
+    when a token of the segment is invalid, overruns the segment's bits
+    or the block's 64 coefficients, or the segment ends short of
+    nblocks[s] blocks (huffdec_kernel._scan_kernel_body)."""
+    _check("scan_segments", words, tab, nbits, nblocks, dc_luma, ac_luma)
+    if words.device.type == "cpu":
+        return scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma,
+                                   tab, bps)
+    nseg, W = words.shape
+    bstart = torch.empty((nseg, bps + 1), dtype=torch.int32,
+                         device=words.device)
+    err = torch.empty(nseg, dtype=torch.bool, device=words.device)
+    _kernels.require_cuda("huffdec_scan", words, nbits, nblocks, dc_luma,
+                          ac_luma, tab, bstart, err)
+    _kernels.launch("huffdec_scan", words, nseg, W, nbits, nblocks,
+                    dc_luma, ac_luma, tab, bps, bstart, err)
+    return bstart, err
+
+
+def decode_blocks(words: torch.Tensor, bstart: torch.Tensor,
+                  nblocks: torch.Tensor, dc_luma: torch.Tensor,
+                  ac_luma: torch.Tensor,
+                  tab: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase C, segment-row contract: block slot b = s*bps + j decodes
+    from bit bstart[s, j] to bstart[s, j+1] of segment row s ->
+    (coefs_t (64, nseg*bps) int16 zig-zag with DIFFERENTIAL DC, err
+    (nseg*bps,) int32).  Slots j >= nblocks[s] are all zero with err 0;
+    every slot a block does not write is 0
+    (huffdec_kernel._block_kernel_body)."""
+    _check("decode_blocks", words, tab, nblocks, dc_luma, ac_luma)
+    nseg = words.shape[0]
+    if bstart.dtype != torch.int32 or bstart.dim() != 2 or \
+            bstart.shape[0] != nseg:
+        raise ValueError("decode_blocks: bstart must be (nseg, bps+1) int32")
+    if words.device.type == "cpu":
+        return decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma,
+                                   tab)
+    bps = bstart.shape[1] - 1
+    L = nseg * bps
+    coefs = torch.empty((64, L), dtype=torch.int16, device=words.device)
+    err = torch.empty(L, dtype=torch.int32, device=words.device)
+    _kernels.require_cuda("huffdec_block", words, bstart, nblocks, dc_luma,
+                          ac_luma, tab, coefs, err)
+    _kernels.launch("huffdec_block", words, nseg, words.shape[1], bstart,
+                    bps, nblocks, dc_luma, ac_luma, tab, coefs, err)
+    return coefs, err

@@ -1,4 +1,4 @@
-"""Encode-side preprocessor in plain PyTorch (gpujpeg_tpu.ops.sample).
+"""Pre- and postprocessor in plain PyTorch (gpujpeg_tpu.ops.sample).
 
 Raw sample-interleaved pixels -> one zero-padded uint8 plane per component:
 decimate first (subsampling is pure selection, gpujpeg_preprocessor.cu:51-64,
@@ -9,6 +9,10 @@ zeroes its device buffers (gpujpeg_common.c:941-944).
 This is the plain version of the CUDA preprocessor (ops/prepost_kernel.py)
 for 3-channel input; it also decimates subsampled components, which that
 kernel does not.
+
+``postprocess`` is the decode side for this slice's output: 3 components
+at 4:4:4 -> interleaved P444_U8_P012, colour-converted from the stream's
+internal colour space (gpujpeg_postprocessor.cu:51-113).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from ..types import ImageParameters
+from ..types import ImageParameters, PixelFormat
 from ..utils.geometry import Geometry
 from . import color
 
@@ -39,3 +43,23 @@ def preprocess(raw: torch.Tensor, geo: Geometry,
                             (0, c.data_width - val.shape[1],
                              0, c.data_height - val.shape[0])))
     return planes
+
+
+def postprocess(planes: List[torch.Tensor], geo: Geometry,
+                pi: ImageParameters) -> torch.Tensor:
+    """[(data_height, data_width) int32 plane per component] in
+    geo.param.color_space_internal -> (H, W, 3) uint8 in pi.color_space
+    (gpujpeg_tpu.ops.sample.postprocess for 3 components at 4:4:4 and
+    P444_U8_P012)."""
+    if (pi.pixel_format != PixelFormat.P444_U8_P012 or geo.comp_count != 3
+            or any(c.samp_h != geo.max_h or c.samp_v != geo.max_v
+                   for c in geo.components)):
+        raise NotImplementedError(
+            "the postprocessor takes 3 components at 4:4:4 to "
+            "P444_U8_P012 (other formats: ROADMAP queue 1 item 6)")
+    H, W = pi.height, pi.width
+    full = [planes[c.index][:H, :W] for c in geo.components]
+    rgb = color.convert_channels(full[0], full[1], full[2],
+                                 geo.param.color_space_internal,
+                                 pi.color_space)
+    return torch.stack(rgb, dim=-1).to(torch.uint8)

@@ -298,14 +298,20 @@ def default_image_parameters() -> ImageParameters:
 
 def _port_value(value, like):
     """Map one field value of a foreign instance onto the port's type of
-    `like` (the port's default for that field): enums by member name,
-    sampling factors by their fields, everything else as is."""
+    `like` (the port's default for that field): enums by member name
+    (a pixel format may also be a decoder request), sampling factors by
+    their fields, nested dataclasses field by field, everything else as
+    is."""
     if isinstance(like, enum.Enum):
         cls = type(like)
         name = getattr(value, "name", None)
         if name in cls.__members__:
             return cls[name]
+        if cls is PixelFormat and name in PixelFormatRequest.__members__:
+            return PixelFormatRequest[name]
         return cls(int(value))
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return from_reference(value)
     if isinstance(like, tuple) and like and isinstance(like[0],
                                                         SamplingFactor):
         return tuple(SamplingFactor(int(s.horizontal), int(s.vertical))
@@ -314,15 +320,17 @@ def _port_value(value, like):
 
 
 def from_reference(obj):
-    """Build the port's Parameters or ImageParameters from any object with
-    the same dataclass fields (for example one of the JAX package's
-    instances).  Duck-typed: the class is picked by the object's class
-    name, enums are mapped by member name."""
-    kinds = {"Parameters": Parameters, "ImageParameters": ImageParameters}
+    """Build the port's Parameters, ImageParameters, ImageInfo or
+    Orientation from any object with the same dataclass fields (for
+    example one of the JAX package's instances).  Duck-typed: the class is
+    picked by the object's class name, enums are mapped by member name."""
+    kinds = {"Parameters": Parameters, "ImageParameters": ImageParameters,
+             "ImageInfo": ImageInfo, "Orientation": Orientation}
     cls = kinds.get(type(obj).__name__)
     if cls is None:
         raise TypeError(f"cannot convert {type(obj).__name__!r}: expected "
-                        "Parameters or ImageParameters")
+                        "Parameters, ImageParameters, ImageInfo or "
+                        "Orientation")
     default = cls()
     kw = {f.name: _port_value(getattr(obj, f.name), getattr(default, f.name))
           for f in dataclasses.fields(cls)}

@@ -1,7 +1,8 @@
 """JPEG quantization + Huffman table math (pure NumPy, computed at init).
 
-The encode-side subset of ``gpujpeg_tpu.utils.tables``, copied so that the
-PyTorch port never imports the JAX package.  Behavioral parity with the
+The subset of ``gpujpeg_tpu.utils.tables`` that the port's encode and
+decode paths use, copied so that the PyTorch port never imports the JAX
+package.  Behavioral parity with the
 reference table layer (src/gpujpeg_table.c):
   - default quant tables + IJG quality scaling  (gpujpeg_table.c:36-99)
   - Annex-K default Huffman bits/values          (gpujpeg_table.c:189-256)
@@ -109,6 +110,14 @@ def dct2d_matrix_zz() -> np.ndarray:
     # M_nat[(i*8+j), (u*8+v)] = D[u, i] * D[v, j]
     M = np.einsum("ui,vj->ijuv", D, D).reshape(64, 64)
     return M[:, ZIGZAG_TO_NATURAL]
+
+
+@functools.lru_cache(maxsize=None)
+def idct2d_matrix_zz() -> np.ndarray:
+    """(64, 64) matrix N: for zig-zag DCT coefficients y (dequantized),
+    x_flat_rowmajor = y_zz @ N.  N = transpose of dct2d_matrix_zz
+    (orthonormal)."""
+    return dct2d_matrix_zz().T.copy()
 
 
 def fdct_fused_matrix(qtab_zz: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -226,6 +235,63 @@ def huffman_encode_lut(bits: np.ndarray, values: np.ndarray, size: int) -> np.nd
     lut = np.zeros(size, dtype=np.uint32)
     lut[syms] = (lens.astype(np.uint32) << 16) | codes.astype(np.uint32)
     return lut
+
+
+def huffman_decode_spec(bits: np.ndarray, values: np.ndarray):
+    """Canonical decode parameters (F.15/F.16, gpujpeg_table.c:383-449).
+
+    Returns (maxcode16, valoff, huffval16):
+      maxcode16: (17,) int64 — largest 16-bit-LEFT-ALIGNED code of each
+                 length; -1 where the length has no codes
+      valoff:    (17,) int32 — valptr[l] - mincode[l], so that
+                 symbol_index = (peek16 >> (16-l)) + valoff[l]
+      huffval16: (11, 16) int32 — symbol values, zero-padded
+    """
+    syms, lens, codes = huffman_canonical(bits, values)
+    maxcode16 = np.full(17, -1, dtype=np.int64)
+    valoff = np.zeros(17, dtype=np.int64)
+    k = 0
+    for l in range(1, 17):
+        n = int(bits[l])
+        if n == 0:
+            continue
+        mincode = codes[k]
+        maxcode = codes[k + n - 1]
+        valoff[l] = k - mincode
+        maxcode16[l] = (int(maxcode) << (16 - l)) | ((1 << (16 - l)) - 1)
+        k += n
+    hv = np.zeros(11 * 16, dtype=np.int32)
+    hv[: len(values)] = np.asarray(values[: len(syms)], dtype=np.int32)
+    return (maxcode16.astype(np.int64), valoff.astype(np.int32),
+            hv.reshape(11, 16))
+
+
+#: int32 entries of one kernel decode table (kernel_decode_table)
+DECODE_TABLE_WORDS = 17 + 17 + 256
+
+
+def kernel_decode_table(bits, values) -> np.ndarray:
+    """One Huffman table as the port's decode kernels take it:
+    int32[DECODE_TABLE_WORDS] = mono[17] | valoff[17] | huffval[256].
+
+    mono is maxcode16 with empty lengths back-filled by the previous
+    length's value, so for a left-aligned 16-bit peek the code length is
+    clen = 1 + #{l in 1..15 : peek16 > mono[l]} and the code is invalid
+    when peek16 > mono[16]; the symbol is huffval[(peek16 >> (16 - clen))
+    + valoff[clen]].  Any baseline DHT table fits (at most 256 symbols).
+    """
+    bits = np.asarray(bits, np.int64)
+    values = np.asarray(values, np.int64)
+    maxcode16, valoff, _hv = huffman_decode_spec(bits, values)
+    mono = np.asarray(maxcode16, np.int64).copy()
+    mono[0] = -1
+    for l in range(1, 17):
+        if mono[l] < 0:
+            mono[l] = mono[l - 1]
+    hv = np.zeros(256, np.int64)
+    hv[:len(values)] = values
+    return np.concatenate([mono, np.asarray(valoff, np.int64),
+                           hv]).astype(np.int32)
 
 def huffman_spec_for(table_class: str, luma: bool):
     """(bits, values) for the default table of a class ('dc'|'ac')."""
@@ -346,3 +412,30 @@ def ac_spec(luma: bool, quality: int, family: str = "tuned"):
     if family == "tuned":
         return affine_ac_spec(*affine_params_for_quality(quality, luma))
     raise ValueError(family)
+
+
+@functools.lru_cache(maxsize=None)
+def _affine_spec_index():
+    """{(bits, values) bytes-key: params} over every trained bucket."""
+    idx = {}
+    for params in AFFINE_AC_PARAMS.values():
+        bits, values = affine_ac_spec(*params)
+        key = (bits.astype(np.int64).tobytes(),
+               np.asarray(values, np.int64).tobytes())
+        idx.setdefault(key, tuple(tuple(p) if isinstance(p, (list, tuple))
+                                  else int(p) for p in params))
+    return idx
+
+
+def match_affine_ac(bits, values):
+    """If (bits, values) is byte-identical to a trained tuned-family AC
+    table, return its params (r_len, l0, len_eob, len_zrl); else None."""
+    key = (np.asarray(bits, np.int64).tobytes(),
+           np.asarray(values, np.int64).tobytes())
+    return _affine_spec_index().get(key)
+
+
+def dc_values_identity(values) -> bool:
+    """True when huffval[j] == j for all j (the Annex-K DC property)."""
+    v = np.asarray(values, np.int64)
+    return bool(np.array_equal(v, np.arange(len(v))))

@@ -1,0 +1,132 @@
+"""PyTorch port, whole decode: Decoder(device="cpu") returns the JAX
+package's pixels and coefficients on the slice's streams, refuses what
+the slice does not cover, and contains a corrupt segment (on the card:
+test_torch_kernels.py)."""
+
+import io
+import logging
+import re
+
+import numpy as np
+import pytest
+
+import gpujpeg_tpu as gj
+
+import gpujpeg_tpu_torch as gt
+
+from .test_torch_encode import FRAMES, _gradient
+
+
+def _encode(frame, quality=75, rst=gt.RESTART_AUTO):
+    return gt.Encoder(device="cpu").encode(frame, gt.Parameters(
+        quality=quality, restart_interval=rst))
+
+
+STREAMS = dict(
+    {name: (lambda f=f: _encode(f())) for name, f in FRAMES.items()},
+    # auto interval at Q98: one block a segment
+    q98_bps1=lambda: _encode(_gradient(48, 64, 5), quality=98),
+    noise_q75_rst4=lambda: _encode(np.random.default_rng(6).integers(
+        0, 256, (56, 72, 3), dtype=np.uint8), rst=4),
+)
+
+#: one JAX session for the module, as a server would keep one
+_JDEC = gj.Decoder()
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_decode_matches_jax(name):
+    """Pixels and quantized coefficients equal the JAX package's (whose
+    decode_coefficients runs scan -> split -> block)."""
+    data = STREAMS[name]()
+    ref = np.asarray(_JDEC.decode(data))
+    dec = gt.Decoder(device="cpu")
+    got = dec.decode(data)
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    assert np.array_equal(got, ref)
+    ref_c = _JDEC.decode_coefficients(data)
+    got_c = dec.decode_coefficients(data)
+    assert len(got_c) == len(ref_c) == 3
+    for a, b in zip(got_c, ref_c):
+        assert a.dtype == np.int16 and a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+def test_port_round_trip_q90():
+    """Port encoder -> port decoder, as test_encode_decodes_with_pil."""
+    frame = _gradient(120, 160, 4)
+    out = gt.Decoder(device="cpu").decode(_encode(frame, quality=90))
+    mse = np.mean((frame.astype(float) - out.astype(float)) ** 2)
+    assert 10 * np.log10(255 ** 2 / mse) > 30
+
+
+def _pil(subsampling, restart):
+    """A libjpeg stream: one interleaved scan, Annex-K tables."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    kw = {"restart_marker_blocks": 8} if restart else {}
+    Image.fromarray(_gradient(48, 64, 1)).save(
+        buf, "JPEG", quality=75, subsampling=subsampling, **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kind,items", [
+    ("pil_420", (6, 7, 8)), ("pil_444", (7, 8)),
+    ("pil_444_no_restart", (7, 8, 9)), ("annexk", (7,))])
+def test_outside_the_slice_raises(kind, items):
+    """A stream outside the slice raises, naming every ROADMAP item it
+    needs and no other."""
+    if kind == "annexk":
+        data = bytes(gj.Encoder().encode(_gradient(48, 64, 2), gj.Parameters(
+            quality=75, restart_interval=4, huffman_tables="annexk")))
+    else:
+        data = _pil(2 if kind == "pil_420" else 0, "no_restart" not in kind)
+    with pytest.raises(NotImplementedError) as e:
+        gt.Decoder(device="cpu").decode(data)
+    named = {int(m) for m in re.findall(r"item (\d+)", str(e.value))}
+    assert named == set(items), str(e.value)
+
+
+def test_unported_output_raises():
+    data = STREAMS["grey"]()
+    dec = gt.Decoder(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        dec.decode(data, gt.ImageParameters(
+            pixel_format=gt.PixelFormat.P444_U8_P0P1P2))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        dec.set_option("dec_opt_tga_rle", "true")
+    # a JAX ImageParameters is accepted as param_image
+    got = dec.decode(data, gj.ImageParameters(
+        color_space=gj.ColorSpace.RGB,
+        pixel_format=gj.PixelFormat.P444_U8_P012))
+    assert np.array_equal(got, dec.decode(data))
+
+
+def test_corrupt_stream_is_contained(caplog):
+    """A damaged segment logs the warning on the port's logger; block rows
+    outside it decode as before (template: tests/test_dec_kernel.py)."""
+    from gpujpeg_tpu_torch.stream import reader
+
+    data = _encode(_gradient(64, 80, 7), rst=4)
+    segs = reader.parse(data).scans[0].segments
+    ref = gt.Decoder(device="cpu").decode(data)
+    k = len(segs) // 2
+    for pos in range(int(segs[k][0]) + 1, int(segs[k][1])):
+        bad = bytearray(data)
+        if 0xFF in (bad[pos - 1], bad[pos], bad[pos] ^ 0x5A):
+            continue
+        bad[pos] ^= 0x5A
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="gpujpeg_tpu_torch"):
+            out = gt.Decoder(device="cpu").decode(bytes(bad))
+        if any("corrupt segment" in r.message for r in caplog.records):
+            break
+    else:
+        pytest.fail("no detectable single-byte damage")
+    assert out.shape == ref.shape
+    # the damaged luma segment k covers 4 blocks of block row k * 4 // 10
+    rows_bad = np.nonzero((out != ref).any(axis=(1, 2)))[0]
+    assert len(rows_bad) and rows_bad.min() >= 8 * (k * 4 // 10)
+    assert rows_bad.max() < 8 * ((k * 4 + 3) // 10 + 1)
+    assert np.array_equal(out, np.asarray(_JDEC.decode(bytes(bad))))

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 import gpujpeg_tpu_torch as gt
+from gpujpeg_tpu_torch.models import decoder as tdec
 from gpujpeg_tpu_torch.ops import _kernels, fusedpack as tfp
+from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 
 
@@ -71,6 +73,159 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tfp.huffman_segments(torch.empty((1, 512), dtype=torch.int16,
                                          device="meta"), 4, tabs)
+
+
+def test_decode_wrappers_refuse_other_devices():
+    """The decode wrappers, like the encode ones, run their plain versions
+    only for CPU tensors and refuse inputs they do not take."""
+    meta = lambda *shape, dt=torch.int32: torch.empty(shape, dtype=dt,
+                                                      device="meta")
+    tab = meta(4, 290)
+    rows = [meta(6) for _ in range(4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        thd.scan_segments(meta(6, 9), *rows, tab, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        thd.decode_blocks(meta(6, 9), meta(6, 9), *rows[1:], tab)
+    with pytest.raises(ValueError, match="int32"):
+        thd.scan_segments(meta(6, 9, dt=torch.int64), *rows, tab, 8)
+    with pytest.raises(ValueError, match="tables"):
+        thd.decode_blocks(meta(6, 9), meta(6, 9), *rows[1:], meta(4, 17))
+    frame = _frame(16, 24, 0)
+    data = gt.Encoder(device="cpu").encode(frame, gt.Parameters(quality=75))
+    hf = gt.Decoder(device="cpu").prepare(data)
+    geo, pi = hf.plan.geo, hf.out_pi
+    L = geo.segment_count * geo.max_blocks_per_seg
+    with pytest.raises(ValueError, match="CUDA"):
+        tpre.decode_post(meta(64, L, dt=torch.int16),
+                         meta(3, 64, dt=torch.float32), geo, pi)
+    with pytest.raises(ValueError, match="int16"):
+        tpre.decode_post(meta(64, L + 1, dt=torch.int16),
+                         meta(3, 64, dt=torch.float32), geo, pi)
+
+
+def test_decoder_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gt.Decoder()
+
+
+class _FailingLib:
+    """Stands in for a kernel library whose launch is refused."""
+
+    def __getattr__(self, name):
+        return lambda *args: 98          # cudaErrorInvalidDeviceFunction
+
+
+@pytest.mark.parametrize("name", ["huffdec_scan", "huffdec_block",
+                                  "dpost_rgb"])
+def test_failed_launch_raises(monkeypatch, name):
+    """A launch error is raised, never swallowed, and is not counted."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(_kernels, "_lib", lambda n: _FailingLib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    _kernels.reset_launches()
+    x = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match=f"{name} failed to launch"):
+        _kernels.launch(name, x, 1)
+    assert _kernels.LAUNCHES[name] == 0
+
+
+def _stream(kind, h, w, quality=75, seed=0):
+    frame = (np.random.default_rng(seed).integers(0, 256, (h, w, 3),
+                                                  dtype=np.uint8)
+             if kind == "noise" else _frame(h, w, seed))
+    return frame, gt.Encoder(device="cpu").encode(
+        frame, gt.Parameters(quality=quality,
+                             restart_interval=gt.RESTART_AUTO))
+
+
+def _device_frame(data, cuda):
+    hf = gt.Decoder(device=cuda).prepare(data)
+    p = hf.plan
+    words = torch.from_numpy(hf.words).to(cuda)
+    nbits = torch.from_numpy(hf.nbits).to(cuda)
+    return hf, p, words, nbits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gradient", "noise"])
+def test_huffdec_kernels_match_plain(cuda, kind):
+    _, data = _stream(kind, 1080, 1920)
+    hf, p, words, nbits = _device_frame(data, cuda)
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    _kernels.reset_launches()
+    bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffdec_scan"] == 1
+    p_bstart, p_err_a = thd.scan_segments_plain(words, nbits, *args, p.bps)
+    assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
+    assert not bool(err_a.any())
+    coefs, err_c = thd.decode_blocks(words, bstart, *args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffdec_block"] == 1
+    p_coefs, p_err_c = thd.decode_blocks_plain(words, bstart, *args)
+    assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
+    assert not bool(err_c.any())
+
+
+@pytest.mark.gpu
+def test_huffdec_kernels_corrupt_segment(cuda):
+    _, data = _stream("noise", 64, 80, seed=3)
+    hf, p, words, nbits = _device_frame(data, cuda)
+    w = words.clone()
+    w[9, 1] ^= 0x5A5A5A5A                     # flip bits in segment 9
+    nbits = nbits.clone()
+    nbits[5] //= 2                            # cut segment 5 short
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    bstart, err_a = thd.scan_segments(w, nbits, *args, p.bps)
+    p_bstart, p_err_a = thd.scan_segments_plain(w, nbits, *args, p.bps)
+    assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
+    coefs, err_c = thd.decode_blocks(w, bstart, *args)
+    p_coefs, p_err_c = thd.decode_blocks_plain(w, bstart, *args)
+    assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
+    assert bool(err_a[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311)])
+def test_dpost_kernel_matches_plain(cuda, hw):
+    _, data = _stream("gradient", *hw)
+    dec = gt.Decoder(device=cuda)
+    hf = dec.prepare(data)
+    coefs_t, _ea, _ec = dec.coefficients_t(hf)
+    geo = hf.plan.geo
+    _kernels.reset_launches()
+    got = tpre.decode_post(coefs_t, hf.plan.qtabs, geo, hf.out_pi)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["dpost_rgb"] == 1
+    assert got.shape == (*hw, 3)
+    ref = tpre.decode_post_plain(coefs_t, hf.plan.qtabs, geo, hf.out_pi)
+    assert torch.equal(got, ref)
+    # dense random coefficients: every rounding boundary of the chain
+    rnd = torch.randint(-600, 600, coefs_t.shape, dtype=torch.int16,
+                        generator=torch.Generator().manual_seed(7)).to(cuda)
+    assert torch.equal(
+        tpre.decode_post(rnd, hf.plan.qtabs, geo, hf.out_pi),
+        tpre.decode_post_plain(rnd, hf.plan.qtabs, geo, hf.out_pi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,hw,quality", [
+    ("gradient", (1080, 1920), 75), ("noise", (233, 311), 75),
+    ("gradient", (64, 80), 98)])
+def test_decode_on_card_matches_cpu(cuda, kind, hw, quality):
+    frame, data = _stream(kind, *hw, quality=quality, seed=9)
+    _kernels.reset_launches()
+    got = gt.Decoder(device=cuda).decode(data)
+    for name in ("huffdec_scan", "huffdec_block", "dpost_rgb"):
+        assert _kernels.LAUNCHES[name] == 1, _kernels.LAUNCHES
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
+    assert got.shape == frame.shape
 
 
 @pytest.mark.gpu
@@ -154,5 +309,7 @@ def test_encode_on_card_matches_cpu(cuda, hw):
     p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
     _kernels.reset_launches()
     got = gt.Encoder(device=cuda).encode(frame, p)
-    assert all(n > 0 for n in _kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    assert all(_kernels.LAUNCHES[n] > 0 for n in (
+        "pre_rgb_to_planes", "fdct_quant", "huffman_segments")), \
+        _kernels.LAUNCHES
     assert got == gt.Encoder(device="cpu").encode(frame, p)
