@@ -33,11 +33,26 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
         frames, per-frame wall ms (those three and nine more, bytes in to
         a host array out) and a stage breakdown;
      d. times each decode kernel at the main path's shapes;
-  7. prints one JSON line of per-kernel records, encode and decode
+  7. runs the interleaved 4:2:0 path (one scan, luma 2x2, chroma 1x1,
+     Q75, restart interval auto = 1 MCU a segment; libjpeg's default
+     layout):
+     a. each kernel and mode of that path against its plain version at
+        8K on a gradient and a noise frame, bit for bit: the decimating
+        preprocessor, the token-row packer, the Huffman decode phases in
+        slot-pattern mode, the IDCT to planes and the postprocessor;
+     b. encodes and decodes a 1920x1080 frame with device="cuda" and
+        device="cpu" and requires identical bytes and pixels;
+     c. encodes three seeded 8K frames through Encoder.encode and decodes
+        their streams through Decoder.decode (launch counts read over
+        each), checks SOI/EOI, the RST count and the PSNR, and prints
+        per-frame wall ms (those three and nine more) and a stage
+        breakdown of each;
+     d. times each kernel and mode of the path at its shapes;
+  8. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists);
-  8. prints {"ok": true, "device": {...}} as its last line.
+  9. prints {"ok": true, "device": {...}} as its last line.
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -100,6 +115,24 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
+def once_ms(torch, fn):
+    """(fn(), its CUDA-event ms) of one run, for the plain versions."""
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def stream_word_bytes(nbits) -> int:
+    """Bytes of the segment word matrix that the segments' bits fill (each
+    row up to its last bit's word): what phases A and C must read, where
+    the matrix is padded to its longest row."""
+    return int(((nbits.long() + 31) // 32).sum()) * 4
+
+
 def psnr(np, a, b) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
@@ -134,15 +167,6 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         nbits = torch.from_numpy(hf.nbits).to(dev)
         return p, words, nbits, (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
 
-    def once_ms(fn):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        s.record()
-        out = fn()
-        e.record()
-        torch.cuda.synchronize()
-        return out, s.elapsed_time(e)
-
     def record_err(name, err, what):
         kernels[name]["err"] = max(kernels[name]["err"], err)
         if err:
@@ -154,14 +178,14 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         hf = dec.prepare(data)
         p, words, nbits, args = inputs(hf)
         bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps)
-        (p_bstart, p_err_a), ms_a = once_ms(lambda: thd.scan_segments_plain(
-            words, nbits, *args, p.bps))
+        (p_bstart, p_err_a), ms_a = once_ms(
+            torch, lambda: thd.scan_segments_plain(words, nbits, *args, p.bps))
         record_err("huffdec_scan", max(
             int((bstart - p_bstart).abs().max()),
             int((err_a != p_err_a).sum())), what)
         coefs, err_c = thd.decode_blocks(words, bstart, *args)
-        (p_coefs, p_err_c), ms_c = once_ms(lambda: thd.decode_blocks_plain(
-            words, bstart, *args))
+        (p_coefs, p_err_c), ms_c = once_ms(
+            torch, lambda: thd.decode_blocks_plain(words, bstart, *args))
         record_err("huffdec_block", max(
             int((coefs.int() - p_coefs.int()).abs().max()),
             int((err_c - p_err_c).abs().max())), what)
@@ -171,8 +195,9 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
         geo, pi = p.geo, hf.out_pi
         img = prepost_kernel.decode_post(coefs, p.qtabs, geo, pi)
-        p_img, ms_d = once_ms(lambda: prepost_kernel.decode_post_plain(
-            coefs, p.qtabs, geo, pi))
+        p_img, ms_d = once_ms(
+            torch, lambda: prepost_kernel.decode_post_plain(coefs, p.qtabs,
+                                                            geo, pi))
         record_err("dpost_rgb", int((img.int() - p_img.int()).abs().max()),
                    what)
         if what == "gradient":
@@ -274,12 +299,12 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
     nseg, W = words.shape
     L = coefs.shape[1]
     seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4   # nbits + 3 flags
+    w_bytes = stream_word_bytes(nbits)
     kernels["huffdec_scan"]["bound_ms"] = (
-        words.numel() * 4 + seg_bytes + bstart.numel() * 4 + nseg) \
-        / PEAK_BYTES_S * 1e3
+        w_bytes + seg_bytes + bstart.numel() * 4 + nseg) / PEAK_BYTES_S * 1e3
     kernels["huffdec_block"]["bound_ms"] = (
-        words.numel() * 4 + seg_bytes + bstart.numel() * 4 + L * 64 * 2
-        + L * 4) / PEAK_BYTES_S * 1e3
+        w_bytes + seg_bytes + bstart.numel() * 4 + L * 64 * 2 + L * 4) \
+        / PEAK_BYTES_S * 1e3
     nblk = sum(c.mcu_count for c in p.geo.components)
     d_ops = 2 * 64 * 64 * nblk
     d_bytes = nblk * 64 * 2 + img.numel() + 3 * 64 * 4 + 64 * 64 * 4
@@ -302,6 +327,376 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
             f"{'-' if k['library_ms'] is None else format(k['library_ms'], '.4f')}"
             " ms")
     return kernels, launches
+
+
+def interleaved_phases(torch, np, gt, dev, flush):
+    """Step 7, the interleaved 4:2:0 path; returns (kernel records,
+    launches over its main path).  Records of a new mode of an older
+    kernel are named kernel:mode and count that kernel's launches."""
+    from gpujpeg_tpu_torch.models import decoder as tdec
+    from gpujpeg_tpu_torch.ops import _kernels, fusedpack
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    params = gt.Parameters(
+        quality=QUALITY, restart_interval=gt.RESTART_AUTO,
+        interleaved=True).chroma_subsampled(((2, 2), (1, 1), (1, 1)))
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    kernels = {
+        "pre_rgb_to_planes:decimate": dict(
+            key="pre_rgb_to_planes",
+            source="gpujpeg_tpu_torch/csrc/pre_rgb_to_planes.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:88",
+            bound_by="bytes", library_ms=None, err=0),
+        "pack_stuff_rows": dict(
+            source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
+            replaces="gpujpeg_tpu/ops/fusedpack.py:107",
+            bound_by="bytes", library_ms=None, err=0),
+        "huffdec_scan:pattern": dict(
+            key="huffdec_scan",
+            source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:590",
+            bound_by="bytes", library_ms=None, err=0),
+        "huffdec_block:pattern": dict(
+            key="huffdec_block",
+            source="gpujpeg_tpu_torch/csrc/huffdec_block.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:283",
+            bound_by="bytes", library_ms=None, err=0),
+        "idct_planes": dict(
+            source="gpujpeg_tpu_torch/csrc/idct_planes.cu",
+            # no pallas_call: the JAX package's XLA interleaved tail
+            replaces="gpujpeg_tpu/models/decoder.py:305",
+            bound_by="operations", err=0),
+        "post_rgb": dict(
+            source="gpujpeg_tpu_torch/csrc/post_rgb.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:231",
+            bound_by="bytes", library_ms=None, err=0),
+    }
+
+    def record_err(name, err, what):
+        kernels[name]["err"] = max(kernels[name]["err"], err)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({what}, 4:2:0)")
+
+    def diff(a, b):
+        return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+    def rows_err(rows, rb, needs, p_rows, p_rb, p_needs):
+        if not torch.equal(rb, p_rb):
+            return 255
+        inside = torch.arange(rows.shape[1], device=rows.device)[None, :] \
+            < rb[:, None]
+        return max(diff(needs, p_needs), diff(rows[inside], p_rows[inside]))
+
+    # -- a. kernels and modes against their plain versions at 8K -----------
+    for fkind, seed in (("gradient", 31), ("noise", 32)):
+        frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
+        geo = enc.resolve(frame, params)
+        pi = geo.param_image
+        planes = prepost_kernel.preprocess_packed(frame, geo, pi)
+        ref, ms_pre = once_ms(
+            torch, lambda: prepost_kernel.preprocess_packed_plain(frame, geo,
+                                                                  pi))
+        record_err("pre_rgb_to_planes:decimate",
+                   max(diff(a, b) for a, b in zip(planes, ref)), fkind)
+        del ref
+        bits, lens = enc.interleaved_tokens(
+            enc.interleaved_coefs(planes, geo), geo)
+        markers = fusedpack.segment_markers(geo.segment_count, dev)
+        stride = enc.interleaved_stride(geo)
+        rows, rb, needs = fusedpack.pack_stuff_rows(bits, lens, markers,
+                                                    stride)
+        p_out, ms_pack = once_ms(
+            torch, lambda: fusedpack.pack_stuff_rows_plain(bits, lens,
+                                                           markers, stride))
+        record_err("pack_stuff_rows", rows_err(rows, rb, needs, *p_out),
+                   fkind)
+        del p_out, bits, lens, planes
+        data = enc.assemble(geo, {"rows": [rows], "row_bytes": [rb]})
+        del rows
+        hf = dec.prepare(data)
+        p = hf.plan
+        words = torch.from_numpy(hf.words).to(dev)
+        nbits = torch.from_numpy(hf.nbits).to(dev)
+        args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+        bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps,
+                                          p.pattern)
+        (p_bstart, p_err_a), ms_a = once_ms(
+            torch, lambda: thd.scan_segments_plain(words, nbits, *args, p.bps,
+                                                   p.pattern))
+        record_err("huffdec_scan:pattern",
+                   max(diff(bstart, p_bstart), diff(err_a, p_err_a)), fkind)
+        coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern)
+        (p_coefs, p_err_c), ms_c = once_ms(
+            torch, lambda: thd.decode_blocks_plain(words, bstart, *args,
+                                                   p.pattern))
+        record_err("huffdec_block:pattern",
+                   max(diff(coefs, p_coefs), diff(err_c, p_err_c)), fkind)
+        if bool(err_a.any()) or bool(err_c.any()):
+            raise AssertionError(f"8K 4:2:0 {fkind} stream decodes with "
+                                 "errors")
+        del p_coefs, words
+        coefs = tdec._dc_fixup_t(coefs, p.geo.segment_count, p.bps,
+                                 p.comp_slots)
+        dplanes, ms_i = [], 0.0
+        for c in p.geo.components:
+            q = p.qtabs[c.index]
+            got = prepost_kernel.idct_planes(coefs, q, p.geo, c)
+            ref, ms = once_ms(
+                torch, lambda: prepost_kernel.idct_planes_plain(coefs, q,
+                                                                p.geo, c))
+            record_err("idct_planes", diff(got, ref), fkind)
+            dplanes.append(got)
+            ms_i += ms / 3
+        img = prepost_kernel.postprocess_packed(dplanes, p.geo, hf.out_pi)
+        ref, ms_p = once_ms(
+            torch, lambda: prepost_kernel.postprocess_packed_plain(dplanes,
+                                                                   p.geo,
+                                                                   hf.out_pi))
+        record_err("post_rgb", diff(img, ref), fkind)
+        if fkind == "gradient":
+            for name, ms in (("pre_rgb_to_planes:decimate", ms_pre),
+                             ("pack_stuff_rows", ms_pack),
+                             ("huffdec_scan:pattern", ms_a),
+                             ("huffdec_block:pattern", ms_c),
+                             ("idct_planes", ms_i), ("post_rgb", ms_p)):
+                kernels[name]["plain_ms"] = ms
+        log(f"[il kernels] 8K 4:2:0 {fkind}: pre, pack, scan, block, idct, "
+            f"post equal to plain; {len(data)} B, {geo.segment_count} "
+            f"segments of {p.bps} blocks, max row {int(needs[1])} B, "
+            f"stuffed zeros <= {int(needs[0])}, stride {stride} B, "
+            f"PSNR {psnr(np, img.cpu().numpy(), frame.cpu().numpy()):.2f} "
+            "dB")
+        del coefs, dplanes, img, ref, frame
+
+    # -- b. HD: card == CPU, bytes and pixels --------------------------------
+    hd = make_frame(torch, "gradient", 23, 1080, 1920, dev).cpu().numpy()
+    hd_stream = enc.encode(hd, params)
+    if hd_stream != gt.Encoder(device="cpu").encode(hd, params):
+        raise AssertionError("HD 4:2:0 encode on the card differs from the "
+                             "CPU")
+    got = dec.decode(hd_stream)
+    if not np.array_equal(got, gt.Decoder(device="cpu").decode(hd_stream)):
+        raise AssertionError("HD 4:2:0 decode on the card differs from the "
+                             "CPU")
+    log(f"[il hd] 1920x1080 4:2:0 Q75 {len(hd_stream)} bytes: card == cpu "
+        f"(bytes and pixels), PSNR {psnr(np, got, hd):.2f} dB")
+
+    # -- c. main path: three 8K frames, encode then decode -------------------
+    frames = [make_frame(torch, "gradient", 200 + i, H8K, W8K, dev)
+              .cpu().numpy() for i in range(3)]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    walls, streams = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        out = enc.encode(f, params)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        streams.append(out)
+    launches = {n: _kernels.LAUNCHES[n] for n in (
+        "pre_rgb_to_planes", "fdct_quant", "pack_stuff_rows")}
+    geo = enc.resolve(frames[0], params)
+    for out in streams:
+        data = np.frombuffer(out, np.uint8)
+        if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
+            raise AssertionError("8K 4:2:0 stream lacks SOI/EOI")
+        ff = np.nonzero(data[:-1] == 0xFF)[0]
+        nrst = int(((data[ff + 1] >= 0xD0) & (data[ff + 1] <= 0xD7)).sum())
+        if nrst != geo.segment_count - 1:
+            raise AssertionError(f"RST count {nrst} != "
+                                 f"{geo.segment_count - 1}")
+    log(f"[il 8k enc] 3 frames 7680x4320 4:2:0 Q75 rst "
+        f"{geo.param.restart_interval} MCU: bytes "
+        f"{[len(s) for s in streams]}, segments {geo.segment_count}, RST "
+        f"markers ok, launches {launches}")
+    for i in range(9):
+        t0 = time.perf_counter()
+        enc.encode(frames[i % 3], params)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q = np.percentile(walls, [25, 50, 75])
+    log(f"[il 8k enc] wall ms per frame (host frame in, bytes out), "
+        f"{len(walls)} frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / "
+        f"{q[2]:.3f}; " + ", ".join(f"{w:.3f}" for w in walls))
+
+    f = frames[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    x = torch.from_numpy(f).to(dev)
+    ev[1].record()
+    planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
+    ev[2].record()
+    il_coefs = enc.interleaved_coefs(planes, geo)
+    ev[3].record()
+    bits, lens = enc.interleaved_tokens(il_coefs, geo)
+    ev[4].record()
+    markers = fusedpack.segment_markers(geo.segment_count, dev)
+    stride = enc.interleaved_stride(geo)
+    rows, rb, _ = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
+    ev[5].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = enc.assemble(geo, {"rows": [rows], "row_bytes": [rb]})
+    t2 = time.perf_counter()
+    if out != streams[0]:
+        raise AssertionError("stage-by-stage 4:2:0 encode differs from "
+                             "encode()")
+    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+                  pre_ms=ev[1].elapsed_time(ev[2]),
+                  fdct_reorder_3_planes_ms=ev[2].elapsed_time(ev[3]),
+                  tokenize_ms=ev[3].elapsed_time(ev[4]),
+                  pack_ms=ev[4].elapsed_time(ev[5]),
+                  device_wall_ms=(t1 - t0) * 1e3,
+                  assemble_d2h_host_ms=(t2 - t1) * 1e3)
+    log("[il 8k enc] stages (CUDA events; assembly on the host clock; "
+        f"{bits.numel() * 8} B of tokens): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # per-launch times of the encode side at the path's shapes (frame 0)
+    kernels["pre_rgb_to_planes:decimate"]["ms"] = event_ms(
+        torch, lambda: prepost_kernel.preprocess_packed(
+            x, geo, geo.param_image), 20, flush) / 2     # 2 launches
+    kernels["pack_stuff_rows"]["ms"] = event_ms(
+        torch, lambda: fusedpack.pack_stuff_rows(bits, lens, markers,
+                                                 stride), 10, flush)
+    pl_bytes = sum(p_.numel() for p_ in planes)
+    kernels["pre_rgb_to_planes:decimate"]["bound_ms"] = (
+        x.numel() + pl_bytes) / 2 / PEAK_BYTES_S * 1e3
+    # every length is read; bits only in the 4-slot quads that hold a token
+    # (the kernel skips a quad whose lengths are all 0)
+    quads = int((lens.view(lens.shape[0], -1, 4) != 0).any(-1).sum())
+    kernels["pack_stuff_rows"]["bound_ms"] = (
+        lens.numel() * 4 + quads * 16 + markers.numel() * 4 + int(rb.sum())
+        + rb.numel() * 4) / PEAK_BYTES_S * 1e3
+    del bits, lens, rows, il_coefs, planes, x
+
+    # decode of the three streams
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    dwalls, psnrs = [], []
+    for data, f in zip(streams, frames):
+        t0 = time.perf_counter()
+        out = dec.decode(data)
+        dwalls.append((time.perf_counter() - t0) * 1e3)
+        if out.shape != f.shape or out.dtype != np.uint8:
+            raise AssertionError(f"8K 4:2:0 decode gave {out.shape} "
+                                 f"{out.dtype}")
+        psnrs.append(psnr(np, out, f))
+    launches.update({n: _kernels.LAUNCHES[n] for n in (
+        "huffdec_scan", "huffdec_block", "idct_planes", "post_rgb")})
+    if _kernels.LAUNCHES["dpost_rgb"]:
+        raise AssertionError("the 4:2:0 decode went through dpost_rgb")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "4:2:0 path")
+    if min(psnrs) < 20:
+        raise AssertionError(f"8K 4:2:0 decode PSNR {psnrs} dB")
+    log(f"[il 8k dec] 3 streams: PSNR vs source "
+        + ", ".join(f"{v:.2f}" for v in psnrs) + f" dB, launches {launches}")
+    for i in range(9):
+        t0 = time.perf_counter()
+        dec.decode(streams[i % 3])
+        dwalls.append((time.perf_counter() - t0) * 1e3)
+    q = np.percentile(dwalls, [25, 50, 75])
+    log(f"[il 8k dec] wall ms per frame (bytes in, host array out), "
+        f"{len(dwalls)} frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / "
+        f"{q[2]:.3f}; " + ", ".join(f"{w:.3f}" for w in dwalls))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hf = dec.prepare(streams[0])
+    t1 = time.perf_counter()
+    p = hf.plan
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    ev[0].record()
+    words = torch.from_numpy(hf.words).to(dev)
+    nbits = torch.from_numpy(hf.nbits).to(dev)
+    ev[1].record()
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps, p.pattern)
+    ev[2].record()
+    coefs, _ec = thd.decode_blocks(words, bstart, *args, p.pattern)
+    ev[3].record()
+    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps, p.comp_slots)
+    ev[4].record()
+    dplanes = [prepost_kernel.idct_planes(coefs, p.qtabs[c.index], p.geo, c)
+               for c in p.geo.components]
+    ev[5].record()
+    img = prepost_kernel.postprocess_packed(dplanes, p.geo, hf.out_pi)
+    ev[6].record()
+    host = img.cpu()
+    ev[7].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not np.array_equal(host.numpy(), dec.decode(streams[0])):
+        raise AssertionError("stage-by-stage 4:2:0 decode differs from "
+                             "decode()")
+    stages = dict(parse_unstuff_host_ms=(t1 - t0) * 1e3,
+                  h2d_words_ms=ev[0].elapsed_time(ev[1]),
+                  scan_ms=ev[1].elapsed_time(ev[2]),
+                  block_ms=ev[2].elapsed_time(ev[3]),
+                  dc_fixup_ms=ev[3].elapsed_time(ev[4]),
+                  idct_3_planes_ms=ev[4].elapsed_time(ev[5]),
+                  post_ms=ev[5].elapsed_time(ev[6]),
+                  d2h_image_ms=ev[6].elapsed_time(ev[7]),
+                  device_wall_ms=(t2 - t1) * 1e3)
+    log(f"[il 8k dec] stages (parse + unstuff on the host clock, the rest "
+        f"CUDA events; {words.numel() * 4} B of words): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # -- d. per-launch times of the decode side at the path's shapes -------
+    kernels["huffdec_scan:pattern"]["ms"] = event_ms(
+        torch, lambda: thd.scan_segments(words, nbits, *args, p.bps,
+                                         p.pattern), 20, flush)
+    kernels["huffdec_block:pattern"]["ms"] = event_ms(
+        torch, lambda: thd.decode_blocks(words, bstart, *args, p.pattern),
+        20, flush)
+    ms_i, lib_i, bound_i = [], [], []
+    nmat = prepost_kernel.idct_matrix(dev)
+    L = coefs.shape[1]
+    for c in p.geo.components:
+        q = p.qtabs[c.index]
+        ms_i.append(event_ms(torch, lambda: prepost_kernel.idct_planes(
+            coefs, q, p.geo, c), 20, flush))
+        # yardstick: one f32 product of the component's dequantized
+        # (blocks, 64) coefficients by the IDCT matrix (TF32 off); timed
+        # here only, never called by the port
+        cols = prepost_kernel.block_columns(p.geo, c, dev)
+        y = (coefs[:, cols].T.float() * q).contiguous()
+        lib_i.append(event_ms(torch, lambda: torch.matmul(y, nmat), 10,
+                              flush))
+        nblk = cols.numel()
+        bound_i.append(max(2 * 64 * 64 * nblk / PEAK_F32_FLOP_S,
+                           (nblk * 64 * 2 + nblk * 64 + 64 * 4
+                            + 64 * 64 * 4) / PEAK_BYTES_S) * 1e3)
+        del y, cols
+    kernels["idct_planes"].update(ms=sum(ms_i) / 3,
+                                  library_ms=sum(lib_i) / 3,
+                                  bound_ms=sum(bound_i) / 3)
+    kernels["post_rgb"]["ms"] = event_ms(
+        torch, lambda: prepost_kernel.postprocess_packed(
+            dplanes, p.geo, hf.out_pi), 20, flush)
+    nseg = words.shape[0]
+    seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4
+    w_bytes = stream_word_bytes(nbits)
+    kernels["huffdec_scan:pattern"]["bound_ms"] = (
+        w_bytes + seg_bytes + bstart.numel() * 4 + nseg) / PEAK_BYTES_S * 1e3
+    kernels["huffdec_block:pattern"]["bound_ms"] = (
+        w_bytes + seg_bytes + bstart.numel() * 4 + L * 64 * 2 + L * 4) \
+        / PEAK_BYTES_S * 1e3
+    kernels["post_rgb"]["bound_ms"] = (
+        sum(d.numel() for d in dplanes) + img.numel()) / PEAK_BYTES_S * 1e3
+    for name, k in kernels.items():
+        lib = k["library_ms"]
+        log(f"[il time] {name}: {k['ms']:.4f} ms per launch (bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
+            f"{k['plain_ms']:.3f} ms, library "
+            f"{'-' if lib is None else format(lib, '.4f')} ms")
+    return kernels, {name: launches[k.get("key", name)]
+                     for name, k in kernels.items()}
 
 
 def main() -> int:
@@ -551,7 +946,12 @@ def main() -> int:
     kernels.update(dec_kernels)
     launches.update(dec_launches)
 
-    # -- 7. kernels line -----------------------------------------------------
+    # -- 7. the interleaved 4:2:0 path ----------------------------------------
+    il_kernels, il_launches = interleaved_phases(torch, np, gt, dev, flush)
+    kernels.update(il_kernels)
+    launches.update(il_launches)
+
+    # -- 8. kernels line -----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -561,7 +961,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 8. result -----------------------------------------------------------
+    # -- 9. result -----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

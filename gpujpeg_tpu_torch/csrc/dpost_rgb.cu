@@ -15,12 +15,8 @@
 //
 // The result must equal the plain version (ops/dct.dequantize_idct, then
 // ops/sample.postprocess) bit for bit, so the arithmetic order is fixed:
-//     y[k] = coef[k] * q[k]                      (float32, exact)
-//     acc = 0;  for k = 0..63: acc = fmaf(y[k], N[k][s], acc)
-//     v = clamp(rintf(__fadd_rn(acc, 128.f)), 0, 255)
-// then the integer colour transform of colorspace.cuh.  Never build this
-// with --use_fast_math, and never replace the chain by a tensor-core or
-// TF32 product.
+// the FMA chain of idct.cuh (shared with idct_planes.cu), then the integer
+// colour transform of colorspace.cuh.
 //
 // Design, after fdct_quant.cu: a CTA of 256 threads takes 32 blocks of
 // each component at a time (grid-stride), loads their coefficients from
@@ -44,16 +40,13 @@
 #include <cuda_runtime.h>
 
 #include "colorspace.cuh"
+#include "idct.cuh"
 
 namespace {
 
 constexpr int kGroup = 32;        // blocks per component per iteration
 constexpr int kThreads = 256;
 constexpr int kRow = 68;          // floats per dequantized row (16B-aligned)
-
-__device__ __forceinline__ int to_sample(float acc) {
-    return (int)fminf(fmaxf(rintf(__fadd_rn(acc, 128.f)), 0.f), 255.f);
-}
 
 struct Offsets {
     int64_t c[3];
@@ -93,29 +86,11 @@ dpost_rgb_kernel(const int16_t* __restrict__ coefs, int64_t L, Offsets off,
         for (int gi = jj; gi < kGroup; gi += kThreads / 64) {
             const int64_t i = i0 + gi;
             if (i >= nblk) break;
-            float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-#pragma unroll
-            for (int k = 0; k < 64; k += 4) {
-                const float4 y0 = *reinterpret_cast<const float4*>(
-                    &ys[0][gi][k]);
-                const float4 y1 = *reinterpret_cast<const float4*>(
-                    &ys[1][gi][k]);
-                const float4 y2 = *reinterpret_cast<const float4*>(
-                    &ys[2][gi][k]);
-                a0 = fmaf(y0.x, n[k], a0);
-                a1 = fmaf(y1.x, n[k], a1);
-                a2 = fmaf(y2.x, n[k], a2);
-                a0 = fmaf(y0.y, n[k + 1], a0);
-                a1 = fmaf(y1.y, n[k + 1], a1);
-                a2 = fmaf(y2.y, n[k + 1], a2);
-                a0 = fmaf(y0.z, n[k + 2], a0);
-                a1 = fmaf(y1.z, n[k + 2], a1);
-                a2 = fmaf(y2.z, n[k + 2], a2);
-                a0 = fmaf(y0.w, n[k + 3], a0);
-                a1 = fmaf(y1.w, n[k + 3], a1);
-                a2 = fmaf(y2.w, n[k + 3], a2);
-            }
-            int v0 = to_sample(a0), v1 = to_sample(a1), v2 = to_sample(a2);
+            const float* const yr[3] = {ys[0][gi], ys[1][gi], ys[2][gi]};
+            float a[3];
+            gj::idct_chains<3>(yr, n, a);
+            int v0 = gj::idct_to_sample(a[0]), v1 = gj::idct_to_sample(a[1]),
+                v2 = gj::idct_to_sample(a[2]);
             gj::convert(p, v0, v1, v2);
             const int64_t by = i / bpr, bx = i - by * bpr;
             const int64_t y = by * 8 + (s >> 3), x = bx * 8 + (s & 7);

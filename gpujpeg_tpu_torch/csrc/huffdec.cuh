@@ -12,6 +12,16 @@
 // (gpujpeg_tpu/ops/huffdec_kernel.py: affine_ac_decode,
 // dc_identity_decode); clen 0 marks an invalid code.
 //
+// Classes: a block takes table set 0 ("luma") or 1 for its DC and its AC
+// token.  Segment s has flags dc_luma[s] / ac_luma[s]; block slot j of the
+// segment also takes bit j % bpm of a slot pattern (one 32-bit mask for DC
+// and one for AC; bpm <= 10 in baseline JPEG), and its class is luma when
+// both are set.  A non-interleaved scan passes bpm = 1 and masks 1 (the
+// segment's flag decides, one component a row); an interleaved scan
+// passes flags 1 and the pattern of one MCU's blocks, as the JAX package's
+// luma_patterns (gpujpeg_tpu/ops/huffdec_kernel.py: _scan_kernel_body,
+// flags(blk)).
+//
 // Rows: the host-order words of stream/segments.pack_segments_matrix
 // (stream byte k is byte k of the row); a word is byteswapped as it is
 // loaded, and words past the row read as 0.
@@ -30,6 +40,18 @@ __device__ __forceinline__ void load_tables(const int32_t* __restrict__ src,
     for (int i = threadIdx.x; i < kTablesWords; i += blockDim.x)
         dst[i] = src[i];
     __syncthreads();
+}
+
+__device__ __forceinline__ const int32_t* dc_table(const int32_t* tab,
+                                                  int seg_luma, uint32_t pat,
+                                                  int slot) {
+    return tab + ((seg_luma && ((pat >> slot) & 1u)) ? 0 : 1) * kTableWords;
+}
+
+__device__ __forceinline__ const int32_t* ac_table(const int32_t* tab,
+                                                  int seg_luma, uint32_t pat,
+                                                  int slot) {
+    return tab + ((seg_luma && ((pat >> slot) & 1u)) ? 2 : 3) * kTableWords;
 }
 
 struct RowReader {

@@ -21,7 +21,9 @@
 // good tokens that are neither EOB nor ZRL and carry value bits write a
 // coefficient; a block still unfinished after the 66 steps is an error;
 // slots j >= nblocks[s] are all zero with err 0.  DC is differential (the
-// caller integrates it along the segment).
+// caller integrates it per component along the segment).  A block's
+// table class comes from its segment's flags and the slot pattern
+// (huffdec.cuh), as the JAX kernel's per-block class rows.
 //
 // Bound: bytes.  At 8K Q75 the kernel reads the 25.7 MB word matrix and
 // 7.0 MB of bstart and writes 199.1 MB of coefficients and 6.2 MB of
@@ -57,7 +59,8 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                      const int32_t* __restrict__ bstart, int bps,
                      const int32_t* __restrict__ nblocks,
                      const int32_t* __restrict__ dc_luma,
-                     const int32_t* __restrict__ ac_luma,
+                     const int32_t* __restrict__ ac_luma, int bpm,
+                     uint32_t dc_pat, uint32_t ac_pat,
                      const int32_t* __restrict__ tables,
                      int16_t* __restrict__ coefs,
                      int32_t* __restrict__ err_out) {
@@ -68,6 +71,7 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
     if (b >= L) return;
     const int64_t s = b / bps;
     const int j = (int)(b - s * bps);
+    const int slot = j % bpm;
     int16_t c[64];
 #pragma unroll
     for (int k = 0; k < 64; ++k) c[k] = 0;
@@ -80,7 +84,7 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
         // DC token
         uint32_t peek = rd.peek32(cursor);
         int clen, sym;
-        gj::decode_token(tab + (dc_luma[s] ? 0 : 1) * gj::kTableWords, peek,
+        gj::decode_token(gj::dc_table(tab, dc_luma[s], dc_pat, slot), peek,
                          clen, sym);
         int size = sym & 15;
         bool done;
@@ -92,7 +96,7 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
             cursor += clen + size;
             done = cursor >= bend;
         }
-        const int32_t* act = tab + (ac_luma[s] ? 2 : 3) * gj::kTableWords;
+        const int32_t* act = gj::ac_table(tab, ac_luma[s], ac_pat, slot);
         int pos = 1;
         for (int step = 0; step < kMaxAcSteps && !done; ++step) {
             peek = rd.peek32(cursor);
@@ -126,11 +130,13 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
 extern "C" int gj_huffdec_block(const void* words, int64_t nseg, int W,
                                 const void* bstart, int bps,
                                 const void* nblocks, const void* dc_luma,
-                                const void* ac_luma, const void* tables,
-                                void* coefs, void* err, void* stream) {
+                                const void* ac_luma, int bpm, int dc_pat,
+                                int ac_pat, const void* tables, void* coefs,
+                                void* err, void* stream) {
     // words: (nseg, W) host-order u32 rows; bstart: (nseg, bps+1) i32;
-    // nblocks, dc_luma, ac_luma: (nseg,) i32; tables: (4, 290) i32;
-    // coefs: (64, nseg*bps) i16; err: (nseg*bps,) i32
+    // nblocks, dc_luma, ac_luma: (nseg,) i32; bpm, dc_pat, ac_pat: the
+    // slot pattern (huffdec.cuh); tables: (4, 290) i32; coefs: (64,
+    // nseg*bps) i16; err: (nseg*bps,) i32
     const int64_t L = nseg * bps;
     if (L > 0) {
         const int64_t grid = (L + kThreads - 1) / kThreads;
@@ -138,7 +144,8 @@ extern "C" int gj_huffdec_block(const void* words, int64_t nseg, int W,
                                (cudaStream_t)stream>>>(
             (const uint32_t*)words, nseg, W, (const int32_t*)bstart, bps,
             (const int32_t*)nblocks, (const int32_t*)dc_luma,
-            (const int32_t*)ac_luma, (const int32_t*)tables,
+            (const int32_t*)ac_luma, bpm, (uint32_t)dc_pat,
+            (uint32_t)ac_pat, (const int32_t*)tables,
             (int16_t*)coefs, (int32_t*)err);
     }
     return (int)cudaGetLastError();

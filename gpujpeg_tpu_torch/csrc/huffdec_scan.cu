@@ -8,7 +8,9 @@
 // a select chain over the row's words; here one thread walks one segment
 // row, as the reference decoder does (gpujpeg_huffman_gpu_decoder.cu:
 // 390-536), reading its row through the L1 cache and decoding each token
-// from the class's canonical table in shared memory (huffdec.cuh).  The
+// from the class's canonical table in shared memory (huffdec.cuh); a
+// block's class comes from its segment's flags and, in an interleaved
+// scan, from the slot pattern of its MCU (huffdec.cuh).  The
 // byteswap of the big-endian stream happens on load, in place of the JAX
 // package's separate pass over the matrix.
 //
@@ -46,7 +48,8 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                     const int32_t* __restrict__ nbits_a,
                     const int32_t* __restrict__ nblocks_a,
                     const int32_t* __restrict__ dc_luma,
-                    const int32_t* __restrict__ ac_luma,
+                    const int32_t* __restrict__ ac_luma, int bpm,
+                    uint32_t dc_pat, uint32_t ac_pat,
                     const int32_t* __restrict__ tables, int bps,
                     int32_t* __restrict__ bstart, bool* __restrict__ err) {
     __shared__ int32_t tab[gj::kTablesWords];
@@ -56,17 +59,18 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
     const gj::RowReader rd{words + s * (int64_t)W, W};
     const int nbits = nbits_a[s];
     const int nb = nblocks_a[s];
-    const int32_t* dct = tab + (dc_luma[s] ? 0 : 1) * gj::kTableWords;
-    const int32_t* act = tab + (ac_luma[s] ? 2 : 3) * gj::kTableWords;
+    const int sdc = dc_luma[s], sac = ac_luma[s];
     int32_t* out = bstart + s * (int64_t)(bps + 1);
     out[0] = 0;
-    int cursor = 0, blk = 0, pos = 0;
+    int cursor = 0, blk = 0, pos = 0, slot = 0;   // slot = blk % bpm
     bool bad = false;
     while (blk < nb) {
         const uint32_t peek = rd.peek32(cursor);
         const bool is_dc = pos == 0;
         int clen, sym;
-        gj::decode_token(is_dc ? dct : act, peek, clen, sym);
+        gj::decode_token(is_dc ? gj::dc_table(tab, sdc, dc_pat, slot)
+                               : gj::ac_table(tab, sac, ac_pat, slot),
+                         peek, clen, sym);
         const int run = sym >> 4;
         const int after = cursor + clen + (sym & 15);
         const bool is_eob = !is_dc && sym == 0;
@@ -82,6 +86,7 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
         cursor = after;
         if (new_pos >= 64) {
             ++blk;
+            if (++slot == bpm) slot = 0;
             if (blk <= bps) out[blk] = after;
             pos = 0;
         } else {
@@ -97,18 +102,21 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
 extern "C" int gj_huffdec_scan(const void* words, int64_t nseg, int W,
                                const void* nbits, const void* nblocks,
                                const void* dc_luma, const void* ac_luma,
+                               int bpm, int dc_pat, int ac_pat,
                                const void* tables, int bps, void* bstart,
                                void* err, void* stream) {
     // words: (nseg, W) host-order u32 rows; nbits, nblocks, dc_luma,
-    // ac_luma: (nseg,) i32 with nblocks <= bps; tables: (4, 290) i32;
-    // bstart: (nseg, bps+1) i32; err: (nseg,) bool
+    // ac_luma: (nseg,) i32 with nblocks <= bps; bpm, dc_pat, ac_pat: the
+    // slot pattern (huffdec.cuh); tables: (4, 290) i32; bstart: (nseg,
+    // bps+1) i32; err: (nseg,) bool
     if (nseg > 0) {
         const int64_t grid = (nseg + kThreads - 1) / kThreads;
         huffdec_scan_kernel<<<(unsigned)grid, kThreads, 0,
                               (cudaStream_t)stream>>>(
             (const uint32_t*)words, nseg, W, (const int32_t*)nbits,
             (const int32_t*)nblocks, (const int32_t*)dc_luma,
-            (const int32_t*)ac_luma, (const int32_t*)tables, bps,
+            (const int32_t*)ac_luma, bpm, (uint32_t)dc_pat,
+            (uint32_t)ac_pat, (const int32_t*)tables, bps,
             (int32_t*)bstart, (bool*)err);
     }
     return (int)cudaGetLastError();

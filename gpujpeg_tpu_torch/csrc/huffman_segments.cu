@@ -11,7 +11,8 @@
 // one segment row (rst * 64 coefficients) in order, looks each symbol up
 // in the class's DC (12) and AC (256) tables of (len << 16 | code) entries
 // held in shared memory, keeps a 64-bit bit buffer, and writes finished
-// bytes straight into its row, four at a time as 32-bit words.
+// bytes straight into its row, four at a time as 32-bit words
+// (row_writer.cuh, shared with pack_stuff_rows.cu).
 //
 // Rows have a worst-case stride (the tables' longest codes plus value
 // bits, doubled for stuffing, plus 2 for the marker; ops/fusedpack.py
@@ -31,50 +32,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_writer.cuh"
+
 namespace {
 
 constexpr int kLutWords = 272;   // DC entries at [0, 16), AC at [16, 272)
 constexpr int kThreads = 128;
-
-struct RowWriter {
-    uint32_t* row;
-    uint64_t acc = 0;   // low `nbits` bits are pending
-    int nbits = 0;
-    uint32_t word = 0;  // bytes of the current 32-bit word, little-endian
-    int nout = 0;       // bytes written to the row
-    int nff = 0;        // stuffed zero bytes
-
-    __device__ explicit RowWriter(uint32_t* r) : row(r) {}
-
-    __device__ __forceinline__ void put_byte(uint32_t b) {
-        word |= b << (8 * (nout & 3));
-        ++nout;
-        if ((nout & 3) == 0) {
-            row[(nout >> 2) - 1] = word;
-            word = 0;
-        }
-    }
-
-    __device__ __forceinline__ void emit(uint32_t bits, int len) {
-        acc = (acc << len) | bits;
-        nbits += len;
-        while (nbits >= 8) {
-            nbits -= 8;
-            const uint32_t b = (uint32_t)(acc >> nbits) & 0xFFu;
-            put_byte(b);
-            if (b == 0xFFu) {
-                put_byte(0);
-                ++nff;
-            }
-        }
-    }
-
-    // code entry (len << 16 | code) followed by `size` value bits
-    __device__ __forceinline__ void emit_entry(uint32_t e, int size,
-                                               uint32_t vb) {
-        emit(((e & 0xFFFFu) << size) | vb, (int)(e >> 16) + size);
-    }
-};
 
 __device__ __forceinline__ void size_and_bits(int v, int& size,
                                               uint32_t& vb) {
@@ -99,7 +62,8 @@ huffman_segments_kernel(const int16_t* __restrict__ coefs, int64_t nseg,
     const int64_t left = nblocks - s * rst;
     const int nb = left < rst ? (int)left : rst;
     const int16_t* seg = coefs + s * (int64_t)rst * 64;
-    RowWriter w(reinterpret_cast<uint32_t*>(rows + s * (int64_t)stride));
+    gj::RowWriter w(
+        reinterpret_cast<uint32_t*>(rows + s * (int64_t)stride));
     const uint32_t* ac = lut + 16;
     int prev_dc = 0;
     for (int b = 0; b < nb; ++b) {
@@ -136,16 +100,10 @@ huffman_segments_kernel(const int16_t* __restrict__ coefs, int64_t nseg,
         }
         if (run > 0) w.emit_entry(ac[0x00], 0, 0);   // EOB: slot 63 is 0
     }
-    if (w.nbits > 0) {                       // F.1.2.3: pad with 1-bits
-        const int pad = 8 - w.nbits;
-        w.emit((1u << pad) - 1u, pad);
-    }
-    if (s < nseg - 1) {                      // RST(s % 8), not stuffed;
-                                             // none after the scan's last
-        w.put_byte(0xFFu);
-        w.put_byte(0xD0u + (uint32_t)(s & 7));
-    }
-    if (w.nout & 3) w.row[w.nout >> 2] = w.word;
+    w.pad();                                 // F.1.2.3: 1-bits
+    // RST(s % 8), not stuffed; none after the scan's last
+    w.marker(s < nseg - 1 ? 0xD0u + (uint32_t)(s & 7) : 0u);
+    w.flush();
     row_bytes[s] = w.nout;
     atomicMax(&needs[0], w.nff);
     atomicMax(&needs[1], w.nout);

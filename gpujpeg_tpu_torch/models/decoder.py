@@ -7,22 +7,30 @@ The decode of one codestream:
     device:
       phase A, block boundaries of each segment   huffdec_kernel.scan_segments
       phase C, coefficients of each block         huffdec_kernel.decode_blocks
-      differential DC -> absolute (torch cumsum)  _dc_fixup_t
+      differential DC -> absolute, per component  _dc_fixup_t (torch cumsum)
+    then, for non-interleaved 4:4:4 scans:
       dequantization + IDCT + colour + store      prepost_kernel.decode_post
+    or, for an interleaved scan:
+      dequantization + IDCT, one plane each       prepost_kernel.idct_planes
+      upsampling + colour + store                 prepost_kernel.
+                                                  postprocess_packed
 
 On CUDA every stage but the DC integration is a hand-written kernel; with
 device="cpu" every stage runs its plain PyTorch version.  The pixels are
 the same either way and equal the JAX package's.  Phase C decodes each
 block straight out of its segment's row (the segment-row contract), so
 the JAX package's phase B (the split into per-block buffers) and its
-capacity protocol do not exist here.
+capacity protocol do not exist here.  In an interleaved scan a segment row
+holds whole MCUs; the two Huffman phases take each block's table class
+from the slot pattern of the MCU (Plan.pattern).
 
-This slice decodes what the port's encoder writes in the reference
-GPUJPEG's headline configuration: baseline, 3 components at 4:4:4 in
-non-interleaved scans, a restart interval > 0, the tuned Huffman family
-(AC tables of a trained bucket, DC tables with identity values), output
-P444_U8_P012.  Everything else raises NotImplementedError naming the
-ROADMAP item (queue 1) that ports it.
+This slice decodes baseline streams of 3 components with a restart
+interval > 0 and the tuned Huffman family (AC tables of a trained bucket,
+DC tables with identity values) to P444_U8_P012: non-interleaved scans at
+4:4:4 (what the port's encoder writes in the reference GPUJPEG's headline
+configuration), and one interleaved scan with chroma at 1x1 and luma at
+1x1, 2x1, 1x2 or 2x2.  Everything else raises NotImplementedError naming
+the ROADMAP item (queue 1) that ports it.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import dataclasses
 import functools
 import logging
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,19 +179,27 @@ def check_supported(ps: reader.ParsedStream, geo: Geometry,
     """Raise NotImplementedError for a stream or an output outside this
     slice, naming every ROADMAP item (queue 1) it needs."""
     missing = []
-    if (ps.comp_count != 3
-            or any(tuple(s) != (1, 1) for s in ps.sampling[:3])):
+    samp = [tuple(s) for s in ps.sampling]
+    if ps.comp_count != 3:
+        missing.append(f"{ps.comp_count} components (only 3 are ported; "
+                       "item 6)")
+    elif geo.interleaved:
+        if samp[1:] != [(1, 1)] * 2 or samp[0] not in (
+                (1, 1), (2, 1), (1, 2), (2, 2)):
+            missing.append(
+                f"an interleaved scan with sampling {samp} (only chroma "
+                "at 1x1 and luma at 1x1, 2x1, 1x2 or 2x2 are ported; "
+                "item 6)")
+    elif samp != [(1, 1)] * 3:
         missing.append(
-            f"{ps.comp_count} components with sampling {list(ps.sampling)}"
-            " (only 3 at 4:4:4 are ported; item 6)")
+            f"non-interleaved scans with sampling {samp} (only 4:4:4 is "
+            "ported; item 6)")
     if (out_pi.pixel_format != PixelFormat.P444_U8_P012
             or out_pi.width_padding):
         missing.append(
             f"output {out_pi.pixel_format.name}"
             f"{' with width_padding' if out_pi.width_padding else ''} "
             "(only P444_U8_P012 is ported; item 6)")
-    if ps.interleaved or geo.interleaved:
-        missing.append("interleaved scans (item 8)")
     if ps.restart_interval == 0:
         missing.append("restart_interval == 0 (item 9)")
     comp_dc, comp_ac = _comp_tables(ps, geo.comp_count)
@@ -221,12 +237,19 @@ class Plan:
     frame to frame."""
 
     geo: Geometry
-    bps: int                  # block slots a segment row (restart interval)
+    bps: int                  # block slots a segment row
     nblocks: torch.Tensor     # (nseg,) int32 real blocks a segment
     dc_luma: torch.Tensor     # (nseg,) int32 1 = DC table set 0
     ac_luma: torch.Tensor     # (nseg,) int32 1 = AC table set 0
     tables: torch.Tensor      # (4, DECODE_TABLE_WORDS) int32
     qtabs: torch.Tensor       # (3, 64) float32 zig-zag quant tables
+    # slot pattern (bpm, dc mask, ac mask): block slot j of a segment takes
+    # table set 0 when its segment's flag and bit j % bpm are set
+    pattern: Tuple[int, int, int] = huffdec_kernel.NO_PATTERN
+    # each component's block slots in a segment row (int64 indices), for
+    # the DC integration of an interleaved row; None when a row is one
+    # component
+    comp_slots: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
@@ -241,12 +264,6 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
         pick(ps.huff_dc, dc_ids, 0), pick(ps.huff_dc, dc_ids, 1),
         pick(ps.huff_ac, ac_ids, 0), pick(ps.huff_ac, ac_ids, 1))
     bps = geo.max_blocks_per_seg
-    nb, dcl, acl = [], [], []
-    for c in geo.components:
-        S, rst = c.segment_count, c.segment_mcu_count
-        nb.append(np.clip(c.mcu_count - rst * np.arange(S), 0, rst))
-        dcl.append(np.full(S, comp_dc[c.index] == dc_ids[0]))
-        acl.append(np.full(S, comp_ac[c.index] == ac_ids[0]))
     qtabs = np.stack([ps.quant_tables[ps.quant_map[c.index]]
                       for c in geo.components]).astype(np.float32)
 
@@ -255,6 +272,34 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
             np.concatenate(a) if isinstance(a, list) else a, dtype)).to(
             device)
 
+    if geo.interleaved:
+        # one interleaved scan (gpujpeg_tpu.models.decoder._plan_for): a
+        # segment row holds whole MCUs, the component of block slot j is
+        # ent[j % bpm], and the classes follow it
+        S, rst, bpm = (geo.segment_count, geo.segment_mcu_count,
+                       geo.blocks_per_mcu)
+        ent = [c.index for c in geo.components
+               for _ in range(c.samp_v * c.samp_h)]
+        dc_pat = sum(1 << j for j, e in enumerate(ent)
+                     if comp_dc[e] == dc_ids[0])
+        ac_pat = sum(1 << j for j, e in enumerate(ent)
+                     if comp_ac[e] == ac_ids[0])
+        slot_comp = np.tile(np.asarray(ent), bps // bpm)
+        comp_slots = tuple(dev(np.flatnonzero(slot_comp == c.index),
+                               np.int64) for c in geo.components)
+        return Plan(geo=geo, bps=bps,
+                    nblocks=dev(np.clip(geo.mcu_count - rst * np.arange(S),
+                                        0, rst) * bpm),
+                    dc_luma=dev(np.ones(S)), ac_luma=dev(np.ones(S)),
+                    tables=dev(tab), qtabs=dev(qtabs, np.float32),
+                    pattern=(bpm, dc_pat, ac_pat),
+                    comp_slots=comp_slots)
+    nb, dcl, acl = [], [], []
+    for c in geo.components:
+        S, rst = c.segment_count, c.segment_mcu_count
+        nb.append(np.clip(c.mcu_count - rst * np.arange(S), 0, rst))
+        dcl.append(np.full(S, comp_dc[c.index] == dc_ids[0]))
+        acl.append(np.full(S, comp_ac[c.index] == ac_ids[0]))
     return Plan(geo=geo, bps=bps, nblocks=dev(nb), dc_luma=dev(dcl),
                 ac_luma=dev(acl), tables=dev(tab),
                 qtabs=dev(qtabs, np.float32))
@@ -271,14 +316,20 @@ class HostFrame:
     nbits: np.ndarray         # (nseg,) int32 bits of each segment
 
 
-def _dc_fixup_t(coefs_t: torch.Tensor, nseg: int, bps: int) -> torch.Tensor:
+def _dc_fixup_t(coefs_t: torch.Tensor, nseg: int, bps: int,
+                comp_slots: Optional[Tuple[torch.Tensor, ...]] = None
+                ) -> torch.Tensor:
     """Integrate differential DC along each segment row of the (64, L)
-    layout, in place (every slot of a row belongs to one component in a
-    non-interleaved scan; the predictor resets at each restart marker,
-    T.81 F.1.1.5.1)."""
-    dc = coefs_t[0].reshape(nseg, bps)
-    coefs_t[0] = torch.cumsum(dc, dim=1, dtype=torch.int32).reshape(-1).to(
-        torch.int16)
+    layout, in place; the predictor resets at each restart marker (T.81
+    F.1.1.5.1).  Every slot of a row belongs to one component in a
+    non-interleaved scan; in an interleaved one each component integrates
+    over its own slots (comp_slots, as gpujpeg_tpu.models.decoder.
+    _dc_fixup_t does with its comp_pattern).  The sums run down the
+    transposed (slots, nseg) rows, a scan over a short outer dimension."""
+    dc_t = coefs_t[0].view(nseg, bps).T
+    for idx in comp_slots or (slice(None),):
+        dc_t[idx] = torch.cumsum(dc_t[idx], dim=0,
+                                 dtype=torch.int32).to(torch.int16)
     return coefs_t
 
 
@@ -381,10 +432,28 @@ class Decoder:
         words = torch.from_numpy(hf.words).to(self.device)
         nbits = torch.from_numpy(hf.nbits).to(self.device)
         bstart, err_a = huffdec_kernel.scan_segments(
-            words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps)
+            words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps,
+            p.pattern)
         coefs_t, err_c = huffdec_kernel.decode_blocks(
-            words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-        return _dc_fixup_t(coefs_t, words.shape[0], p.bps), err_a, err_c
+            words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
+            p.pattern)
+        return (_dc_fixup_t(coefs_t, words.shape[0], p.bps, p.comp_slots),
+                err_a, err_c)
+
+    @staticmethod
+    def back_half(coefs_t: torch.Tensor, plan: Plan,
+                  out_pi: ImageParameters) -> torch.Tensor:
+        """DC-integrated coefficients -> (H, W, 3) uint8 pixels: the fused
+        dpost kernel where it applies (non-interleaved 4:4:4), else one
+        IDCT plane a component and the postprocessor."""
+        geo = plan.geo
+        if prepost_kernel.decode_post_supported(geo, out_pi):
+            return prepost_kernel.decode_post(coefs_t, plan.qtabs, geo,
+                                              out_pi)
+        planes = [prepost_kernel.idct_planes(coefs_t, plan.qtabs[c.index],
+                                             geo, c)
+                  for c in geo.components]
+        return prepost_kernel.postprocess_packed(planes, geo, out_pi)
 
     def decode_to_device(self, data: bytes,
                          param_image: Optional[ImageParameters] = None
@@ -394,8 +463,7 @@ class Decoder:
         warning; the rest of the frame is unaffected."""
         hf = self.prepare(data, param_image)
         coefs_t, err_a, err_c = self.coefficients_t(hf)
-        out = prepost_kernel.decode_post(coefs_t, hf.plan.qtabs,
-                                         hf.plan.geo, hf.out_pi)
+        out = self.back_half(coefs_t, hf.plan, hf.out_pi)
         if bool(err_a.any()) or bool(err_c.any()):
             log.warning("corrupt segment(s) during Huffman decode")
         return out
@@ -411,11 +479,8 @@ class Decoder:
         coefficient order (gpujpeg_tpu Decoder.decode_coefficients)."""
         hf = self.prepare(data)
         coefs_t, _ea, _ec = self.coefficients_t(hf)
-        coefs = coefs_t.T.cpu().numpy()
+        coefs = coefs_t.T.cpu()
         geo = hf.plan.geo
-        out = []
-        for c, (first, n) in zip(geo.components,
-                                 prepost_kernel.component_columns(geo)):
-            out.append(coefs[first:first + n].reshape(
-                c.data_height // 8, c.data_width // 8, 64))
-        return out
+        return [coefs[prepost_kernel.block_columns(geo, c)].numpy().reshape(
+                    c.data_height // 8, c.data_width // 8, 64)
+                for c in geo.components]

@@ -11,7 +11,8 @@ stream pass as ``c_void_p``, every C function returns
 is not 0.  Nothing here runs when the module is imported, and nothing runs
 on the CPU: the wrappers in prepost_kernel.py, fusedpack.py and
 huffdec_kernel.py take their plain versions for CPU tensors and call
-``launch`` for CUDA tensors.
+``launch`` for CUDA tensors.  ``csrc/*.cuh`` are headers shared between
+kernels (colour transform, IDCT chain, bit writer, Huffman tables).
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.
@@ -39,22 +40,34 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 #: kernel name -> argtypes of its C entry point gj_<name>
 _SIGNATURES: Dict[str, List] = {
-    # raw, H, W, data_h, data_w, params (host int32[26]), out, stream
-    "pre_rgb_to_planes": [_P, _I, _I, _I, _I, _P, _P, _P],
+    # raw, H, W, dx, dy, data_h, data_w, params (host int32[26]), out0,
+    # out1, out2 (null = not requested), stream
+    "pre_rgb_to_planes": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # plane, data_h, data_w, nblocks_out, mq, bias, out, stream
     "fdct_quant": [_P, _I, _I, _I64, _P, _P, _P, _P],
     # coefs, nseg, rst, nblocks, luts, stride, rows, row_bytes, needs,
     # stream
     "huffman_segments": [_P, _I64, _I, _I64, _P, _I, _P, _P, _P, _P],
-    # words, nseg, W, nbits, nblocks, dc_luma, ac_luma, tables, bps,
-    # bstart, err, stream
-    "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
-    # words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, tables,
-    # coefs, err, stream
-    "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    # bits, lens, R, T, markers, stride, rows, row_bytes, needs, stream
+    "pack_stuff_rows": [_P, _P, _I64, _I, _P, _I, _P, _P, _P, _P],
+    # words, nseg, W, nbits, nblocks, dc_luma, ac_luma, bpm, dc_pat,
+    # ac_pat, tables, bps, bstart, err, stream
+    "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+                     _P, _P],
+    # words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, bpm, dc_pat,
+    # ac_pat, tables, coefs, err, stream
+    "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                      _P, _P],
     # coefs, L, offsets (host int64[3]), nblocks, blocks per row, H, W,
     # qtabs, idct matrix, params (host int32[26]), out, stream
     "dpost_rgb": [_P, _I64, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P],
+    # coefs, L, bpm, off, sh, sv, mcux, data_h, data_w, qtab, idct matrix,
+    # out, stream
+    "idct_planes": [_P, _I64, _I, _I64, _I, _I, _I, _I, _I, _P, _P, _P,
+                    _P],
+    # y, cb, cr, geo (host int32[9]), H, W, params (host int32[26]), out,
+    # stream
+    "post_rgb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

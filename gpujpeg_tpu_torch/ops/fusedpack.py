@@ -8,9 +8,17 @@ The port splits it into two hand-written CUDA kernels:
   fdct_quant        csrc/fdct_quant.cu        plane -> (S, rst*64) int16
   huffman_segments  csrc/huffman_segments.cu  coefficients -> byte rows
 
-``entropy_fused_u8`` runs one after the other.  For CPU tensors each wrapper
-runs its plain version (ops/dct.py; ops/tokens.py plus ``pack_rows``
-below); for CUDA tensors it launches its kernel or raises.
+``entropy_fused_u8`` runs one after the other.  Where the megakernel does
+not apply (interleaved subsampled scans), the JAX package tokenizes in XLA
+and packs the token rows with its Pallas deep-stuff kernel
+(_deep_stuff_kernel_body through pack_stuff_fused); the port's counterpart
+is
+
+  pack_stuff_rows   csrc/pack_stuff_rows.cu   token rows -> byte rows
+
+For CPU tensors each wrapper runs its plain version (ops/dct.py;
+ops/tokens.py plus ``pack_rows`` below); for CUDA tensors it launches its
+kernel or raises.
 
 Rows are bytes in stream order, one restart segment per row, with the
 F.1.2.3 1-padding, 0xFF -> 0xFF00 stuffing and the RST marker of every
@@ -23,7 +31,7 @@ stuffed-zero count and the largest row length.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,11 +76,17 @@ def class_tables(quality: int, luma: bool, device) -> ClassTables:
         max_block_bits=max_dc + 63 * max_ac)
 
 
-def row_stride(rst: int, tabs: ClassTables) -> int:
-    """Worst-case bytes of one segment row: rst blocks at their longest,
-    doubled for stuffing, plus the 2-byte marker, rounded up to 16."""
-    raw = -(-rst * tabs.max_block_bits // 8)
+def pack_stride(slots: Sequence[ClassTables]) -> int:
+    """Worst-case bytes of one segment row whose block slots take these
+    classes: every block at its class's longest coding, doubled for
+    stuffing, plus the 2-byte marker, rounded up to 16."""
+    raw = -(-sum(t.max_block_bits for t in slots) // 8)
     return -(-(2 * raw + 2) // 16) * 16
+
+
+def row_stride(rst: int, tabs: ClassTables) -> int:
+    """Worst-case bytes of a segment row of rst blocks of one class."""
+    return pack_stride([tabs] * rst)
 
 
 def segment_count(plane: torch.Tensor, rst: int) -> Tuple[int, int]:
@@ -117,14 +131,16 @@ def pack_rows(bits: torch.Tensor, lens: torch.Tensor,
 
     bits/lens: (R, T) right-aligned tokens and their lengths (0 = none);
     markers: (R,) second byte of the RST marker after each row (0 = none).
-    Concatenates every row's tokens MSB first, pads the last byte with
-    1-bits (F.1.2.3), stuffs a 0x00 after every 0xFF, then appends
-    0xFF, marker.  Returns (rows (R, stride) uint8 zero-filled past the
-    data, row_bytes (R,) int32, nff (R,) stuffed-zero counts).
+    Concatenates every row's tokens MSB first (bits above a token's
+    length are ignored), pads the last byte with 1-bits (F.1.2.3), stuffs
+    a 0x00 after every 0xFF, then appends 0xFF, marker.  Returns (rows
+    (R, stride) uint8 zero-filled past the data, row_bytes (R,) int32,
+    nff (R,) stuffed-zero counts).
     """
     dev = bits.device
     R, T = lens.shape
     L = lens.to(torch.int64)
+    bits = bits.to(torch.int64) & ((1 << L) - 1)
     off = torch.cumsum(L, dim=1) - L                  # bit offset of token
     tb = off[:, -1] + L[:, -1]                        # bits per row
     nb = (tb + 7) >> 3                                # bytes before stuffing
@@ -133,7 +149,7 @@ def pack_rows(bits: torch.Tensor, lens: torch.Tensor,
     # place it in a 40-bit window and add the bytes, which is an OR since
     # tokens never share a bit
     sh = off & 7
-    val = torch.where(L > 0, bits.to(torch.int64) << (40 - sh - L), 0)
+    val = torch.where(L > 0, bits << (40 - sh - L), 0)
     rowbase = (torch.arange(R, device=dev, dtype=torch.int64) * cap)[:, None]
     first = rowbase + (off >> 3)
     buf = torch.zeros(R * cap, dtype=torch.int64, device=dev)
@@ -163,10 +179,10 @@ def pack_rows(bits: torch.Tensor, lens: torch.Tensor,
 
 def segment_markers(nseg: int, device) -> torch.Tensor:
     """Second RST byte after each segment row of one scan: 0xD0 + s % 8,
-    none after the scan's last (gpujpeg_encoder.c:566-624).  A scan of
-    one segment (restart interval 0) gets none."""
-    s = torch.arange(nseg, device=device)
-    return torch.where(s < nseg - 1, 0xD0 + (s & 7), 0)
+    none after the scan's last (gpujpeg_encoder.c:566-624), as (nseg,)
+    int32.  A scan of one segment (restart interval 0) gets none."""
+    s = torch.arange(nseg, device=device, dtype=torch.int32)
+    return torch.where(s < nseg - 1, 0xD0 + (s & 7), 0).to(torch.int32)
 
 
 def huffman_segments_plain(coefs: torch.Tensor, nblocks: int,
@@ -230,3 +246,50 @@ def entropy_fused_u8(plane: torch.Tensor, tabs: ClassTables, rst: int):
     non-interleaved scan)."""
     nblocks, _ = segment_count(plane, rst)
     return huffman_segments(fdct_quant(plane, tabs, rst), nblocks, tabs)
+
+
+def pack_stuff_rows_plain(bits: torch.Tensor, lens: torch.Tensor,
+                          markers: torch.Tensor, stride: int):
+    """Plain version of pack_stuff_rows, on any device: pack_rows,
+    PLAIN_CHUNK_ROWS rows at a time."""
+    dev = bits.device
+    R = bits.shape[0]
+    rows = torch.zeros((R, stride), dtype=torch.uint8, device=dev)
+    row_bytes = torch.zeros(R, dtype=torch.int32, device=dev)
+    needs = torch.zeros(2, dtype=torch.int32, device=dev)
+    for a in range(0, R, PLAIN_CHUNK_ROWS):
+        sl = slice(a, min(R, a + PLAIN_CHUNK_ROWS))
+        rows[sl], row_bytes[sl], nff = pack_rows(bits[sl], lens[sl],
+                                                 markers[sl], stride)
+        needs = torch.maximum(needs, torch.stack([nff.max(),
+                                                  row_bytes[sl].max()]))
+    return rows, row_bytes, needs
+
+
+def pack_stuff_rows(bits: torch.Tensor, lens: torch.Tensor,
+                    markers: torch.Tensor, stride: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Token rows -> stuffed byte rows (the JAX package's pack_stuff_fused
+    without its capacities): bits/lens (R, T) int32 right-aligned tokens of
+    at most 27 bits and their lengths (0 = no token), markers (R,) int32
+    second RST byte after each row (0 = none), stride a worst case for the
+    rows (pack_stride) -> (rows (R, stride) uint8, row_bytes (R,) int32,
+    needs (2,) int32 = [max stuffed zeros, max row bytes])."""
+    R, T = bits.shape
+    if tuple(lens.shape) != (R, T) or tuple(markers.shape) != (R,):
+        raise ValueError("pack_stuff_rows: bits and lens must be (R, T), "
+                         "markers (R,)")
+    if bits.device.type == "cpu":
+        return pack_stuff_rows_plain(bits, lens, markers, stride)
+    rows = torch.empty((R, stride), dtype=torch.uint8, device=bits.device)
+    row_bytes = torch.empty(R, dtype=torch.int32, device=bits.device)
+    needs = torch.zeros(2, dtype=torch.int32, device=bits.device)
+    _kernels.require_cuda("pack_stuff_rows", bits, lens, markers, rows,
+                          row_bytes, needs)
+    if (bits.dtype != torch.int32 or lens.dtype != torch.int32
+            or markers.dtype != torch.int32 or T % 4 or stride % 4):
+        raise ValueError("pack_stuff_rows takes int32 tensors, T and the "
+                         "stride multiples of 4")
+    _kernels.launch("pack_stuff_rows", bits, lens, R, T, markers, stride,
+                    rows, row_bytes, needs)
+    return rows, row_bytes, needs

@@ -18,8 +18,13 @@ not exist here; the coefficients are the same.
 
 Both kernels take canonical tables (tables.kernel_decode_table), four of
 them stacked as (4, DECODE_TABLE_WORDS) int32 in the order DC luma, DC
-chroma, AC luma, AC chroma; a segment picks its DC and AC table by its
-dc_luma / ac_luma flags.  For the tuned AC family with identity DC
+chroma, AC luma, AC chroma.  A block's DC and AC table is set 0 ("luma")
+when its segment's dc_luma / ac_luma flag is set and so is bit j % bpm of
+the slot pattern (bpm, dc mask, ac mask) for its slot j in the segment.
+A non-interleaved scan passes the pattern (1, 1, 1), so the segment's
+flag decides; an interleaved scan passes flags 1 and the classes of one
+MCU's blocks, as the JAX kernels' luma_patterns (scan) and per-block
+class rows (segment-row block kernel).  For the tuned AC family with identity DC
 values, which is what the decoder gates on, the canonical decode gives
 the same (code length, symbol) as the JAX package's arithmetic decode
 (affine_ac_decode / dc_identity_decode) on every 16-bit peek, invalid
@@ -52,6 +57,10 @@ from . import _kernels
 MAX_AC_STEPS = 66
 
 _MONO, _VALOFF, _HUFFVAL = 0, 17, 34
+
+#: the slot pattern (bpm, dc mask, ac mask) of a non-interleaved scan: the
+#: segment's flags alone decide a block's classes
+NO_PATTERN = (1, 1, 1)
 
 
 def decode_tables(dc_l, dc_c, ac_l, ac_c) -> np.ndarray:
@@ -108,8 +117,16 @@ def _value_bits(peek, clen, size):
     return torch.where((size > 0) & (vu < half), vu - (one << size) + 1, vu)
 
 
+def _slot_class(seg_luma, pattern_mask: int, slot, luma_table: int):
+    """Table index of each lane's block: luma_table when its segment flag
+    and its slot's pattern bit are set, else luma_table + 1."""
+    bit = (pattern_mask >> slot) & 1
+    return torch.where((seg_luma != 0) & (bit != 0), luma_table,
+                       luma_table + 1).to(torch.int64)
+
+
 def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
-                        bps: int):
+                        bps: int, pattern=NO_PATTERN):
     """Plain version of scan_segments, on any device: one lane per
     segment, one token per lane and step until every lane has finished
     its blocks or failed."""
@@ -118,8 +135,7 @@ def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
     tab = tab.to(torch.int64)
     nbits = nbits.to(torch.int64)
     nblk = nblocks.to(torch.int64)
-    dct = torch.where(dc_luma != 0, 0, 1).to(torch.int64)
-    act = torch.where(ac_luma != 0, 2, 3).to(torch.int64)
+    bpm, dc_pat, ac_pat = pattern
     seg = torch.arange(nseg, device=dev)
     cursor = torch.zeros(nseg, dtype=torch.int64, device=dev)
     blk = torch.zeros_like(cursor)
@@ -131,8 +147,11 @@ def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
         c, p = cursor[live], pos[live]
         peek16 = _peek32(words, live, c) >> 16
         is_dc = p == 0
-        clen, sym = _decode_token(tab, torch.where(is_dc, dct[live],
-                                                   act[live]), peek16)
+        slot = blk[live] % bpm
+        t = torch.where(is_dc,
+                        _slot_class(dc_luma[live], dc_pat, slot, 0),
+                        _slot_class(ac_luma[live], ac_pat, slot, 2))
+        clen, sym = _decode_token(tab, t, peek16)
         run, size = sym >> 4, sym & 15
         after = c + clen + size
         is_eob = ~is_dc & (sym == 0)
@@ -157,7 +176,8 @@ def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
     return bstart.to(torch.int32), err
 
 
-def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab):
+def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab,
+                        pattern=NO_PATTERN):
     """Plain version of decode_blocks, on any device: one lane per block
     slot, the DC token, then up to MAX_AC_STEPS AC tokens."""
     dev = words.device
@@ -171,12 +191,13 @@ def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab):
     cur = bst[:, :bps].reshape(-1)
     bend = bst[:, 1:].reshape(-1)
     valid = j < nblocks.to(torch.int64)[seg]
+    bpm, dc_pat, ac_pat = pattern
+    slot = j % bpm
     coefs = torch.zeros((64, L), dtype=torch.int64, device=dev)
     # DC token
     peek = _peek32(words, seg, cur)
     clen, sym = _decode_token(
-        tab, torch.where(dc_luma[seg] != 0, 0, 1).to(torch.int64),
-        peek >> 16)
+        tab, _slot_class(dc_luma[seg], dc_pat, slot, 0), peek >> 16)
     size = sym & 15
     after = cur + clen + size
     err = valid & ((clen == 0) | (after > bend) | (sym > 15))
@@ -186,7 +207,7 @@ def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab):
     cur = torch.where(ok, after, cur)
     done = ~valid | err | (cur >= bend)
     pos = torch.ones(L, dtype=torch.int64, device=dev)
-    act = torch.where(ac_luma[seg] != 0, 2, 3).to(torch.int64)
+    act = _slot_class(ac_luma[seg], ac_pat, slot, 2)
     live = torch.nonzero(~done)[:, 0]
     for _ in range(MAX_AC_STEPS):
         if not live.numel():
@@ -232,10 +253,19 @@ def _check(name: str, words, tab, *rows):
                              f"({words.shape[0]},) int32")
 
 
+def _check_pattern(pattern) -> None:
+    bpm, dc_pat, ac_pat = pattern
+    if not 1 <= bpm <= 32 or not (0 <= dc_pat < 1 << bpm
+                                  and 0 <= ac_pat < 1 << bpm):
+        raise ValueError(f"slot pattern {pattern}: 1 <= bpm <= 32 and "
+                         "masks of bpm bits")
+
+
 def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
                   nblocks: torch.Tensor, dc_luma: torch.Tensor,
-                  ac_luma: torch.Tensor, tab: torch.Tensor,
-                  bps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  ac_luma: torch.Tensor, tab: torch.Tensor, bps: int,
+                  pattern: Tuple[int, int, int] = NO_PATTERN
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase A: (words (nseg, W) int32 host-order rows; nbits, nblocks,
     dc_luma, ac_luma (nseg,) int32; tab (4, DECODE_TABLE_WORDS) int32) ->
     (bstart (nseg, bps+1) int32, err (nseg,) bool).
@@ -244,11 +274,13 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
     entries past the last decoded block hold nbits[s].  err[s] is set
     when a token of the segment is invalid, overruns the segment's bits
     or the block's 64 coefficients, or the segment ends short of
-    nblocks[s] blocks (huffdec_kernel._scan_kernel_body)."""
+    nblocks[s] blocks (huffdec_kernel._scan_kernel_body).  pattern is
+    the slot pattern (bpm, dc mask, ac mask) of the module docstring."""
     _check("scan_segments", words, tab, nbits, nblocks, dc_luma, ac_luma)
+    _check_pattern(pattern)
     if words.device.type == "cpu":
         return scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma,
-                                   tab, bps)
+                                   tab, bps, pattern)
     nseg, W = words.shape
     bstart = torch.empty((nseg, bps + 1), dtype=torch.int32,
                          device=words.device)
@@ -256,28 +288,30 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
     _kernels.require_cuda("huffdec_scan", words, nbits, nblocks, dc_luma,
                           ac_luma, tab, bstart, err)
     _kernels.launch("huffdec_scan", words, nseg, W, nbits, nblocks,
-                    dc_luma, ac_luma, tab, bps, bstart, err)
+                    dc_luma, ac_luma, *pattern, tab, bps, bstart, err)
     return bstart, err
 
 
 def decode_blocks(words: torch.Tensor, bstart: torch.Tensor,
                   nblocks: torch.Tensor, dc_luma: torch.Tensor,
-                  ac_luma: torch.Tensor,
-                  tab: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  ac_luma: torch.Tensor, tab: torch.Tensor,
+                  pattern: Tuple[int, int, int] = NO_PATTERN
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase C, segment-row contract: block slot b = s*bps + j decodes
     from bit bstart[s, j] to bstart[s, j+1] of segment row s ->
     (coefs_t (64, nseg*bps) int16 zig-zag with DIFFERENTIAL DC, err
     (nseg*bps,) int32).  Slots j >= nblocks[s] are all zero with err 0;
     every slot a block does not write is 0
-    (huffdec_kernel._block_kernel_body)."""
+    (huffdec_kernel._block_kernel_body).  pattern as scan_segments."""
     _check("decode_blocks", words, tab, nblocks, dc_luma, ac_luma)
+    _check_pattern(pattern)
     nseg = words.shape[0]
     if bstart.dtype != torch.int32 or bstart.dim() != 2 or \
             bstart.shape[0] != nseg:
         raise ValueError("decode_blocks: bstart must be (nseg, bps+1) int32")
     if words.device.type == "cpu":
         return decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma,
-                                   tab)
+                                   tab, pattern)
     bps = bstart.shape[1] - 1
     L = nseg * bps
     coefs = torch.empty((64, L), dtype=torch.int16, device=words.device)
@@ -285,5 +319,6 @@ def decode_blocks(words: torch.Tensor, bstart: torch.Tensor,
     _kernels.require_cuda("huffdec_block", words, bstart, nblocks, dc_luma,
                           ac_luma, tab, coefs, err)
     _kernels.launch("huffdec_block", words, nseg, words.shape[1], bstart,
-                    bps, nblocks, dc_luma, ac_luma, tab, coefs, err)
+                    bps, nblocks, dc_luma, ac_luma, *pattern, tab, coefs,
+                    err)
     return coefs, err

@@ -1,12 +1,12 @@
-"""The codec's pixel ends: the encode preprocessor and the fused decode
-back half.
+"""The codec's pixel ends: the encode preprocessor and the decode back
+halves.
 
-``preprocess_packed`` (interleaved RGB pixels -> component planes) wraps
-csrc/pre_rgb_to_planes.cu, the counterpart of the JAX package's Pallas
-preprocessor (gpujpeg_tpu.ops.prepost_kernel: _pre_kernel_body /
-preprocess_packed).  The JAX kernel emits planes of 4 samples packed per
-little-endian u32 word; the port emits the same bytes as uint8 planes,
-which are that memory read byte by byte.
+``preprocess_packed`` (interleaved RGB pixels -> component planes, chroma
+decimated) wraps csrc/pre_rgb_to_planes.cu, the counterpart of the JAX
+package's Pallas preprocessor (gpujpeg_tpu.ops.prepost_kernel:
+_pre_kernel_body / preprocess_packed).  The JAX kernel emits planes of 4
+samples packed per little-endian u32 word; the port emits the same bytes as
+uint8 planes, which are that memory read byte by byte.
 
 ``decode_post`` (coefficients -> RGB pixels: dequantization, inverse DCT,
 colour and the interleaved store in one pass) wraps csrc/dpost_rgb.cu, the
@@ -16,15 +16,26 @@ for 3 components at 4:4:4.  It stores 3 bytes a pixel where the TPU kernel
 stores RGBX words and slices them, and it takes any block count where
 the TPU kernel needs 128-lane-aligned planes.
 
+Interleaved scans (and any stream dpost does not take) decode in two
+steps: ``idct_planes`` (coefficients of one component -> its uint8 sample
+plane) wraps csrc/idct_planes.cu, whose JAX counterpart is XLA
+(gpujpeg_tpu.models.decoder._make_idct_post_fn_t_il); ``postprocess_packed``
+(planes -> RGB pixels: chroma upsampling, colour, the interleaved store)
+wraps csrc/post_rgb.cu, the counterpart of the JAX package's Pallas
+postprocessor (_post_kernel_body / postprocess_packed), with no RGBX words
+and no width alignment.
+
 For a CPU tensor each wrapper runs its plain version
 (``preprocess_packed_plain``, which is ops/sample.preprocess;
 ``decode_post_plain``, which is ops/dct.dequantize_idct then
-ops/sample.postprocess); for a CUDA tensor it launches its kernel or
-raises.
+ops/sample.postprocess; ``idct_planes_plain``; ``postprocess_packed_plain``,
+which is ops/sample.postprocess); for a CUDA tensor it launches its kernel
+or raises.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -38,11 +49,10 @@ from . import _kernels, color, dct, sample
 
 def pre_supported(geo: Geometry, pi: ImageParameters) -> bool:
     """True when the kernel covers this configuration: 8-bit interleaved
-    RGB-order input, 3 components at 4:4:4, no row padding."""
+    RGB-order input, 3 components at any sampling, no row padding."""
     return (pi.pixel_format == PixelFormat.P444_U8_P012
-            and geo.comp_count == 3 and not pi.width_padding
-            and all(c.samp_h == geo.max_h and c.samp_v == geo.max_v
-                    for c in geo.components))
+            and geo.comp_count == 3 and not pi.width_padding)
+
 
 
 def preprocess_packed_plain(raw: torch.Tensor, geo: Geometry,
@@ -55,26 +65,39 @@ def preprocess_packed(raw: torch.Tensor, geo: Geometry,
                       pi: ImageParameters) -> List[torch.Tensor]:
     """raw (H, W, 3) uint8 -> [(data_h, data_w) uint8 plane per component],
     colour-transformed from pi.color_space to
-    geo.param.color_space_internal and zero-padded."""
+    geo.param.color_space_internal, component c sampled at (y * dy, x *
+    dx) with (dx, dy) its decimation, and zero-padded."""
     if not pre_supported(geo, pi):
         raise NotImplementedError(
-            "the preprocessor kernel takes 3-component 4:4:4 "
-            "P444_U8_P012 input (other formats: ROADMAP queue 1 item 6)")
+            "the preprocessor kernel takes 3-component P444_U8_P012 input "
+            "(other formats: ROADMAP queue 1 item 6)")
     H, W = pi.height, pi.width
     if tuple(raw.shape) != (H, W, 3) or raw.dtype != torch.uint8:
         raise ValueError(f"expected a ({H}, {W}, 3) uint8 tensor, got "
                          f"{tuple(raw.shape)} {raw.dtype}")
     if raw.device.type == "cpu":
         return preprocess_packed_plain(raw, geo, pi)
-    c0 = geo.components[0]
-    out = torch.empty((3, c0.data_height, c0.data_width), dtype=torch.uint8,
-                      device=raw.device)
-    _kernels.require_cuda("pre_rgb_to_planes", raw, out)
     params = color.kernel_params(pi.color_space,
                                  geo.param.color_space_internal)
-    _kernels.launch("pre_rgb_to_planes", raw, H, W, c0.data_height,
-                    c0.data_width, params, out)
-    return list(out.unbind(0))
+    # one launch for the components that share a decimation (and so a
+    # plane size), as the JAX package groups its pre kernel's outputs
+    groups = {}
+    for c in geo.components:
+        groups.setdefault((geo.max_h // c.samp_h, geo.max_v // c.samp_v),
+                          []).append(c)
+    planes = [None] * geo.comp_count
+    for (dx, dy), comps in groups.items():
+        c0 = comps[0]
+        out = torch.empty((len(comps), c0.data_height, c0.data_width),
+                          dtype=torch.uint8, device=raw.device)
+        _kernels.require_cuda("pre_rgb_to_planes", raw, out)
+        ptrs = [None] * 3
+        for k, c in enumerate(comps):
+            planes[c.index] = out[k]
+            ptrs[c.index] = out[k]
+        _kernels.launch("pre_rgb_to_planes", raw, H, W, dx, dy,
+                        c0.data_height, c0.data_width, params, *ptrs)
+    return planes
 
 
 def decode_post_supported(geo: Geometry, pi: ImageParameters) -> bool:
@@ -103,9 +126,36 @@ def component_columns(geo: Geometry) -> List[Tuple[int, int]]:
     return out
 
 
+def block_layout(geo: Geometry, c) -> Tuple[int, int, int, int, int]:
+    """(bpm, off, sh, sv, mcux) of component c in the (64, L) layout of
+    phase C: raster block (by, bx) sits at column
+        m * bpm + off + (by % sv) * sh + bx % sh,
+        m = (by // sv) * mcux + bx // sh.
+    An interleaved scan's segment row holds whole MCUs of bpm blocks, the
+    component's sv x sh blocks of an MCU at slots off, off + 1, ... (T.81
+    A.2.3); a non-interleaved one holds the component's raster blocks from
+    column off on (component_columns)."""
+    if not geo.interleaved:
+        return 1, component_columns(geo)[c.index][0], 1, 1, c.data_width // 8
+    off = sum(k.samp_h * k.samp_v for k in geo.components[:c.index])
+    return geo.blocks_per_mcu, off, c.samp_h, c.samp_v, c.mcu_count_x
+
+
+def block_columns(geo: Geometry, c, device="cpu") -> torch.Tensor:
+    """(data_h/8 * data_w/8,) int64 column of each raster block of
+    component c (block_layout)."""
+    bpm, off, sh, sv, mcux = block_layout(geo, c)
+    by = torch.arange(c.data_height // 8, device=device)[:, None]
+    bx = torch.arange(c.data_width // 8, device=device)[None, :]
+    m = (by // sv) * mcux + bx // sh
+    return (m * bpm + off + (by % sv) * sh + bx % sh).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
 def idct_matrix(device) -> torch.Tensor:
-    """The (64, 64) float32 inverse-DCT matrix N of the kernel:
-    N[k, s] maps zig-zag coefficient k to sample s = row * 8 + column."""
+    """The (64, 64) float32 inverse-DCT matrix N of the kernels:
+    N[k, s] maps zig-zag coefficient k to sample s = row * 8 + column.
+    Uploaded once per device and shared: read it, never write it."""
     return torch.from_numpy(np.ascontiguousarray(
         tables.idct2d_matrix_zz().astype(np.float32))).to(device)
 
@@ -152,4 +202,73 @@ def decode_post(coefs_t: torch.Tensor, qtabs: torch.Tensor, geo: Geometry,
     _kernels.launch("dpost_rgb", coefs_t, L, offs, c0.mcu_count,
                     c0.data_width // 8, pi.height, pi.width, qtabs, nmat,
                     params, out)
+    return out
+
+
+def idct_planes_plain(coefs_t: torch.Tensor, qtab: torch.Tensor,
+                      geo: Geometry, c) -> torch.Tensor:
+    """Plain version of idct_planes, on any device."""
+    cols = block_columns(geo, c, coefs_t.device)
+    return dct.dequantize_idct(coefs_t[:, cols].T, qtab, c.data_height,
+                               c.data_width).to(torch.uint8)
+
+
+def idct_planes(coefs_t: torch.Tensor, qtab: torch.Tensor, geo: Geometry,
+                c) -> torch.Tensor:
+    """Component c's blocks of coefs_t (64, L) int16 zig-zag coefficients
+    with DC integrated (phase C's layout, block_layout), qtab (64,) float32
+    zig-zag quant table -> (data_h, data_w) uint8 sample plane."""
+    L = geo.segment_count * geo.max_blocks_per_seg
+    if coefs_t.dtype != torch.int16 or tuple(coefs_t.shape) != (64, L):
+        raise ValueError(f"expected (64, {L}) int16 coefficients, got "
+                         f"{tuple(coefs_t.shape)} {coefs_t.dtype}")
+    if qtab.dtype != torch.float32 or tuple(qtab.shape) != (64,):
+        raise ValueError("expected a (64,) float32 quant table")
+    if coefs_t.device.type == "cpu":
+        return idct_planes_plain(coefs_t, qtab, geo, c)
+    out = torch.empty((c.data_height, c.data_width), dtype=torch.uint8,
+                      device=coefs_t.device)
+    nmat = idct_matrix(coefs_t.device)
+    _kernels.require_cuda("idct_planes", coefs_t, qtab, nmat, out)
+    bpm, off, sh, sv, mcux = block_layout(geo, c)
+    _kernels.launch("idct_planes", coefs_t, L, bpm, off, sh, sv, mcux,
+                    c.data_height, c.data_width, qtab, nmat, out)
+    return out
+
+
+def postprocess_packed_plain(planes: List[torch.Tensor], geo: Geometry,
+                             pi: ImageParameters) -> torch.Tensor:
+    """Plain version of postprocess_packed, on any device."""
+    return sample.postprocess(planes, geo, pi)
+
+
+def postprocess_packed(planes: List[torch.Tensor], geo: Geometry,
+                       pi: ImageParameters) -> torch.Tensor:
+    """[(data_h, data_w) uint8 plane per component] in
+    geo.param.color_space_internal -> (H, W, 3) uint8 pixels in
+    pi.color_space, chroma upsampled nearest-neighbour
+    (sample.upsample_factors)."""
+    if (pi.pixel_format != PixelFormat.P444_U8_P012 or pi.width_padding
+            or geo.comp_count != 3):
+        raise NotImplementedError(
+            "the postprocessor takes 3 components to P444_U8_P012 (other "
+            "formats: ROADMAP queue 1 item 6)")
+    for c, p in zip(geo.components, planes):
+        if p.dtype != torch.uint8 or tuple(p.shape) != (c.data_height,
+                                                        c.data_width):
+            raise ValueError(f"component {c.index}: expected a "
+                             f"({c.data_height}, {c.data_width}) uint8 "
+                             f"plane, got {tuple(p.shape)} {p.dtype}")
+    if planes[0].device.type == "cpu":
+        return postprocess_packed_plain(planes, geo, pi)
+    out = torch.empty((pi.height, pi.width, 3), dtype=torch.uint8,
+                      device=planes[0].device)
+    _kernels.require_cuda("post_rgb", *planes, out)
+    fac = sample.upsample_factors(geo, pi)
+    geo_i = np.asarray([c.data_width for c in geo.components]
+                       + [f[0] for f in fac] + [f[1] for f in fac], np.int32)
+    params = color.kernel_params(geo.param.color_space_internal,
+                                 pi.color_space)
+    _kernels.launch("post_rgb", *planes, geo_i, pi.height, pi.width, params,
+                    out)
     return out

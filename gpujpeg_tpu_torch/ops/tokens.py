@@ -15,7 +15,12 @@ slots of every block emits zero or one token of at most 27 bits,
 
 with value bits vb = (v < 0 ? v - 1 : v) & ((1 << size) - 1).  This is the
 plain version of the token walk inside the CUDA Huffman kernel
-(csrc/huffman_segments.cu), which makes the same tokens sequentially.
+(csrc/huffman_segments.cu), which makes the same tokens sequentially.  It
+is also the device path of the interleaved encode
+(models/encoder.Encoder.interleaved_tokens, torch ops on the card), the
+port of the JAX package's XLA tokenizer (gpujpeg_tpu.ops.tokens.
+tokenize_rows) without its pairs mode, a TPU pre-merge that changes no
+byte.
 """
 
 from __future__ import annotations

@@ -1,0 +1,57 @@
+"""PyTorch port, decode of interleaved streams the JAX encoder writes:
+interleaved 4:4:4 (which the port does not encode yet) through its
+interleaved megakernel and its non-megakernel path decodes to the JAX
+package's pixels and coefficients; what the slice does not decode raises,
+naming its ROADMAP items (4:2:0, 4:2:2, 4:4:0 and the Huffman phases:
+test_torch_interleaved_decode.py)."""
+
+import re
+
+import numpy as np
+import pytest
+
+import gpujpeg_tpu as gj
+
+import gpujpeg_tpu_torch as gt
+
+from .test_torch_encode import _gradient
+from .test_torch_interleaved_decode import SAMP, _params, check_decode
+
+
+def _jax(frame, samp, quality=75, rst=-1):
+    return bytes(gj.Encoder().encode(frame, _params(gj, samp, quality, rst)))
+
+
+STREAMS = {
+    # the JAX encoder's interleaved megakernel (segments tile MCU rows)
+    "444_320x240": lambda: _jax(_gradient(240, 320, 4), "444"),
+    # its non-megakernel path (39 MCUs a row, segments of 4: ragged)
+    "444_311x233_q90_rst4": lambda: _jax(_gradient(233, 311, 5), "444", 90,
+                                         4),
+}
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_interleaved_444_decode_matches_jax(name):
+    check_decode(STREAMS[name]())
+
+
+@pytest.mark.parametrize("case,items", [
+    ("planar_420", (6,)), ("il_411", (6,)), ("il_444_no_restart", (9,))])
+def test_outside_the_slice_raises(case, items):
+    """Non-interleaved subsampled scans, other interleaved samplings and
+    restart interval 0 raise, naming their ROADMAP items."""
+    frame = _gradient(32, 64, 7)
+    if case == "planar_420":
+        p = gj.Parameters(quality=75, restart_interval=4).chroma_subsampled(
+            SAMP["420"])
+    elif case == "il_411":
+        p = gj.Parameters(quality=75, restart_interval=2, interleaved=True) \
+            .chroma_subsampled(((4, 1), (1, 1), (1, 1)))
+    else:
+        p = _params(gj, "444", rst=0)
+    data = bytes(gj.Encoder().encode(frame, p))
+    with pytest.raises(NotImplementedError) as e:
+        gt.Decoder(device="cpu").decode(data)
+    named = {int(m) for m in re.findall(r"item (\d+)", str(e.value))}
+    assert named == set(items), str(e.value)

@@ -1,0 +1,101 @@
+"""PyTorch port, interleaved encode with subsampled chroma: the bytes equal
+the JAX package's encoder (its non-megakernel path: XLA tokens, then the
+token-row packer) on the CPU; interleaved 4:4:4 and non-interleaved
+subsampling still raise.  4:2:2 and 4:4:0 are in
+test_torch_interleaved_encode_sampling.py (on the card:
+test_torch_kernels.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import gpujpeg_tpu as gj
+
+import gpujpeg_tpu_torch as gt
+from gpujpeg_tpu_torch.ops import prepost_kernel as tpre, tokens as ttok
+
+from .test_torch_encode import _gradient
+
+S420 = ((2, 2), (1, 1), (1, 1))
+
+FRAMES = {
+    "gradient_320x240": lambda: _gradient(240, 320, 0),
+    "odd_311x233": lambda: _gradient(233, 311, 1),
+    "noise_64x64": lambda: np.random.default_rng(2).integers(
+        0, 256, (64, 64, 3), dtype=np.uint8),
+}
+
+#: (frame, quality, restart interval): Q75 auto (1 MCU a segment at
+#: 4:2:0) and Q90 with an interval of 2 MCUs (311x233 at 4:2:0 has 20 x
+#: 15 MCUs; 4:2:2 and 4:4:0 give it odd MCU counts, a ragged last
+#: segment)
+CASES = [("gradient_320x240", 75, -1), ("odd_311x233", 75, -1),
+         ("odd_311x233", 90, 2), ("noise_64x64", 75, -1)]
+
+
+def _params(mod, samp, quality, rst):
+    return mod.Parameters(quality=quality, restart_interval=rst,
+                          interleaved=True).chroma_subsampled(samp)
+
+
+def check_bytes(samp, name, quality, rst):
+    frame = FRAMES[name]()
+    ref = bytes(gj.Encoder().encode(frame, _params(gj, samp, quality, rst)))
+    got = gt.Encoder(device="cpu").encode(frame,
+                                          _params(gt, samp, quality, rst))
+    assert got[:2] == b"\xff\xd8" and got[-2:] == b"\xff\xd9"
+    assert got == ref
+    return got
+
+
+@pytest.mark.parametrize("name,quality,rst", CASES)
+def test_interleaved_420_bytes_match_jax(name, quality, rst):
+    check_bytes(S420, name, quality, rst)
+
+
+def test_interleaved_420_token_layout():
+    """Tokens of a row are MCU after MCU, each MCU's 4 Y blocks, then Cb,
+    then Cr, and each component is tokenized over its own blocks (so its
+    DC predictor runs over them, T.81 F.1.1.5.1)."""
+    enc = gt.Encoder(device="cpu")
+    frame = _gradient(48, 64, 3)
+    p = _params(gt, S420, 90, 2)
+    geo = enc.resolve(frame, p)
+    planes = tpre.preprocess_packed(torch.from_numpy(frame), geo,
+                                    geo.param_image)
+    coefs = enc.interleaved_coefs(planes, geo)
+    assert [tuple(c.shape) for c in coefs] == [(6, 8, 64), (6, 2, 64),
+                                               (6, 2, 64)]
+    bits, lens = enc.interleaved_tokens(coefs, geo)
+    assert tuple(bits.shape) == (6, 2 * 6 * 64) and bits.dtype == torch.int32
+    for c, x, off in zip(geo.components, coefs, (0, 4, 5)):
+        n = c.samp_h * c.samp_v
+        tabs = enc.class_tables(90, c.index == 0)
+        b, ln = ttok.tokenize_rows(x, tabs.luts[:16], tabs.luts[16:],
+                                   torch.full((6,), 2 * n))
+        for got, ref in ((bits, b), (lens, ln)):
+            part = got.reshape(6, 2, 6, 64)[:, :, off:off + n]
+            assert torch.equal(part.reshape(6, -1).long(), ref.long())
+
+
+@pytest.mark.parametrize("case", ["interleaved_444", "planar_420",
+                                  "il_411"])
+def test_outside_the_slice_raises(case):
+    """Interleaved 4:4:4 (the JAX package's interleaved megakernel mode),
+    non-interleaved subsampling and other interleaved samplings raise,
+    naming their ROADMAP items."""
+    frame = np.zeros((32, 48, 3), np.uint8)
+    p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
+    if case == "interleaved_444":
+        p, items = p.with_(interleaved=True), ("queue 1 item 8",
+                                               "queue 2 item 7")
+    elif case == "planar_420":
+        p, items = p.chroma_subsampled(S420), ("queue 1 item 6",)
+    else:
+        p = p.with_(interleaved=True).chroma_subsampled(
+            ((4, 1), (1, 1), (1, 1)))
+        items = ("queue 1 item 6",)
+    with pytest.raises(NotImplementedError) as e:
+        gt.Encoder(device="cpu").encode(frame, p)
+    for item in items:
+        assert item in str(e.value)

@@ -103,6 +103,49 @@ def test_decode_wrappers_refuse_other_devices():
                          meta(3, 64, dt=torch.float32), geo, pi)
 
 
+def _il_params(samp=((2, 2), (1, 1), (1, 1)), quality=75,
+               rst=gt.RESTART_AUTO):
+    return gt.Parameters(quality=quality, restart_interval=rst,
+                         interleaved=True).chroma_subsampled(samp)
+
+
+def test_interleaved_wrappers_refuse_other_devices():
+    """The wrappers of the interleaved path run their plain versions only
+    for CPU tensors and refuse inputs they do not take."""
+    meta = lambda *shape, dt=torch.int32: torch.empty(shape, dtype=dt,
+                                                      device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.pack_stuff_rows(meta(5, 64), meta(5, 64), meta(5), 64)
+    with pytest.raises(ValueError, match="markers"):
+        tfp.pack_stuff_rows(meta(5, 64), meta(5, 64), meta(4), 64)
+    frame = _frame(48, 64, 0)
+    enc = gt.Encoder(device="cpu")
+    geo = enc.resolve(frame, _il_params())
+    with pytest.raises(ValueError, match="CUDA"):
+        tpre.preprocess_packed(torch.from_numpy(frame).to("meta"), geo,
+                               geo.param_image)
+    data = enc.encode(frame, _il_params())
+    hf = gt.Decoder(device="cpu").prepare(data)
+    geo, pi = hf.plan.geo, hf.out_pi
+    L = geo.segment_count * geo.max_blocks_per_seg
+    c = geo.components[1]
+    with pytest.raises(ValueError, match="CUDA"):
+        tpre.idct_planes(meta(64, L, dt=torch.int16),
+                         meta(64, dt=torch.float32), geo, c)
+    with pytest.raises(ValueError, match="int16"):
+        tpre.idct_planes(meta(64, L - 1, dt=torch.int16),
+                         meta(64, dt=torch.float32), geo, c)
+    planes = [meta(k.data_height, k.data_width, dt=torch.uint8)
+              for k in geo.components]
+    with pytest.raises(ValueError, match="CUDA"):
+        tpre.postprocess_packed(planes, geo, pi)
+    with pytest.raises(ValueError, match="uint8 plane"):
+        tpre.postprocess_packed(planes[:1] * 3, geo, pi)
+    with pytest.raises(ValueError, match="slot pattern"):
+        thd.scan_segments(meta(6, 9), *[meta(6) for _ in range(4)],
+                          meta(4, 290), 8, (6, 64, 15))
+
+
 def test_decoder_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -117,7 +160,8 @@ class _FailingLib:
 
 
 @pytest.mark.parametrize("name", ["huffdec_scan", "huffdec_block",
-                                  "dpost_rgb"])
+                                  "dpost_rgb", "pack_stuff_rows",
+                                  "idct_planes", "post_rgb"])
 def test_failed_launch_raises(monkeypatch, name):
     """A launch error is raised, never swallowed, and is not counted."""
     import contextlib
@@ -313,3 +357,174 @@ def test_encode_on_card_matches_cpu(cuda, hw):
         "pre_rgb_to_planes", "fdct_quant", "huffman_segments")), \
         _kernels.LAUNCHES
     assert got == gt.Encoder(device="cpu").encode(frame, p)
+
+
+def _il_stream(samp, hw, kind="gradient", quality=75, rst=gt.RESTART_AUTO,
+               seed=0):
+    frame = (np.random.default_rng(seed).integers(0, 256, (*hw, 3),
+                                                  dtype=np.uint8)
+             if kind == "noise" else _frame(*hw, seed))
+    return frame, gt.Encoder(device="cpu").encode(
+        frame, _il_params(samp, quality, rst))
+
+
+SAMPLINGS = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
+             "440": ((1, 2), (1, 1), (1, 1))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", list(SAMPLINGS))
+@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311)])
+def test_pre_kernel_decimates_like_plain(cuda, samp, hw):
+    frame = _frame(*hw, 2, amp=128)
+    geo = gt.Encoder(device="cpu").resolve(frame, _il_params(SAMPLINGS[samp]))
+    raw = torch.from_numpy(frame).to(cuda)
+    _kernels.reset_launches()
+    got = tpre.preprocess_packed(raw, geo, geo.param_image)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pre_rgb_to_planes"] == 2   # luma; chroma
+    ref = tpre.preprocess_packed_plain(raw, geo, geo.param_image)
+    for c, a, b in zip(geo.components, got, ref):
+        assert a.shape == (c.data_height, c.data_width)
+        assert torch.equal(a, b)
+
+
+def _token_rows(rng, R, T, ff_bias=False):
+    lens = rng.integers(1, 28, (R, T))
+    lens = np.where(rng.random((R, T)) < 0.5, 0, lens)
+    bits = rng.integers(0, 1 << 27, (R, T))
+    if ff_bias:
+        bits = (1 << 27) - 1             # all-ones tokens: runs of 0xFF
+    bits = bits & ((1 << lens) - 1)
+    lens[3] = 0                          # an empty row
+    markers = np.where(np.arange(R) % 3 == 2, 0, 0xD0 + np.arange(R) % 8)
+    return (torch.from_numpy(bits.astype(np.int32)),
+            torch.from_numpy(lens.astype(np.int32)),
+            torch.from_numpy(markers.astype(np.int32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ff_bias", [False, True])
+def test_pack_stuff_rows_matches_plain(cuda, ff_bias):
+    rng = np.random.default_rng(11)
+    bits, lens, markers = _token_rows(rng, 3000, 384, ff_bias)
+    stride = 4 * 384 * 27 // 8 + 16
+    bits, lens, markers = bits.to(cuda), lens.to(cuda), markers.to(cuda)
+    _kernels.reset_launches()
+    rows, rb, needs = tfp.pack_stuff_rows(bits, lens, markers, stride)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pack_stuff_rows"] == 1
+    p_rows, p_rb, p_needs = tfp.pack_stuff_rows_plain(bits, lens, markers,
+                                                      stride)
+    assert torch.equal(needs, p_needs)
+    assert _rows_equal(rows, rb, p_rows, p_rb)
+    assert int(needs[0]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp,kind", [("420", "gradient"), ("420", "noise"),
+                                       ("422", "gradient")])
+def test_huffdec_kernels_pattern_mode(cuda, samp, kind):
+    _, data = _il_stream(SAMPLINGS[samp], (1080, 1920), kind)
+    hf, p, words, nbits = _device_frame(data, cuda)
+    assert p.pattern[0] == 4 + 2 if samp == "420" else p.pattern[0] == 4
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    _kernels.reset_launches()
+    bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps, p.pattern)
+    coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffdec_scan"] == 1
+    assert _kernels.LAUNCHES["huffdec_block"] == 1
+    p_bstart, p_err_a = thd.scan_segments_plain(words, nbits, *args, p.bps,
+                                                p.pattern)
+    p_coefs, p_err_c = thd.decode_blocks_plain(words, bstart, *args,
+                                               p.pattern)
+    assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
+    assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
+    assert not bool(err_a.any()) and not bool(err_c.any())
+    w = words.clone()
+    w[w.shape[0] // 2, 1] ^= 0x5A5A5A5A        # damage one segment
+    bstart, err_a = thd.scan_segments(w, nbits, *args, p.bps, p.pattern)
+    p_bstart, p_err_a = thd.scan_segments_plain(w, nbits, *args, p.bps,
+                                                p.pattern)
+    assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
+    coefs, err_c = thd.decode_blocks(w, bstart, *args, p.pattern)
+    p_coefs, p_err_c = thd.decode_blocks_plain(w, bstart, *args, p.pattern)
+    assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
+
+
+def _il_geo(samp, hw):
+    """The geometry of an interleaved scan at these samplings (4:4:4
+    included, which only the JAX package writes)."""
+    return gt.Encoder(device="cpu").resolve(
+        np.zeros((*hw, 3), np.uint8),
+        _il_params(SAMPLINGS.get(samp, ((1, 1),) * 3)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["420", "444"])
+@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311)])
+def test_idct_planes_matches_plain(cuda, samp, hw):
+    from gpujpeg_tpu_torch.utils import tables as tt
+
+    geo = _il_geo(samp, hw)
+    L = geo.segment_count * geo.max_blocks_per_seg
+    g = torch.Generator().manual_seed(7)
+    dense = torch.randint(-600, 600, (64, L), dtype=torch.int16, generator=g)
+    sparse = torch.where(torch.rand((64, L), generator=g) < 0.8, 0,
+                         dense // 8)
+    for co in (dense.to(cuda), sparse.to(cuda)):
+        for c in geo.components:
+            q = torch.from_numpy(tt.quant_table_zz(
+                c.index == 0, 75).astype(np.float32)).to(cuda)
+            _kernels.reset_launches()
+            got = tpre.idct_planes(co, q, geo, c)
+            torch.cuda.synchronize()
+            assert _kernels.LAUNCHES["idct_planes"] == 1
+            assert got.shape == (c.data_height, c.data_width)
+            assert torch.equal(got, tpre.idct_planes_plain(co, q, geo, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["420", "422", "440", "444"])
+@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311)])
+def test_post_kernel_matches_plain(cuda, samp, hw):
+    geo = _il_geo(samp, hw)
+    pi = gt.ImageParameters(width=hw[1], height=hw[0],
+                            color_space=gt.ColorSpace.RGB,
+                            pixel_format=gt.PixelFormat.P444_U8_P012)
+    g = torch.Generator().manual_seed(3)
+    planes = [torch.randint(0, 256, (c.data_height, c.data_width),
+                            dtype=torch.uint8, generator=g).to(cuda)
+              for c in geo.components]
+    _kernels.reset_launches()
+    got = tpre.postprocess_packed(planes, geo, pi)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["post_rgb"] == 1
+    assert got.shape == (*hw, 3)
+    assert torch.equal(got, tpre.postprocess_packed_plain(planes, geo, pi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp,hw,kind,quality,rst", [
+    ("420", (1080, 1920), "gradient", 75, gt.RESTART_AUTO),
+    ("420", (233, 311), "gradient", 90, 2),
+    ("422", (240, 320), "gradient", 75, gt.RESTART_AUTO),
+    ("440", (64, 64), "noise", 75, gt.RESTART_AUTO)])
+def test_interleaved_on_card_matches_cpu(cuda, samp, hw, kind, quality,
+                                         rst):
+    frame = (np.random.default_rng(4).integers(0, 256, (*hw, 3),
+                                               dtype=np.uint8)
+             if kind == "noise" else _frame(*hw, 4, amp=64))
+    p = _il_params(SAMPLINGS[samp], quality, rst)
+    _kernels.reset_launches()
+    data = gt.Encoder(device=cuda).encode(frame, p)
+    for name in ("pre_rgb_to_planes", "fdct_quant", "pack_stuff_rows"):
+        assert _kernels.LAUNCHES[name] > 0, _kernels.LAUNCHES
+    assert data == gt.Encoder(device="cpu").encode(frame, p)
+    _kernels.reset_launches()
+    got = gt.Decoder(device=cuda).decode(data)
+    for name in ("huffdec_scan", "huffdec_block", "idct_planes", "post_rgb"):
+        assert _kernels.LAUNCHES[name] > 0, _kernels.LAUNCHES
+    assert _kernels.LAUNCHES["dpost_rgb"] == 0
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
