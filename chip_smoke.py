@@ -18,8 +18,9 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
   5. encodes three seeded 8K RGB frames through Encoder.encode at Q75,
      restart interval auto (the reference GPUJPEG's headline
      configuration), checks SOI/EOI and that the RST count equals segments
-     minus scans, and prints per-frame wall ms (those three and nine more
-     frames), a stage breakdown and each kernel's CUDA-event time;
+     minus scans, and prints per-frame wall ms (those three and
+     EXTRA_FRAMES more), a stage breakdown and each kernel's CUDA-event
+     time;
   6. decodes on the card (gpujpeg_tpu_torch.Decoder), fed by step 5's 8K
      streams and one 8K noise stream:
      a. each decode kernel (phase-A scan, phase-C block decode, fused
@@ -30,29 +31,42 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
         Decoder(device="cpu") and requires identical pixels;
      c. decodes the three 8K streams through Decoder.decode (launch counts
         read over those three), prints their PSNR against the source
-        frames, per-frame wall ms (those three and nine more, bytes in to
-        a host array out) and a stage breakdown;
+        frames, per-frame wall ms (those three and EXTRA_FRAMES more,
+        bytes in to a host array out) and a stage breakdown;
      d. times each decode kernel at the main path's shapes;
   7. runs the interleaved 4:2:0 path (one scan, luma 2x2, chroma 1x1,
      Q75, restart interval auto = 1 MCU a segment; libjpeg's default
      layout):
      a. each kernel and mode of that path against its plain version at
         8K on a gradient and a noise frame, bit for bit: the decimating
-        preprocessor, the token-row packer, the Huffman decode phases in
-        slot-pattern mode, the IDCT to planes and the postprocessor;
+        preprocessor, the slot-pattern Huffman coder, the token-row packer
+        (on no encode path; fed the plain tokenizer's token rows of
+        the same coefficients, it must also give the Huffman coder's
+        bytes), the Huffman decode phases in slot-pattern mode, the IDCT
+        to planes and the postprocessor;
      b. encodes and decodes a 1920x1080 frame with device="cuda" and
         device="cpu" and requires identical bytes and pixels;
      c. encodes three seeded 8K frames through Encoder.encode and decodes
         their streams through Decoder.decode (launch counts read over
-        each), checks SOI/EOI, the RST count and the PSNR, and prints
-        per-frame wall ms (those three and nine more) and a stage
-        breakdown of each;
+        each; the token-row packer must not run), checks SOI/EOI, the RST
+        count and the PSNR, and prints per-frame wall ms (those three and
+        EXTRA_FRAMES more) and a stage breakdown of each;
      d. times each kernel and mode of the path at its shapes;
-  8. prints one JSON line of per-kernel records, every kernel and mode
+  8. the same four steps for interleaved 4:4:4 (one scan, Q75, restart
+     auto = 2 MCUs a segment): the slot-pattern Huffman coder and its
+     coefficient-input mode (the three planes' coefficients as rows of 8
+     blocks, a class flag a row, one interior masked block, a zero marker
+     mid-scan) against their plain versions; decode through the IDCT
+     planes and the postprocessor;
+  9. the same four steps for planar 4:2:0 (three non-interleaved scans,
+     luma 2x2, chroma 1x1, 8 blocks a segment): the fused decode tail at
+     dx = dy = 2 against its plain version; encode through the decimating
+     preprocessor, the DCT and the one-slot Huffman coder per component;
+ 10. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
-     yardstick where one exists);
-  9. prints {"ok": true, "device": {...}} as its last line.
+     yardstick where one exists; a note where a record is on no path);
+ 11. prints {"ok": true, "device": {...}} as its last line.
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -68,6 +82,8 @@ import time
 
 H8K, W8K = 4320, 7680
 QUALITY = 75
+#: 8K frames timed after the three whose launches are counted, per path
+EXTRA_FRAMES = 9
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, non-tensor f32
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
@@ -136,6 +152,156 @@ def stream_word_bytes(nbits) -> int:
 def psnr(np, a, b) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
+
+
+def diff(a, b) -> int:
+    """Largest absolute difference of two integer tensors."""
+    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+
+def rows_err(torch, rows, rb, needs, p_rows, p_rb, p_needs) -> int:
+    """Largest difference of two sets of byte rows inside their lengths
+    (255 when the lengths differ) and of their needs vectors."""
+    if not torch.equal(rb, p_rb):
+        return 255
+    inside = torch.arange(rows.shape[1], device=rows.device)[None, :] \
+        < rb[:, None]
+    return max(diff(needs, p_needs), diff(rows[inside], p_rows[inside]))
+
+
+def check_stream(np, out: bytes, want_rst: int, what: str) -> None:
+    """SOI first, EOI last, and want_rst RST markers (segments - scans)."""
+    if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
+        raise AssertionError(f"{what} stream lacks SOI/EOI")
+    data = np.frombuffer(out, np.uint8)
+    ff = np.nonzero(data[:-1] == 0xFF)[0]
+    nrst = int(((data[ff + 1] >= 0xD0) & (data[ff + 1] <= 0xD7)).sum())
+    if nrst != want_rst:
+        raise AssertionError(f"{what}: RST count {nrst} != {want_rst}")
+
+
+def quartiles(np, walls) -> str:
+    q = np.percentile(walls, [25, 50, 75])
+    return (f"{len(walls)} frames: median {q[1]:.3f}, quartiles {q[0]:.3f} "
+            f"/ {q[2]:.3f}; " + ", ".join(f"{w:.3f}" for w in walls))
+
+
+def hd_check(torch, np, gt, dev, params, seed: int, what: str) -> None:
+    """A 1920x1080 frame encoded and decoded with device=cuda and with
+    device=cpu: the bytes and the pixels must be equal."""
+    hd = make_frame(torch, "gradient", seed, 1080, 1920, dev).cpu().numpy()
+    data = gt.Encoder(device=dev).encode(hd, params)
+    if data != gt.Encoder(device="cpu").encode(hd, params):
+        raise AssertionError(f"HD {what} encode on the card differs from "
+                             "the CPU")
+    got = gt.Decoder(device=dev).decode(data)
+    if not np.array_equal(got, gt.Decoder(device="cpu").decode(data)):
+        raise AssertionError(f"HD {what} decode on the card differs from "
+                             "the CPU")
+    log(f"[{what} hd] 1920x1080 Q75 {len(data)} bytes: card == cpu (bytes "
+        f"and pixels), PSNR {psnr(np, got, hd):.2f} dB")
+
+
+def huffman_bound_ms(coefs, rb, extra: int = 0) -> float:
+    """Bytes bound of one huffman_segments launch: every coefficient read
+    once (the rows hold no pad blocks at 8K), both classes' tables, the
+    markers, the realised rows and their lengths written once, plus
+    `extra` bytes of inputs (mask, class flags)."""
+    return (coefs.numel() * 2 + 2 * 272 * 4 + 4 * rb.numel()
+            + int(rb.sum()) + 4 * rb.numel() + extra) / PEAK_BYTES_S * 1e3
+
+
+def planar_encode_stages(torch, enc, frame, params, stream, tag):
+    """Stage breakdown of one encode of non-interleaved scans; returns
+    what the per-launch timings reuse."""
+    from gpujpeg_tpu_torch.ops import fusedpack, prepost_kernel
+
+    dev = enc.device
+    geo = enc.resolve(frame, params)
+    classes = enc.classes(geo.param.quality)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    x = torch.from_numpy(frame).to(dev)
+    ev[1].record()
+    planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
+    ev[2].record()
+    coefs = [fusedpack.fdct_quant(planes[c.index], classes[c.table_index],
+                                  c.segment_mcu_count)
+             for c in geo.components]
+    ev[3].record()
+    rows, rbs = [], []
+    for c, co in zip(geo.components, coefs):
+        r, rb, _ = fusedpack.huffman_segments(co, c.mcu_count,
+                                              classes[c.table_index])
+        rows.append(r)
+        rbs.append(rb)
+    ev[4].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = enc.assemble(geo, {"rows": rows, "row_bytes": rbs})
+    t2 = time.perf_counter()
+    if out != stream:
+        raise AssertionError(f"stage-by-stage {tag} encode differs from "
+                             "encode()")
+    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+                  pre_ms=ev[1].elapsed_time(ev[2]),
+                  fdct_3_planes_ms=ev[2].elapsed_time(ev[3]),
+                  huffman_3_planes_ms=ev[3].elapsed_time(ev[4]),
+                  device_wall_ms=(t1 - t0) * 1e3,
+                  assemble_d2h_host_ms=(t2 - t1) * 1e3)
+    log(f"[{tag}] stages (CUDA events; assembly on the host clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return x, planes, coefs, rows, rbs
+
+
+def dpost_decode_stages(torch, np, dec, data, tag):
+    """Stage breakdown of one decode through dpost_rgb; returns what the
+    per-launch timings reuse."""
+    from gpujpeg_tpu_torch.models import decoder as tdec
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    dev = dec.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hf = dec.prepare(data)
+    t1 = time.perf_counter()
+    p = hf.plan
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    ev[0].record()
+    words = torch.from_numpy(hf.words).to(dev)
+    nbits = torch.from_numpy(hf.nbits).to(dev)
+    ev[1].record()
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps)
+    ev[2].record()
+    coefs, _ec = thd.decode_blocks(words, bstart, *args)
+    ev[3].record()
+    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
+    ev[4].record()
+    img = prepost_kernel.decode_post(coefs, p.qtabs, p.geo, hf.out_pi)
+    ev[5].record()
+    host = img.cpu()
+    ev[6].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not np.array_equal(host.numpy(), dec.decode(data)):
+        raise AssertionError(f"stage-by-stage {tag} decode differs from "
+                             "decode()")
+    stages = dict(parse_unstuff_host_ms=(t1 - t0) * 1e3,
+                  h2d_words_ms=ev[0].elapsed_time(ev[1]),
+                  scan_ms=ev[1].elapsed_time(ev[2]),
+                  block_ms=ev[2].elapsed_time(ev[3]),
+                  dc_fixup_ms=ev[3].elapsed_time(ev[4]),
+                  dpost_ms=ev[4].elapsed_time(ev[5]),
+                  d2h_image_ms=ev[5].elapsed_time(ev[6]),
+                  device_wall_ms=(t2 - t1) * 1e3)
+    log(f"[{tag}] stages (parse + unstuff on the host clock, the rest CUDA "
+        f"events; {words.numel() * 4} B of words, {img.numel()} B of "
+        "pixels): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return words, nbits, bstart, coefs, img, p, hf
 
 
 def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
@@ -240,52 +406,17 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         raise AssertionError(f"8K decode PSNR {psnrs} dB: not the frames")
     log(f"[dec 8k] {len(streams)} streams 7680x4320 Q75: PSNR vs source "
         + ", ".join(f"{v:.2f}" for v in psnrs) + f" dB, launches {launches}")
-    for i in range(9):
+    for i in range(EXTRA_FRAMES):
         t0 = time.perf_counter()
         dec.decode(streams[i % 3])
         walls.append((time.perf_counter() - t0) * 1e3)
-    q = np.percentile(walls, [25, 50, 75])
-    log(f"[dec 8k] wall ms per frame (bytes in, host array out), "
-        f"{len(walls)} frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / "
-        f"{q[2]:.3f}; " + ", ".join(f"{w:.3f}" for w in walls))
+    log("[dec 8k] wall ms per frame (bytes in, host array out), "
+        + quartiles(np, walls))
 
     # stage breakdown of one more frame
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    hf = dec.prepare(streams[0])
-    t1 = time.perf_counter()
-    p = hf.plan
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-    ev[0].record()
-    words = torch.from_numpy(hf.words).to(dev)
-    nbits = torch.from_numpy(hf.nbits).to(dev)
-    ev[1].record()
+    words, nbits, bstart, coefs, img, p, hf = dpost_decode_stages(
+        torch, np, dec, streams[0], "dec 8k")
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps)
-    ev[2].record()
-    coefs, _ec = thd.decode_blocks(words, bstart, *args)
-    ev[3].record()
-    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
-    ev[4].record()
-    img = prepost_kernel.decode_post(coefs, p.qtabs, p.geo, hf.out_pi)
-    ev[5].record()
-    host = img.cpu()
-    ev[6].record()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    if not np.array_equal(host.numpy(), dec.decode(streams[0])):
-        raise AssertionError("stage-by-stage decode differs from decode()")
-    stages = dict(parse_unstuff_host_ms=(t1 - t0) * 1e3,
-                  h2d_words_ms=ev[0].elapsed_time(ev[1]),
-                  scan_ms=ev[1].elapsed_time(ev[2]),
-                  block_ms=ev[2].elapsed_time(ev[3]),
-                  dc_fixup_ms=ev[3].elapsed_time(ev[4]),
-                  dpost_ms=ev[4].elapsed_time(ev[5]),
-                  d2h_image_ms=ev[5].elapsed_time(ev[6]),
-                  device_wall_ms=(t2 - t1) * 1e3)
-    log(f"[dec 8k] stages (parse + unstuff on the host clock, the rest CUDA "
-        f"events; {words.numel() * 4} B of words, {img.numel()} B of "
-        "pixels): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
     # -- d. per-kernel times at the main path's shapes ---------------------
     kernels["huffdec_scan"]["ms"] = event_ms(
@@ -293,9 +424,6 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         flush)
     kernels["huffdec_block"]["ms"] = event_ms(
         torch, lambda: thd.decode_blocks(words, bstart, *args), 20, flush)
-    kernels["dpost_rgb"]["ms"] = event_ms(
-        torch, lambda: prepost_kernel.decode_post(coefs, p.qtabs, p.geo,
-                                                  hf.out_pi), 20, flush)
     nseg, W = words.shape
     L = coefs.shape[1]
     seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4   # nbits + 3 flags
@@ -305,28 +433,32 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
     kernels["huffdec_block"]["bound_ms"] = (
         w_bytes + seg_bytes + bstart.numel() * 4 + L * 64 * 2 + L * 4) \
         / PEAK_BYTES_S * 1e3
-    nblk = sum(c.mcu_count for c in p.geo.components)
-    d_ops = 2 * 64 * 64 * nblk
-    d_bytes = nblk * 64 * 2 + img.numel() + 3 * 64 * 4 + 64 * 64 * 4
-    kernels["dpost_rgb"]["bound_ms"] = max(
-        d_ops / PEAK_F32_FLOP_S, d_bytes / PEAK_BYTES_S) * 1e3
-    # yardstick: one f32 product of each component's (blocks, 64)
-    # dequantized coefficients by the IDCT matrix (TF32 off); timed here
-    # only, never called by the port
-    nmat = prepost_kernel.idct_matrix(dev)
-    ys = [(coefs[:, f0:f0 + n].T.float() * p.qtabs[c]).contiguous()
-          for c, (f0, n) in enumerate(
-              prepost_kernel.component_columns(p.geo))]
-    kernels["dpost_rgb"]["library_ms"] = event_ms(
-        torch, lambda: [torch.matmul(y, nmat) for y in ys], 10, flush)
-    del ys
-    for name, k in kernels.items():
-        log(f"[dec time] {name}: {k['ms']:.4f} ms per launch (bound "
-            f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
-            f"{k['plain_ms']:.3f} ms, library "
-            f"{'-' if k['library_ms'] is None else format(k['library_ms'], '.4f')}"
-            " ms")
+    dpost_times(torch, kernels["dpost_rgb"], coefs, img, p, hf, flush)
+    log_times("dec time", kernels)
     return kernels, launches
+
+
+def dpost_times(torch, k, coefs, img, p, hf, flush) -> None:
+    """dpost_rgb's time, bound and library yardstick at the path's shapes,
+    into record k."""
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    k["ms"] = event_ms(torch, lambda: prepost_kernel.decode_post(
+        coefs, p.qtabs, p.geo, hf.out_pi), 20, flush)
+    cols = prepost_kernel.component_columns(p.geo)
+    nblk = sum(n for _, n in cols)        # each chroma sample counted once
+    k["bound_ms"] = max(
+        2 * 64 * 64 * nblk / PEAK_F32_FLOP_S,
+        (nblk * 64 * 2 + img.numel() + 3 * 64 * 4 + 64 * 64 * 4)
+        / PEAK_BYTES_S) * 1e3
+    # yardstick: one f32 product of each component's dequantized (blocks,
+    # 64) coefficients by the IDCT matrix (TF32 off); timed here only,
+    # never called by the port
+    nmat = prepost_kernel.idct_matrix(coefs.device)
+    ys = [(coefs[:, f0:f0 + n].T.float() * p.qtabs[c]).contiguous()
+          for c, (f0, n) in enumerate(cols)]
+    k["library_ms"] = event_ms(
+        torch, lambda: [torch.matmul(y, nmat) for y in ys], 10, flush)
 
 
 def interleaved_phases(torch, np, gt, dev, flush):
@@ -342,16 +474,28 @@ def interleaved_phases(torch, np, gt, dev, flush):
         quality=QUALITY, restart_interval=gt.RESTART_AUTO,
         interleaved=True).chroma_subsampled(((2, 2), (1, 1), (1, 1)))
     enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    classes = enc.classes(QUALITY)
     kernels = {
         "pre_rgb_to_planes:decimate": dict(
             key="pre_rgb_to_planes",
             source="gpujpeg_tpu_torch/csrc/pre_rgb_to_planes.cu",
             replaces="gpujpeg_tpu/ops/prepost_kernel.py:88",
             bound_by="bytes", library_ms=None, err=0),
+        "huffman_segments:pattern_420": dict(
+            key="huffman_segments",
+            source="gpujpeg_tpu_torch/csrc/huffman_segments.cu",
+            # the megakernel's interleaved mode; the JAX package sends
+            # 4:2:0 to XLA tokens and its deep-stuff kernel instead
+            replaces="gpujpeg_tpu/ops/fusedpack.py:928",
+            bound_by="bytes", library_ms=None, err=0),
         "pack_stuff_rows": dict(
             source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
             replaces="gpujpeg_tpu/ops/fusedpack.py:107",
-            bound_by="bytes", library_ms=None, err=0),
+            bound_by="bytes", library_ms=None, err=0,
+            note="on no encode path (huffman_segments codes every scan); "
+                 "checked here on the plain tokenizer's 8K 4:2:0 token "
+                 "rows; Annex-K tables (ROADMAP queue 1 item 7) will route "
+                 "through it"),
         "huffdec_scan:pattern": dict(
             key="huffdec_scan",
             source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
@@ -379,16 +523,6 @@ def interleaved_phases(torch, np, gt, dev, flush):
             raise AssertionError(f"{name} differs from its plain version "
                                  f"({what}, 4:2:0)")
 
-    def diff(a, b):
-        return int((a.int() - b.int()).abs().max()) if a.numel() else 0
-
-    def rows_err(rows, rb, needs, p_rows, p_rb, p_needs):
-        if not torch.equal(rb, p_rb):
-            return 255
-        inside = torch.arange(rows.shape[1], device=rows.device)[None, :] \
-            < rb[:, None]
-        return max(diff(needs, p_needs), diff(rows[inside], p_rows[inside]))
-
     # -- a. kernels and modes against their plain versions at 8K -----------
     for fkind, seed in (("gradient", 31), ("noise", 32)):
         frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
@@ -401,18 +535,43 @@ def interleaved_phases(torch, np, gt, dev, flush):
         record_err("pre_rgb_to_planes:decimate",
                    max(diff(a, b) for a, b in zip(planes, ref)), fkind)
         del ref
-        bits, lens = enc.interleaved_tokens(
-            enc.interleaved_coefs(planes, geo), geo)
+        rows_in = fusedpack.interleaved_rows(planes, geo, classes)
+        del planes
+        st = fusedpack.interleaved_slots(geo, classes)
+        nblocks = geo.mcu_count * geo.blocks_per_mcu
         markers = fusedpack.segment_markers(geo.segment_count, dev)
-        stride = enc.interleaved_stride(geo)
-        rows, rb, needs = fusedpack.pack_stuff_rows(bits, lens, markers,
-                                                    stride)
+        rows, rb, needs = fusedpack.huffman_segments(rows_in, nblocks, st,
+                                                     markers)
+        p_out, ms_huff = once_ms(
+            torch, lambda: fusedpack.huffman_segments_plain(
+                rows_in, nblocks, st, markers))
+        record_err("huffman_segments:pattern_420",
+                   rows_err(torch, rows, rb, needs, *p_out), fkind)
+        del p_out
+        # pack_stuff_rows on the same rows' tokens from the plain tokenizer
+        R, B = rows_in.shape[0], rows_in.shape[1] // 64
+        ok = torch.ones((R, B), dtype=torch.bool, device=dev)
+        cls = torch.tensor(st.slot_class, device=dev).repeat(
+            B // st.bpm).expand(R, B)
+        bits, lens = [], []
+        for r0 in range(0, R, fusedpack.PLAIN_CHUNK_ROWS):
+            sl = slice(r0, r0 + fusedpack.PLAIN_CHUNK_ROWS)
+            b_, l_ = fusedpack.segment_tokens(rows_in[sl], st, ok[sl],
+                                              cls[sl])
+            bits.append(b_.to(torch.int32))
+            lens.append(l_)
+        bits, lens = torch.cat(bits), torch.cat(lens)
+        stride = st.stride(B)
+        k_out = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
         p_out, ms_pack = once_ms(
             torch, lambda: fusedpack.pack_stuff_rows_plain(bits, lens,
                                                            markers, stride))
-        record_err("pack_stuff_rows", rows_err(rows, rb, needs, *p_out),
-                   fkind)
-        del p_out, bits, lens, planes
+        record_err("pack_stuff_rows", max(
+            rows_err(torch, *k_out, *p_out),
+            rows_err(torch, *k_out, rows, rb, needs)), fkind)
+        if fkind == "gradient":
+            pack_in = (bits, lens, markers, stride, int(k_out[1].sum()))
+        del p_out, k_out, bits, lens
         data = enc.assemble(geo, {"rows": [rows], "row_bytes": [rb]})
         del rows
         hf = dec.prepare(data)
@@ -457,31 +616,22 @@ def interleaved_phases(torch, np, gt, dev, flush):
         record_err("post_rgb", diff(img, ref), fkind)
         if fkind == "gradient":
             for name, ms in (("pre_rgb_to_planes:decimate", ms_pre),
+                             ("huffman_segments:pattern_420", ms_huff),
                              ("pack_stuff_rows", ms_pack),
                              ("huffdec_scan:pattern", ms_a),
                              ("huffdec_block:pattern", ms_c),
                              ("idct_planes", ms_i), ("post_rgb", ms_p)):
                 kernels[name]["plain_ms"] = ms
-        log(f"[il kernels] 8K 4:2:0 {fkind}: pre, pack, scan, block, idct, "
-            f"post equal to plain; {len(data)} B, {geo.segment_count} "
-            f"segments of {p.bps} blocks, max row {int(needs[1])} B, "
-            f"stuffed zeros <= {int(needs[0])}, stride {stride} B, "
-            f"PSNR {psnr(np, img.cpu().numpy(), frame.cpu().numpy()):.2f} "
-            "dB")
-        del coefs, dplanes, img, ref, frame
+        log(f"[il kernels] 8K 4:2:0 {fkind}: pre, huffman (pattern), pack "
+            f"(plain tokens), scan, block, idct, post equal to plain; "
+            f"{len(data)} B, {geo.segment_count} segments of {p.bps} "
+            f"blocks, max row {int(needs[1])} B, stuffed zeros <= "
+            f"{int(needs[0])}, stride {stride} B, PSNR "
+            f"{psnr(np, img.cpu().numpy(), frame.cpu().numpy()):.2f} dB")
+        del coefs, dplanes, img, ref, frame, rows_in
 
     # -- b. HD: card == CPU, bytes and pixels --------------------------------
-    hd = make_frame(torch, "gradient", 23, 1080, 1920, dev).cpu().numpy()
-    hd_stream = enc.encode(hd, params)
-    if hd_stream != gt.Encoder(device="cpu").encode(hd, params):
-        raise AssertionError("HD 4:2:0 encode on the card differs from the "
-                             "CPU")
-    got = dec.decode(hd_stream)
-    if not np.array_equal(got, gt.Decoder(device="cpu").decode(hd_stream)):
-        raise AssertionError("HD 4:2:0 decode on the card differs from the "
-                             "CPU")
-    log(f"[il hd] 1920x1080 4:2:0 Q75 {len(hd_stream)} bytes: card == cpu "
-        f"(bytes and pixels), PSNR {psnr(np, got, hd):.2f} dB")
+    hd_check(torch, np, gt, dev, params, 23, "il 4:2:0")
 
     # -- c. main path: three 8K frames, encode then decode -------------------
     frames = [make_frame(torch, "gradient", 200 + i, H8K, W8K, dev)
@@ -495,32 +645,26 @@ def interleaved_phases(torch, np, gt, dev, flush):
         walls.append((time.perf_counter() - t0) * 1e3)
         streams.append(out)
     launches = {n: _kernels.LAUNCHES[n] for n in (
-        "pre_rgb_to_planes", "fdct_quant", "pack_stuff_rows")}
+        "pre_rgb_to_planes", "fdct_quant", "huffman_segments")}
+    if _kernels.LAUNCHES["pack_stuff_rows"]:
+        raise AssertionError("the 4:2:0 encode went through pack_stuff_rows")
+    launches["pack_stuff_rows"] = 0
     geo = enc.resolve(frames[0], params)
     for out in streams:
-        data = np.frombuffer(out, np.uint8)
-        if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
-            raise AssertionError("8K 4:2:0 stream lacks SOI/EOI")
-        ff = np.nonzero(data[:-1] == 0xFF)[0]
-        nrst = int(((data[ff + 1] >= 0xD0) & (data[ff + 1] <= 0xD7)).sum())
-        if nrst != geo.segment_count - 1:
-            raise AssertionError(f"RST count {nrst} != "
-                                 f"{geo.segment_count - 1}")
+        check_stream(np, out, geo.segment_count - 1, "8K 4:2:0")
     log(f"[il 8k enc] 3 frames 7680x4320 4:2:0 Q75 rst "
         f"{geo.param.restart_interval} MCU: bytes "
         f"{[len(s) for s in streams]}, segments {geo.segment_count}, RST "
         f"markers ok, launches {launches}")
-    for i in range(9):
+    for i in range(EXTRA_FRAMES):
         t0 = time.perf_counter()
         enc.encode(frames[i % 3], params)
         walls.append((time.perf_counter() - t0) * 1e3)
-    q = np.percentile(walls, [25, 50, 75])
-    log(f"[il 8k enc] wall ms per frame (host frame in, bytes out), "
-        f"{len(walls)} frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / "
-        f"{q[2]:.3f}; " + ", ".join(f"{w:.3f}" for w in walls))
+    log("[il 8k enc] wall ms per frame (host frame in, bytes out), "
+        + quartiles(np, walls))
 
     f = frames[0]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ev[0].record()
@@ -528,14 +672,13 @@ def interleaved_phases(torch, np, gt, dev, flush):
     ev[1].record()
     planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
     ev[2].record()
-    il_coefs = enc.interleaved_coefs(planes, geo)
+    rows_in = fusedpack.interleaved_rows(planes, geo, classes)
     ev[3].record()
-    bits, lens = enc.interleaved_tokens(il_coefs, geo)
-    ev[4].record()
+    st = fusedpack.interleaved_slots(geo, classes)
+    nblocks = geo.mcu_count * geo.blocks_per_mcu
     markers = fusedpack.segment_markers(geo.segment_count, dev)
-    stride = enc.interleaved_stride(geo)
-    rows, rb, _ = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
-    ev[5].record()
+    rows, rb, _ = fusedpack.huffman_segments(rows_in, nblocks, st, markers)
+    ev[4].record()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     out = enc.assemble(geo, {"rows": [rows], "row_bytes": [rb]})
@@ -546,31 +689,36 @@ def interleaved_phases(torch, np, gt, dev, flush):
     stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
                   pre_ms=ev[1].elapsed_time(ev[2]),
                   fdct_reorder_3_planes_ms=ev[2].elapsed_time(ev[3]),
-                  tokenize_ms=ev[3].elapsed_time(ev[4]),
-                  pack_ms=ev[4].elapsed_time(ev[5]),
+                  huffman_pattern_ms=ev[3].elapsed_time(ev[4]),
                   device_wall_ms=(t1 - t0) * 1e3,
                   assemble_d2h_host_ms=(t2 - t1) * 1e3)
     log("[il 8k enc] stages (CUDA events; assembly on the host clock; "
-        f"{bits.numel() * 8} B of tokens): "
+        f"{rows_in.numel() * 2} B of coefficients in MCU order): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
     # per-launch times of the encode side at the path's shapes (frame 0)
     kernels["pre_rgb_to_planes:decimate"]["ms"] = event_ms(
         torch, lambda: prepost_kernel.preprocess_packed(
             x, geo, geo.param_image), 20, flush) / 2     # 2 launches
+    kernels["huffman_segments:pattern_420"]["ms"] = event_ms(
+        torch, lambda: fusedpack.huffman_segments(rows_in, nblocks, st,
+                                                  markers), 10, flush)
+    bits, lens, p_markers, stride, p_bytes = pack_in
     kernels["pack_stuff_rows"]["ms"] = event_ms(
-        torch, lambda: fusedpack.pack_stuff_rows(bits, lens, markers,
+        torch, lambda: fusedpack.pack_stuff_rows(bits, lens, p_markers,
                                                  stride), 10, flush)
     pl_bytes = sum(p_.numel() for p_ in planes)
     kernels["pre_rgb_to_planes:decimate"]["bound_ms"] = (
         x.numel() + pl_bytes) / 2 / PEAK_BYTES_S * 1e3
+    kernels["huffman_segments:pattern_420"]["bound_ms"] = huffman_bound_ms(
+        rows_in, rb)
     # every length is read; bits only in the 4-slot quads that hold a token
     # (the kernel skips a quad whose lengths are all 0)
     quads = int((lens.view(lens.shape[0], -1, 4) != 0).any(-1).sum())
     kernels["pack_stuff_rows"]["bound_ms"] = (
-        lens.numel() * 4 + quads * 16 + markers.numel() * 4 + int(rb.sum())
-        + rb.numel() * 4) / PEAK_BYTES_S * 1e3
-    del bits, lens, rows, il_coefs, planes, x
+        lens.numel() * 4 + quads * 16 + p_markers.numel() * 4 + p_bytes
+        + lens.shape[0] * 4) / PEAK_BYTES_S * 1e3
+    del bits, lens, rows, rows_in, planes, x, pack_in
 
     # decode of the three streams
     torch.cuda.synchronize()
@@ -589,65 +737,25 @@ def interleaved_phases(torch, np, gt, dev, flush):
     if _kernels.LAUNCHES["dpost_rgb"]:
         raise AssertionError("the 4:2:0 decode went through dpost_rgb")
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name != "pack_stuff_rows":
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "4:2:0 path")
     if min(psnrs) < 20:
         raise AssertionError(f"8K 4:2:0 decode PSNR {psnrs} dB")
     log(f"[il 8k dec] 3 streams: PSNR vs source "
         + ", ".join(f"{v:.2f}" for v in psnrs) + f" dB, launches {launches}")
-    for i in range(9):
+    for i in range(EXTRA_FRAMES):
         t0 = time.perf_counter()
         dec.decode(streams[i % 3])
         dwalls.append((time.perf_counter() - t0) * 1e3)
-    q = np.percentile(dwalls, [25, 50, 75])
-    log(f"[il 8k dec] wall ms per frame (bytes in, host array out), "
-        f"{len(dwalls)} frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / "
-        f"{q[2]:.3f}; " + ", ".join(f"{w:.3f}" for w in dwalls))
+    log("[il 8k dec] wall ms per frame (bytes in, host array out), "
+        + quartiles(np, dwalls))
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    hf = dec.prepare(streams[0])
-    t1 = time.perf_counter()
-    p = hf.plan
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-    ev[0].record()
-    words = torch.from_numpy(hf.words).to(dev)
-    nbits = torch.from_numpy(hf.nbits).to(dev)
-    ev[1].record()
-    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps, p.pattern)
-    ev[2].record()
-    coefs, _ec = thd.decode_blocks(words, bstart, *args, p.pattern)
-    ev[3].record()
-    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps, p.comp_slots)
-    ev[4].record()
-    dplanes = [prepost_kernel.idct_planes(coefs, p.qtabs[c.index], p.geo, c)
-               for c in p.geo.components]
-    ev[5].record()
-    img = prepost_kernel.postprocess_packed(dplanes, p.geo, hf.out_pi)
-    ev[6].record()
-    host = img.cpu()
-    ev[7].record()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    if not np.array_equal(host.numpy(), dec.decode(streams[0])):
-        raise AssertionError("stage-by-stage 4:2:0 decode differs from "
-                             "decode()")
-    stages = dict(parse_unstuff_host_ms=(t1 - t0) * 1e3,
-                  h2d_words_ms=ev[0].elapsed_time(ev[1]),
-                  scan_ms=ev[1].elapsed_time(ev[2]),
-                  block_ms=ev[2].elapsed_time(ev[3]),
-                  dc_fixup_ms=ev[3].elapsed_time(ev[4]),
-                  idct_3_planes_ms=ev[4].elapsed_time(ev[5]),
-                  post_ms=ev[5].elapsed_time(ev[6]),
-                  d2h_image_ms=ev[6].elapsed_time(ev[7]),
-                  device_wall_ms=(t2 - t1) * 1e3)
-    log(f"[il 8k dec] stages (parse + unstuff on the host clock, the rest "
-        f"CUDA events; {words.numel() * 4} B of words): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    bstart, coefs, dplanes, img, words, nbits, p, hf = decode_stages(
+        torch, np, dec, streams[0], "il 4:2:0")
 
     # -- d. per-launch times of the decode side at the path's shapes -------
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     kernels["huffdec_scan:pattern"]["ms"] = event_ms(
         torch, lambda: thd.scan_segments(words, nbits, *args, p.bps,
                                          p.pattern), 20, flush)
@@ -689,14 +797,352 @@ def interleaved_phases(torch, np, gt, dev, flush):
         / PEAK_BYTES_S * 1e3
     kernels["post_rgb"]["bound_ms"] = (
         sum(d.numel() for d in dplanes) + img.numel()) / PEAK_BYTES_S * 1e3
+    log_times("il time", kernels)
+    return kernels, {name: launches[k.get("key", name)]
+                     for name, k in kernels.items()}
+
+
+def main_path_8k(torch, np, gt, dev, enc, dec, params, seed0, what,
+                 enc_kernels, dec_kernels, forbidden):
+    """Three seeded 8K frames through Encoder.encode, then their streams
+    through Decoder.decode, launch counts read over each; checks SOI/EOI,
+    the RST count, the PSNR, that every kernel named was launched and no
+    forbidden one was, and prints the wall ms of those and EXTRA_FRAMES
+    more.  Returns (launches, frames, streams)."""
+    from gpujpeg_tpu_torch.ops import _kernels
+
+    frames = [make_frame(torch, "gradient", seed0 + i, H8K, W8K, dev)
+              .cpu().numpy() for i in range(3)]
+    geo = enc.resolve(frames[0], params)
+    launches = {}
+    for stage, names in (("enc", enc_kernels), ("dec", dec_kernels)):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        walls, outs = [], []
+        for i, f in enumerate(frames):
+            t0 = time.perf_counter()
+            outs.append(enc.encode(f, params) if stage == "enc"
+                        else dec.decode(streams[i]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches.update({n: _kernels.LAUNCHES[n] for n in names})
+        for n in names:
+            if launches[n] <= 0:
+                raise AssertionError(f"kernel {n} was not launched on the "
+                                     f"{what} path")
+        for n in forbidden:
+            if _kernels.LAUNCHES[n]:
+                raise AssertionError(f"the {what} {stage} went through {n}")
+        if stage == "enc":
+            streams = outs
+            for out in streams:
+                check_stream(np, out, geo.segment_count - geo.scan_count,
+                             f"8K {what}")
+            log(f"[{what} 8k enc] 3 frames 7680x4320 Q75 rst "
+                f"{geo.param.restart_interval}: bytes "
+                f"{[len(s_) for s_ in streams]}, segments "
+                f"{geo.segment_count} in {geo.scan_count} scan(s), RST "
+                f"markers ok, launches {launches}")
+        else:
+            psnrs = [psnr(np, o, f) for o, f in zip(outs, frames)]
+            if any(o.shape != f.shape for o, f in zip(outs, frames)) \
+                    or min(psnrs) < 20:
+                raise AssertionError(f"8K {what} decode: PSNR {psnrs} dB")
+            log(f"[{what} 8k dec] 3 streams: PSNR vs source "
+                + ", ".join(f"{v:.2f}" for v in psnrs)
+                + f" dB, launches {launches}")
+        for i in range(EXTRA_FRAMES):
+            t0 = time.perf_counter()
+            if stage == "enc":
+                enc.encode(frames[i % 3], params)
+            else:
+                dec.decode(streams[i % 3])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"[{what} 8k {stage}] wall ms per frame ("
+            + ("host frame in, bytes out" if stage == "enc"
+               else "bytes in, host array out") + "), "
+            + quartiles(np, walls))
+    return launches, frames, streams
+
+
+def il444_phases(torch, np, gt, dev, flush):
+    """Step 8, the interleaved 4:4:4 path (one scan, Q75, restart auto = 2
+    MCUs a segment); returns (kernel records, launches over its main
+    path)."""
+    from gpujpeg_tpu_torch.ops import fusedpack, prepost_kernel
+
+    params = gt.Parameters(quality=QUALITY, restart_interval=gt.RESTART_AUTO,
+                           interleaved=True)
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    classes = enc.classes(QUALITY)
+    kernels = {
+        "huffman_segments:pattern": dict(
+            key="huffman_segments",
+            source="gpujpeg_tpu_torch/csrc/huffman_segments.cu",
+            replaces="gpujpeg_tpu/ops/fusedpack.py:928",
+            bound_by="bytes", library_ms=None, err=0),
+        "huffman_segments:coefs": dict(
+            key="huffman_segments",
+            source="gpujpeg_tpu_torch/csrc/huffman_segments.cu",
+            replaces="gpujpeg_tpu/ops/fusedpack.py:1006",
+            bound_by="bytes", library_ms=None, err=0,
+            note="coefficient-input mode: no codec path calls it (in the "
+                 "JAX package only tools/profile_stages.py and its tests "
+                 "do); launches counted on the 4:4:4 interleaved path, "
+                 "which runs the same kernel"),
+    }
+
+    def record_err(name, err, what):
+        kernels[name]["err"] = max(kernels[name]["err"], err)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({what}, 4:4:4 interleaved)")
+
+    def coefs_mode_inputs(planes, geo):
+        """The three planes' coefficients as segment rows of 8 blocks with
+        a class flag a row, one interior masked block and a zero marker
+        mid-scan (the megakernel's coefficient-input contract)."""
+        rows, luma, marks = [], [], []
+        for c in geo.components:
+            co = fusedpack.fdct_quant(planes[c.index],
+                                      classes[c.table_index], 8)
+            rows.append(co)
+            luma.append(torch.full((co.shape[0],), int(c.table_index == 0),
+                                   dtype=torch.int32, device=dev))
+            marks.append(fusedpack.segment_markers(co.shape[0], dev))
+        rows, luma = torch.cat(rows), torch.cat(luma)
+        marks = torch.cat(marks)
+        marks[marks.shape[0] // 2] = 0
+        valid = torch.ones((rows.shape[0], 8), dtype=torch.bool, device=dev)
+        valid[rows.shape[0] // 3, 5] = False
+        return rows, valid, luma, marks
+
+    # -- a. the two new modes against their plain versions at 8K ------------
+    for fkind, seed in (("gradient", 41), ("noise", 42)):
+        frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
+        geo = enc.resolve(frame, params)
+        planes = prepost_kernel.preprocess_packed(frame, geo,
+                                                  geo.param_image)
+        rows_in = fusedpack.interleaved_rows(planes, geo, classes)
+        st = fusedpack.interleaved_slots(geo, classes)
+        nblocks = geo.mcu_count * geo.blocks_per_mcu
+        markers = fusedpack.segment_markers(geo.segment_count, dev)
+        k_out = fusedpack.huffman_segments(rows_in, nblocks, st, markers)
+        p_out, ms_pat = once_ms(torch, lambda: fusedpack.
+                                huffman_segments_plain(rows_in, nblocks, st,
+                                                       markers))
+        record_err("huffman_segments:pattern",
+                   rows_err(torch, *k_out, *p_out), fkind)
+        max_row = int(k_out[2][1])
+        del p_out, k_out, rows_in
+        cm = coefs_mode_inputs(planes, geo)
+        k_out = fusedpack.entropy_fused(*cm, classes)
+        cst = fusedpack.SlotTables(classes, (0,), (0,))
+        p_out, ms_coefs = once_ms(torch, lambda: fusedpack.
+                                  huffman_segments_plain(
+                                      cm[0], None, cst, cm[3], cm[1], cm[2]))
+        record_err("huffman_segments:coefs",
+                   rows_err(torch, *k_out, *p_out), fkind)
+        if fkind == "gradient":
+            kernels["huffman_segments:pattern"]["plain_ms"] = ms_pat
+            kernels["huffman_segments:coefs"]["plain_ms"] = ms_coefs
+            coefs_in = cm
+        log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: huffman "
+            f"pattern ({geo.segment_count} rows of {geo.blocks_per_mcu} x "
+            f"{geo.segment_mcu_count} blocks, max row {max_row} B) and "
+            f"coefficient-input mode ({cm[0].shape[0]} rows of 8 blocks) "
+            "equal to plain")
+        del p_out, k_out, planes, frame, cm
+
+    # -- b. HD: card == CPU, bytes and pixels --------------------------------
+    hd_check(torch, np, gt, dev, params, 43, "il444")
+
+    # -- c. main path ---------------------------------------------------------
+    launches, frames, streams = main_path_8k(
+        torch, np, gt, dev, enc, dec, params, 300, "il444",
+        ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"),
+        ("huffdec_scan", "huffdec_block", "idct_planes", "post_rgb"),
+        ("pack_stuff_rows", "dpost_rgb"))
+    geo = enc.resolve(frames[0], params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    x = torch.from_numpy(frames[0]).to(dev)
+    ev[1].record()
+    planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
+    ev[2].record()
+    rows_in = fusedpack.interleaved_rows(planes, geo, classes)
+    ev[3].record()
+    st = fusedpack.interleaved_slots(geo, classes)
+    nblocks = geo.mcu_count * geo.blocks_per_mcu
+    markers = fusedpack.segment_markers(geo.segment_count, dev)
+    rows, rb, _ = fusedpack.huffman_segments(rows_in, nblocks, st, markers)
+    ev[4].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = enc.assemble(geo, {"rows": [rows], "row_bytes": [rb]})
+    t2 = time.perf_counter()
+    if out != streams[0]:
+        raise AssertionError("stage-by-stage 4:4:4 interleaved encode "
+                             "differs from encode()")
+    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+                  pre_ms=ev[1].elapsed_time(ev[2]),
+                  fdct_reorder_3_planes_ms=ev[2].elapsed_time(ev[3]),
+                  huffman_pattern_ms=ev[3].elapsed_time(ev[4]),
+                  device_wall_ms=(t1 - t0) * 1e3,
+                  assemble_d2h_host_ms=(t2 - t1) * 1e3)
+    log("[il444 8k enc] stages (CUDA events; assembly on the host clock; "
+        f"{rows_in.numel() * 2} B of coefficients in MCU order): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    decode_stages(torch, np, dec, streams[0], "il444")
+
+    # -- d. per-launch times at the path's shapes ----------------------------
+    kernels["huffman_segments:pattern"]["ms"] = event_ms(
+        torch, lambda: fusedpack.huffman_segments(rows_in, nblocks, st,
+                                                  markers), 10, flush)
+    kernels["huffman_segments:pattern"]["bound_ms"] = huffman_bound_ms(
+        rows_in, rb)
+    del rows, rows_in, planes, x
+    kernels["huffman_segments:coefs"]["ms"] = event_ms(
+        torch, lambda: fusedpack.entropy_fused(*coefs_in, classes), 10,
+        flush)
+    _, c_rb, _ = fusedpack.entropy_fused(*coefs_in, classes)
+    kernels["huffman_segments:coefs"]["bound_ms"] = huffman_bound_ms(
+        coefs_in[0], c_rb, coefs_in[1].numel() + 4 * c_rb.numel())
+    log_times("il444 time", kernels)
+    return kernels, {name: launches[k["key"]] for name, k in kernels.items()}
+
+
+def planar_phases(torch, np, gt, dev, flush):
+    """Step 9, the planar 4:2:0 path (three non-interleaved scans, luma 2x2,
+    chroma 1x1, Q75, restart auto = 8 blocks a segment); returns (kernel
+    records, launches over its main path)."""
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    params = gt.Parameters(
+        quality=QUALITY, restart_interval=gt.RESTART_AUTO).chroma_subsampled(
+        ((2, 2), (1, 1), (1, 1)))
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    kernels = {
+        "dpost_rgb:subsampled": dict(
+            key="dpost_rgb",
+            source="gpujpeg_tpu_torch/csrc/dpost_rgb.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:379",
+            bound_by="operations", err=0),
+    }
+
+    # -- a. dpost at dx = dy = 2 against its plain version at 8K ------------
+    for fkind, seed in (("gradient", 51), ("noise", 52)):
+        frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
+        data = enc.encode(frame, params)
+        hf = dec.prepare(data)
+        coefs, err_a, err_c = dec.coefficients_t(hf)
+        if bool(err_a.any()) or bool(err_c.any()):
+            raise AssertionError(f"8K planar 4:2:0 {fkind} stream decodes "
+                                 "with errors")
+        geo, pi = hf.plan.geo, hf.out_pi
+        if prepost_kernel.dpost_decimation(geo) != (2, 2) or \
+                not prepost_kernel.decode_post_supported(geo, pi):
+            raise AssertionError("8K planar 4:2:0 does not take dpost")
+        img = prepost_kernel.decode_post(coefs, hf.plan.qtabs, geo, pi)
+        ref, ms = once_ms(torch, lambda: prepost_kernel.decode_post_plain(
+            coefs, hf.plan.qtabs, geo, pi))
+        err = diff(img, ref)
+        kernels["dpost_rgb:subsampled"]["err"] = max(
+            kernels["dpost_rgb:subsampled"]["err"], err)
+        if err:
+            raise AssertionError(f"dpost_rgb:subsampled differs from its "
+                                 f"plain version ({fkind})")
+        if fkind == "gradient":
+            kernels["dpost_rgb:subsampled"]["plain_ms"] = ms
+        log(f"[planar kernels] 8K planar 4:2:0 {fkind}: {len(data)} B, "
+            f"{geo.segment_count} segments in 3 scans, dpost (dx = dy = 2) "
+            f"equal to plain, PSNR "
+            f"{psnr(np, img.cpu().numpy(), frame.cpu().numpy()):.2f} dB")
+        del coefs, img, ref, frame
+
+    # -- b. HD: card == CPU, bytes and pixels --------------------------------
+    hd_check(torch, np, gt, dev, params, 53, "planar 4:2:0")
+
+    # -- c. main path ---------------------------------------------------------
+    launches, frames, streams = main_path_8k(
+        torch, np, gt, dev, enc, dec, params, 400, "planar 4:2:0",
+        ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"),
+        ("huffdec_scan", "huffdec_block", "dpost_rgb"),
+        ("pack_stuff_rows", "idct_planes", "post_rgb"))
+    planar_encode_stages(torch, enc, frames[0], params, streams[0],
+                         "planar 4:2:0 8k enc")
+    _w, _n, _b, coefs, img, p, hf = dpost_decode_stages(
+        torch, np, dec, streams[0], "planar 4:2:0 8k dec")
+
+    # -- d. dpost's time, bound and yardstick at the path's shapes ----------
+    dpost_times(torch, kernels["dpost_rgb:subsampled"], coefs, img, p, hf,
+                flush)
+    log_times("planar time", kernels)
+    return kernels, {name: launches[k_["key"]]
+                     for name, k_ in kernels.items()}
+
+
+def decode_stages(torch, np, dec, data, what):
+    """Stage breakdown of one decode through idct_planes + post_rgb (an
+    interleaved scan, or a stream dpost does not take); returns what the
+    per-launch timings reuse."""
+    from gpujpeg_tpu_torch.models import decoder as tdec
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    dev = dec.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hf = dec.prepare(data)
+    t1 = time.perf_counter()
+    p = hf.plan
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    ev[0].record()
+    words = torch.from_numpy(hf.words).to(dev)
+    nbits = torch.from_numpy(hf.nbits).to(dev)
+    ev[1].record()
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps, p.pattern)
+    ev[2].record()
+    coefs, _ec = thd.decode_blocks(words, bstart, *args, p.pattern)
+    ev[3].record()
+    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps, p.comp_slots)
+    ev[4].record()
+    dplanes = [prepost_kernel.idct_planes(coefs, p.qtabs[c.index], p.geo, c)
+               for c in p.geo.components]
+    ev[5].record()
+    img = prepost_kernel.postprocess_packed(dplanes, p.geo, hf.out_pi)
+    ev[6].record()
+    host = img.cpu()
+    ev[7].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not np.array_equal(host.numpy(), dec.decode(data)):
+        raise AssertionError(f"stage-by-stage {what} decode differs from "
+                             "decode()")
+    stages = dict(parse_unstuff_host_ms=(t1 - t0) * 1e3,
+                  h2d_words_ms=ev[0].elapsed_time(ev[1]),
+                  scan_ms=ev[1].elapsed_time(ev[2]),
+                  block_ms=ev[2].elapsed_time(ev[3]),
+                  dc_fixup_ms=ev[3].elapsed_time(ev[4]),
+                  idct_3_planes_ms=ev[4].elapsed_time(ev[5]),
+                  post_ms=ev[5].elapsed_time(ev[6]),
+                  d2h_image_ms=ev[6].elapsed_time(ev[7]),
+                  device_wall_ms=(t2 - t1) * 1e3)
+    log(f"[{what} 8k dec] stages (parse + unstuff on the host clock, the "
+        f"rest CUDA events; {words.numel() * 4} B of words): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return bstart, coefs, dplanes, img, words, nbits, p, hf
+
+
+def log_times(tag, kernels):
     for name, k in kernels.items():
         lib = k["library_ms"]
-        log(f"[il time] {name}: {k['ms']:.4f} ms per launch (bound "
+        log(f"[{tag}] {name}: {k['ms']:.4f} ms per launch (bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
             f"{k['plain_ms']:.3f} ms, library "
             f"{'-' if lib is None else format(lib, '.4f')} ms")
-    return kernels, {name: launches[k.get("key", name)]
-                     for name, k in kernels.items()}
 
 
 def main() -> int:
@@ -834,14 +1280,7 @@ def main() -> int:
         sizes.append(len(out))
         streams.append(out)
         geo = enc.resolve(f, params)
-        data = np.frombuffer(out, np.uint8)
-        if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
-            raise AssertionError("8K stream lacks SOI/EOI")
-        ff = np.nonzero(data[:-1] == 0xFF)[0]
-        nrst = int(((data[ff + 1] >= 0xD0) & (data[ff + 1] <= 0xD7)).sum())
-        if nrst != geo.segment_count - geo.scan_count:
-            raise AssertionError(f"RST count {nrst} != "
-                                 f"{geo.segment_count - geo.scan_count}")
+        check_stream(np, out, geo.segment_count - geo.scan_count, "8K")
     launches = {name: _kernels.LAUNCHES[name] for name in kernels}
     for name, n in launches.items():
         if n <= 0:
@@ -850,53 +1289,17 @@ def main() -> int:
     log(f"[8k] {len(frames)} frames 7680x4320 Q75 rst "
         f"{geo.param.restart_interval}: bytes {sizes}, segments "
         f"{geo.segment_count}, RST markers ok, launches {launches}")
-    # nine more frames (after the launch counts were read) for the spread
-    for i in range(9):
+    # more frames (after the launch counts were read) for the spread
+    for i in range(EXTRA_FRAMES):
         t0 = time.perf_counter()
         enc.encode(frames[i % 3], params)
         walls.append((time.perf_counter() - t0) * 1e3)
-    q = np.percentile(walls, [25, 50, 75])
-    log(f"[8k] wall ms per frame (host frame in, bytes out), {len(walls)} "
-        f"frames: median {q[1]:.3f}, quartiles {q[0]:.3f} / {q[2]:.3f}; "
-        + ", ".join(f"{w:.3f}" for w in walls))
+    log("[8k] wall ms per frame (host frame in, bytes out), "
+        + quartiles(np, walls))
 
     # stage breakdown of one more frame (after the launch counts were read)
-    f = frames[0]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ev[0].record()
-    x = torch.from_numpy(f).to(dev)
-    ev[1].record()
-    planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
-    ev[2].record()
-    coefs = []
-    for c in geo.components:
-        tabs = enc.class_tables(QUALITY, c.table_index == 0)
-        coefs.append(fusedpack.fdct_quant(planes[c.index], tabs,
-                                          c.segment_mcu_count))
-    ev[3].record()
-    rows, rbs = [], []
-    for c, co in zip(geo.components, coefs):
-        tabs = enc.class_tables(QUALITY, c.table_index == 0)
-        r, rb, _ = fusedpack.huffman_segments(co, c.mcu_count, tabs)
-        rows.append(r)
-        rbs.append(rb)
-    ev[4].record()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out = enc.assemble(geo, {"rows": rows, "row_bytes": rbs})
-    t2 = time.perf_counter()
-    if out != enc.encode(f, params):
-        raise AssertionError("stage-by-stage encode differs from encode()")
-    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
-                  pre_ms=ev[1].elapsed_time(ev[2]),
-                  fdct_3_planes_ms=ev[2].elapsed_time(ev[3]),
-                  huffman_3_planes_ms=ev[3].elapsed_time(ev[4]),
-                  device_wall_ms=(t1 - t0) * 1e3,
-                  assemble_d2h_host_ms=(t2 - t1) * 1e3)
-    log("[8k] stages (CUDA events; assembly on the host clock): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    x, planes, coefs, rows, rbs = planar_encode_stages(
+        torch, enc, frames[0], params, streams[0], "8k")
 
     # per-kernel CUDA-event times at the main path's shapes (frame 0)
     c0 = geo.components[0]
@@ -914,8 +1317,7 @@ def main() -> int:
         b_bytes = planes[c.index].numel() + ncoef * 2 + 64 * 65 * 4
         bound_f.append(max(b_bytes / PEAK_BYTES_S,
                            2 * 64 * ncoef / PEAK_F32_FLOP_S) * 1e3)
-        h_bytes = ncoef * 2 + 272 * 4 + int(rb.sum()) + 4 * rb.numel()
-        bound_h.append(h_bytes / PEAK_BYTES_S * 1e3)
+        bound_h.append(huffman_bound_ms(co, rb))
         # yardstick: one float32 product of the same blocks (TF32 off);
         # timed here only, never called by the port
         blocks = planes[c.index].reshape(
@@ -930,12 +1332,7 @@ def main() -> int:
     kernels["huffman_segments"]["bound_ms"] = sum(bound_h) / 3
     pre_bytes = x.numel() + 3 * c0.data_height * c0.data_width
     kernels["pre_rgb_to_planes"]["bound_ms"] = pre_bytes / PEAK_BYTES_S * 1e3
-    for name, k in kernels.items():
-        log(f"[time] {name}: {k['ms']:.4f} ms per launch (bound "
-            f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
-            f"{k['plain_ms']:.3f} ms, library "
-            f"{'-' if k['library_ms'] is None else format(k['library_ms'], '.4f')}"
-            " ms")
+    log_times("time", kernels)
 
     # -- 6. decode ------------------------------------------------------------
     del x, planes, coefs, rows
@@ -946,22 +1343,27 @@ def main() -> int:
     kernels.update(dec_kernels)
     launches.update(dec_launches)
 
-    # -- 7. the interleaved 4:2:0 path ----------------------------------------
-    il_kernels, il_launches = interleaved_phases(torch, np, gt, dev, flush)
-    kernels.update(il_kernels)
-    launches.update(il_launches)
+    # -- 7-9. the interleaved 4:2:0, interleaved 4:4:4 and planar 4:2:0
+    # paths ------------------------------------------------------------------
+    for phases in (interleaved_phases, il444_phases, planar_phases):
+        t_step = time.perf_counter()
+        step_kernels, step_launches = phases(torch, np, gt, dev, flush)
+        kernels.update(step_kernels)
+        launches.update(step_launches)
+        log(f"[{phases.__name__}] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 8. kernels line -----------------------------------------------------
+    # -- 10. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"]}
+         "library_ms": k["library_ms"],
+         **({"note": k["note"]} if "note" in k else {})}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 9. result -----------------------------------------------------------
+    # -- 11. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

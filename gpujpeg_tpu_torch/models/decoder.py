@@ -8,9 +8,11 @@ The decode of one codestream:
       phase A, block boundaries of each segment   huffdec_kernel.scan_segments
       phase C, coefficients of each block         huffdec_kernel.decode_blocks
       differential DC -> absolute, per component  _dc_fixup_t (torch cumsum)
-    then, for non-interleaved 4:4:4 scans:
-      dequantization + IDCT + colour + store      prepost_kernel.decode_post
-    or, for an interleaved scan:
+    then, for non-interleaved scans whose chroma planes tile the luma plane
+    at dx, dy in {1, 2} (prepost_kernel.decode_post_supported):
+      dequantization + IDCT + upsampling + colour
+      + store                                     prepost_kernel.decode_post
+    or, for an interleaved scan and any other stream:
       dequantization + IDCT, one plane each       prepost_kernel.idct_planes
       upsampling + colour + store                 prepost_kernel.
                                                   postprocess_packed
@@ -26,11 +28,10 @@ from the slot pattern of the MCU (Plan.pattern).
 
 This slice decodes baseline streams of 3 components with a restart
 interval > 0 and the tuned Huffman family (AC tables of a trained bucket,
-DC tables with identity values) to P444_U8_P012: non-interleaved scans at
-4:4:4 (what the port's encoder writes in the reference GPUJPEG's headline
-configuration), and one interleaved scan with chroma at 1x1 and luma at
-1x1, 2x1, 1x2 or 2x2.  Everything else raises NotImplementedError naming
-the ROADMAP item (queue 1) that ports it.
+DC tables with identity values) to P444_U8_P012, with chroma at 1x1 and
+luma at 1x1, 2x1, 1x2 or 2x2, in non-interleaved scans or in one
+interleaved scan.  Everything else raises NotImplementedError naming the
+ROADMAP item (queue 1) that ports it.
 """
 
 from __future__ import annotations
@@ -183,17 +184,13 @@ def check_supported(ps: reader.ParsedStream, geo: Geometry,
     if ps.comp_count != 3:
         missing.append(f"{ps.comp_count} components (only 3 are ported; "
                        "item 6)")
-    elif geo.interleaved:
-        if samp[1:] != [(1, 1)] * 2 or samp[0] not in (
-                (1, 1), (2, 1), (1, 2), (2, 2)):
-            missing.append(
-                f"an interleaved scan with sampling {samp} (only chroma "
-                "at 1x1 and luma at 1x1, 2x1, 1x2 or 2x2 are ported; "
-                "item 6)")
-    elif samp != [(1, 1)] * 3:
+    elif samp[1:] != [(1, 1)] * 2 or samp[0] not in (
+            (1, 1), (2, 1), (1, 2), (2, 2)):
+        scans = ("an interleaved scan" if geo.interleaved
+                 else "non-interleaved scans")
         missing.append(
-            f"non-interleaved scans with sampling {samp} (only 4:4:4 is "
-            "ported; item 6)")
+            f"{scans} with sampling {samp} (only chroma at 1x1 and luma at "
+            "1x1, 2x1, 1x2 or 2x2 are ported; item 6)")
     if (out_pi.pixel_format != PixelFormat.P444_U8_P012
             or out_pi.width_padding):
         missing.append(
@@ -444,7 +441,7 @@ class Decoder:
     def back_half(coefs_t: torch.Tensor, plan: Plan,
                   out_pi: ImageParameters) -> torch.Tensor:
         """DC-integrated coefficients -> (H, W, 3) uint8 pixels: the fused
-        dpost kernel where it applies (non-interleaved 4:4:4), else one
+        dpost kernel where it applies (decode_post_supported), else one
         IDCT plane a component and the postprocessor."""
         geo = plan.geo
         if prepost_kernel.decode_post_supported(geo, out_pi):

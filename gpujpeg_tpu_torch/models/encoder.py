@@ -1,49 +1,49 @@
 """Encoder session of the PyTorch port (gpujpeg_tpu.models.encoder).
 
-The device pipeline follows the JAX package's dispatch
-(gpujpeg_tpu.models.encoder.make_full_encode_fn).  Where its megakernel
-applies (non-interleaved scans, tuned tables), per component:
-
-    preprocess (colour + planes)      ops/prepost_kernel.preprocess_packed
-    per component:
-      forward DCT + quantization      ops/fusedpack.fdct_quant
-      Huffman coding of segment rows  ops/fusedpack.huffman_segments
-
-and for an interleaved scan with subsampled chroma, its non-megakernel
-path (make_rows_tokens_impl, then the deep-stuff packer), one scan:
+The device pipeline follows the JAX package's megakernel dispatch
+(gpujpeg_tpu.models.encoder.make_full_encode_fn).  For non-interleaved
+scans, per component (any decimation of the chroma planes):
 
     preprocess (colour, decimation)   ops/prepost_kernel.preprocess_packed
     per component:
       forward DCT + quantization      ops/fusedpack.fdct_quant
-      blocks to MCU stream order      Encoder.interleaved_coefs
-      Huffman tokens of its blocks    ops/tokens.tokenize_rows (torch ops)
-    tokens interleaved per MCU        Encoder.interleaved_tokens
-    token rows to stuffed byte rows   ops/fusedpack.pack_stuff_rows
+      Huffman coding of segment rows  ops/fusedpack.huffman_segments
+
+and for an interleaved scan (the megakernel's interleaved mode, which the
+JAX package runs at 1x1 sampling and sends subsampled scans to XLA
+tokens and its deep-stuff kernel), one scan at any of the sampling
+layouts below:
+
+    preprocess (colour, decimation)   ops/prepost_kernel.preprocess_packed
+    per component:
+      forward DCT + quantization      ops/fusedpack.fdct_quant
+    blocks to MCU stream order        ops/fusedpack.interleaved_rows
+    Huffman coding, slot patterns     ops/fusedpack.huffman_segments
 
 then host assembly: headers (stream/writer.py) and the rows of each scan,
 cut to their byte counts (native.assemble_rows).  On CUDA every stage but
-the tokenizer is a hand-written kernel; with device="cpu" every stage runs
-its plain PyTorch version.  The bytes are the same either way and equal
-the JAX package's.
+the MCU reorder (a torch copy) is a hand-written kernel; with
+device="cpu" every stage runs its plain PyTorch version.  The bytes are
+the same either way and equal the JAX package's.
 
 This slice covers 8-bit RGB P444_U8_P012 input, 3 components, the tuned
 Huffman family, a restart interval > 0 (auto picks 8 blocks a segment up
-to Q92), and either non-interleaved scans at 4:4:4 (the reference
-GPUJPEG's headline configuration) or one interleaved scan with chroma at
-1x1 and luma at 2x2, 2x1 or 1x2 (4:2:0, 4:2:2, 4:4:0).  Everything else
-raises NotImplementedError naming the ROADMAP item that ports it.
+to Q92), chroma at 1x1 and luma at 1x1, 2x1, 1x2 or 2x2 (4:4:4, 4:2:2,
+4:4:0, 4:2:0), in non-interleaved scans (the reference GPUJPEG's
+headline configuration at 4:4:4) or in one interleaved scan.  Everything
+else raises NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import native
 from ..device import resolve_device
-from ..ops import fusedpack, prepost_kernel, tokens
+from ..ops import fusedpack, prepost_kernel
 from ..stream import writer as jwriter
 from ..types import (ColorSpace, ImageParameters, Parameters, PixelFormat,
                      RESTART_AUTO, pixel_format_comp_count,
@@ -73,6 +73,10 @@ def adjust_params(param: Parameters, pi: ImageParameters) -> Parameters:
     return param
 
 
+#: luma sampling factors of the ported layouts, chroma at 1x1
+SAMPLINGS = ((1, 1), (2, 1), (1, 2), (2, 2))
+
+
 def check_supported(geo: Geometry) -> None:
     """Raise NotImplementedError for a configuration outside this slice,
     naming the ROADMAP item (queue 1) that ports it."""
@@ -87,21 +91,12 @@ def check_supported(geo: Geometry) -> None:
         raise NotImplementedError(
             "component counts other than 3 are not ported (ROADMAP queue "
             "1 item 6)")
-    if geo.interleaved:
-        if samp == [(1, 1)] * 3:
-            raise NotImplementedError(
-                "interleaved 4:4:4 scans (the JAX package's interleaved "
-                "megakernel mode) are not ported (ROADMAP queue 1 item 8, "
-                "queue 2 item 7)")
-        if samp[1:] != [(1, 1)] * 2 or samp[0] not in ((2, 2), (2, 1),
-                                                       (1, 2)):
-            raise NotImplementedError(
-                f"interleaved sampling {samp}: only 4:2:0, 4:2:2 and 4:4:0 "
-                "are ported (ROADMAP queue 1 item 6)")
-    elif samp != [(1, 1)] * 3:
+    if samp[1:] != [(1, 1)] * 2 or samp[0] not in SAMPLINGS:
         raise NotImplementedError(
-            f"non-interleaved scans at sampling {samp}: only 4:4:4 is "
-            "ported (ROADMAP queue 1 item 6)")
+            f"{'interleaved' if geo.interleaved else 'non-interleaved'} "
+            f"sampling {samp}: only chroma at 1x1 with luma at 1x1, 2x1, "
+            "1x2 or 2x2 (4:4:4, 4:2:2, 4:4:0, 4:2:0) is ported (ROADMAP "
+            "queue 1 item 6)")
     if param.restart_interval == 0:
         raise NotImplementedError(
             "restart_interval == 0 (host entropy path) is not ported "
@@ -140,6 +135,13 @@ class Encoder:
             self._tables[key] = tabs
         return tabs
 
+    def classes(self, quality: int) -> Tuple[fusedpack.ClassTables,
+                                             fusedpack.ClassTables]:
+        """The (luma, chroma) table classes at this quality: component c
+        takes classes[c.table_index]."""
+        return self.class_tables(quality, True), self.class_tables(quality,
+                                                                   False)
+
     def resolve(self, image, param: Optional[Parameters] = None,
                 param_image: Optional[ImageParameters] = None) -> Geometry:
         if param_image is None:
@@ -169,79 +171,19 @@ class Encoder:
             x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
         planes = prepost_kernel.preprocess_packed(x.contiguous(), geo,
                                                   geo.param_image)
+        classes = self.classes(geo.param.quality)
         if geo.interleaved:
-            bits, lens = self.interleaved_tokens(
-                self.interleaved_coefs(planes, geo), geo)
-            del planes
-            rows, row_bytes, _needs = fusedpack.pack_stuff_rows(
-                bits, lens, fusedpack.segment_markers(geo.segment_count,
-                                                      bits.device),
-                self.interleaved_stride(geo))
+            rows, row_bytes, _needs = fusedpack.entropy_fused_u8_il(
+                planes, geo, classes)
             return geo, {"rows": [rows], "row_bytes": [row_bytes]}
         rows, row_bytes = [], []
         for c in geo.components:
-            tabs = self.class_tables(geo.param.quality, c.table_index == 0)
             r, rb, _needs = fusedpack.entropy_fused_u8(
-                planes[c.index], tabs, c.segment_mcu_count)
+                planes[c.index], classes[c.table_index],
+                c.segment_mcu_count)
             rows.append(r)
             row_bytes.append(rb)
         return geo, {"rows": rows, "row_bytes": row_bytes}
-
-    def interleaved_coefs(self, planes, geo: Geometry) -> List[torch.Tensor]:
-        """Per component, its quantized coefficients in the scan's stream
-        order: (segments, restart interval * sv * sh, 64) int16, MCUs in
-        raster order and the component's sv x sh blocks of an MCU in (v,
-        h) order, MCUs past the image zero (the layout math of
-        gpujpeg_tpu.models.encoder.make_rows_tokens_impl)."""
-        S, rst, nmcu = (geo.segment_count, geo.segment_mcu_count,
-                        geo.mcu_count)
-        out = []
-        for c in geo.components:
-            tabs = self.class_tables(geo.param.quality, c.table_index == 0)
-            n = c.samp_v * c.samp_h
-            x = fusedpack.fdct_quant(planes[c.index], tabs, 1).reshape(
-                c.mcu_count_y, c.samp_v, c.mcu_count_x, c.samp_h, 64)
-            x = x.permute(0, 2, 1, 3, 4).reshape(nmcu, n, 64)
-            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, S * rst - nmcu))
-            out.append(x.reshape(S, rst * n, 64))
-        return out
-
-    def interleaved_tokens(self, coefs: List[torch.Tensor], geo: Geometry):
-        """Huffman tokens of an interleaved scan: each component's blocks
-        tokenized with its class's tables (the DC predictor runs along the
-        component's own blocks of the segment), then interleaved per MCU
-        -> (bits, lens) (segments, T) int32, T = interval * blocks a MCU *
-        64, fusedpack.PLAIN_CHUNK_ROWS segment rows at a time."""
-        S, rst, bpm = (geo.segment_count, geo.segment_mcu_count,
-                       geo.blocks_per_mcu)
-        dev = coefs[0].device
-        bits = torch.empty((S, rst, bpm * 64), dtype=torch.int32,
-                           device=dev)
-        lens = torch.empty_like(bits)
-        mcus = torch.clamp(geo.mcu_count - rst * torch.arange(
-            S, device=dev), 0, rst)
-        off = 0
-        for c, x in zip(geo.components, coefs):
-            tabs = self.class_tables(geo.param.quality, c.table_index == 0)
-            n = c.samp_v * c.samp_h
-            cols = slice(off * 64, (off + n) * 64)
-            for a in range(0, S, fusedpack.PLAIN_CHUNK_ROWS):
-                sl = slice(a, min(S, a + fusedpack.PLAIN_CHUNK_ROWS))
-                b, ln = tokens.tokenize_rows(x[sl], tabs.luts[:16],
-                                             tabs.luts[16:], mcus[sl] * n)
-                k = sl.stop - sl.start
-                bits[sl, :, cols] = b.reshape(k, rst, n * 64).to(torch.int32)
-                lens[sl, :, cols] = ln.reshape(k, rst, n * 64)
-            off += n
-        return bits.reshape(S, -1), lens.reshape(S, -1)
-
-    def interleaved_stride(self, geo: Geometry) -> int:
-        """Worst-case bytes of an interleaved segment row, from the class
-        of every block slot (fusedpack.pack_stride)."""
-        slots = [self.class_tables(geo.param.quality, c.table_index == 0)
-                 for c in geo.components
-                 for _ in range(c.samp_v * c.samp_h)]
-        return fusedpack.pack_stride(slots * geo.segment_mcu_count)
 
     def assemble(self, geo: Geometry, res) -> bytes:
         """Host codestream assembly: headers, then each scan's rows cut to

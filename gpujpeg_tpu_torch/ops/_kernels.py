@@ -45,9 +45,11 @@ _SIGNATURES: Dict[str, List] = {
     "pre_rgb_to_planes": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # plane, data_h, data_w, nblocks_out, mq, bias, out, stream
     "fdct_quant": [_P, _I, _I, _I64, _P, _P, _P, _P],
-    # coefs, nseg, rst, nblocks, luts, stride, rows, row_bytes, needs,
-    # stream
-    "huffman_segments": [_P, _I64, _I, _I64, _P, _I, _P, _P, _P, _P],
+    # coefs, rows, blocks a row, nblocks, valid (null = prefix), luts0,
+    # luts1, row_luma (null = all 1), bpm, luma_pat, comp_pat, markers,
+    # stride, out rows, row_bytes, needs, stream
+    "huffman_segments": [_P, _I64, _I, _I64, _P, _P, _P, _P, _I, _I64,
+                         _I64, _P, _I, _P, _P, _P, _P],
     # bits, lens, R, T, markers, stride, rows, row_bytes, needs, stream
     "pack_stuff_rows": [_P, _P, _I64, _I, _P, _I, _P, _P, _P, _P],
     # words, nseg, W, nbits, nblocks, dc_luma, ac_luma, bpm, dc_pat,
@@ -58,9 +60,11 @@ _SIGNATURES: Dict[str, List] = {
     # ac_pat, tables, coefs, err, stream
     "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P, _P],
-    # coefs, L, offsets (host int64[3]), nblocks, blocks per row, H, W,
-    # qtabs, idct matrix, params (host int32[26]), out, stream
-    "dpost_rgb": [_P, _I64, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P],
+    # coefs, L, offsets (host int64[3]), luma blocks, luma blocks per row,
+    # dx, dy, H, W, qtabs, idct matrix, params (host int32[26]), out,
+    # stream
+    "dpost_rgb": [_P, _I64, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                  _P],
     # coefs, L, bpm, off, sh, sv, mcux, data_h, data_w, qtab, idct matrix,
     # out, stream
     "idct_planes": [_P, _I64, _I, _I64, _I, _I, _I, _I, _I, _P, _P, _P,

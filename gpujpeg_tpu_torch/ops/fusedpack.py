@@ -2,36 +2,45 @@
 coding of restart-segment rows into stuffed byte rows.
 
 The JAX package runs both in one Pallas megakernel
-(gpujpeg_tpu.ops.fusedpack._entropy_kernel_body through entropy_fused_u8).
-The port splits it into two hand-written CUDA kernels:
+(gpujpeg_tpu.ops.fusedpack._entropy_kernel_body) in three modes: DCT-fused
+for one component of a non-interleaved scan (entropy_fused_u8), DCT-fused
+for a whole interleaved scan (entropy_fused_u8_il) and coefficient input
+(entropy_fused).  The port splits it into two hand-written CUDA kernels:
 
   fdct_quant        csrc/fdct_quant.cu        plane -> (S, rst*64) int16
-  huffman_segments  csrc/huffman_segments.cu  coefficients -> byte rows
+  huffman_segments  csrc/huffman_segments.cu  coefficient rows -> byte rows
 
-``entropy_fused_u8`` runs one after the other.  Where the megakernel does
-not apply (interleaved subsampled scans), the JAX package tokenizes in XLA
-and packs the token rows with its Pallas deep-stuff kernel
-(_deep_stuff_kernel_body through pack_stuff_fused); the port's counterpart
-is
+and one Huffman contract covers the three modes: a table class and a
+component (for the DC predictor) per block slot of an MCU (``SlotTables``),
+a class flag per row, a valid mask per block and the RST marker after
+each row given by the caller.  ``entropy_fused_u8``, ``entropy_fused_u8_il``
+and ``entropy_fused`` are the counterparts of the JAX functions of those
+names.  Every interleaved scan codes through the slot-pattern mode, 4:2:0
+included: the coefficients are in device memory in MCU order
+(``interleaved_rows``), so the JAX package's non-megakernel route for
+subsampled interleaved scans (XLA tokens, then its deep-stuff kernel)
+has no counterpart on an encode path.  Its kernel is ported all the same:
 
   pack_stuff_rows   csrc/pack_stuff_rows.cu   token rows -> byte rows
 
+for the token rows that Annex-K tables will produce (ROADMAP queue 1 item
+7).
+
 For CPU tensors each wrapper runs its plain version (ops/dct.py;
-ops/tokens.py plus ``pack_rows`` below); for CUDA tensors it launches its
-kernel or raises.
+``segment_tokens`` plus ``pack_rows`` below); for CUDA tensors it launches
+its kernel or raises.
 
 Rows are bytes in stream order, one restart segment per row, with the
-F.1.2.3 1-padding, 0xFF -> 0xFF00 stuffing and the RST marker of every
-segment but the scan's last.  Their stride is the
-worst case (``row_stride``), so no capacity protocol is needed; ``needs``
-keeps the last two entries of the JAX package's vector: the largest
-stuffed-zero count and the largest row length.
+F.1.2.3 1-padding, 0xFF -> 0xFF00 stuffing and the row's RST marker.
+Their stride is the worst case (``pack_stride``), so no capacity protocol
+is needed; ``needs`` keeps the last two entries of the JAX package's
+vector: the largest stuffed-zero count and the largest row length.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,6 +83,36 @@ def class_tables(quality: int, luma: bool, device) -> ClassTables:
         bias=torch.from_numpy(bias).to(device),
         luts=torch.from_numpy(luts.astype(np.int32)).to(device),
         max_block_bits=max_dc + 63 * max_ac)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotTables:
+    """The Huffman coder's view of a row: block b sits in slot b % bpm of
+    its MCU and takes classes[slot_class[slot]] (classes[1] in a row whose
+    class flag is 0) and the DC predictor of component slot_comp[slot]."""
+
+    classes: Tuple[ClassTables, ClassTables]
+    slot_class: Tuple[int, ...]     # 0 or 1 a slot
+    slot_comp: Tuple[int, ...]      # 0..3 a slot
+
+    @property
+    def bpm(self) -> int:
+        return len(self.slot_class)
+
+    def stride(self, B: int, row_flags: bool = False) -> int:
+        """Worst-case bytes of a row of B blocks (pack_stride), with every
+        row's class flag set, or either when row_flags."""
+        slots = [self.classes[k] for k in self.slot_class] * (B // self.bpm)
+        out = pack_stride(slots)
+        if row_flags:
+            out = max(out, pack_stride([self.classes[1]] * B))
+        return out
+
+
+def one_slot(tabs: ClassTables) -> SlotTables:
+    """The rows of one component's non-interleaved scan: one slot, one
+    class."""
+    return SlotTables((tabs, tabs), (0,), (0,))
 
 
 def pack_stride(slots: Sequence[ClassTables]) -> int:
@@ -185,57 +224,141 @@ def segment_markers(nseg: int, device) -> torch.Tensor:
     return torch.where(s < nseg - 1, 0xD0 + (s & 7), 0).to(torch.int32)
 
 
-def huffman_segments_plain(coefs: torch.Tensor, nblocks: int,
-                           tabs: ClassTables):
-    """Plain version of huffman_segments, on any device: tokenize
-    (ops/tokens.py), then pack_rows, PLAIN_CHUNK_ROWS rows at a time."""
+def _as_slots(tabs: Union[ClassTables, SlotTables]) -> SlotTables:
+    return tabs if isinstance(tabs, SlotTables) else one_slot(tabs)
+
+
+def _row_args(coefs: torch.Tensor, nblocks: Optional[int],
+              st: SlotTables, markers, valid, row_luma):
+    """Check the Huffman contract's arguments; -> (R, B, markers)."""
+    R, C = coefs.shape
+    B = C // 64
+    if C % 64 or B % st.bpm or not 1 <= st.bpm <= 16:
+        raise ValueError(f"rows of {C} coefficients do not hold whole MCUs "
+                         f"of {st.bpm} blocks")
+    if valid is None and (nblocks is None or not 0 < nblocks <= R * B):
+        raise ValueError(f"{nblocks} blocks do not fit {R} rows of {B} "
+                         "blocks")
+    if valid is not None and tuple(valid.shape) != (R, B):
+        raise ValueError(f"valid must be ({R}, {B})")
+    if row_luma is not None and tuple(row_luma.shape) != (R,):
+        raise ValueError(f"row_luma must be ({R},)")
+    if markers is None:
+        markers = segment_markers(R, coefs.device)
+    if tuple(markers.shape) != (R,):
+        raise ValueError(f"markers must be ({R},)")
+    return R, B, markers
+
+
+def _block_masks(R: int, B: int, st: SlotTables, nblocks, valid, row_luma,
+                 device):
+    """(valid (R, B) bool, class (R, B) int64) of the Huffman contract."""
+    if valid is None:
+        valid = (torch.arange(R * B, device=device) < nblocks).reshape(R, B)
+    slot = torch.tensor(st.slot_class, device=device).repeat(B // st.bpm)
+    cls = slot[None, :].expand(R, B)
+    if row_luma is not None:
+        cls = torch.where(row_luma.to(device)[:, None] != 0, cls, 1)
+    return valid.to(device) != 0, cls.to(torch.int64)
+
+
+def segment_tokens(coefs: torch.Tensor, tabs, valid: torch.Tensor,
+                   cls: torch.Tensor):
+    """Huffman tokens of rows in the slot layout of tabs (a SlotTables):
+    each component's blocks of a row tokenized together (so its DC
+    predictor runs over them, T.81 F.1.1.5.1), each block with its class
+    cls (R, B) and valid mask valid (R, B), then put back in their slots
+    -> (bits int64, lens int32), each (R, B*64): the XLA tokens of the
+    JAX package's non-megakernel path (make_rows_tokens_impl, before
+    pack_stuff_fused)."""
+    st = _as_slots(tabs)
+    R, C = coefs.shape
+    B = C // 64
+    x = coefs.reshape(R, B, 64)
+    bits = torch.empty((R, B, 64), dtype=torch.int64, device=coefs.device)
+    lens = torch.empty((R, B, 64), dtype=torch.int32, device=coefs.device)
+    luts = [t.luts for t in st.classes]
+    comp_of = np.tile(np.asarray(st.slot_comp), B // st.bpm)
+    for comp in sorted(set(st.slot_comp)):
+        cols = torch.from_numpy(np.flatnonzero(comp_of == comp)).to(
+            coefs.device)
+        b, ln = tokens.tokenize_rows(x[:, cols], luts, valid[:, cols],
+                                     cls[:, cols])
+        bits[:, cols] = b.reshape(R, -1, 64)
+        lens[:, cols] = ln.reshape(R, -1, 64)
+    return bits.reshape(R, C), lens.reshape(R, C)
+
+
+def huffman_segments_plain(coefs: torch.Tensor, nblocks: Optional[int],
+                           tabs: Union[ClassTables, SlotTables],
+                           markers: Optional[torch.Tensor] = None,
+                           valid: Optional[torch.Tensor] = None,
+                           row_luma: Optional[torch.Tensor] = None):
+    """Plain version of huffman_segments, on any device: segment_tokens,
+    then pack_rows, PLAIN_CHUNK_ROWS rows at a time."""
+    st = _as_slots(tabs)
     dev = coefs.device
-    S, C = coefs.shape
-    rst = C // 64
-    stride = row_stride(rst, tabs)
-    nvalid = torch.clamp(
-        nblocks - torch.arange(S, dtype=torch.int64, device=dev) * rst,
-        0, rst)
-    markers = segment_markers(S, dev)
-    rows = torch.zeros((S, stride), dtype=torch.uint8, device=dev)
-    row_bytes = torch.zeros(S, dtype=torch.int32, device=dev)
-    nff = torch.zeros(S, dtype=torch.int32, device=dev)
-    for a in range(0, S, PLAIN_CHUNK_ROWS):
-        sl = slice(a, min(S, a + PLAIN_CHUNK_ROWS))
-        bits, lens = tokens.tokenize_rows(
-            coefs[sl].reshape(-1, rst, 64), tabs.luts[:16], tabs.luts[16:],
-            nvalid[sl])
+    R, B, markers = _row_args(coefs, nblocks, st, markers, valid, row_luma)
+    stride = st.stride(B, row_luma is not None)
+    ok, cls = _block_masks(R, B, st, nblocks, valid, row_luma, dev)
+    rows = torch.zeros((R, stride), dtype=torch.uint8, device=dev)
+    row_bytes = torch.zeros(R, dtype=torch.int32, device=dev)
+    nff = torch.zeros(R, dtype=torch.int32, device=dev)
+    for a in range(0, R, PLAIN_CHUNK_ROWS):
+        sl = slice(a, min(R, a + PLAIN_CHUNK_ROWS))
+        bits, lens = segment_tokens(coefs[sl], st, ok[sl], cls[sl])
         rows[sl], row_bytes[sl], nff[sl] = pack_rows(
             bits, lens, markers[sl], stride)
     needs = torch.zeros(2, dtype=torch.int32, device=dev)
-    if S:
+    if R:
         needs = torch.stack([nff.max(), row_bytes.max()])
     return rows, row_bytes, needs
 
 
-def huffman_segments(coefs: torch.Tensor, nblocks: int, tabs: ClassTables
+def huffman_segments(coefs: torch.Tensor, nblocks: Optional[int],
+                     tabs: Union[ClassTables, SlotTables],
+                     markers: Optional[torch.Tensor] = None,
+                     valid: Optional[torch.Tensor] = None,
+                     row_luma: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(S, rst*64) int16 coefficients of one component's scan, of which
-    the first `nblocks` blocks are real -> (rows (S, row_stride) uint8,
-    row_bytes (S,) int32, needs (2,) int32 = [max stuffed zeros, max row
-    bytes])."""
-    S, C = coefs.shape
-    rst = C // 64
-    if C % 64 or not 0 < nblocks <= S * rst:
-        raise ValueError(f"{nblocks} blocks do not fit {S} rows of "
-                         f"{C} coefficients")
+    """(R, B*64) int16 coefficient rows -> (rows (R, stride) uint8,
+    row_bytes (R,) int32, needs (2,) int32 = [max stuffed zeros, max row
+    bytes]).
+
+    tabs: one ClassTables (one component, one slot) or the SlotTables of
+    the rows' MCU layout.  Validity: valid (R, B) bool/uint8, or else the
+    first `nblocks` blocks.  row_luma: (R,) int32 class flag of each row
+    (0 = classes[1] for every block), or None.  markers: (R,) int32 second
+    RST byte after each row (0 = none), or None for segment_markers(R).
+    The stride is tabs' worst case (SlotTables.stride)."""
+    st = _as_slots(tabs)
     if coefs.device.type == "cpu":
-        return huffman_segments_plain(coefs, nblocks, tabs)
-    stride = row_stride(rst, tabs)
-    rows = torch.empty((S, stride), dtype=torch.uint8, device=coefs.device)
-    row_bytes = torch.empty(S, dtype=torch.int32, device=coefs.device)
-    needs = torch.zeros(2, dtype=torch.int32, device=coefs.device)
-    _kernels.require_cuda("huffman_segments", coefs, tabs.luts, rows,
+        return huffman_segments_plain(coefs, nblocks, st, markers, valid,
+                                      row_luma)
+    R, B, markers = _row_args(coefs, nblocks, st, markers, valid, row_luma)
+    stride = st.stride(B, row_luma is not None)
+    dev = coefs.device
+    rows = torch.empty((R, stride), dtype=torch.uint8, device=dev)
+    row_bytes = torch.empty(R, dtype=torch.int32, device=dev)
+    needs = torch.zeros(2, dtype=torch.int32, device=dev)
+    opt = [t for t in (valid, row_luma) if t is not None]
+    _kernels.require_cuda("huffman_segments", coefs, st.classes[0].luts,
+                          st.classes[1].luts, markers, *opt, rows,
                           row_bytes, needs)
-    if coefs.dtype != torch.int16:
-        raise ValueError("huffman_segments takes int16 coefficients")
-    _kernels.launch("huffman_segments", coefs, S, rst, nblocks, tabs.luts,
-                    stride, rows, row_bytes, needs)
+    if coefs.dtype != torch.int16 or markers.dtype != torch.int32:
+        raise ValueError("huffman_segments takes int16 coefficients and "
+                         "int32 markers")
+    if valid is not None and valid.dtype not in (torch.bool, torch.uint8):
+        raise ValueError("huffman_segments takes a bool or uint8 mask")
+    if row_luma is not None and row_luma.dtype != torch.int32:
+        raise ValueError("huffman_segments takes int32 row class flags")
+    luma_pat = sum(1 << j for j, k in enumerate(st.slot_class) if k == 0)
+    comp_pat = sum(c << (2 * j) for j, c in enumerate(st.slot_comp))
+    _kernels.launch("huffman_segments", coefs, R, B, nblocks or 0,
+                    valid.view(torch.uint8) if valid is not None else None,
+                    st.classes[0].luts, st.classes[1].luts, row_luma,
+                    st.bpm, luma_pat, comp_pat, markers, stride, rows,
+                    row_bytes, needs)
     return rows, row_bytes, needs
 
 
@@ -246,6 +369,70 @@ def entropy_fused_u8(plane: torch.Tensor, tabs: ClassTables, rst: int):
     non-interleaved scan)."""
     nblocks, _ = segment_count(plane, rst)
     return huffman_segments(fdct_quant(plane, tabs, rst), nblocks, tabs)
+
+
+def entropy_fused(coefs: torch.Tensor, valid: torch.Tensor,
+                  luma: torch.Tensor, markers: torch.Tensor,
+                  classes: Tuple[ClassTables, ClassTables]):
+    """Coefficient-input mode (gpujpeg_tpu.ops.fusedpack.entropy_fused):
+    coefs (R, B*64) int16 zig-zag coefficients, one segment row each (the
+    JAX function takes them transposed, a TPU layout); valid (R, B) block
+    mask; luma (R,) int32, 1 where the row takes classes[0]; markers (R,)
+    int32 second RST byte after each row (0 = none).  The DC predictor
+    runs along each row.  -> (rows, row_bytes, needs)."""
+    return huffman_segments(coefs, None, SlotTables(classes, (0,), (0,)),
+                            markers, valid, luma)
+
+
+def interleaved_slots(geo, classes: Tuple[ClassTables, ClassTables]
+                      ) -> SlotTables:
+    """The slot layout of an interleaved scan's rows: each component's
+    sv x sh blocks of an MCU in (v, h) order, components in order (T.81
+    A.2.3), each slot with its component's table class."""
+    slot_class, slot_comp = [], []
+    for c in geo.components:
+        n = c.samp_v * c.samp_h
+        slot_class += [c.table_index] * n
+        slot_comp += [c.index] * n
+    return SlotTables(classes, tuple(slot_class), tuple(slot_comp))
+
+
+def interleaved_rows(planes: List[torch.Tensor], geo,
+                     classes: Tuple[ClassTables, ClassTables]
+                     ) -> torch.Tensor:
+    """An interleaved scan's quantized coefficients in stream order:
+    (segments, restart interval * bpm * 64) int16, MCUs in raster order
+    with each component's blocks at its slots (interleaved_slots), MCUs
+    past the image zero (the layout math of gpujpeg_tpu.models.encoder.
+    make_rows_tokens_impl and make_rows_xbd_il_impl)."""
+    S, rst, nmcu, bpm = (geo.segment_count, geo.segment_mcu_count,
+                         geo.mcu_count, geo.blocks_per_mcu)
+    dev = planes[0].device
+    alloc = torch.zeros if S * rst > nmcu else torch.empty
+    out = alloc((S * rst, bpm, 64), dtype=torch.int16, device=dev)
+    off = 0
+    for c in geo.components:
+        n = c.samp_v * c.samp_h
+        x = fdct_quant(planes[c.index], classes[c.table_index], 1).reshape(
+            c.mcu_count_y, c.samp_v, c.mcu_count_x, c.samp_h, 64)
+        out[:nmcu, off:off + n] = x.permute(0, 2, 1, 3, 4).reshape(
+            nmcu, n, 64)
+        off += n
+    return out.reshape(S, rst * bpm * 64)
+
+
+def entropy_fused_u8_il(planes: List[torch.Tensor], geo,
+                        classes: Tuple[ClassTables, ClassTables]):
+    """An interleaved scan's uint8 planes -> (rows, row_bytes, needs) of
+    its segment rows (gpujpeg_tpu.ops.fusedpack.entropy_fused_u8_il, which
+    the JAX package runs at 1x1 sampling only; here any sampling whose
+    MCU holds at most 16 blocks): fdct_quant per component, the MCU
+    order of interleaved_rows, then the slot-pattern Huffman coder."""
+    return huffman_segments(interleaved_rows(planes, geo, classes),
+                            geo.mcu_count * geo.blocks_per_mcu,
+                            interleaved_slots(geo, classes),
+                            segment_markers(geo.segment_count,
+                                            planes[0].device))
 
 
 def pack_stuff_rows_plain(bits: torch.Tensor, lens: torch.Tensor,

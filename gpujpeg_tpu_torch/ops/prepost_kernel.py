@@ -12,11 +12,12 @@ uint8 planes, which are that memory read byte by byte.
 colour and the interleaved store in one pass) wraps csrc/dpost_rgb.cu, the
 counterpart of the JAX package's fused decode tail
 (gpujpeg_tpu.ops.prepost_kernel: _dpost_kernel_body / decode_post_fused)
-for 3 components at 4:4:4.  It stores 3 bytes a pixel where the TPU kernel
-stores RGBX words and slices them, and it takes any block count where
-the TPU kernel needs 128-lane-aligned planes.
+for 3 components with chroma decimated by dx, dy in {1, 2}.  It stores 3
+bytes a pixel where the TPU kernel stores RGBX words and slices them, and
+it takes any block count where the TPU kernel needs 128-lane-aligned
+planes.
 
-Interleaved scans (and any stream dpost does not take) decode in two
+Interleaved scans (and any other stream dpost does not take) decode in two
 steps: ``idct_planes`` (coefficients of one component -> its uint8 sample
 plane) wraps csrc/idct_planes.cu, whose JAX counterpart is XLA
 (gpujpeg_tpu.models.decoder._make_idct_post_fn_t_il); ``postprocess_packed``
@@ -100,18 +101,37 @@ def preprocess_packed(raw: torch.Tensor, geo: Geometry,
     return planes
 
 
+def dpost_decimation(geo: Geometry) -> Tuple[int, int]:
+    """(dx, dy): the chroma planes' decimation against luma."""
+    cb = geo.components[1]
+    return geo.max_h // cb.samp_h, geo.max_v // cb.samp_v
+
+
 def decode_post_supported(geo: Geometry, pi: ImageParameters) -> bool:
-    """True when the dpost kernel covers this configuration: a
-    non-interleaved scan of 3 components at 4:4:4 whose blocks are
-    contiguous in phase C's layout (restart segments fill their rows, or
-    one segment a component), P444_U8_P012 output without row padding."""
-    return (pi.pixel_format == PixelFormat.P444_U8_P012
-            and not pi.width_padding and geo.comp_count == 3
-            and not geo.interleaved
-            and all(c.samp_h == geo.max_h and c.samp_v == geo.max_v
-                    and (c.segment_mcu_count == geo.max_blocks_per_seg
-                         or c.segment_count == 1)
-                    for c in geo.components))
+    """True when the dpost kernel covers this configuration (the JAX
+    package's gate, gpujpeg_tpu.ops.prepost_kernel.decode_post_supported):
+    a non-interleaved scan of 3 components, luma at the largest sampling,
+    both chroma planes decimated by one (dx, dy) in {1, 2}^2 and covering
+    exactly 1/dx by 1/dy of luma's block grid; P444_U8_P012 output
+    without row padding.  Blocks must be contiguous in phase C's layout
+    (restart segments fill their rows, or one segment a component); the
+    kernel takes any block count, so a ragged last segment, which the JAX
+    gate refuses, is allowed."""
+    if (pi.pixel_format != PixelFormat.P444_U8_P012 or pi.width_padding
+            or geo.comp_count != 3 or geo.interleaved):
+        return False
+    if not all(c.segment_mcu_count == geo.max_blocks_per_seg
+               or c.segment_count == 1 for c in geo.components):
+        return False
+    y, cb, cr = geo.components
+    if ((y.samp_h, y.samp_v) != (geo.max_h, geo.max_v)
+            or (cb.samp_h, cb.samp_v) != (cr.samp_h, cr.samp_v)):
+        return False
+    dx, dy = dpost_decimation(geo)
+    return (dx in (1, 2) and dy in (1, 2)
+            and all(c.data_width // 8 * dx == y.data_width // 8
+                    and c.data_height // 8 * dy == y.data_height // 8
+                    for c in (cb, cr)))
 
 
 def component_columns(geo: Geometry) -> List[Tuple[int, int]]:
@@ -175,12 +195,17 @@ def decode_post(coefs_t: torch.Tensor, qtabs: torch.Tensor, geo: Geometry,
                 pi: ImageParameters) -> torch.Tensor:
     """coefs_t (64, L) int16 zig-zag coefficients with DC integrated (phase
     C's layout), qtabs (3, 64) float32 zig-zag quant tables ->
-    (H, W, 3) uint8 pixels in pi.color_space."""
+    (H, W, 3) uint8 pixels in pi.color_space, chroma upsampled
+    nearest-neighbour (the pixel of luma block (by, bx), sample (r, c)
+    takes chroma block (by / dy, bx / dx), sample ((by % dy) 8 + r) / dy,
+    ((bx % dx) 8 + c) / dx: sample.postprocess's rule for these
+    layouts)."""
     if not decode_post_supported(geo, pi):
         raise NotImplementedError(
-            "the decode back half takes a non-interleaved 3-component "
-            "4:4:4 scan to P444_U8_P012 (other layouts: ROADMAP queue 1 "
-            "items 6 and 8)")
+            "the fused decode back half takes non-interleaved 3-component "
+            "scans whose chroma planes tile luma's at dx, dy in {1, 2}, to "
+            "P444_U8_P012 (other layouts: idct_planes + postprocess_packed;"
+            " other outputs: ROADMAP queue 1 item 6)")
     cols = component_columns(geo)
     L = cols[-1][0] + geo.components[-1].segment_count * \
         geo.max_blocks_per_seg
@@ -199,9 +224,10 @@ def decode_post(coefs_t: torch.Tensor, qtabs: torch.Tensor, geo: Geometry,
     offs = np.asarray([f for f, _ in cols], np.int64)
     params = color.kernel_params(geo.param.color_space_internal,
                                  pi.color_space)
+    dx, dy = dpost_decimation(geo)
     _kernels.launch("dpost_rgb", coefs_t, L, offs, c0.mcu_count,
-                    c0.data_width // 8, pi.height, pi.width, qtabs, nmat,
-                    params, out)
+                    c0.data_width // 8, dx, dy, pi.height, pi.width, qtabs,
+                    nmat, params, out)
     return out
 
 

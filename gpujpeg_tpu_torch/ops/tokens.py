@@ -5,39 +5,50 @@ The semantics of the JAX package's entropy megakernel tokenizer
 slots of every block emits zero or one token of at most 27 bits,
 
   slot 0:            DC code (size category of the DC difference to the
-                     previous block of the same segment row; the first
-                     block predicts from 0) + value bits
+                     previous block of the row; the first block predicts
+                     from 0) + value bits
   slot i, coef != 0: AC code ((run & 15) << 4 | size) + value bits
   slot i, coef == 0: ZRL (0xF0) iff this zero is the 16th/32nd/48th of its
                      run *and* a nonzero coefficient follows in the block
   slot 63, coef==0:  EOB (0x00)
   otherwise:         nothing (length 0)
 
-with value bits vb = (v < 0 ? v - 1 : v) & ((1 << size) - 1).  This is the
-plain version of the token walk inside the CUDA Huffman kernel
-(csrc/huffman_segments.cu), which makes the same tokens sequentially.  It
-is also the device path of the interleaved encode
-(models/encoder.Encoder.interleaved_tokens, torch ops on the card), the
-port of the JAX package's XLA tokenizer (gpujpeg_tpu.ops.tokens.
-tokenize_rows) without its pairs mode, a TPU pre-merge that changes no
-byte.
+with value bits vb = (v < 0 ? v - 1 : v) & ((1 << size) - 1).  A block that
+is not valid emits nothing, but its DC still feeds the next block's
+difference (the megakernel forms the difference before it applies its
+valid mask).  This is the plain version of the token walk inside the CUDA
+Huffman kernel (csrc/huffman_segments.cu), which makes the same tokens
+sequentially; ops/fusedpack.segment_tokens runs it once per component of
+a row and interleaves the results.  It is the port of the JAX package's
+XLA tokenizer (gpujpeg_tpu.ops.tokens.tokenize_rows) without its pairs
+mode, a TPU pre-merge that changes no byte.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 import torch.nn.functional as F
 
+#: words of one table class: DC entries at [0, 16) (12 used), AC at
+#: [16, 272), each (len << 16 | code)
+LUT_WORDS = 272
 
-def tokenize_rows(rows: torch.Tensor, dc_lut: torch.Tensor,
-                  ac_lut: torch.Tensor, nvalid: torch.Tensor):
-    """Tokenize restart-segment rows of ONE table class.
 
-    rows:   (R, B, 64) integer quantized zig-zag coefficients, one restart
-            segment per row, blocks in stream order
-    dc_lut: (>= 12,) integer (len << 16 | code) per DC size category
-    ac_lut: (256,) integer (len << 16 | code) per (run << 4 | size) symbol
-    nvalid: (R,) number of leading blocks of each row that emit tokens
+def tokenize_rows(rows: torch.Tensor, luts: Sequence[torch.Tensor],
+                  valid: torch.Tensor,
+                  cls: Optional[torch.Tensor] = None):
+    """Tokenize restart-segment rows whose blocks all take one DC
+    predictor (one component).
+
+    rows:  (R, B, 64) integer quantized zig-zag coefficients, one restart
+           segment per row, blocks in stream order
+    luts:  the (272,) integer (len << 16 | code) table of each table
+           class (LUT_WORDS layout)
+    valid: (R, B) bool, the blocks that emit tokens
+    cls:   (R, B) integer table class of each block (index into luts);
+           None = class 0 everywhere
 
     Returns (bits, lens): (R, B*64) int64 right-aligned code-then-value
     bits and int32 bit lengths (0 = no token in that slot).
@@ -72,15 +83,15 @@ def tokenize_rows(rows: torch.Tensor, dc_lut: torch.Tensor,
 
     sym = torch.where(is_code, ((run & 15) << 4) | torch.clamp(size, max=15),
                       torch.where(is_zrl, 0xF0, 0))
-    ac_e = ac_lut.to(dev, torch.int64)[sym.long()]
-    dc_e = dc_lut.to(dev, torch.int64)[torch.clamp(size, max=11).long()]
-    entry = torch.where(is_dc, dc_e, ac_e)
+    idx = torch.where(is_dc, torch.clamp(size, max=11), 16 + sym).long()
+    table = torch.stack([t.to(dev, torch.int64) for t in luts]).reshape(-1)
+    if cls is not None:
+        idx = idx + cls.to(dev, torch.int64)[..., None] * LUT_WORDS
+    entry = table[idx]
     clen = (entry >> 16).to(torch.int32)
     code = entry & 0xFFFF
 
-    blk = torch.arange(B, device=dev)[None, :, None]
-    valid = blk < nvalid.to(dev)[:, None, None]
-    token = (is_dc | is_code | is_zrl | is_eob) & valid
+    token = (is_dc | is_code | is_zrl | is_eob) & valid.to(dev)[..., None]
     lens = torch.where(token, clen + size, 0)
     bits = torch.where(token, (code << size.long()) | vb.long(), 0)
     return bits.reshape(R, B * 64), lens.reshape(R, B * 64)

@@ -137,9 +137,12 @@ def test_outside_main_path_raises(case):
     frame = np.zeros((16, 16, 3), np.uint8)
     p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
     if case == "interleaved":
-        p = p.with_(interleaved=True)
+        # interleaved 4:1:1 (4:4:4 to 4:2:0 are ported)
+        p = p.with_(interleaved=True).chroma_subsampled(
+            ((4, 1), (1, 1), (1, 1)))
     elif case == "subsampled":
-        p = p.chroma_subsampled(((2, 2), (1, 1), (1, 1)))
+        # subsampled chroma planes (chroma at 1x1 is ported)
+        p = p.chroma_subsampled(((2, 2), (2, 1), (2, 1)))
     elif case == "restart0":
         p = p.with_(restart_interval=0)
     elif case == "annexk":

@@ -53,9 +53,8 @@ STREAMS = {
     "420_311x233_q90_rst2": lambda: _port(_gradient(233, 311, 1), "420", 90,
                                           2),
     "422_noise_64x64": lambda: _port(_noise(64, 64, 2), "422"),
-    # 585 MCUs in segments of 2: a ragged last segment
-    "440_311x233_q90_rst2": lambda: _port(_gradient(233, 311, 3), "440", 90,
-                                          2),
+    # 27 MCUs in segments of 2: a ragged last segment
+    "440_67x41_q90_rst2": lambda: _port(_gradient(41, 67, 3), "440", 90, 2),
 }
 
 #: one JAX session for the module, as a server would keep one

@@ -1,9 +1,7 @@
 """PyTorch port, decode of interleaved streams the JAX encoder writes:
-interleaved 4:4:4 (which the port does not encode yet) through its
-interleaved megakernel and its non-megakernel path decodes to the JAX
-package's pixels and coefficients; what the slice does not decode raises,
-naming its ROADMAP items (4:2:0, 4:2:2, 4:4:0 and the Huffman phases:
-test_torch_interleaved_decode.py)."""
+interleaved 4:4:4 decodes to the JAX package's pixels and coefficients;
+what the slice does not decode raises, naming its ROADMAP items (4:2:0,
+4:2:2, 4:4:0 and the Huffman phases: test_torch_interleaved_decode.py)."""
 
 import re
 
@@ -15,7 +13,7 @@ import gpujpeg_tpu as gj
 import gpujpeg_tpu_torch as gt
 
 from .test_torch_encode import _gradient
-from .test_torch_interleaved_decode import SAMP, _params, check_decode
+from .test_torch_interleaved_decode import _params, check_decode
 
 
 def _jax(frame, samp, quality=75, rst=-1):
@@ -23,11 +21,10 @@ def _jax(frame, samp, quality=75, rst=-1):
 
 
 STREAMS = {
-    # the JAX encoder's interleaved megakernel (segments tile MCU rows)
-    "444_320x240": lambda: _jax(_gradient(240, 320, 4), "444"),
-    # its non-megakernel path (39 MCUs a row, segments of 4: ragged)
-    "444_311x233_q90_rst4": lambda: _jax(_gradient(233, 311, 5), "444", 90,
-                                         4),
+    # segments that tile MCU rows (8 MCUs a row, 2 a segment)
+    "444_64x48": lambda: _jax(_gradient(48, 64, 4), "444"),
+    # 9 MCUs a row, segments of 4: a ragged last segment
+    "444_67x41_q90_rst4": lambda: _jax(_gradient(41, 67, 5), "444", 90, 4),
 }
 
 
@@ -37,14 +34,14 @@ def test_interleaved_444_decode_matches_jax(name):
 
 
 @pytest.mark.parametrize("case,items", [
-    ("planar_420", (6,)), ("il_411", (6,)), ("il_444_no_restart", (9,))])
+    ("planar_411", (6,)), ("il_411", (6,)), ("il_444_no_restart", (9,))])
 def test_outside_the_slice_raises(case, items):
-    """Non-interleaved subsampled scans, other interleaved samplings and
-    restart interval 0 raise, naming their ROADMAP items."""
+    """Non-interleaved and interleaved 4:1:1 and restart interval 0 raise,
+    naming their ROADMAP items."""
     frame = _gradient(32, 64, 7)
-    if case == "planar_420":
+    if case == "planar_411":
         p = gj.Parameters(quality=75, restart_interval=4).chroma_subsampled(
-            SAMP["420"])
+            ((4, 1), (1, 1), (1, 1)))
     elif case == "il_411":
         p = gj.Parameters(quality=75, restart_interval=2, interleaved=True) \
             .chroma_subsampled(((4, 1), (1, 1), (1, 1)))

@@ -1,9 +1,9 @@
 """PyTorch port, interleaved encode with subsampled chroma: the bytes equal
 the JAX package's encoder (its non-megakernel path: XLA tokens, then the
-token-row packer) on the CPU; interleaved 4:4:4 and non-interleaved
-subsampling still raise.  4:2:2 and 4:4:0 are in
-test_torch_interleaved_encode_sampling.py (on the card:
-test_torch_kernels.py)."""
+token-row packer) on the CPU, through the port's slot-pattern Huffman
+coder; other layouts still raise.  4:2:2 and 4:4:0 are in
+test_torch_interleaved_encode_sampling.py, interleaved 4:4:4 in
+test_torch_interleaved444.py (on the card: test_torch_kernels.py)."""
 
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ import torch
 import gpujpeg_tpu as gj
 
 import gpujpeg_tpu_torch as gt
+from gpujpeg_tpu_torch.ops import fusedpack as tfp
 from gpujpeg_tpu_torch.ops import prepost_kernel as tpre, tokens as ttok
 
 from .test_torch_encode import _gradient
@@ -63,37 +64,41 @@ def test_interleaved_420_token_layout():
     geo = enc.resolve(frame, p)
     planes = tpre.preprocess_packed(torch.from_numpy(frame), geo,
                                     geo.param_image)
-    coefs = enc.interleaved_coefs(planes, geo)
-    assert [tuple(c.shape) for c in coefs] == [(6, 8, 64), (6, 2, 64),
-                                               (6, 2, 64)]
-    bits, lens = enc.interleaved_tokens(coefs, geo)
-    assert tuple(bits.shape) == (6, 2 * 6 * 64) and bits.dtype == torch.int32
-    for c, x, off in zip(geo.components, coefs, (0, 4, 5)):
+    classes = enc.classes(90)
+    rows = tfp.interleaved_rows(planes, geo, classes)
+    st = tfp.interleaved_slots(geo, classes)
+    assert tuple(rows.shape) == (6, 2 * 6 * 64)
+    assert st.slot_class == (0, 0, 0, 0, 1, 1)
+    assert st.slot_comp == (0, 0, 0, 0, 1, 2)
+    valid = torch.ones((6, 12), dtype=torch.bool)
+    cls = torch.tensor(st.slot_class * 2).expand(6, 12)
+    bits, lens = tfp.segment_tokens(rows, st, valid, cls)
+    assert tuple(bits.shape) == (6, 2 * 6 * 64)
+    by_mcu = rows.reshape(6, 2, 6, 64)
+    for c, off in zip(geo.components, (0, 4, 5)):
         n = c.samp_h * c.samp_v
-        tabs = enc.class_tables(90, c.index == 0)
-        b, ln = ttok.tokenize_rows(x, tabs.luts[:16], tabs.luts[16:],
-                                   torch.full((6,), 2 * n))
+        x = by_mcu[:, :, off:off + n].reshape(6, 2 * n, 64)
+        b, ln = ttok.tokenize_rows(x, [classes[c.table_index].luts],
+                                   valid[:, :2 * n])
         for got, ref in ((bits, b), (lens, ln)):
             part = got.reshape(6, 2, 6, 64)[:, :, off:off + n]
             assert torch.equal(part.reshape(6, -1).long(), ref.long())
 
 
-@pytest.mark.parametrize("case", ["interleaved_444", "planar_420",
-                                  "il_411"])
+@pytest.mark.parametrize("case", ["planar_411", "annexk", "il_411"])
 def test_outside_the_slice_raises(case):
-    """Interleaved 4:4:4 (the JAX package's interleaved megakernel mode),
-    non-interleaved subsampling and other interleaved samplings raise,
+    """Non-interleaved and interleaved 4:1:1 and Annex-K tables raise,
     naming their ROADMAP items."""
     frame = np.zeros((32, 48, 3), np.uint8)
     p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
-    if case == "interleaved_444":
-        p, items = p.with_(interleaved=True), ("queue 1 item 8",
-                                               "queue 2 item 7")
-    elif case == "planar_420":
-        p, items = p.chroma_subsampled(S420), ("queue 1 item 6",)
+    s411 = ((4, 1), (1, 1), (1, 1))
+    if case == "planar_411":
+        p, items = p.chroma_subsampled(s411), ("queue 1 item 6",)
+    elif case == "annexk":
+        p, items = (p.with_(interleaved=True, huffman_tables="annexk"),
+                    ("queue 1 item 7",))
     else:
-        p = p.with_(interleaved=True).chroma_subsampled(
-            ((4, 1), (1, 1), (1, 1)))
+        p = p.with_(interleaved=True).chroma_subsampled(s411)
         items = ("queue 1 item 6",)
     with pytest.raises(NotImplementedError) as e:
         gt.Encoder(device="cpu").encode(frame, p)

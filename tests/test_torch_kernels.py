@@ -519,12 +519,170 @@ def test_interleaved_on_card_matches_cpu(cuda, samp, hw, kind, quality,
     p = _il_params(SAMPLINGS[samp], quality, rst)
     _kernels.reset_launches()
     data = gt.Encoder(device=cuda).encode(frame, p)
-    for name in ("pre_rgb_to_planes", "fdct_quant", "pack_stuff_rows"):
+    for name in ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"):
         assert _kernels.LAUNCHES[name] > 0, _kernels.LAUNCHES
+    assert _kernels.LAUNCHES["pack_stuff_rows"] == 0
     assert data == gt.Encoder(device="cpu").encode(frame, p)
     _kernels.reset_launches()
     got = gt.Decoder(device=cuda).decode(data)
     for name in ("huffdec_scan", "huffdec_block", "idct_planes", "post_rgb"):
         assert _kernels.LAUNCHES[name] > 0, _kernels.LAUNCHES
     assert _kernels.LAUNCHES["dpost_rgb"] == 0
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
+
+
+def _slot_rows(samp, hw, kind, cuda):
+    """An interleaved scan's MCU-ordered coefficient rows on the card, and
+    its geometry and slot tables."""
+    frame = (np.random.default_rng(12).integers(0, 256, (*hw, 3),
+                                                dtype=np.uint8)
+             if kind == "noise" else _frame(*hw, 12, amp=64))
+    enc = gt.Encoder(device=cuda)
+    geo = enc.resolve(frame, _il_params(SAMPLINGS.get(samp, ((1, 1),) * 3)))
+    planes = tpre.preprocess_packed(torch.from_numpy(frame).to(cuda), geo,
+                                    geo.param_image)
+    classes = enc.classes(75)
+    return (tfp.interleaved_rows(planes, geo, classes), geo,
+            tfp.interleaved_slots(geo, classes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp,kind", [("444", "gradient"), ("444", "noise"),
+                                       ("420", "gradient"), ("420", "noise"),
+                                       ("422", "gradient")])
+def test_huffman_kernel_pattern_mode(cuda, samp, kind):
+    """Interleaved rows, a class and a DC predictor per MCU slot."""
+    rows_in, geo, st = _slot_rows(samp, (1080, 1920), kind, cuda)
+    nblocks = geo.mcu_count * geo.blocks_per_mcu
+    markers = tfp.segment_markers(geo.segment_count, cuda)
+    _kernels.reset_launches()
+    rows, rb, needs = tfp.huffman_segments(rows_in, nblocks, st, markers)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffman_segments"] == 1
+    assert rows.shape[1] == st.stride(rows_in.shape[1] // 64)
+    p_rows, p_rb, p_needs = tfp.huffman_segments_plain(rows_in, nblocks, st,
+                                                       markers)
+    assert torch.equal(needs, p_needs)
+    assert _rows_equal(rows, rb, p_rows, p_rb)
+
+
+@pytest.mark.gpu
+def test_huffman_kernel_coefs_mode(cuda):
+    """Coefficient input: per-row class flags, a per-block valid mask with
+    interior holes, caller markers with zeros mid-scan."""
+    rng = np.random.default_rng(13)
+    S, B = 5000, 8
+    coefs = rng.integers(-200, 200, (S, B, 64)).astype(np.int16)
+    coefs = np.where(rng.random((S, B, 64)) < 0.85, 0, coefs)
+    coefs[100:150] = rng.integers(-1023, 1024, (50, B, 64))   # dense rows
+    valid = rng.random((S, B)) < 0.9
+    valid[7, 3] = False                           # one interior hole
+    luma = (rng.random(S) < 0.5).astype(np.int32)
+    markers = np.where(rng.random(S) < 0.1, 0, 0xD0 + np.arange(S) % 8)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        coefs.reshape(S, B * 64), valid, luma, markers.astype(np.int32))]
+    classes = (tfp.class_tables(75, True, cuda),
+               tfp.class_tables(75, False, cuda))
+    _kernels.reset_launches()
+    rows, rb, needs = tfp.entropy_fused(*args, classes)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffman_segments"] == 1
+    st = tfp.SlotTables(classes, (0,), (0,))
+    p_rows, p_rb, p_needs = tfp.huffman_segments_plain(
+        args[0], None, st, args[3], args[1], args[2])
+    assert torch.equal(needs, p_needs)
+    assert _rows_equal(rows, rb, p_rows, p_rb)
+
+
+@pytest.mark.gpu
+def test_huffman_one_slot_is_the_segment_contract(cuda):
+    """The one-slot call (one class, prefix validity, markers of one scan)
+    equals the general call given those explicitly, and the plain
+    version."""
+    rng = np.random.default_rng(14)
+    S, B = 3000, 8
+    nblocks = S * B - 3
+    coefs = rng.integers(-300, 300, (S, B, 64)).astype(np.int16)
+    coefs = np.where(rng.random((S, B, 64)) < 0.8, 0, coefs)
+    x = torch.from_numpy(coefs.reshape(S, B * 64)).to(cuda)
+    tabs = tfp.class_tables(75, False, cuda)
+    valid = (torch.arange(S * B, device=cuda) < nblocks).reshape(S, B)
+    out = tfp.huffman_segments(x, nblocks, tabs)
+    general = tfp.huffman_segments(x, None, tfp.one_slot(tabs),
+                                   tfp.segment_markers(S, cuda), valid)
+    plain = tfp.huffman_segments_plain(x, nblocks, tabs)
+    for other in (general, plain):
+        assert torch.equal(out[2], other[2])
+        assert _rows_equal(out[0], out[1], other[0], other[1])
+
+
+def _planar_geo(samp, hw):
+    frame = np.zeros((*hw, 3), np.uint8)
+    return gt.Encoder(device="cpu").resolve(frame, gt.Parameters(
+        quality=75, restart_interval=gt.RESTART_AUTO).chroma_subsampled(
+        SAMPLINGS[samp]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["420", "422", "440"])
+@pytest.mark.parametrize("hw", [(1088, 1920), (64, 80)])
+def test_dpost_kernel_subsampled_matches_plain(cuda, samp, hw):
+    """dpost at dx, dy in {1, 2} on random coefficients (every rounding
+    boundary of the chains) and on a sparse set; 1088 rows, since at
+    1080 the chroma planes of 4:2:0 and 4:4:0 pad to 68 block rows, not
+    half of luma's 135."""
+    from gpujpeg_tpu_torch.utils import tables as tt
+
+    geo = _planar_geo(samp, hw)
+    pi = gt.ImageParameters(width=hw[1], height=hw[0],
+                            color_space=gt.ColorSpace.RGB,
+                            pixel_format=gt.PixelFormat.P444_U8_P012)
+    assert tpre.decode_post_supported(geo, pi)
+    cols = tpre.component_columns(geo)
+    L = cols[-1][0] + geo.components[-1].segment_count * \
+        geo.max_blocks_per_seg
+    q = torch.from_numpy(np.stack([tt.quant_table_zz(c.index == 0, 75)
+                                   for c in geo.components]).astype(
+        np.float32)).to(cuda)
+    g = torch.Generator().manual_seed(5)
+    dense = torch.randint(-600, 600, (64, L), dtype=torch.int16, generator=g)
+    sparse = torch.where(torch.rand((64, L), generator=g) < 0.8, 0,
+                         dense // 8)
+    for co in (dense.to(cuda), sparse.to(cuda)):
+        _kernels.reset_launches()
+        got = tpre.decode_post(co, q, geo, pi)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["dpost_rgb"] == 1
+        assert got.shape == (*hw, 3)
+        assert torch.equal(got, tpre.decode_post_plain(co, q, geo, pi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,hw", [
+    ("il444", (1080, 1920)), ("il444", (233, 311)),
+    ("planar420", (1080, 1920)), ("planar420", (1088, 1920)),
+    ("planar420", (233, 311)), ("planar422", (64, 80))])
+def test_new_layouts_on_card_match_cpu(cuda, layout, hw):
+    """Interleaved 4:4:4 and planar subsampled encode and decode: the
+    card's bytes and pixels equal the CPU's, through the kernels of each
+    path (dpost only where decode_post_supported holds)."""
+    frame = _frame(*hw, 6, amp=64)
+    p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
+    if layout == "il444":
+        p = p.with_(interleaved=True)
+    else:
+        p = p.chroma_subsampled(SAMPLINGS[layout[-3:]])
+    _kernels.reset_launches()
+    data = gt.Encoder(device=cuda).encode(frame, p)
+    for name in ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"):
+        assert _kernels.LAUNCHES[name] > 0, _kernels.LAUNCHES
+    assert data == gt.Encoder(device="cpu").encode(frame, p)
+    _kernels.reset_launches()
+    dec = gt.Decoder(device=cuda)
+    got = dec.decode(data)
+    hf = dec.prepare(data)
+    fused = tpre.decode_post_supported(hf.plan.geo, hf.out_pi)
+    assert fused == (layout != "il444" and hw[0] != 1080 and hw[1] != 311)
+    assert _kernels.LAUNCHES["dpost_rgb"] == int(fused)
+    assert _kernels.LAUNCHES["idct_planes"] == 3 * (1 - int(fused))
     assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))

@@ -124,13 +124,14 @@ def test_interleaved_stride_is_a_worst_case(samp, quality, rst):
     p = gt.Parameters(quality=quality, restart_interval=rst,
                       interleaved=True).chroma_subsampled(samp)
     geo = enc.resolve(frame, p)
-    stride = enc.interleaved_stride(geo)
+    bpm, rstm = geo.blocks_per_mcu, geo.segment_mcu_count
+    stride = tfp.interleaved_slots(geo, enc.classes(quality)).stride(
+        bpm * rstm)
     _, res = enc.encode_to_device(frame, p)
     assert res["rows"][0].shape[1] == stride
     assert int(res["row_bytes"][0].max()) <= stride
     luma = enc.class_tables(quality, True)
     chroma = enc.class_tables(quality, False)
-    bpm, rstm = geo.blocks_per_mcu, geo.segment_mcu_count
     assert stride == tfp.pack_stride(([luma] * (bpm - 2) + [chroma] * 2)
                                      * rstm)
     one = sorted(tfp.row_stride(bpm * rstm, t) for t in (luma, chroma))

@@ -117,13 +117,13 @@ def test_idct_planes_plain_matches_jax_tail(monkeypatch, samp, quality,
     package's interleaved tail computes (a float32 jnp.dot at HIGHEST,
     then its pack and relayout), and the port's back half returns the
     tail's image."""
-    data = _port(_gradient(233, 311, 2), samp, quality, rst)
+    data = _port(_gradient(41, 67, 2), samp, quality, rst)
     dec = gt.Decoder(device="cpu")
     hf = dec.prepare(data)
     coefs_t, _ea, _ec = dec.coefficients_t(hf)
     p = hf.plan
     geo = p.geo
-    jgeo = gj.Encoder().resolve(np.zeros((233, 311, 3), np.uint8),
+    jgeo = gj.Encoder().resolve(np.zeros((41, 67, 3), np.uint8),
                                 gj.Parameters(quality=quality,
                                               restart_interval=rst,
                                               interleaved=True)
