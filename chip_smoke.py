@@ -62,11 +62,18 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      luma 2x2, chroma 1x1, 8 blocks a segment): the fused decode tail at
      dx = dy = 2 against its plain version; encode through the decimating
      preprocessor, the DCT and the one-slot Huffman coder per component;
- 10. prints one JSON line of per-kernel records, every kernel and mode
+ 10. prints the decomposition line of the tiled kernels (fdct_quant,
+     dpost_rgb at 4:4:4 and 4:2:0), timed at 8K in steps 5, 6 and 9:
+     each kernel's CUDA-event ms in three stages built from its own
+     source (csrc/tile.cuh gj::Stage) -- full, loads and stores only with
+     no arithmetic, and full with no output store -- the H100
+     counterpart of the JAX package's TPU probes tools/proto_xq.py and
+     tools/profile_dpost5.py;
+ 11. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists; a note where a record is on no path);
- 11. prints {"ok": true, "device": {...}} as its last line.
+ 12. prints {"ok": true, "device": {...}} as its last line.
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -129,6 +136,15 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def probe_ms(torch, fn, flush) -> dict:
+    """CUDA-event ms of each decomposition stage of a tiled kernel
+    (_kernels.PROBE_STAGES), fn(stage) launching that stage."""
+    from gpujpeg_tpu_torch.ops import _kernels
+
+    return {st: event_ms(torch, lambda: fn(st), 20, flush)
+            for st in _kernels.PROBE_STAGES}
 
 
 def once_ms(torch, fn):
@@ -445,6 +461,8 @@ def dpost_times(torch, k, coefs, img, p, hf, flush) -> None:
 
     k["ms"] = event_ms(torch, lambda: prepost_kernel.decode_post(
         coefs, p.qtabs, p.geo, hf.out_pi), 20, flush)
+    k["probe"] = probe_ms(torch, lambda st: prepost_kernel.decode_post_probe(
+        coefs, p.qtabs, p.geo, hf.out_pi, st), flush)
     cols = prepost_kernel.component_columns(p.geo)
     nblk = sum(n for _, n in cols)        # each chroma sample counted once
     k["bound_ms"] = max(
@@ -1327,6 +1345,10 @@ def main() -> int:
                               10, flush))
         del blocks
     kernels["fdct_quant"].update(ms=sum(ms_f) / 3, library_ms=sum(lib_f) / 3)
+    tabs0 = enc.class_tables(QUALITY, True)
+    kernels["fdct_quant"]["probe"] = probe_ms(
+        torch, lambda st: fusedpack.fdct_quant_probe(
+            planes[c0.index], tabs0, c0.segment_mcu_count, st), flush)
     kernels["huffman_segments"]["ms"] = sum(ms_h) / 3
     kernels["fdct_quant"]["bound_ms"] = sum(bound_f) / 3
     kernels["huffman_segments"]["bound_ms"] = sum(bound_h) / 3
@@ -1352,7 +1374,12 @@ def main() -> int:
         launches.update(step_launches)
         log(f"[{phases.__name__}] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 10. kernels line ----------------------------------------------------
+    # -- 10. decomposition line -----------------------------------------------
+    log("[probe] decomposition ms at 8K (full | loads and stores only | "
+        "full without the output store): " + json.dumps(
+            {name: k["probe"] for name, k in kernels.items()
+             if "probe" in k}))
+    # -- 11. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -1363,7 +1390,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 11. result ----------------------------------------------------------
+    # -- 12. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,9 @@ huffdec_kernel.py take their plain versions for CPU tensors and call
 kernels (colour transform, IDCT chain, bit writer, Huffman tables).
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
-that adds to it.
+that adds to it.  ``probe`` launches the decomposition stages of a tiled
+kernel (``PROBE_STAGES``, entry point gj_<name>_probe) for chip_smoke.py's
+probe; no codec path calls it, and it counts nothing.
 """
 
 from __future__ import annotations
@@ -73,6 +75,11 @@ _SIGNATURES: Dict[str, List] = {
     # stream
     "post_rgb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
+
+#: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
+#: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
+PROBES = ("fdct_quant", "dpost_rgb")
+PROBE_STAGES = {"full": 0, "load_store": 1, "no_store": 2}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -165,25 +172,39 @@ def _lib(name: str) -> ctypes.CDLL:
         fn = getattr(lib, f"gj_{name}")
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
+        if name in PROBES:
+            pf = getattr(lib, f"gj_{name}_probe")
+            pf.argtypes = [_I] + _SIGNATURES[name]
+            pf.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def _call(name: str, symbol: str, lead, args) -> None:
+    fn = getattr(_lib(name), symbol)
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
+              else a.ctypes.data if isinstance(a, np.ndarray) else a
+              for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*lead, *c_args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {symbol[3:]} failed to launch: "
+                           f"error {err}")
 
 
 def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current stream of the first tensor's
     device with C arguments `args` (tensors pass as device pointers, numpy
     arrays as host pointers), count it, and raise on a launch error."""
-    fn = getattr(_lib(name), f"gj_{name}")
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
-              else a.ctypes.data if isinstance(a, np.ndarray) else a
-              for a in args]
-    with torch.cuda.device(dev):
-        err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
-                           f"{err}")
+    _call(name, f"gj_{name}", (), args)
     LAUNCHES[name] += 1
+
+
+def probe(name: str, stage: str, *args) -> None:
+    """Launch decomposition stage `stage` (PROBE_STAGES) of kernel `name`
+    with launch's arguments; not counted in LAUNCHES."""
+    _call(name, f"gj_{name}_probe", (PROBE_STAGES[stage],), args)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -144,23 +144,38 @@ def fdct_quant_plain(plane: torch.Tensor, tabs: ClassTables,
     return coefs.reshape(nseg, rst * 64)
 
 
+def _fdct_args(plane: torch.Tensor, tabs: ClassTables, rst: int):
+    """The output and the C arguments of csrc/fdct_quant.cu."""
+    H, W = plane.shape
+    _, nseg = segment_count(plane, rst)
+    out = torch.empty((nseg, rst * 64), dtype=torch.int16,
+                      device=plane.device)
+    _kernels.require_cuda("fdct_quant", plane, tabs.mq, tabs.bias, out)
+    if plane.dtype != torch.uint8 or H % 8 or W % 8:
+        raise ValueError("fdct_quant takes a uint8 plane of whole blocks")
+    return out, (plane, H, W, nseg * rst, tabs.mq, tabs.bias, out)
+
+
 def fdct_quant(plane: torch.Tensor, tabs: ClassTables,
                rst: int) -> torch.Tensor:
     """(data_h, data_w) uint8 plane -> (nseg, rst*64) int16 quantized
     zig-zag coefficients, nseg = ceil(blocks / rst); blocks in raster
     order are segment order, pad blocks past the plane's last block are
     0."""
-    H, W = plane.shape
-    _, nseg = segment_count(plane, rst)
     if plane.device.type == "cpu":
         return fdct_quant_plain(plane, tabs, rst)
-    out = torch.empty((nseg, rst * 64), dtype=torch.int16,
-                      device=plane.device)
-    _kernels.require_cuda("fdct_quant", plane, tabs.mq, tabs.bias, out)
-    if plane.dtype != torch.uint8 or H % 8 or W % 8:
-        raise ValueError("fdct_quant takes a uint8 plane of whole blocks")
-    _kernels.launch("fdct_quant", plane, H, W, nseg * rst, tabs.mq,
-                    tabs.bias, out)
+    out, args = _fdct_args(plane, tabs, rst)
+    _kernels.launch("fdct_quant", *args)
+    return out
+
+
+def fdct_quant_probe(plane: torch.Tensor, tabs: ClassTables, rst: int,
+                     stage: str) -> torch.Tensor:
+    """fdct_quant's kernel cut to a decomposition stage
+    (_kernels.PROBE_STAGES) for chip_smoke.py's probe; no codec path calls
+    it.  Only the "full" stage's output is the coefficients."""
+    out, args = _fdct_args(plane, tabs, rst)
+    _kernels.probe("fdct_quant", stage, *args)
     return out
 
 

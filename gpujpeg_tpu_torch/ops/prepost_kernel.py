@@ -200,6 +200,16 @@ def decode_post(coefs_t: torch.Tensor, qtabs: torch.Tensor, geo: Geometry,
     takes chroma block (by / dy, bx / dx), sample ((by % dy) 8 + r) / dy,
     ((bx % dx) 8 + c) / dx: sample.postprocess's rule for these
     layouts)."""
+    _dpost_check(coefs_t, qtabs, geo, pi)
+    if coefs_t.device.type == "cpu":
+        return decode_post_plain(coefs_t, qtabs, geo, pi)
+    out, args = _dpost_args(coefs_t, qtabs, geo, pi)
+    _kernels.launch("dpost_rgb", *args)
+    return out
+
+
+def _dpost_check(coefs_t, qtabs, geo, pi) -> None:
+    """Raise unless decode_post takes these inputs."""
     if not decode_post_supported(geo, pi):
         raise NotImplementedError(
             "the fused decode back half takes non-interleaved 3-component "
@@ -214,20 +224,34 @@ def decode_post(coefs_t: torch.Tensor, qtabs: torch.Tensor, geo: Geometry,
                          f"{tuple(coefs_t.shape)} {coefs_t.dtype}")
     if qtabs.dtype != torch.float32 or tuple(qtabs.shape) != (3, 64):
         raise ValueError("expected (3, 64) float32 quant tables")
-    if coefs_t.device.type == "cpu":
-        return decode_post_plain(coefs_t, qtabs, geo, pi)
+
+
+def _dpost_args(coefs_t, qtabs, geo, pi):
+    """The output and the C arguments of csrc/dpost_rgb.cu."""
     out = torch.empty((pi.height, pi.width, 3), dtype=torch.uint8,
                       device=coefs_t.device)
     nmat = idct_matrix(coefs_t.device)
     _kernels.require_cuda("dpost_rgb", coefs_t, qtabs, nmat, out)
     c0 = geo.components[0]
-    offs = np.asarray([f for f, _ in cols], np.int64)
+    offs = np.asarray([f for f, _ in component_columns(geo)], np.int64)
     params = color.kernel_params(geo.param.color_space_internal,
                                  pi.color_space)
     dx, dy = dpost_decimation(geo)
-    _kernels.launch("dpost_rgb", coefs_t, L, offs, c0.mcu_count,
-                    c0.data_width // 8, dx, dy, pi.height, pi.width, qtabs,
-                    nmat, params, out)
+    return out, (coefs_t, coefs_t.shape[1], offs, c0.mcu_count,
+                 c0.data_width // 8, dx, dy, pi.height, pi.width, qtabs,
+                 nmat, params, out)
+
+
+def decode_post_probe(coefs_t: torch.Tensor, qtabs: torch.Tensor,
+                      geo: Geometry, pi: ImageParameters,
+                      stage: str) -> torch.Tensor:
+    """decode_post's kernel cut to a decomposition stage
+    (_kernels.PROBE_STAGES; dx = dy = 1 or 2) for chip_smoke.py's probe;
+    no codec path calls it.  Only the "full" stage's output is the
+    pixels."""
+    _dpost_check(coefs_t, qtabs, geo, pi)
+    out, args = _dpost_args(coefs_t, qtabs, geo, pi)
+    _kernels.probe("dpost_rgb", stage, *args)
     return out
 
 

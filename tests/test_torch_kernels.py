@@ -236,7 +236,8 @@ def test_huffdec_kernels_corrupt_segment(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311)])
+@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311), (64, 80),
+                                (400, 1344)])
 def test_dpost_kernel_matches_plain(cuda, hw):
     _, data = _stream("gradient", *hw)
     dec = gt.Decoder(device=cuda)
@@ -303,6 +304,58 @@ def test_fdct_kernel_matches_plain(cuda, kind):
         assert _kernels.LAUNCHES["fdct_quant"] == 1
         assert got.shape == ((135 * 240 + 7) // 8, 512)
         assert torch.equal(got, tfp.fdct_quant_plain(x, tabs, 8))
+
+
+def _plane(kind, h, w, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (h, w), dtype=np.uint8) if kind == "noise"
+            else np.ascontiguousarray(_frame(h, w, seed)[..., 0]))
+
+
+#: (data_h, data_w, rst): one block; a 16-byte row (two blocks a copy);
+#: 8-byte rows (the padded 233x311); HD; a width of 67 blocks, no multiple
+#: of the 64-block tile; a segment longer than the plane (pad blocks)
+FDCT_PLANES = [(8, 8, 8), (48, 80, 1), (240, 312, 8), (1080, 1920, 8),
+               (40, 536, 3), (48, 80, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gradient", "noise"])
+@pytest.mark.parametrize("h,w,rst", FDCT_PLANES)
+def test_fdct_kernel_tile_edges(cuda, kind, h, w, rst):
+    x = torch.from_numpy(_plane(kind, h, w)).to(cuda)
+    for luma in (True, False):
+        tabs = tfp.class_tables(75, luma, cuda)
+        _kernels.reset_launches()
+        got = tfp.fdct_quant(x, tabs, rst)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["fdct_quant"] == 1
+        assert got.shape == (-(-(h // 8) * (w // 8) // rst), rst * 64)
+        assert torch.equal(got, tfp.fdct_quant_plain(x, tabs, rst))
+
+
+@pytest.mark.gpu
+def test_fdct_kernel_pad_segments_and_alignment(cuda):
+    """Whole pad segments past the plane's blocks are written as 0, and a
+    plane whose rows are 16-byte multiples but whose base is not takes the
+    8-byte copies."""
+    h, w = 48, 96
+    nblocks = (h // 8) * (w // 8)
+    flat = torch.from_numpy(_plane("noise", 1, 8 + h * w).reshape(-1)).to(
+        cuda)
+    x = flat[8:].view(h, w)                        # base 8 bytes off
+    assert x.data_ptr() % 16 == 8
+    tabs = tfp.class_tables(75, True, cuda)
+    ref = tfp.fdct_quant_plain(x, tabs, 8).reshape(-1, 64)
+    nout = nblocks + 200                           # 25 pad segments of 8
+    out = torch.full((nout, 64), 7, dtype=torch.int16, device=cuda)
+    _kernels.reset_launches()
+    _kernels.launch("fdct_quant", x, h, w, nout, tabs.mq, tabs.bias, out)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["fdct_quant"] == 1
+    assert torch.equal(out[:nblocks], ref)
+    assert not bool(out[nblocks:].any())
+    assert torch.equal(tfp.fdct_quant(x, tabs, 8).reshape(-1, 64), ref)
 
 
 @pytest.mark.gpu
@@ -620,17 +673,23 @@ def _planar_geo(samp, hw):
     frame = np.zeros((*hw, 3), np.uint8)
     return gt.Encoder(device="cpu").resolve(frame, gt.Parameters(
         quality=75, restart_interval=gt.RESTART_AUTO).chroma_subsampled(
-        SAMPLINGS[samp]))
+        SAMPLINGS.get(samp, ((1, 1),) * 3)))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("samp", ["420", "422", "440"])
-@pytest.mark.parametrize("hw", [(1088, 1920), (64, 80)])
+@pytest.mark.parametrize("samp", ["420", "422", "440", "444"])
+@pytest.mark.parametrize("hw", [(1088, 1920), (64, 80), (400, 1344),
+                                (250, 382)])
 def test_dpost_kernel_subsampled_matches_plain(cuda, samp, hw):
     """dpost at dx, dy in {1, 2} on random coefficients (every rounding
-    boundary of the chains) and on a sparse set; 1088 rows, since at
+    boundary of the chains) and on a sparse set.  1088 rows, since at
     1080 the chroma planes of 4:2:0 and 4:4:0 pad to 68 block rows, not
-    half of luma's 135."""
+    half of luma's 135.  A block row of 1344 or 382 pixels is no multiple
+    of the 32-block tile (1344: 2-byte loads at 4:2:0 and 4:2:2, 16-byte
+    copies at 4:4:0 and 4:4:4; 382: 16-byte copies, and rows and columns
+    cropped with byte stores, W % 16 != 0); at 64x80 and 400x1344 the
+    chroma components end on a ragged segment (20 and 2100 blocks, 8 a
+    segment)."""
     from gpujpeg_tpu_torch.utils import tables as tt
 
     geo = _planar_geo(samp, hw)
@@ -655,6 +714,35 @@ def test_dpost_kernel_subsampled_matches_plain(cuda, samp, hw):
         assert _kernels.LAUNCHES["dpost_rgb"] == 1
         assert got.shape == (*hw, 3)
         assert torch.equal(got, tpre.decode_post_plain(co, q, geo, pi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["444", "420"])
+@pytest.mark.parametrize("cs", ["YCBCR_BT709", "YCBCR_BT601_256LVLS"])
+def test_dpost_kernel_colour_transforms(cuda, samp, cs):
+    """dpost to an output space other than RGB: a transform with a "to"
+    step (or none) takes the kernel's general colour path."""
+    from gpujpeg_tpu_torch.utils import tables as tt
+
+    hw = (400, 1344)
+    geo = _planar_geo(samp, hw)
+    pi = gt.ImageParameters(width=hw[1], height=hw[0],
+                            color_space=gt.ColorSpace[cs],
+                            pixel_format=gt.PixelFormat.P444_U8_P012)
+    assert tpre.decode_post_supported(geo, pi)
+    cols = tpre.component_columns(geo)
+    L = cols[-1][0] + geo.components[-1].segment_count * \
+        geo.max_blocks_per_seg
+    q = torch.from_numpy(np.stack([tt.quant_table_zz(c.index == 0, 75)
+                                   for c in geo.components]).astype(
+        np.float32)).to(cuda)
+    co = torch.randint(-600, 600, (64, L), dtype=torch.int16,
+                       generator=torch.Generator().manual_seed(4)).to(cuda)
+    _kernels.reset_launches()
+    got = tpre.decode_post(co, q, geo, pi)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["dpost_rgb"] == 1
+    assert torch.equal(got, tpre.decode_post_plain(co, q, geo, pi))
 
 
 @pytest.mark.gpu
@@ -686,3 +774,59 @@ def test_new_layouts_on_card_match_cpu(cuda, layout, hw):
     assert _kernels.LAUNCHES["dpost_rgb"] == int(fused)
     assert _kernels.LAUNCHES["idct_planes"] == 3 * (1 - int(fused))
     assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
+
+
+@pytest.mark.gpu
+def test_probe_stages_launch_uncounted(cuda):
+    """The decomposition probe's cut kernels (chip_smoke.py): the full
+    stage equals the kernel, the others launch, and none is counted."""
+    from gpujpeg_tpu_torch.utils import tables as tt
+
+    x = torch.from_numpy(_plane("gradient", 240, 320)).to(cuda)
+    tabs = tfp.class_tables(75, True, cuda)
+    geo = _planar_geo("420", (256, 320))
+    pi = gt.ImageParameters(width=320, height=256,
+                            color_space=gt.ColorSpace.RGB,
+                            pixel_format=gt.PixelFormat.P444_U8_P012)
+    cols = tpre.component_columns(geo)
+    L = cols[-1][0] + geo.components[-1].segment_count * \
+        geo.max_blocks_per_seg
+    q = torch.from_numpy(np.stack([tt.quant_table_zz(c.index == 0, 75)
+                                   for c in geo.components]).astype(
+        np.float32)).to(cuda)
+    co = torch.randint(-600, 600, (64, L), dtype=torch.int16,
+                       generator=torch.Generator().manual_seed(9)).to(cuda)
+    _kernels.reset_launches()
+    for stage in _kernels.PROBE_STAGES:
+        f = tfp.fdct_quant_probe(x, tabs, 8, stage)
+        d = tpre.decode_post_probe(co, q, geo, pi, stage)
+        torch.cuda.synchronize()
+        if stage == "full":
+            assert torch.equal(f, tfp.fdct_quant_plain(x, tabs, 8))
+            assert torch.equal(d, tpre.decode_post_plain(co, q, geo, pi))
+    assert _kernels.LAUNCHES["fdct_quant"] == 0
+    assert _kernels.LAUNCHES["dpost_rgb"] == 0
+
+
+def test_probes_take_cuda_tensors_only():
+    """The probe entry points have no plain version: a tensor off the
+    card is refused, and a stage must be one of PROBE_STAGES."""
+    tabs = tfp.class_tables(75, True, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.fdct_quant_probe(torch.zeros((16, 16), dtype=torch.uint8), tabs,
+                             8, "full")
+    geo = _planar_geo("420", (64, 80))
+    pi = gt.ImageParameters(width=80, height=64,
+                            color_space=gt.ColorSpace.RGB,
+                            pixel_format=gt.PixelFormat.P444_U8_P012)
+    cols = tpre.component_columns(geo)
+    L = cols[-1][0] + geo.components[-1].segment_count * \
+        geo.max_blocks_per_seg
+    with pytest.raises(ValueError, match="int16 coefficients"):
+        tpre.decode_post_probe(torch.zeros((64, 8), dtype=torch.int16),
+                               torch.zeros((3, 64)), geo, pi, "no_store")
+    with pytest.raises(ValueError, match="CUDA"):
+        tpre.decode_post_probe(torch.zeros((64, L), dtype=torch.int16),
+                               torch.zeros((3, 64)), geo, pi, "no_store")
+    assert set(_kernels.PROBE_STAGES) == {"full", "load_store", "no_store"}
+    assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb"}
