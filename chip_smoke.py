@@ -39,7 +39,10 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      layout):
      a. each kernel and mode of that path against its plain version at
         8K on a gradient and a noise frame, bit for bit: the decimating
-        preprocessor, the slot-pattern Huffman coder, the token-row packer
+        preprocessor, the DCT storing MCU order (interleaved_rows, three
+        fdct_quant launches, against interleaved_rows_plain: raster
+        order, then a torch copy), the slot-pattern Huffman coder, the
+        token-row packer
         (on no encode path; fed the plain tokenizer's token rows of
         the same coefficients, it must also give the Huffman coder's
         bytes), the Huffman decode phases in slot-pattern mode, the IDCT
@@ -51,9 +54,12 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
         each; the token-row packer must not run), checks SOI/EOI, the RST
         count and the PSNR, and prints per-frame wall ms (those three and
         EXTRA_FRAMES more) and a stage breakdown of each;
-     d. times each kernel and mode of the path at its shapes;
+     d. times each kernel and mode of the path at its shapes, the
+        MCU-order DCT beside the planar store's three launches on the
+        same planes;
   8. the same four steps for interleaved 4:4:4 (one scan, Q75, restart
-     auto = 2 MCUs a segment): the slot-pattern Huffman coder and its
+     auto = 2 MCUs a segment): the MCU-order DCT, the slot-pattern
+     Huffman coder and its
      coefficient-input mode (the three planes' coefficients as rows of 8
      blocks, a class flag a row, one interior masked block, a zero marker
      mid-scan) against their plain versions; decode through the IDCT
@@ -62,18 +68,29 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      luma 2x2, chroma 1x1, 8 blocks a segment): the fused decode tail at
      dx = dy = 2 against its plain version; encode through the decimating
      preprocessor, the DCT and the one-slot Huffman coder per component;
- 10. prints the decomposition line of the tiled kernels (fdct_quant,
+ 10. [relayout]: the four relayout and primitive kernels of
+     csrc/relayout.cu (the H100 counterparts of the JAX package's TPU
+     probes tools/proto_xbdkernel.py, tools/profile_transpose.py and
+     tools/profile_prims.py; on no codec path) at those tools' 8K shapes
+     on seeded words, each against its plain version on the card, timed
+     beside its bound and the PyTorch call that computes the same;
+ 11. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), timed at 8K in steps 5, 6 and 9:
      each kernel's CUDA-event ms in three stages built from its own
      source (csrc/tile.cuh gj::Stage) -- full, loads and stores only with
      no arithmetic, and full with no output store -- the H100
      counterpart of the JAX package's TPU probes tools/proto_xq.py and
-     tools/profile_dpost5.py;
- 11. prints one JSON line of per-kernel records, every kernel and mode
+     tools/profile_dpost5.py; the full stage is held against the plain
+     version (error 0);
+ 12. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists; a note where a record is on no path);
- 12. prints {"ok": true, "device": {...}} as its last line.
+ 13. prints {"ok": true, "device": {...}} as its last line.
+
+Launches are counted in windows around each path's three 8K frames
+(end_window); a record's launches are its kernel's sum over those
+windows, so the launches made to check or time a kernel never count.
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -94,6 +111,17 @@ EXTRA_FRAMES = 9
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, non-tensor f32
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+#: launches by kernel, summed over the main-path windows (end_window)
+PATH_LAUNCHES: dict = {}
+
+
+def end_window() -> None:
+    """Add the launch counts of the main-path window that just ended (the
+    counts were reset at its start) to PATH_LAUNCHES."""
+    from gpujpeg_tpu_torch.ops import _kernels
+
+    for name, n in _kernels.LAUNCHES.items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + n
 
 
 def log(*a):
@@ -138,13 +166,20 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def probe_ms(torch, fn, flush) -> dict:
+def probe_ms(torch, fn, plain, flush) -> dict:
     """CUDA-event ms of each decomposition stage of a tiled kernel
-    (_kernels.PROBE_STAGES), fn(stage) launching that stage."""
+    (_kernels.PROBE_STAGES), fn(stage) launching that stage; the full
+    stage's output must equal plain() (its max_abs_err, 0)."""
     from gpujpeg_tpu_torch.ops import _kernels
 
-    return {st: event_ms(torch, lambda: fn(st), 20, flush)
-            for st in _kernels.PROBE_STAGES}
+    err = diff(fn("full"), plain())
+    if err:
+        raise AssertionError("a probe's full stage differs from the plain "
+                             "version")
+    out = {st: event_ms(torch, lambda: fn(st), 20, flush)
+           for st in _kernels.PROBE_STAGES}
+    out["max_abs_err"] = err
+    return out
 
 
 def once_ms(torch, fn):
@@ -287,8 +322,7 @@ def dpost_decode_stages(torch, np, dec, data, tag):
     p = hf.plan
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
     ev[0].record()
-    words = torch.from_numpy(hf.words).to(dev)
-    nbits = torch.from_numpy(hf.nbits).to(dev)
+    words, nbits = dec.upload(hf)
     ev[1].record()
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps)
@@ -413,6 +447,7 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         if out.shape != f.shape or out.dtype != np.uint8:
             raise AssertionError(f"8K decode gave {out.shape} {out.dtype}")
         psnrs.append(psnr(np, out, f))
+    end_window()
     launches = {n: _kernels.LAUNCHES[n] for n in kernels}
     for name, n in launches.items():
         if n <= 0:
@@ -461,8 +496,11 @@ def dpost_times(torch, k, coefs, img, p, hf, flush) -> None:
 
     k["ms"] = event_ms(torch, lambda: prepost_kernel.decode_post(
         coefs, p.qtabs, p.geo, hf.out_pi), 20, flush)
-    k["probe"] = probe_ms(torch, lambda st: prepost_kernel.decode_post_probe(
-        coefs, p.qtabs, p.geo, hf.out_pi, st), flush)
+    k["probe"] = probe_ms(
+        torch, lambda st: prepost_kernel.decode_post_probe(
+            coefs, p.qtabs, p.geo, hf.out_pi, st),
+        lambda: prepost_kernel.decode_post_plain(coefs, p.qtabs, p.geo,
+                                                 hf.out_pi), flush)
     cols = prepost_kernel.component_columns(p.geo)
     nblk = sum(n for _, n in cols)        # each chroma sample counted once
     k["bound_ms"] = max(
@@ -477,6 +515,56 @@ def dpost_times(torch, k, coefs, img, p, hf, flush) -> None:
           for c, (f0, n) in enumerate(cols)]
     k["library_ms"] = event_ms(
         torch, lambda: [torch.matmul(y, nmat) for y in ys], 10, flush)
+
+
+#: the MCU-order DCT (fdct_quant's interleaved output map) over the two
+#: interleaved paths: error against interleaved_rows_plain, launches in
+#: the encode windows, and per path the times of one interleaved_rows
+#: (three launches)
+MCU_ORDER = {"err": 0, "launches": 0, "ms": [], "plain_ms": [],
+             "planar_ms": [], "bound_ms": []}
+
+
+def mcu_order_check(torch, planes, geo, classes, rows_in, what) -> float:
+    """interleaved_rows (three fdct_quant launches storing MCU order) on
+    the card against its plain version on the same planes; returns the
+    plain version's ms."""
+    from gpujpeg_tpu_torch.ops import fusedpack
+
+    ref, ms = once_ms(torch, lambda: fusedpack.interleaved_rows_plain(
+        planes, geo, classes))
+    err = diff(rows_in, ref)
+    MCU_ORDER["err"] = max(MCU_ORDER["err"], err)
+    if err:
+        raise AssertionError(f"fdct_quant:mcu_order differs from its plain "
+                             f"version ({what})")
+    return ms
+
+
+def mcu_order_times(torch, planes, geo, classes, flush, plain_ms,
+                    tag) -> None:
+    """Times of the MCU-order DCT at the path's shapes beside the planar
+    store's three launches on the same planes (raster order, no MCU copy)
+    and its bound, into MCU_ORDER."""
+    from gpujpeg_tpu_torch.ops import fusedpack
+
+    ms = event_ms(torch, lambda: fusedpack.interleaved_rows(
+        planes, geo, classes), 20, flush)
+    planar = event_ms(torch, lambda: [fusedpack.fdct_quant(
+        planes[c.index], classes[c.table_index], 1)
+        for c in geo.components], 20, flush)
+    samples = sum(p_.numel() for p_ in planes)       # one per coefficient
+    out_bytes = (geo.segment_count * geo.segment_mcu_count
+                 * geo.blocks_per_mcu * 128)
+    bound = max(2 * 64 * samples / PEAK_F32_FLOP_S,
+                (samples + out_bytes + 3 * 64 * 65 * 4) / PEAK_BYTES_S) * 1e3
+    for key, v in (("ms", ms), ("planar_ms", planar), ("bound_ms", bound),
+                   ("plain_ms", plain_ms)):
+        MCU_ORDER[key].append(v)
+    log(f"[{tag}] fdct_quant:mcu_order: {ms:.4f} ms for the 3 launches "
+        f"into MCU order ({out_bytes} B), planar store of the same planes "
+        f"{planar:.4f} ms, bound {bound:.4f} ms (operations), plain "
+        f"{plain_ms:.3f} ms")
 
 
 def interleaved_phases(torch, np, gt, dev, flush):
@@ -554,6 +642,10 @@ def interleaved_phases(torch, np, gt, dev, flush):
                    max(diff(a, b) for a, b in zip(planes, ref)), fkind)
         del ref
         rows_in = fusedpack.interleaved_rows(planes, geo, classes)
+        ms_mcu = mcu_order_check(torch, planes, geo, classes, rows_in,
+                                 f"4:2:0 {fkind}")
+        if fkind == "gradient":
+            mcu_plain_ms = ms_mcu
         del planes
         st = fusedpack.interleaved_slots(geo, classes)
         nblocks = geo.mcu_count * geo.blocks_per_mcu
@@ -640,8 +732,9 @@ def interleaved_phases(torch, np, gt, dev, flush):
                              ("huffdec_block:pattern", ms_c),
                              ("idct_planes", ms_i), ("post_rgb", ms_p)):
                 kernels[name]["plain_ms"] = ms
-        log(f"[il kernels] 8K 4:2:0 {fkind}: pre, huffman (pattern), pack "
-            f"(plain tokens), scan, block, idct, post equal to plain; "
+        log(f"[il kernels] 8K 4:2:0 {fkind}: pre, fdct (MCU order), huffman "
+            f"(pattern), pack (plain tokens), scan, block, idct, post equal "
+            f"to plain; "
             f"{len(data)} B, {geo.segment_count} segments of {p.bps} "
             f"blocks, max row {int(needs[1])} B, stuffed zeros <= "
             f"{int(needs[0])}, stride {stride} B, PSNR "
@@ -662,8 +755,10 @@ def interleaved_phases(torch, np, gt, dev, flush):
         out = enc.encode(f, params)
         walls.append((time.perf_counter() - t0) * 1e3)
         streams.append(out)
+    end_window()
     launches = {n: _kernels.LAUNCHES[n] for n in (
         "pre_rgb_to_planes", "fdct_quant", "huffman_segments")}
+    MCU_ORDER["launches"] += launches["fdct_quant"]
     if _kernels.LAUNCHES["pack_stuff_rows"]:
         raise AssertionError("the 4:2:0 encode went through pack_stuff_rows")
     launches["pack_stuff_rows"] = 0
@@ -721,6 +816,8 @@ def interleaved_phases(torch, np, gt, dev, flush):
     kernels["huffman_segments:pattern_420"]["ms"] = event_ms(
         torch, lambda: fusedpack.huffman_segments(rows_in, nblocks, st,
                                                   markers), 10, flush)
+    mcu_order_times(torch, planes, geo, classes, flush, mcu_plain_ms,
+                    "il time")
     bits, lens, p_markers, stride, p_bytes = pack_in
     kernels["pack_stuff_rows"]["ms"] = event_ms(
         torch, lambda: fusedpack.pack_stuff_rows(bits, lens, p_markers,
@@ -750,6 +847,7 @@ def interleaved_phases(torch, np, gt, dev, flush):
             raise AssertionError(f"8K 4:2:0 decode gave {out.shape} "
                                  f"{out.dtype}")
         psnrs.append(psnr(np, out, f))
+    end_window()
     launches.update({n: _kernels.LAUNCHES[n] for n in (
         "huffdec_scan", "huffdec_block", "idct_planes", "post_rgb")})
     if _kernels.LAUNCHES["dpost_rgb"]:
@@ -842,6 +940,7 @@ def main_path_8k(torch, np, gt, dev, enc, dec, params, seed0, what,
             outs.append(enc.encode(f, params) if stage == "enc"
                         else dec.decode(streams[i]))
             walls.append((time.perf_counter() - t0) * 1e3)
+        end_window()
         launches.update({n: _kernels.LAUNCHES[n] for n in names})
         for n in names:
             if launches[n] <= 0:
@@ -941,6 +1040,10 @@ def il444_phases(torch, np, gt, dev, flush):
         planes = prepost_kernel.preprocess_packed(frame, geo,
                                                   geo.param_image)
         rows_in = fusedpack.interleaved_rows(planes, geo, classes)
+        ms_mcu = mcu_order_check(torch, planes, geo, classes, rows_in,
+                                 f"4:4:4 interleaved {fkind}")
+        if fkind == "gradient":
+            mcu_plain_ms = ms_mcu
         st = fusedpack.interleaved_slots(geo, classes)
         nblocks = geo.mcu_count * geo.blocks_per_mcu
         markers = fusedpack.segment_markers(geo.segment_count, dev)
@@ -964,8 +1067,9 @@ def il444_phases(torch, np, gt, dev, flush):
             kernels["huffman_segments:pattern"]["plain_ms"] = ms_pat
             kernels["huffman_segments:coefs"]["plain_ms"] = ms_coefs
             coefs_in = cm
-        log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: huffman "
-            f"pattern ({geo.segment_count} rows of {geo.blocks_per_mcu} x "
+        log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: fdct (MCU "
+            f"order), huffman pattern ({geo.segment_count} rows of "
+            f"{geo.blocks_per_mcu} x "
             f"{geo.segment_mcu_count} blocks, max row {max_row} B) and "
             f"coefficient-input mode ({cm[0].shape[0]} rows of 8 blocks) "
             "equal to plain")
@@ -980,6 +1084,7 @@ def il444_phases(torch, np, gt, dev, flush):
         ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"),
         ("huffdec_scan", "huffdec_block", "idct_planes", "post_rgb"),
         ("pack_stuff_rows", "dpost_rgb"))
+    MCU_ORDER["launches"] += launches["fdct_quant"]
     geo = enc.resolve(frames[0], params)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     torch.cuda.synchronize()
@@ -1020,6 +1125,8 @@ def il444_phases(torch, np, gt, dev, flush):
                                                   markers), 10, flush)
     kernels["huffman_segments:pattern"]["bound_ms"] = huffman_bound_ms(
         rows_in, rb)
+    mcu_order_times(torch, planes, geo, classes, flush, mcu_plain_ms,
+                    "il444 time")
     del rows, rows_in, planes, x
     kernels["huffman_segments:coefs"]["ms"] = event_ms(
         torch, lambda: fusedpack.entropy_fused(*coefs_in, classes), 10,
@@ -1117,8 +1224,7 @@ def decode_stages(torch, np, dec, data, what):
     p = hf.plan
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
     ev[0].record()
-    words = torch.from_numpy(hf.words).to(dev)
-    nbits = torch.from_numpy(hf.nbits).to(dev)
+    words, nbits = dec.upload(hf)
     ev[1].record()
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps, p.pattern)
@@ -1152,6 +1258,88 @@ def decode_stages(torch, np, dec, data, what):
         f"rest CUDA events; {words.numel() * 4} B of words): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     return bstart, coefs, dplanes, img, words, nbits, p, hf
+
+
+def relayout_phase(torch, dev, flush):
+    """Step 10: the relayout and primitive kernels of csrc/relayout.cu at
+    the 8K shapes of the TPU probes they replace, on seeded u32 words;
+    returns their kernel records (on no codec path: their launches are
+    the main-path windows' counts, 0)."""
+    from gpujpeg_tpu_torch.ops import relayout as rl
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(61)
+
+    def words(shape, high=1 << 32):
+        return torch.randint(0, high, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def word_err(a, b) -> int:
+        if a.shape != b.shape:
+            return 1 << 32
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    def pack_library(x):
+        R, C = x.shape
+        return x.to(torch.uint8).view(R // 4, 4, C).permute(
+            0, 2, 1).contiguous().view(torch.int32).view(R // 4, C)
+
+    note = "probe; on no codec path"
+    src = "gpujpeg_tpu_torch/csrc/relayout.cu"
+    # name -> (replaces, note, [(kernel fn, plain fn, library fn, input)])
+    cases = {
+        "xbd_relayout": (
+            "tools/proto_xbdkernel.py:47",
+            note + "; also the function of tools/profile_transpose.py:71 "
+            "(one block row a grid step); (4320, 1920) words, rst 8",
+            [(lambda x: rl.xbd_relayout(x, 8),
+              lambda x: rl.xbd_relayout_plain(x, 8),
+              lambda x: rl.xbd_relayout_plain(x, 8),
+              words((H8K, W8K // 4)))]),
+        "transpose_u32": (
+            "tools/profile_transpose.py:95",
+            note + "; also tools/profile_prims.py:72; ms, plain, bound and "
+            "library are means over (4224, 1920) and (1024, 23040) words",
+            [(rl.transpose_u32, rl.transpose_u32_plain,
+              lambda x: x.t().contiguous(), words(shape))
+             for shape in ((4224, 1920), (1024, 23040))]),
+        "pair_sum_rows": (
+            "tools/profile_prims.py:102",
+            note + "; (23040, 128) words",
+            [(rl.pair_sum_rows, rl.pair_sum_rows_plain,
+              lambda x: x[0::2] + x[1::2], words((23040, 128)))]),
+        "pack_u8_quads": (
+            "tools/profile_prims.py:135",
+            note + "; (23040, 128) words of 0..255",
+            [(rl.pack_u8_quads, rl.pack_u8_quads_plain, pack_library,
+              words((23040, 128), 256))]),
+    }
+    kernels = {}
+    for name, (replaces, nt, runs) in cases.items():
+        k = dict(source=src, replaces=replaces, bound_by="bytes", err=0,
+                 note=nt)
+        ms, plain, lib, bound = [], [], [], []
+        for fn, plain_fn, lib_fn, x in runs:
+            got = fn(x)
+            ref, p_ms = once_ms(torch, lambda: plain_fn(x))
+            k["err"] = max(k["err"], word_err(got, ref),
+                           word_err(lib_fn(x), ref))
+            if k["err"]:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version at {tuple(x.shape)}")
+            ms.append(event_ms(torch, lambda: fn(x), 20, flush))
+            lib.append(event_ms(torch, lambda: lib_fn(x), 20, flush))
+            plain.append(p_ms)
+            bound.append((x.numel() + got.numel()) * 4 / PEAK_BYTES_S * 1e3)
+            log(f"[relayout] {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
+                f"equal to plain; {ms[-1]:.4f} ms (bound {bound[-1]:.4f} ms "
+                f"by bytes), library {lib[-1]:.4f} ms, plain {p_ms:.3f} ms")
+            del got, ref
+        k.update(ms=sum(ms) / len(ms), plain_ms=sum(plain) / len(plain),
+                 library_ms=sum(lib) / len(lib),
+                 bound_ms=sum(bound) / len(bound))
+        kernels[name] = k
+    return kernels
 
 
 def log_times(tag, kernels):
@@ -1299,6 +1487,7 @@ def main() -> int:
         streams.append(out)
         geo = enc.resolve(f, params)
         check_stream(np, out, geo.segment_count - geo.scan_count, "8K")
+    end_window()
     launches = {name: _kernels.LAUNCHES[name] for name in kernels}
     for name, n in launches.items():
         if n <= 0:
@@ -1348,7 +1537,9 @@ def main() -> int:
     tabs0 = enc.class_tables(QUALITY, True)
     kernels["fdct_quant"]["probe"] = probe_ms(
         torch, lambda st: fusedpack.fdct_quant_probe(
-            planes[c0.index], tabs0, c0.segment_mcu_count, st), flush)
+            planes[c0.index], tabs0, c0.segment_mcu_count, st),
+        lambda: fusedpack.fdct_quant_plain(planes[c0.index], tabs0,
+                                           c0.segment_mcu_count), flush)
     kernels["huffman_segments"]["ms"] = sum(ms_h) / 3
     kernels["fdct_quant"]["bound_ms"] = sum(bound_f) / 3
     kernels["huffman_segments"]["bound_ms"] = sum(bound_h) / 3
@@ -1373,13 +1564,38 @@ def main() -> int:
         kernels.update(step_kernels)
         launches.update(step_launches)
         log(f"[{phases.__name__}] {time.perf_counter() - t_step:.1f} s")
+    mo = MCU_ORDER
+    kernels["fdct_quant:mcu_order"] = dict(
+        source="gpujpeg_tpu_torch/csrc/fdct_quant.cu",
+        # the DCT half of the megakernel's interleaved mode, fed by the XLA
+        # relayout of gpujpeg_tpu/models/encoder.py:673-677
+        replaces="gpujpeg_tpu/ops/fusedpack.py:928",
+        bound_by="operations", library_ms=None, err=mo["err"],
+        ms=sum(mo["ms"]) / 6, plain_ms=sum(mo["plain_ms"]) / 6,
+        bound_ms=sum(mo["bound_ms"]) / 6,
+        note="output map of fdct_quant storing MCU order; launches over "
+             "the interleaved 4:2:0 and 4:4:4 encode paths; ms, plain and "
+             "bound per launch, means over both paths' 3 launches")
+    launches["fdct_quant:mcu_order"] = mo["launches"]
+    log(f"[mcu order] fdct + MCU order ms (4:2:0, 4:4:4): "
+        + ", ".join(f"{v:.4f}" for v in mo["ms"]) + "; planar store of the "
+        "same planes: " + ", ".join(f"{v:.4f}" for v in mo["planar_ms"]))
 
-    # -- 10. decomposition line -----------------------------------------------
+    # -- 10. relayout and primitive kernels ----------------------------------
+    t_step = time.perf_counter()
+    kernels.update(relayout_phase(torch, dev, flush))
+    for name in ("xbd_relayout", "transpose_u32", "pair_sum_rows",
+                 "pack_u8_quads"):
+        launches[name] = PATH_LAUNCHES.get(name, 0)
+    log(f"[relayout_phase] {time.perf_counter() - t_step:.1f} s")
+
+    # -- 11. decomposition line -----------------------------------------------
     log("[probe] decomposition ms at 8K (full | loads and stores only | "
-        "full without the output store): " + json.dumps(
+        "full without the output store; the full stage's error against "
+        "the plain version): " + json.dumps(
             {name: k["probe"] for name, k in kernels.items()
              if "probe" in k}))
-    # -- 11. kernels line ----------------------------------------------------
+    # -- 12. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -1390,7 +1606,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 12. result ----------------------------------------------------------
+    # -- 13. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,24 @@
 //   - store: each thread stores its 8 blocks' slots from registers, 4
 //     slots (8 bytes) at a time, 64 contiguous bytes a block for the 8
 //     threads that share it; pad blocks past the plane's last block are 0.
+//
+// Output map.  A non-interleaved scan stores block b at block slot b.
+// For an interleaved scan the kernel stores MCU order itself, the
+// counterpart of the JAX package's interleaved feed relayout
+// (gpujpeg_tpu/models/encoder.py: make_rows_xbd_il_impl, which stacks each
+// component's xbd relayout at MCU granularity): block b of a component's
+// plane, at block row by = b / bpr and column bx = b % bpr, goes to slot
+//     ((by / sv) * mcux + bx / sh) * bpm + off + (by % sv) * sh + bx % sh
+// of the scan's (S * rst, bpm, 64) buffer, where the component has sh x sv
+// blocks an MCU at offset off of the MCU's bpm and the plane is mcux MCUs
+// wide.  A thread's 8 blocks are consecutive in raster order, so the first
+// block's coordinates take one division and the others step along the row
+// (sh and sv are powers of two: shifts and masks); the map costs a few
+// integer operations a block, never one a coefficient.  The launch with
+// off = 0 zeroes the MCUs past the image, [nmcu, S * rst) in all bpm
+// slots, with one cudaMemsetAsync of that tail.  The planar store is the
+// case bpm = sh = sv = 1, off = 0, mcux = bpr, compiled as its own
+// instance (kMcu false), unchanged.
 // The stage template argument cuts the kernel for the probe in
 // chip_smoke.py (gj_fdct_quant_probe); the codec's entry point,
 // gj_fdct_quant, always launches the full kernel.  Without its store the
@@ -67,10 +85,22 @@ __device__ __forceinline__ uint2 pack4(int a, int b, int c, int d) {
                       (uint32_t)(c & 0xffff) | ((uint32_t)d << 16));
 }
 
-template <int kStage>
+// the MCU-order output map (see the header): slot of block (by, bx)
+struct McuMap {
+    int bpm, off, lsh, lsv, mcux;
+
+    __device__ __forceinline__ int slot(int by, int bx) const {
+        return (((by >> lsv) * mcux + (bx >> lsh)) * bpm + off
+                + ((by & ((1 << lsv) - 1)) << lsh) + (bx & ((1 << lsh) - 1)));
+    }
+};
+
+// nwork: blocks the tiles cover (planar: the output's nblocks_out, so the
+// kernel writes the pad blocks; MCU order: the plane's nblocks)
+template <int kStage, bool kMcu>
 __global__ void __launch_bounds__(kThreads)
 fdct_quant_kernel(const uint8_t* __restrict__ plane, int data_w, int bpr,
-                  int nblocks, int nblocks_out, int ntiles, bool wide,
+                  int nblocks, int nwork, int ntiles, bool wide, McuMap map,
                   const float* __restrict__ mq,
                   const float* __restrict__ bias,
                   int16_t* __restrict__ out) {
@@ -141,7 +171,7 @@ fdct_quant_kernel(const uint8_t* __restrict__ plane, int data_w, int bpr,
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
                 const int b = b0 + bl + i;
-                if (b < nblocks_out) {
+                if (b < nwork) {
                     const uint2 v = *reinterpret_cast<const uint2*>(
                         raw + (bl + i) * 8);
                     int16_t* const o = out + (int64_t)b * 64 + 4 * zg;
@@ -172,6 +202,11 @@ fdct_quant_kernel(const uint8_t* __restrict__ plane, int data_w, int bpr,
         __syncthreads();
         float acc[8][8];
         gj::fma_tile8x8<kTile>(xs + bl, ms, 4 * zg, acc);
+        int by = 0, bx = 0;       // MCU order: block b0 + bl + i's place
+        if (kMcu) {
+            by = (b0 + bl) / bpr;
+            bx = b0 + bl - by * bpr;
+        }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
             int v[8];
@@ -183,12 +218,17 @@ fdct_quant_kernel(const uint8_t* __restrict__ plane, int data_w, int bpr,
             const int b = b0 + bl + i;
             if (kStage == gj::kNoStore) {
                 chk ^= lo.x + 3u * lo.y + 5u * hi.x + 7u * hi.y;
-            } else if (b < nblocks_out) {
-                const bool real = b < nblocks;
-                int16_t* const o = out + (int64_t)b * 64 + 4 * zg;
+            } else if (b < nwork) {
+                const bool real = kMcu || b < nblocks;
+                const int64_t slot = kMcu ? map.slot(by, bx) : b;
+                int16_t* const o = out + slot * 64 + 4 * zg;
                 *reinterpret_cast<uint2*>(o) = real ? lo : make_uint2(0, 0);
                 *reinterpret_cast<uint2*>(o + 32) =
                     real ? hi : make_uint2(0, 0);
+            }
+            if (kMcu && ++bx == bpr) {
+                bx = 0;
+                ++by;
             }
         }
     }
@@ -196,53 +236,98 @@ fdct_quant_kernel(const uint8_t* __restrict__ plane, int data_w, int bpr,
         out[0] = (int16_t)chk;
 }
 
-template <int kStage>
-int launch(const void* plane, int data_h, int data_w, int64_t nblocks_out,
-           const void* mq, const void* bias, void* out, void* stream) {
-    // plane: (data_h, data_w) u8, both multiples of 8; mq: (64, 64) f32
-    // row-major (sample k, zig-zag z); bias: (64,) f32; out: (nblocks_out,
-    // 64) int16 with nblocks_out >= (data_h/8) * (data_w/8)
-    const int bpr = data_w / 8;
-    const int64_t nblocks = (int64_t)(data_h / 8) * bpr;
-    if (nblocks_out < nblocks || nblocks_out > INT_MAX - kTile)
-        return (int)cudaErrorInvalidValue;
-    const int ntiles = (int)((nblocks_out + kTile - 1) / kTile);
+template <int kStage, bool kMcu>
+int launch(const uint8_t* plane, int bpr, int64_t nblocks,
+           int64_t nblocks_out, const McuMap& map, const void* mq,
+           const void* bias, int16_t* out, cudaStream_t stream) {
+    const int64_t nwork = kMcu ? nblocks : nblocks_out;
+    const int ntiles = (int)((nwork + kTile - 1) / kTile);
+    if (kMcu && map.off == 0) {
+        // the MCUs past the image, in all bpm slots
+        const int64_t nmcu = nblocks >> (map.lsh + map.lsv);
+        const int64_t tail = (int64_t)map.bpm * nmcu;
+        if (nblocks_out > tail) {
+            const cudaError_t e = cudaMemsetAsync(
+                out + tail * 64, 0, (size_t)(nblocks_out - tail) * 128,
+                stream);
+            if (e != cudaSuccess) return (int)e;
+        }
+    }
     if (ntiles == 0) return (int)cudaGetLastError();
-    const bool wide = data_w % 16 == 0 && (uintptr_t)plane % 16 == 0;
-    auto* kernel = fdct_quant_kernel<kStage>;
+    const bool wide = bpr % 2 == 0 && (uintptr_t)plane % 16 == 0;
+    auto* kernel = fdct_quant_kernel<kStage, kMcu>;
     const int fit = gj::resident_ctas(kernel, kThreads, kSmem);
     if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
     const int grid = ntiles < fit ? ntiles : fit;
-    kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-        (const uint8_t*)plane, data_w, bpr, (int)nblocks, (int)nblocks_out,
-        ntiles, wide, (const float*)mq, (const float*)bias, (int16_t*)out);
+    kernel<<<grid, kThreads, kSmem, stream>>>(
+        plane, bpr * 8, bpr, (int)nblocks, (int)nwork, ntiles, wide, map,
+        (const float*)mq, (const float*)bias, out);
     return (int)cudaGetLastError();
+}
+
+int log2_small(int v) {          // 1, 2, 4 -> 0, 1, 2; else -1
+    return v == 1 ? 0 : v == 2 ? 1 : v == 4 ? 2 : -1;
+}
+
+// plane: (data_h, data_w) u8, both multiples of 8; mq: (64, 64) f32
+// row-major (sample k, zig-zag z); bias: (64,) f32; out: (nblocks_out, 64)
+// int16 block slots.  bpm = 1 (then sh = sv = 1, off = 0, mcux = bpr):
+// block b at slot b, nblocks_out >= the plane's blocks, pad slots 0.
+// bpm > 1: the MCU map of the header, nblocks_out a multiple of bpm with
+// room for every MCU of the plane.
+int dispatch(int stage, const void* plane, int data_h, int data_w,
+             int64_t nblocks_out, int bpm, int off, int sh, int sv, int mcux,
+             const void* mq, const void* bias, void* out, void* stream) {
+    const int bpr = data_w / 8, nbh = data_h / 8;
+    const int64_t nblocks = (int64_t)nbh * bpr;
+    const McuMap map{bpm, off, log2_small(sh), log2_small(sv), mcux};
+    const bool mcu = bpm > 1;
+    if (data_w % 8 || data_h % 8 || map.lsh < 0 || map.lsv < 0 || bpm < 1
+            || off < 0 || off + sh * sv > bpm || (int64_t)mcux * sh != bpr
+            || nbh % sv || nblocks_out > INT_MAX - kTile
+            || (!mcu && (sh != 1 || sv != 1 || off != 0))
+            || (!mcu && nblocks_out < nblocks)
+            || (mcu && (nblocks_out % bpm
+                        || nblocks / (sh * sv) * bpm > nblocks_out
+                        || stage != gj::kFull)))
+        return (int)cudaErrorInvalidValue;
+    const auto* p = (const uint8_t*)plane;
+    auto* o = (int16_t*)out;
+    auto* st = (cudaStream_t)stream;
+    if (mcu)
+        return launch<gj::kFull, true>(p, bpr, nblocks, nblocks_out, map, mq,
+                                       bias, o, st);
+    switch (stage) {
+    case gj::kFull:
+        return launch<gj::kFull, false>(p, bpr, nblocks, nblocks_out, map,
+                                        mq, bias, o, st);
+    case gj::kLoadStore:
+        return launch<gj::kLoadStore, false>(p, bpr, nblocks, nblocks_out,
+                                             map, mq, bias, o, st);
+    case gj::kNoStore:
+        return launch<gj::kNoStore, false>(p, bpr, nblocks, nblocks_out,
+                                           map, mq, bias, o, st);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int gj_fdct_quant(const void* plane, int data_h, int data_w,
-                             int64_t nblocks_out, const void* mq,
+                             int64_t nblocks_out, int bpm, int off, int sh,
+                             int sv, int mcux, const void* mq,
                              const void* bias, void* out, void* stream) {
-    return launch<gj::kFull>(plane, data_h, data_w, nblocks_out, mq, bias,
-                             out, stream);
+    return dispatch(gj::kFull, plane, data_h, data_w, nblocks_out, bpm, off,
+                    sh, sv, mcux, mq, bias, out, stream);
 }
 
-// the probe's cut kernels (gj::Stage), same arguments after the stage
+// the probe's cut kernels (gj::Stage), same arguments after the stage;
+// planar map only (bpm = 1) for the cut stages
 extern "C" int gj_fdct_quant_probe(int stage, const void* plane, int data_h,
-                                   int data_w, int64_t nblocks_out,
+                                   int data_w, int64_t nblocks_out, int bpm,
+                                   int off, int sh, int sv, int mcux,
                                    const void* mq, const void* bias,
                                    void* out, void* stream) {
-    switch (stage) {
-    case gj::kFull:
-        return launch<gj::kFull>(plane, data_h, data_w, nblocks_out, mq,
-                                 bias, out, stream);
-    case gj::kLoadStore:
-        return launch<gj::kLoadStore>(plane, data_h, data_w, nblocks_out,
-                                      mq, bias, out, stream);
-    case gj::kNoStore:
-        return launch<gj::kNoStore>(plane, data_h, data_w, nblocks_out, mq,
-                                    bias, out, stream);
-    }
-    return (int)cudaErrorInvalidValue;
+    return dispatch(stage, plane, data_h, data_w, nblocks_out, bpm, off, sh,
+                    sv, mcux, mq, bias, out, stream);
 }

@@ -56,6 +56,15 @@ from ..utils.geometry import Geometry, get_geometry
 
 log = logging.getLogger("gpujpeg_tpu_torch")
 
+#: the reused segment-matrix buffer grows in steps of this many bytes
+SCRATCH_STEP = 1 << 20
+
+
+def pinned_empty(nbytes: int) -> np.ndarray:
+    """A page-locked host buffer of nbytes, as a numpy array (the source
+    of non-blocking uploads)."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+
 
 def default_output(ps: reader.ParsedStream) -> ImageParameters:
     """Default output: interleaved RGB (or U8 for grayscale), like the
@@ -339,6 +348,12 @@ class Decoder:
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
         self._plans: Dict[tuple, Plan] = {}
+        # grow-only pinned buffer of the segment matrix, reused by every
+        # frame of a CUDA session (gpujpeg_tpu Decoder._words_scratch),
+        # and the event recorded after the last upload from it
+        self._reuse_scratch = self.device.type == "cuda"
+        self._prep_buf: Optional[np.ndarray] = None
+        self._prep_event = None
 
     def set_option(self, key: str, value: str) -> None:
         """Reference-compatible string options (gpujpeg_decoder.c:485-524)
@@ -355,7 +370,9 @@ class Decoder:
     def prepare(self, data: bytes,
                 param_image: Optional[ImageParameters] = None) -> HostFrame:
         """Host half of a decode: parse, check the slice's limits, look up
-        the plan, unstuff the segments into the word matrix."""
+        the plan, unstuff the segments into the word matrix.  On a CUDA
+        session the matrix lies in the session's reused buffer, so a
+        HostFrame's words hold until the next prepare."""
         if param_image is not None and not isinstance(param_image,
                                                       ImageParameters):
             param_image = from_reference(param_image)
@@ -373,10 +390,50 @@ class Decoder:
             self._plans[key] = plan
         bounds = self._segment_bounds(ps, geo)
         max_words = (int((bounds[1] - bounds[0]).max()) + 3) // 4
-        words, nbits = segprep.pack_segments_matrix(ps.data, bounds,
-                                                    max_words)
+        words, nbits = segprep.pack_segments_matrix(
+            ps.data, bounds, max_words,
+            out=self._words_scratch(len(bounds[0]), max_words + 1))
         return HostFrame(plan=plan, out_pi=out_pi, words=words.view(np.int32),
                          nbits=np.ascontiguousarray(nbits, np.int32))
+
+    def _words_scratch(self, nseg: int, row_words: int):
+        """The session's (nseg, row_words * 4) uint8 staging view for the
+        segment matrix, or None for a fresh array.  A fresh matrix page-
+        faults its pages inside the unstuff (the reference measured +40-90
+        ms per 8K Q100 frame), so a CUDA session keeps one grow-only pinned
+        buffer, rounded up to SCRATCH_STEP, and uploads from it without
+        blocking; it waits for the last upload from the buffer before the
+        buffer is written again.  On the CPU torch.from_numpy aliases the
+        array, so each frame gets a fresh one."""
+        if not self._reuse_scratch:
+            return None
+        if self._prep_event is not None:
+            self._prep_event.synchronize()
+            self._prep_event = None
+        need = nseg * row_words * 4
+        if self._prep_buf is None or self._prep_buf.size < need:
+            self._prep_buf = None          # released before the new one
+            self._prep_buf = pinned_empty(-(-need // SCRATCH_STEP)
+                                          * SCRATCH_STEP)
+        return self._prep_buf[:need].reshape(nseg, row_words * 4)
+
+    def upload(self, hf: HostFrame):
+        """(words, nbits) of a prepared frame on the session's device.  On
+        CUDA the copies do not block the host; an event after them guards
+        the reused buffer (_words_scratch)."""
+        nb = self.device.type == "cuda"
+        words = torch.from_numpy(hf.words).to(self.device, non_blocking=nb)
+        nbits = torch.from_numpy(hf.nbits).to(self.device, non_blocking=nb)
+        if nb and self._prep_buf is not None:
+            self._prep_event = torch.cuda.Event()
+            self._prep_event.record(torch.cuda.current_stream(self.device))
+        return words, nbits
+
+    def _drop_scratch(self) -> None:
+        """Forget the reused buffer after a failure: an upload from it may
+        still be in flight, so the next frame takes a new one."""
+        self._prep_buf = None
+        self._prep_event = None
 
     @staticmethod
     def _segment_bounds(ps, geo):
@@ -426,8 +483,7 @@ class Decoder:
         -> (coefs_t (64, nseg*bps) int16, errA (nseg,) bool, errC
         (nseg*bps,) int32)."""
         p = hf.plan
-        words = torch.from_numpy(hf.words).to(self.device)
-        nbits = torch.from_numpy(hf.nbits).to(self.device)
+        words, nbits = self.upload(hf)
         bstart, err_a = huffdec_kernel.scan_segments(
             words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps,
             p.pattern)
@@ -457,18 +513,27 @@ class Decoder:
                          ) -> torch.Tensor:
         """Decode to an (H, W, 3) uint8 tensor on the session's device.
         A corrupt segment is decoded as far as it goes and logged as a
-        warning; the rest of the frame is unaffected."""
-        hf = self.prepare(data, param_image)
-        coefs_t, err_a, err_c = self.coefficients_t(hf)
-        out = self.back_half(coefs_t, hf.plan, hf.out_pi)
-        if bool(err_a.any()) or bool(err_c.any()):
-            log.warning("corrupt segment(s) during Huffman decode")
-        return out
+        warning; the rest of the frame is unaffected.  Any exception drops
+        the reused segment buffer before it propagates."""
+        try:
+            hf = self.prepare(data, param_image)
+            coefs_t, err_a, err_c = self.coefficients_t(hf)
+            out = self.back_half(coefs_t, hf.plan, hf.out_pi)
+            if bool(err_a.any()) or bool(err_c.any()):
+                log.warning("corrupt segment(s) during Huffman decode")
+            return out
+        except BaseException:
+            self._drop_scratch()
+            raise
 
     def decode(self, data: bytes,
                param_image: Optional[ImageParameters] = None) -> np.ndarray:
         """Decode to an (H, W, 3) uint8 numpy array."""
-        return self.decode_to_device(data, param_image).cpu().numpy()
+        try:
+            return self.decode_to_device(data, param_image).cpu().numpy()
+        except BaseException:
+            self._drop_scratch()
+            raise
 
     def decode_coefficients(self, data: bytes) -> List[np.ndarray]:
         """Decoded QUANTIZED DCT coefficients, per component: a list of

@@ -16,14 +16,15 @@ layouts below:
 
     preprocess (colour, decimation)   ops/prepost_kernel.preprocess_packed
     per component:
-      forward DCT + quantization      ops/fusedpack.fdct_quant
-    blocks to MCU stream order        ops/fusedpack.interleaved_rows
+      forward DCT + quantization,
+      stored in MCU stream order      ops/fusedpack.interleaved_rows
     Huffman coding, slot patterns     ops/fusedpack.huffman_segments
 
 then host assembly: headers (stream/writer.py) and the rows of each scan,
-cut to their byte counts (native.assemble_rows).  On CUDA every stage but
-the MCU reorder (a torch copy) is a hand-written kernel; with
-device="cpu" every stage runs its plain PyTorch version.  The bytes are
+cut to their byte counts (native.assemble_rows).  On CUDA every stage is
+a hand-written kernel (the DCT kernel stores an interleaved scan's MCU
+order itself); with device="cpu" every stage runs its plain PyTorch
+version.  The bytes are
 the same either way and equal the JAX package's.
 
 This slice covers 8-bit RGB P444_U8_P012 input, 3 components, the tuned

@@ -138,13 +138,16 @@ def scan_split(data: np.ndarray, start: int, max_segments: int):
     return segs, int(end_pos.value) + start, int(bad.value)
 
 
-def unstuff_rows(data: np.ndarray, ranges, row_words: int):
+def unstuff_rows(data: np.ndarray, ranges, row_words: int, out=None):
     """Unstuff segments into a (nseg, row_words) u32 matrix of host-order
     words (stream byte k is byte k of the row).
 
     ranges: (nseg, 2) int64 [start, end) rows (or a list of pairs), or a
     (starts, ends) tuple of contiguous int64 1-D arrays (the copy-free
     form ScanInfo.segment_bounds produces).
+    out: optional (nseg, row_words * 4) uint8 C-contiguous buffer that the
+    matrix is written into (the decoder session's reused buffer); a fresh
+    one is allocated when it is missing or of another shape.
     Row bytes past the payload are not zeroed: the decode kernels gate
     every bit they commit by the segment's bit count, so the tail is never
     decoded into a result.
@@ -162,12 +165,19 @@ def unstuff_rows(data: np.ndarray, ranges, row_words: int):
         nseg = len(r)
         starts = np.ascontiguousarray(r[:, 0])
         ends = np.ascontiguousarray(r[:, 1])
-    mat = np.empty((nseg, row_words * 4), np.uint8)
+    mat = out if _fits(out, (nseg, row_words * 4)) \
+        else np.empty((nseg, row_words * 4), np.uint8)
     out_bytes = np.zeros(nseg, np.int32)
     data = np.ascontiguousarray(data)
     L.gj_unstuff_rows(_ptr(data), nseg, _ptr(starts), _ptr(ends),
                       _ptr(mat), row_words, _ptr(out_bytes), 0)
     return mat.view(np.uint32), (out_bytes * 8).astype(np.int32)
+
+
+def _fits(out, shape) -> bool:
+    """out is a C-contiguous uint8 array of this shape."""
+    return (out is not None and out.shape == shape
+            and out.dtype == np.uint8 and out.flags.c_contiguous)
 
 
 def parse_offsets(data: np.ndarray, chunks, base: int):

@@ -1,18 +1,21 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, at first use, into a build
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, at first use, into a build
 directory that ``.gitignore`` lists (``native.build_dir("kernels")``); all
-sources compile in parallel.  A library's file name carries a hash of its
-source and of the shared headers (``csrc/*.cuh``), so an edited kernel is
-rebuilt.  The libraries are loaded with ctypes: every pointer and the
-stream pass as ``c_void_p``, every C function returns
+sources compile in parallel.  A kernel's source is ``csrc/<name>.cu``
+unless ``SOURCES`` names another (``relayout.cu`` holds four kernels).  A
+library's file name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited kernel is rebuilt.  The libraries
+are loaded with ctypes: every pointer and the stream pass as
+``c_void_p``, every C function returns
 ``cudaGetLastError()`` after its launch, and ``launch`` raises when that
 is not 0.  Nothing here runs when the module is imported, and nothing runs
-on the CPU: the wrappers in prepost_kernel.py, fusedpack.py and
-huffdec_kernel.py take their plain versions for CPU tensors and call
-``launch`` for CUDA tensors.  ``csrc/*.cuh`` are headers shared between
-kernels (colour transform, IDCT chain, bit writer, Huffman tables).
+on the CPU: the wrappers in prepost_kernel.py, fusedpack.py,
+huffdec_kernel.py and relayout.py take their plain versions for CPU
+tensors and call ``launch`` for CUDA tensors.  ``csrc/*.cuh`` are headers
+shared between kernels (colour transform, IDCT chain, bit writer, Huffman
+tables).
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.  ``probe`` launches the decomposition stages of a tiled
@@ -45,8 +48,10 @@ _SIGNATURES: Dict[str, List] = {
     # raw, H, W, dx, dy, data_h, data_w, params (host int32[26]), out0,
     # out1, out2 (null = not requested), stream
     "pre_rgb_to_planes": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # plane, data_h, data_w, nblocks_out, mq, bias, out, stream
-    "fdct_quant": [_P, _I, _I, _I64, _P, _P, _P, _P],
+    # plane, data_h, data_w, nblocks_out, then the output map (bpm, off,
+    # sh, sv, mcux; 1, 0, 1, 1, blocks a row = raster order), mq, bias,
+    # out, stream
+    "fdct_quant": [_P, _I, _I, _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # coefs, rows, blocks a row, nblocks, valid (null = prefix), luts0,
     # luts1, row_luma (null = all 1), bpm, luma_pat, comp_pat, markers,
     # stride, out rows, row_bytes, needs, stream
@@ -74,7 +79,18 @@ _SIGNATURES: Dict[str, List] = {
     # y, cb, cr, geo (host int32[9]), H, W, params (host int32[26]), out,
     # stream
     "post_rgb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # in, H, W/4, rst, out, stream
+    "xbd_relayout": [_P, _I, _I, _I, _P, _P],
+    # in, R, C, out, stream
+    "transpose_u32": [_P, _I, _I, _P, _P],
+    # in, R, C, out, stream
+    "pair_sum_rows": [_P, _I64, _I, _P, _P],
+    "pack_u8_quads": [_P, _I64, _I, _P, _P],
 }
+
+#: kernels whose source is not csrc/<name>.cu: kernel name -> source name
+SOURCES: Dict[str, str] = {name: "relayout" for name in (
+    "xbd_relayout", "transpose_u32", "pair_sum_rows", "pack_u8_quads")}
 
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
@@ -90,7 +106,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
-#: ptxas resource reports of the last build, by kernel name
+#: ptxas resource reports of the last build, by source name
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -99,8 +115,13 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def source_of(name: str) -> str:
+    """The source (csrc/<source>.cu) that holds kernel `name`."""
+    return SOURCES.get(name, name)
+
+
 def source_path(name: str) -> str:
-    return os.path.join(_CSRC, f"{name}.cu")
+    return os.path.join(_CSRC, f"{source_of(name)}.cu")
 
 
 def nvcc() -> str:
@@ -128,16 +149,18 @@ def _lib_path(name: str) -> str:
         with open(path, "rb") as f:
             digest.update(f.read())
     return os.path.join(native.build_dir("kernels"),
-                        f"lib{name}_{digest.hexdigest()[:16]}.so")
+                        f"lib{source_of(name)}_{digest.hexdigest()[:16]}.so")
 
 
 def build(names=None) -> float:
-    """Compile every kernel whose library is missing, all nvcc processes at
-    once; returns the seconds spent.  Raises with nvcc's output on a
-    failed build."""
-    names = list(names or _SIGNATURES)
-    todo = [(n, _lib_path(n)) for n in names if not os.path.exists(
-        _lib_path(n))]
+    """Compile the source of every kernel whose library is missing, all
+    nvcc processes at once; returns the seconds spent.  Raises with nvcc's
+    output on a failed build."""
+    first: Dict[str, str] = {}          # source -> one of its kernels
+    for n in names or _SIGNATURES:
+        first.setdefault(source_of(n), n)
+    todo = [(src, _lib_path(n)) for src, n in first.items()
+            if not os.path.exists(_lib_path(n))]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -163,20 +186,26 @@ def build(names=None) -> float:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+    """The loaded library of kernel `name`'s source, with the argument
+    types of every kernel it holds."""
+    src = source_of(name)
+    lib = _LIBS.get(src)
     if lib is None:
         path = _lib_path(name)
         if not os.path.exists(path):
             build()
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, f"gj_{name}")
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        if name in PROBES:
-            pf = getattr(lib, f"gj_{name}_probe")
-            pf.argtypes = [_I] + _SIGNATURES[name]
-            pf.restype = ctypes.c_int
-        _LIBS[name] = lib
+        for kname in _SIGNATURES:
+            if source_of(kname) != src:
+                continue
+            fn = getattr(lib, f"gj_{kname}")
+            fn.argtypes = _SIGNATURES[kname]
+            fn.restype = ctypes.c_int
+            if kname in PROBES:
+                pf = getattr(lib, f"gj_{kname}_probe")
+                pf.argtypes = [_I] + _SIGNATURES[kname]
+                pf.restype = ctypes.c_int
+        _LIBS[src] = lib
     return lib
 
 

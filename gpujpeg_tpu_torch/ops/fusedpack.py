@@ -7,7 +7,8 @@ for one component of a non-interleaved scan (entropy_fused_u8), DCT-fused
 for a whole interleaved scan (entropy_fused_u8_il) and coefficient input
 (entropy_fused).  The port splits it into two hand-written CUDA kernels:
 
-  fdct_quant        csrc/fdct_quant.cu        plane -> (S, rst*64) int16
+  fdct_quant        csrc/fdct_quant.cu        plane -> (S, rst*64) int16,
+                                              or into its MCU slots
   huffman_segments  csrc/huffman_segments.cu  coefficient rows -> byte rows
 
 and one Huffman contract covers the three modes: a table class and a
@@ -144,16 +145,26 @@ def fdct_quant_plain(plane: torch.Tensor, tabs: ClassTables,
     return coefs.reshape(nseg, rst * 64)
 
 
-def _fdct_args(plane: torch.Tensor, tabs: ClassTables, rst: int):
-    """The output and the C arguments of csrc/fdct_quant.cu."""
+def _fdct_args(plane: torch.Tensor, tabs: ClassTables, out: torch.Tensor,
+               nblocks_out: int, bpm: int = 1, off: int = 0, sh: int = 1,
+               sv: int = 1, mcux: Optional[int] = None):
+    """The C arguments of csrc/fdct_quant.cu: the plane's blocks into the
+    first nblocks_out block slots of out, block b at slot b (bpm = 1) or
+    at its MCU slot (interleaved_rows)."""
     H, W = plane.shape
-    _, nseg = segment_count(plane, rst)
-    out = torch.empty((nseg, rst * 64), dtype=torch.int16,
-                      device=plane.device)
     _kernels.require_cuda("fdct_quant", plane, tabs.mq, tabs.bias, out)
     if plane.dtype != torch.uint8 or H % 8 or W % 8:
         raise ValueError("fdct_quant takes a uint8 plane of whole blocks")
-    return out, (plane, H, W, nseg * rst, tabs.mq, tabs.bias, out)
+    if out.dtype != torch.int16 or out.numel() != nblocks_out * 64:
+        raise ValueError("fdct_quant writes nblocks_out int16 blocks")
+    return (plane, H, W, nblocks_out, bpm, off, sh, sv,
+            W // 8 if mcux is None else mcux, tabs.mq, tabs.bias, out)
+
+
+def _fdct_out(plane: torch.Tensor, rst: int) -> torch.Tensor:
+    _, nseg = segment_count(plane, rst)
+    return torch.empty((nseg, rst * 64), dtype=torch.int16,
+                       device=plane.device)
 
 
 def fdct_quant(plane: torch.Tensor, tabs: ClassTables,
@@ -164,8 +175,9 @@ def fdct_quant(plane: torch.Tensor, tabs: ClassTables,
     0."""
     if plane.device.type == "cpu":
         return fdct_quant_plain(plane, tabs, rst)
-    out, args = _fdct_args(plane, tabs, rst)
-    _kernels.launch("fdct_quant", *args)
+    out = _fdct_out(plane, rst)
+    _kernels.launch("fdct_quant", *_fdct_args(plane, tabs, out,
+                                              out.numel() // 64))
     return out
 
 
@@ -174,8 +186,9 @@ def fdct_quant_probe(plane: torch.Tensor, tabs: ClassTables, rst: int,
     """fdct_quant's kernel cut to a decomposition stage
     (_kernels.PROBE_STAGES) for chip_smoke.py's probe; no codec path calls
     it.  Only the "full" stage's output is the coefficients."""
-    out, args = _fdct_args(plane, tabs, rst)
-    _kernels.probe("fdct_quant", stage, *args)
+    out = _fdct_out(plane, rst)
+    _kernels.probe("fdct_quant", stage, *_fdct_args(plane, tabs, out,
+                                                    out.numel() // 64))
     return out
 
 
@@ -412,14 +425,13 @@ def interleaved_slots(geo, classes: Tuple[ClassTables, ClassTables]
     return SlotTables(classes, tuple(slot_class), tuple(slot_comp))
 
 
-def interleaved_rows(planes: List[torch.Tensor], geo,
-                     classes: Tuple[ClassTables, ClassTables]
-                     ) -> torch.Tensor:
-    """An interleaved scan's quantized coefficients in stream order:
-    (segments, restart interval * bpm * 64) int16, MCUs in raster order
-    with each component's blocks at its slots (interleaved_slots), MCUs
-    past the image zero (the layout math of gpujpeg_tpu.models.encoder.
-    make_rows_tokens_impl and make_rows_xbd_il_impl)."""
+def interleaved_rows_plain(planes: List[torch.Tensor], geo,
+                           classes: Tuple[ClassTables, ClassTables]
+                           ) -> torch.Tensor:
+    """Plain version of interleaved_rows, on any device: each plane's
+    coefficients in raster order, then a copy into MCU order (the layout
+    math of gpujpeg_tpu.models.encoder.make_rows_tokens_impl and
+    make_rows_xbd_il_impl)."""
     S, rst, nmcu, bpm = (geo.segment_count, geo.segment_mcu_count,
                          geo.mcu_count, geo.blocks_per_mcu)
     dev = planes[0].device
@@ -428,11 +440,36 @@ def interleaved_rows(planes: List[torch.Tensor], geo,
     off = 0
     for c in geo.components:
         n = c.samp_v * c.samp_h
-        x = fdct_quant(planes[c.index], classes[c.table_index], 1).reshape(
-            c.mcu_count_y, c.samp_v, c.mcu_count_x, c.samp_h, 64)
+        x = fdct_quant_plain(planes[c.index], classes[c.table_index],
+                             1).reshape(c.mcu_count_y, c.samp_v,
+                                        c.mcu_count_x, c.samp_h, 64)
         out[:nmcu, off:off + n] = x.permute(0, 2, 1, 3, 4).reshape(
             nmcu, n, 64)
         off += n
+    return out.reshape(S, rst * bpm * 64)
+
+
+def interleaved_rows(planes: List[torch.Tensor], geo,
+                     classes: Tuple[ClassTables, ClassTables]
+                     ) -> torch.Tensor:
+    """An interleaved scan's quantized coefficients in stream order:
+    (segments, restart interval * bpm * 64) int16, MCUs in raster order
+    with each component's blocks at its slots (interleaved_slots), MCUs
+    past the image zero.  On CUDA, one fdct_quant launch a component
+    stores its blocks straight into their MCU slots (csrc/fdct_quant.cu's
+    output map; the first launch zeroes the MCUs past the image)."""
+    if planes[0].device.type == "cpu":
+        return interleaved_rows_plain(planes, geo, classes)
+    S, rst, bpm = (geo.segment_count, geo.segment_mcu_count,
+                   geo.blocks_per_mcu)
+    out = torch.empty((S * rst * bpm, 64), dtype=torch.int16,
+                      device=planes[0].device)
+    off = 0
+    for c in geo.components:
+        _kernels.launch("fdct_quant", *_fdct_args(
+            planes[c.index], classes[c.table_index], out, S * rst * bpm,
+            bpm, off, c.samp_h, c.samp_v, c.mcu_count_x))
+        off += c.samp_v * c.samp_h
     return out.reshape(S, rst * bpm * 64)
 
 
@@ -441,8 +478,8 @@ def entropy_fused_u8_il(planes: List[torch.Tensor], geo,
     """An interleaved scan's uint8 planes -> (rows, row_bytes, needs) of
     its segment rows (gpujpeg_tpu.ops.fusedpack.entropy_fused_u8_il, which
     the JAX package runs at 1x1 sampling only; here any sampling whose
-    MCU holds at most 16 blocks): fdct_quant per component, the MCU
-    order of interleaved_rows, then the slot-pattern Huffman coder."""
+    MCU holds at most 16 blocks): fdct_quant per component into MCU
+    order (interleaved_rows), then the slot-pattern Huffman coder."""
     return huffman_segments(interleaved_rows(planes, geo, classes),
                             geo.mcu_count * geo.blocks_per_mcu,
                             interleaved_slots(geo, classes),

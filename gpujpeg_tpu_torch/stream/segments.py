@@ -16,7 +16,7 @@ import numpy as np
 
 def pack_segments_matrix(data: np.ndarray,
                          ranges: List[Tuple[int, int]],
-                         max_words: int):
+                         max_words: int, out=None):
     """Build the decoder input matrix.
 
     data:   (N,) uint8 full codestream
@@ -25,6 +25,9 @@ def pack_segments_matrix(data: np.ndarray,
             int64 1-D arrays (the copy-free fast-path form) is also
             accepted
     max_words: row width in 32-bit words (unstuffed payload must fit)
+    out:    optional (nseg, (max_words + 1) * 4) uint8 buffer the matrix
+            is written into, by the native unstuffer and by the numpy
+            version alike (native.unstuff_rows)
 
     Returns (words, nbits): (nseg, max_words+1) uint32 rows (+1 guard
     word) and per-segment unstuffed bit counts.  Words are HOST-ORDER
@@ -33,7 +36,7 @@ def pack_segments_matrix(data: np.ndarray,
     """
     from .. import native
 
-    nat = native.unstuff_rows(data, ranges, max_words + 1)
+    nat = native.unstuff_rows(data, ranges, max_words + 1, out=out)
     if nat is not None:
         return nat
 
@@ -68,7 +71,12 @@ def pack_segments_matrix(data: np.ndarray,
     # rank of each kept byte within its segment
     rank = local - (cumstuff[pos] - cumstuff[starts[seg_of]])
 
-    mat = np.zeros((nseg, (max_words + 1) * 4), dtype=np.uint8)
+    shape = (nseg, (max_words + 1) * 4)
+    if native._fits(out, shape):
+        mat = out
+        mat.fill(0)
+    else:
+        mat = np.zeros(shape, dtype=np.uint8)
     mat[seg_of[keep], rank[keep]] = data[pos[keep]]
 
     # per-seg unstuffed byte counts

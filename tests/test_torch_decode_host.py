@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import gpujpeg_tpu as gj
 from gpujpeg_tpu.models import decoder as jdec
@@ -122,3 +123,118 @@ def test_output_resolution_matches_jax(request_):
     assert tdec._native_pixel_format(ps).name == \
         jdec._native_pixel_format(jps).name
     assert _same(tdec.default_output(ps), jdec.default_output(jps))
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_segment_matrix_out_matches_fresh(monkeypatch, native):
+    """out= fills the caller's buffer with the same words and bit counts
+    as a fresh matrix, through the native unstuffer and the numpy
+    version."""
+    data = _stream("noise", False)
+    ps = treader.parse(data)
+    geo = gt.Decoder(device="cpu").prepare(data).plan.geo
+    bounds = tdec.Decoder._segment_bounds(ps, geo)
+    W = (int((bounds[1] - bounds[0]).max()) + 3) // 4
+    if not native:
+        monkeypatch.setattr(tnative, "lib", lambda: None)
+    fw, fb = tseg.pack_segments_matrix(ps.data, bounds, W)
+    out = np.full((len(bounds[0]), (W + 1) * 4), 0xA5, np.uint8)
+    ow, ob = tseg.pack_segments_matrix(ps.data, bounds, W, out=out)
+    assert np.shares_memory(ow, out)
+    assert np.array_equal(ob, fb)
+    obytes, fbytes = ow.view(np.uint8), fw.view(np.uint8)
+    for s, n in enumerate(fb // 8):
+        assert np.array_equal(obytes[s, :n], fbytes[s, :n]), s
+    if not native:
+        assert np.array_equal(ow, fw)      # zero-filled past the payload
+    # a buffer of another shape is not written; a fresh matrix is returned
+    bad = np.zeros((len(bounds[0]), W * 4), np.uint8)
+    bw, bb = tseg.pack_segments_matrix(ps.data, bounds, W, out=bad)
+    assert not np.shares_memory(bw, bad) and not bad.any()
+    assert np.array_equal(bb, fb)
+
+
+def _reusing_decoder(monkeypatch, step=256):
+    """A CPU session that reuses its segment buffer as a CUDA session
+    does, with plain numpy memory in place of pinned memory; returns the
+    decoder and the list of buffer sizes it allocated."""
+    sizes = []
+
+    def fake_pinned(nbytes):
+        sizes.append(nbytes)
+        return np.empty(nbytes, np.uint8)
+
+    monkeypatch.setattr(tdec, "pinned_empty", fake_pinned)
+    monkeypatch.setattr(tdec, "SCRATCH_STEP", step)
+    dec = gt.Decoder(device="cpu")
+    dec._reuse_scratch = True
+    return dec, sizes
+
+
+def test_scratch_grows_then_is_reused(monkeypatch):
+    """The session's buffer grows (in whole steps) for a larger stream and
+    is reused, not reallocated, after that; words, bits and pixels equal
+    a fresh matrix's."""
+    streams = [_stream("gradient", False), _stream("noise", False)]
+    fresh = gt.Decoder(device="cpu")
+    need = [fresh.prepare(d).words.nbytes for d in streams]
+    small, large = (streams if need[0] < need[1] else streams[::-1])
+    dec, sizes = _reusing_decoder(monkeypatch)
+    bufs = []
+    for data in (small, large, small, large):
+        hf, ref = dec.prepare(data), fresh.prepare(data)
+        assert np.shares_memory(hf.words, dec._prep_buf)
+        assert np.array_equal(hf.nbits, ref.nbits)
+        for s, n in enumerate(ref.nbits // 32):
+            assert np.array_equal(hf.words[s, :n], ref.words[s, :n]), s
+        bufs.append(dec._prep_buf)
+        assert np.array_equal(dec.decode(data), fresh.decode(data))
+    assert len(sizes) == 2 and sizes[0] < sizes[1]
+    assert all(n % 256 == 0 for n in sizes)
+    assert sizes[1] >= max(need)
+    assert bufs[1] is bufs[2] is bufs[3] is not bufs[0]
+
+
+@pytest.mark.parametrize("entry", ["decode", "decode_to_device"])
+def test_scratch_dropped_when_decode_raises(monkeypatch, entry):
+    """A decode that raises drops the reused buffer (an upload from it may
+    still be in flight); the next decode takes a new one."""
+    data = _stream("gradient", False)
+    dec, sizes = _reusing_decoder(monkeypatch)
+    want = dec.decode(data)
+    assert dec._prep_buf is not None
+
+    def boom(*a, **k):
+        raise RuntimeError("back half failed")
+
+    monkeypatch.setattr(tdec.Decoder, "back_half", staticmethod(boom))
+    with pytest.raises(RuntimeError, match="back half failed"):
+        getattr(dec, entry)(data)
+    assert dec._prep_buf is None and dec._prep_event is None
+    monkeypatch.undo()
+    monkeypatch.setattr(tdec, "pinned_empty", lambda n: np.empty(n, np.uint8))
+    assert np.array_equal(dec.decode(data), want)
+    assert dec._prep_buf is not None
+
+
+def test_cpu_session_never_pins(monkeypatch):
+    """A CPU session allocates no pinned memory and gives every frame a
+    fresh matrix (torch.from_numpy aliases it)."""
+    def no_pinning(*a, **k):
+        raise AssertionError("a CPU session asked for pinned memory")
+
+    monkeypatch.setattr(tdec, "pinned_empty", no_pinning)
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        if k.get("pin_memory"):
+            no_pinning()
+        return real_empty(*a, **k)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    dec = gt.Decoder(device="cpu")
+    data = _stream("gradient", False)
+    a, b = dec.prepare(data), dec.prepare(data)
+    assert not np.shares_memory(a.words, b.words)
+    dec.decode(data)
+    assert dec._prep_buf is None and dec._prep_event is None

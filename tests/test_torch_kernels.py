@@ -19,6 +19,7 @@ from gpujpeg_tpu_torch.models import decoder as tdec
 from gpujpeg_tpu_torch.ops import _kernels, fusedpack as tfp
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
+from gpujpeg_tpu_torch.ops import relayout as trel
 
 
 @pytest.fixture
@@ -161,7 +162,9 @@ class _FailingLib:
 
 @pytest.mark.parametrize("name", ["huffdec_scan", "huffdec_block",
                                   "dpost_rgb", "pack_stuff_rows",
-                                  "idct_planes", "post_rgb"])
+                                  "idct_planes", "post_rgb", "xbd_relayout",
+                                  "transpose_u32", "pair_sum_rows",
+                                  "pack_u8_quads"])
 def test_failed_launch_raises(monkeypatch, name):
     """A launch error is raised, never swallowed, and is not counted."""
     import contextlib
@@ -350,7 +353,8 @@ def test_fdct_kernel_pad_segments_and_alignment(cuda):
     nout = nblocks + 200                           # 25 pad segments of 8
     out = torch.full((nout, 64), 7, dtype=torch.int16, device=cuda)
     _kernels.reset_launches()
-    _kernels.launch("fdct_quant", x, h, w, nout, tabs.mq, tabs.bias, out)
+    _kernels.launch("fdct_quant", x, h, w, nout, 1, 0, 1, 1, w // 8,
+                    tabs.mq, tabs.bias, out)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["fdct_quant"] == 1
     assert torch.equal(out[:nblocks], ref)
@@ -830,3 +834,188 @@ def test_probes_take_cuda_tensors_only():
                                torch.zeros((3, 64)), geo, pi, "no_store")
     assert set(_kernels.PROBE_STAGES) == {"full", "load_store", "no_store"}
     assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb"}
+
+
+# -- MCU-order store of fdct_quant (the interleaved feed relayout) ----------
+
+#: (hw, restart interval): HD; ragged planes; intervals that leave pad
+#: MCUs past the image in the last segment
+MCU_CASES = [((1080, 1920), gt.RESTART_AUTO), ((233, 311), 7),
+             ((64, 80), 3), ((40, 536), 5)]
+
+
+def _il_planes(samp, hw, rst, cuda, seed=14):
+    frame = _frame(*hw, seed, amp=96)
+    enc = gt.Encoder(device="cpu")
+    geo = enc.resolve(frame, _il_params(SAMPLINGS.get(samp, ((1, 1),) * 3),
+                                        rst=rst))
+    planes = tpre.preprocess_packed_plain(torch.from_numpy(frame).to(cuda),
+                                          geo, geo.param_image)
+    classes = (tfp.class_tables(75, True, cuda),
+               tfp.class_tables(75, False, cuda))
+    return planes, geo, classes
+
+
+def _dirty_cache(cuda, numel):
+    """Leave a freed block of non-zero int16s in the caching allocator, so
+    that a torch.empty of that size is not zero by chance."""
+    junk = torch.full((numel,), 0x5A5A, dtype=torch.int16, device=cuda)
+    torch.cuda.synchronize()
+    del junk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["444", "420", "422", "440"])
+@pytest.mark.parametrize("hw,rst", MCU_CASES)
+def test_fdct_mcu_order_matches_plain(cuda, samp, hw, rst):
+    """interleaved_rows on the card (fdct_quant storing MCU order, the pad
+    MCUs zeroed) equals its plain version (raster order, then a copy)."""
+    planes, geo, classes = _il_planes(samp, hw, rst, cuda)
+    S, r_, bpm = geo.segment_count, geo.segment_mcu_count, geo.blocks_per_mcu
+    _dirty_cache(cuda, S * r_ * bpm * 64)
+    _kernels.reset_launches()
+    got = tfp.interleaved_rows(planes, geo, classes)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["fdct_quant"] == 3
+    assert got.shape == (S, r_ * bpm * 64)
+    assert torch.equal(got, tfp.interleaved_rows_plain(planes, geo, classes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["444", "420"])
+def test_fdct_mcu_order_misaligned_planes(cuda, samp):
+    """Planes whose base is 8 bytes off a 16-byte boundary take the 8-byte
+    copies in MCU order too."""
+    planes, geo, classes = _il_planes(samp, (64, 96), 3, cuda)
+    moved = []
+    for p in planes:
+        flat = torch.empty(8 + p.numel(), dtype=torch.uint8, device=cuda)
+        x = flat[8:].view(p.shape)
+        x.copy_(p)
+        assert x.data_ptr() % 16 == 8
+        moved.append(x)
+    got = tfp.interleaved_rows(moved, geo, classes)
+    assert torch.equal(got, tfp.interleaved_rows_plain(planes, geo, classes))
+
+
+@pytest.mark.gpu
+def test_fdct_refuses_bad_maps(cuda):
+    """fdct_quant's C entry point refuses maps that do not fit the plane or
+    the buffer, and the cut probe stages in MCU order."""
+    x = torch.zeros((16, 32), dtype=torch.uint8, device=cuda)
+    tabs = tfp.class_tables(75, True, cuda)
+    out = torch.empty((64, 64), dtype=torch.int16, device=cuda)
+    bad = [(64, 1, 0, 2, 1, 2),     # bpm 1 with a 2x1 component
+           (64, 6, 0, 2, 2, 3),     # mcux * sh != blocks a row
+           (64, 6, 5, 2, 2, 2),     # off + sh * sv > bpm
+           (64, 3, 0, 1, 1, 4),     # nblocks_out not a multiple of bpm
+           (6, 6, 0, 2, 2, 2),      # no room for the plane's MCUs
+           (64, 6, 0, 3, 1, 2)]     # sh not a power of two
+    for n, bpm, off, sh, sv, mcux in bad:
+        with pytest.raises(RuntimeError, match="fdct_quant failed"):
+            _kernels.launch("fdct_quant", x, 16, 32, n, bpm, off, sh, sv,
+                            mcux, tabs.mq, tabs.bias, out)
+    with pytest.raises(RuntimeError, match="fdct_quant_probe failed"):
+        _kernels.probe("fdct_quant", "no_store", x, 16, 32, 60, 6, 0, 2, 2,
+                       2, tabs.mq, tabs.bias, out)
+
+
+# -- relayout and primitive kernels (csrc/relayout.cu) -----------------------
+
+def _words(rng, shape, cuda, low=0, high=1 << 32):
+    a = rng.integers(low, high, shape, dtype=np.int64)
+    return torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbh,nsr,rst", [(3, 45, 8), (1, 1, 1), (5, 33, 3),
+                                         (2, 70, 23)])
+def test_xbd_relayout_matches_plain(cuda, nbh, nsr, rst):
+    p32 = _words(np.random.default_rng(nbh * nsr), (nbh * 8, nsr * 2 * rst),
+                 cuda)
+    _kernels.reset_launches()
+    got = trel.xbd_relayout(p32, rst)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["xbd_relayout"] == 1
+    assert torch.equal(got, trel.xbd_relayout_plain(p32, rst))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(33, 47), (1, 5), (129, 1), (64, 96),
+                                   (4224, 1920)])
+def test_transpose_u32_matches_plain(cuda, shape):
+    x = _words(np.random.default_rng(shape[0]), shape, cuda)
+    _kernels.reset_launches()
+    got = trel.transpose_u32(x)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["transpose_u32"] == 1
+    assert torch.equal(got, trel.transpose_u32_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,skew", [((6, 7), 0), ((10, 128), 0),
+                                        ((10, 128), 1), ((2, 4), 0)])
+def test_row_kernels_match_plain(cuda, shape, skew):
+    """pair_sum_rows (with wraparound) and pack_u8_quads (low bytes of any
+    int32) on odd widths, 16-byte vectors and a misaligned base (scalar
+    path)."""
+    rng = np.random.default_rng(shape[1] + skew)
+    for rows_mult, fn, plain, name in (
+            (2, trel.pair_sum_rows, trel.pair_sum_rows_plain,
+             "pair_sum_rows"),
+            (4, trel.pack_u8_quads, trel.pack_u8_quads_plain,
+             "pack_u8_quads")):
+        R = shape[0] * rows_mult // 2
+        flat = _words(rng, (R * shape[1] + skew,), cuda)
+        x = flat[skew:].view(R, shape[1])
+        _kernels.reset_launches()
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES[name] == 1
+        assert torch.equal(got, plain(x))
+
+
+def test_relayout_wrappers_refuse_other_devices():
+    """The relayout wrappers run their plain versions only for CPU tensors
+    and refuse shapes their kernels do not take."""
+    meta = lambda *shape: torch.empty(shape, dtype=torch.int32,
+                                      device="meta")
+    for fn, x in ((lambda v: trel.xbd_relayout(v, 8), meta(16, 32)),
+                  (trel.transpose_u32, meta(4, 8)),
+                  (trel.pair_sum_rows, meta(4, 8)),
+                  (trel.pack_u8_quads, meta(4, 8))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        trel.xbd_relayout(meta(12, 32), 8)
+    with pytest.raises(ValueError, match="2 rst"):
+        trel.xbd_relayout(meta(16, 24), 8)
+    with pytest.raises(ValueError, match="multiple of 2"):
+        trel.pair_sum_rows(meta(3, 8))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        trel.pack_u8_quads(meta(6, 8))
+    with pytest.raises(ValueError, match="int32"):
+        trel.transpose_u32(torch.zeros((4, 4), dtype=torch.int16))
+
+
+# -- the decoder's reused pinned buffer ---------------------------------------
+
+@pytest.mark.gpu
+def test_pinned_decode_over_two_stream_sizes(cuda):
+    """A CUDA session reuses one pinned segment buffer across streams of
+    two sizes (grown once), uploads from it without blocking, and decodes
+    the CPU's pixels, also when decode_to_device calls follow each other
+    without a download between them."""
+    small = _il_stream(SAMPLINGS["420"], (64, 80))[1]
+    large = _stream("noise", 240, 320)[1]
+    dec, cpu = gt.Decoder(device=cuda), gt.Decoder(device="cpu")
+    want = {d: cpu.decode(d) for d in (small, large)}
+    bufs = []
+    for data in (small, large, small, large):
+        assert np.array_equal(dec.decode(data), want[data])
+        bufs.append(dec._prep_buf)
+    assert bufs[1] is bufs[2] is bufs[3]
+    assert torch.from_numpy(bufs[1]).is_pinned()
+    outs = [dec.decode_to_device(d) for d in (large, small, large)]
+    for d, o in zip((large, small, large), outs):
+        assert np.array_equal(o.cpu().numpy(), want[d])
