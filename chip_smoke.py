@@ -63,7 +63,8 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      coefficient-input mode (the three planes' coefficients as rows of 8
      blocks, a class flag a row, one interior masked block, a zero marker
      mid-scan) against their plain versions; decode through the IDCT
-     planes and the postprocessor;
+     planes (one launch a frame, held against its plain version as the
+     record idct_planes:444) and the postprocessor;
   9. the same four steps for planar 4:2:0 (three non-interleaved scans,
      luma 2x2, chroma 1x1, 8 blocks a segment): the fused decode tail at
      dx = dy = 2 against its plain version; encode through the decimating
@@ -75,10 +76,13 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      on seeded words, each against its plain version on the card, timed
      beside its bound and the PyTorch call that computes the same;
  11. prints the decomposition line of the tiled kernels (fdct_quant,
-     dpost_rgb at 4:4:4 and 4:2:0), timed at 8K in steps 5, 6 and 9:
+     dpost_rgb at 4:4:4 and 4:2:0) and of the Huffman coder (one slot,
+     4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
+     coefficient 0), timed at 8K in steps 5 to 9:
      each kernel's CUDA-event ms in three stages built from its own
      source (csrc/tile.cuh gj::Stage) -- full, loads and stores only with
-     no arithmetic, and full with no output store -- the H100
+     no arithmetic (the Huffman coder: the coefficient loads alone), and
+     full with no output store -- the H100
      counterpart of the JAX package's TPU probes tools/proto_xq.py and
      tools/profile_dpost5.py; the full stage is held against the plain
      version (error 0);
@@ -169,10 +173,13 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
 def probe_ms(torch, fn, plain, flush) -> dict:
     """CUDA-event ms of each decomposition stage of a tiled kernel
     (_kernels.PROBE_STAGES), fn(stage) launching that stage; the full
-    stage's output must equal plain() (its max_abs_err, 0)."""
+    stage's output (a tensor, or Huffman rows, lengths and needs) must
+    equal plain() (its max_abs_err, 0)."""
     from gpujpeg_tpu_torch.ops import _kernels
 
-    err = diff(fn("full"), plain())
+    out, ref = fn("full"), plain()
+    err = (rows_err(torch, *out, *ref) if isinstance(out, tuple)
+           else diff(out, ref))
     if err:
         raise AssertionError("a probe's full stage differs from the plain "
                              "version")
@@ -567,6 +574,48 @@ def mcu_order_times(torch, planes, geo, classes, flush, plain_ms,
         f"{plain_ms:.3f} ms")
 
 
+def idct_planes_check(torch, coefs, p, planes, record) -> float:
+    """Hold one idct_planes launch's planes against the plain version of
+    each component (record(error) raises on a difference); returns the
+    plain versions' summed ms."""
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    ms_plain = 0.0
+    for c, got in zip(p.geo.components, planes):
+        ref, ms = once_ms(torch, lambda: prepost_kernel.idct_planes_plain(
+            coefs, p.qtabs[c.index], p.geo, c))
+        record(diff(got, ref))
+        ms_plain += ms
+    return ms_plain
+
+
+def idct_planes_times(torch, k, coefs, p, flush) -> None:
+    """ms of the one idct_planes launch of a frame, its bound and the
+    summed torch.matmul yardstick of the components it covers, into record
+    k."""
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+
+    dev = coefs.device
+    k["ms"] = event_ms(torch, lambda: prepost_kernel.idct_planes(
+        coefs, p.qtabs, p.geo), 20, flush)
+    nmat = prepost_kernel.idct_matrix(dev)
+    lib, nblk = 0.0, 0
+    for c in p.geo.components:
+        # yardstick: one f32 product of the component's dequantized
+        # (blocks, 64) coefficients by the IDCT matrix (TF32 off); timed
+        # here only, never called by the port
+        cols = prepost_kernel.block_columns(p.geo, c, dev)
+        y = (coefs[:, cols].T.float() * p.qtabs[c.index]).contiguous()
+        lib += event_ms(torch, lambda: torch.matmul(y, nmat), 10, flush)
+        nblk += cols.numel()
+        del y, cols
+    k["library_ms"] = lib
+    k["bound_ms"] = max(
+        2 * 64 * 64 * nblk / PEAK_F32_FLOP_S,
+        (nblk * 64 * 2 + nblk * 64 + p.qtabs.numel() * 4 + 64 * 64 * 4)
+        / PEAK_BYTES_S) * 1e3
+
+
 def interleaved_phases(torch, np, gt, dev, flush):
     """Step 7, the interleaved 4:2:0 path; returns (kernel records,
     launches over its main path).  Records of a new mode of an older
@@ -708,16 +757,10 @@ def interleaved_phases(torch, np, gt, dev, flush):
         del p_coefs, words
         coefs = tdec._dc_fixup_t(coefs, p.geo.segment_count, p.bps,
                                  p.comp_slots)
-        dplanes, ms_i = [], 0.0
-        for c in p.geo.components:
-            q = p.qtabs[c.index]
-            got = prepost_kernel.idct_planes(coefs, q, p.geo, c)
-            ref, ms = once_ms(
-                torch, lambda: prepost_kernel.idct_planes_plain(coefs, q,
-                                                                p.geo, c))
-            record_err("idct_planes", diff(got, ref), fkind)
-            dplanes.append(got)
-            ms_i += ms / 3
+        dplanes = prepost_kernel.idct_planes(coefs, p.qtabs, p.geo)
+        ms_i = idct_planes_check(torch, coefs, p, dplanes,
+                                 lambda e: record_err("idct_planes", e,
+                                                      fkind))
         img = prepost_kernel.postprocess_packed(dplanes, p.geo, hf.out_pi)
         ref, ms_p = once_ms(
             torch, lambda: prepost_kernel.postprocess_packed_plain(dplanes,
@@ -816,6 +859,19 @@ def interleaved_phases(torch, np, gt, dev, flush):
     kernels["huffman_segments:pattern_420"]["ms"] = event_ms(
         torch, lambda: fusedpack.huffman_segments(rows_in, nblocks, st,
                                                   markers), 10, flush)
+    probe = probe_ms(
+        torch, lambda stage: fusedpack.huffman_segments_probe(
+            rows_in, nblocks, st, stage, markers),
+        lambda: fusedpack.huffman_segments_plain(rows_in, nblocks, st,
+                                                 markers), flush)
+    # the same rows with every coefficient 0 (a DC and an EOB a block):
+    # the coder's cost a row and a block that does not depend on the data
+    zeros = torch.zeros_like(rows_in)
+    probe["full_zero_coefficients"] = event_ms(
+        torch, lambda: fusedpack.huffman_segments(zeros, nblocks, st,
+                                                  markers), 10, flush)
+    kernels["huffman_segments:pattern_420"]["probe"] = probe
+    del zeros
     mcu_order_times(torch, planes, geo, classes, flush, mcu_plain_ms,
                     "il time")
     bits, lens, p_markers, stride, p_bytes = pack_in
@@ -878,28 +934,8 @@ def interleaved_phases(torch, np, gt, dev, flush):
     kernels["huffdec_block:pattern"]["ms"] = event_ms(
         torch, lambda: thd.decode_blocks(words, bstart, *args, p.pattern),
         20, flush)
-    ms_i, lib_i, bound_i = [], [], []
-    nmat = prepost_kernel.idct_matrix(dev)
     L = coefs.shape[1]
-    for c in p.geo.components:
-        q = p.qtabs[c.index]
-        ms_i.append(event_ms(torch, lambda: prepost_kernel.idct_planes(
-            coefs, q, p.geo, c), 20, flush))
-        # yardstick: one f32 product of the component's dequantized
-        # (blocks, 64) coefficients by the IDCT matrix (TF32 off); timed
-        # here only, never called by the port
-        cols = prepost_kernel.block_columns(p.geo, c, dev)
-        y = (coefs[:, cols].T.float() * q).contiguous()
-        lib_i.append(event_ms(torch, lambda: torch.matmul(y, nmat), 10,
-                              flush))
-        nblk = cols.numel()
-        bound_i.append(max(2 * 64 * 64 * nblk / PEAK_F32_FLOP_S,
-                           (nblk * 64 * 2 + nblk * 64 + 64 * 4
-                            + 64 * 64 * 4) / PEAK_BYTES_S) * 1e3)
-        del y, cols
-    kernels["idct_planes"].update(ms=sum(ms_i) / 3,
-                                  library_ms=sum(lib_i) / 3,
-                                  bound_ms=sum(bound_i) / 3)
+    idct_planes_times(torch, kernels["idct_planes"], coefs, p, flush)
     kernels["post_rgb"]["ms"] = event_ms(
         torch, lambda: prepost_kernel.postprocess_packed(
             dplanes, p.geo, hf.out_pi), 20, flush)
@@ -1006,6 +1042,12 @@ def il444_phases(torch, np, gt, dev, flush):
                  "JAX package only tools/profile_stages.py and its tests "
                  "do); launches counted on the 4:4:4 interleaved path, "
                  "which runs the same kernel"),
+        "idct_planes:444": dict(
+            key="idct_planes",
+            source="gpujpeg_tpu_torch/csrc/idct_planes.cu",
+            # no pallas_call: the JAX package's XLA interleaved tail
+            replaces="gpujpeg_tpu/models/decoder.py:305",
+            bound_by="operations", err=0),
     }
 
     def record_err(name, err, what):
@@ -1054,7 +1096,20 @@ def il444_phases(torch, np, gt, dev, flush):
         record_err("huffman_segments:pattern",
                    rows_err(torch, *k_out, *p_out), fkind)
         max_row = int(k_out[2][1])
-        del p_out, k_out, rows_in
+        del p_out, rows_in
+        # the IDCT planes of the decoded scan, one launch
+        hf = dec.prepare(enc.assemble(geo, {"rows": [k_out[0]],
+                                            "row_bytes": [k_out[1]]}))
+        coefs, err_a, err_c = dec.coefficients_t(hf)
+        if bool(err_a.any()) or bool(err_c.any()):
+            raise AssertionError(f"8K 4:4:4 interleaved {fkind} stream "
+                                 "decodes with errors")
+        dplanes = prepost_kernel.idct_planes(coefs, hf.plan.qtabs,
+                                             hf.plan.geo)
+        ms_idct = idct_planes_check(torch, coefs, hf.plan, dplanes,
+                                    lambda e: record_err("idct_planes:444",
+                                                         e, fkind))
+        del k_out, hf, coefs, dplanes
         cm = coefs_mode_inputs(planes, geo)
         k_out = fusedpack.entropy_fused(*cm, classes)
         cst = fusedpack.SlotTables(classes, (0,), (0,))
@@ -1066,13 +1121,14 @@ def il444_phases(torch, np, gt, dev, flush):
         if fkind == "gradient":
             kernels["huffman_segments:pattern"]["plain_ms"] = ms_pat
             kernels["huffman_segments:coefs"]["plain_ms"] = ms_coefs
+            kernels["idct_planes:444"]["plain_ms"] = ms_idct
             coefs_in = cm
         log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: fdct (MCU "
             f"order), huffman pattern ({geo.segment_count} rows of "
             f"{geo.blocks_per_mcu} x "
             f"{geo.segment_mcu_count} blocks, max row {max_row} B) and "
-            f"coefficient-input mode ({cm[0].shape[0]} rows of 8 blocks) "
-            "equal to plain")
+            f"coefficient-input mode ({cm[0].shape[0]} rows of 8 blocks), "
+            "idct planes (one launch) equal to plain")
         del p_out, k_out, planes, frame, cm
 
     # -- b. HD: card == CPU, bytes and pixels --------------------------------
@@ -1117,7 +1173,9 @@ def il444_phases(torch, np, gt, dev, flush):
     log("[il444 8k enc] stages (CUDA events; assembly on the host clock; "
         f"{rows_in.numel() * 2} B of coefficients in MCU order): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    decode_stages(torch, np, dec, streams[0], "il444")
+    _b, coefs, _d, _i, _w, _n, p, _h = decode_stages(torch, np, dec,
+                                                      streams[0], "il444")
+    del _b, _d, _i, _w, _n, _h
 
     # -- d. per-launch times at the path's shapes ----------------------------
     kernels["huffman_segments:pattern"]["ms"] = event_ms(
@@ -1125,6 +1183,11 @@ def il444_phases(torch, np, gt, dev, flush):
                                                   markers), 10, flush)
     kernels["huffman_segments:pattern"]["bound_ms"] = huffman_bound_ms(
         rows_in, rb)
+    kernels["huffman_segments:pattern"]["probe"] = probe_ms(
+        torch, lambda stage: fusedpack.huffman_segments_probe(
+            rows_in, nblocks, st, stage, markers),
+        lambda: fusedpack.huffman_segments_plain(rows_in, nblocks, st,
+                                                 markers), flush)
     mcu_order_times(torch, planes, geo, classes, flush, mcu_plain_ms,
                     "il444 time")
     del rows, rows_in, planes, x
@@ -1134,6 +1197,7 @@ def il444_phases(torch, np, gt, dev, flush):
     _, c_rb, _ = fusedpack.entropy_fused(*coefs_in, classes)
     kernels["huffman_segments:coefs"]["bound_ms"] = huffman_bound_ms(
         coefs_in[0], c_rb, coefs_in[1].numel() + 4 * c_rb.numel())
+    idct_planes_times(torch, kernels["idct_planes:444"], coefs, p, flush)
     log_times("il444 time", kernels)
     return kernels, {name: launches[k["key"]] for name, k in kernels.items()}
 
@@ -1233,8 +1297,7 @@ def decode_stages(torch, np, dec, data, what):
     ev[3].record()
     coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps, p.comp_slots)
     ev[4].record()
-    dplanes = [prepost_kernel.idct_planes(coefs, p.qtabs[c.index], p.geo, c)
-               for c in p.geo.components]
+    dplanes = prepost_kernel.idct_planes(coefs, p.qtabs, p.geo)
     ev[5].record()
     img = prepost_kernel.postprocess_packed(dplanes, p.geo, hf.out_pi)
     ev[6].record()
@@ -1541,6 +1604,11 @@ def main() -> int:
         lambda: fusedpack.fdct_quant_plain(planes[c0.index], tabs0,
                                            c0.segment_mcu_count), flush)
     kernels["huffman_segments"]["ms"] = sum(ms_h) / 3
+    kernels["huffman_segments"]["probe"] = probe_ms(
+        torch, lambda st: fusedpack.huffman_segments_probe(
+            coefs[0], c0.mcu_count, tabs0, st),
+        lambda: fusedpack.huffman_segments_plain(coefs[0], c0.mcu_count,
+                                                 tabs0), flush)
     kernels["fdct_quant"]["bound_ms"] = sum(bound_f) / 3
     kernels["huffman_segments"]["bound_ms"] = sum(bound_h) / 3
     pre_bytes = x.numel() + 3 * c0.data_height * c0.data_width

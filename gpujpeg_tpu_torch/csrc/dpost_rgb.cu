@@ -15,8 +15,8 @@
 //
 // The result must equal the plain version (ops/dct.dequantize_idct, then
 // ops/sample.postprocess) bit for bit, so the arithmetic order is fixed:
-// the FMA chain of idct.cuh (run by tile.cuh's fma_tile8x8, each chain in
-// its k order), then the integer colour transform of colorspace.cuh.  IDCT,
+// the FMA chains of tile.cuh's fma_tile8x8 (each in its k order) and its
+// sample_u8, then the integer colour transform of colorspace.cuh.  IDCT,
 // then upsample, as the plain version does.
 //
 // Bound: operations.  At 8K 4:4:4 every one of 3 x 33.2 M samples takes 64
@@ -141,14 +141,6 @@ __device__ __forceinline__ bool tile_column(const Args& a, int i, int cby,
     const int cbx = cbx0 + (i - T::NL) % T::TC;
     col = a.off[1 + cc] + (int64_t)cby * a.cbpr + cbx;
     return cbx < a.cbpr;
-}
-
-// idct.cuh's idct_to_sample in two instructions: the separate add, then
-// one conversion that rounds half to even and saturates to [0, 255]
-__device__ __forceinline__ uint32_t sample_u8(float acc) {
-    unsigned short v;
-    asm("cvt.rni.sat.u8.f32 %0, %1;" : "=h"(v) : "f"(__fadd_rn(acc, 128.f)));
-    return v;
 }
 
 __device__ __forceinline__ void put_quad(uint8_t* rgb,
@@ -346,8 +338,8 @@ dpost_rgb_kernel(const Args a) {
                 uint32_t lo = 0, hi = 0;
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
-                    lo |= sample_u8(acc[i][j]) << (8 * j);
-                    hi |= sample_u8(acc[i][4 + j]) << (8 * j);
+                    lo |= gj::sample_u8(acc[i][j]) << (8 * j);
+                    hi |= gj::sample_u8(acc[i][4 + j]) << (8 * j);
                 }
                 *reinterpret_cast<uint32_t*>(dst + i * 8) = lo;
                 *reinterpret_cast<uint32_t*>(dst + i * 8 + 4 * stride) = hi;

@@ -10,14 +10,7 @@
 // per component, run/size tokens with ZRL and EOB, bit packing, F.1.2.3
 // 1-bit padding, 0xFF -> 0xFF00 stuffing and the caller's RST marker.  On
 // the TPU this was a data-parallel token map plus a merge tree of shifts
-// and rolls, with static per-sublane class masks for the interleaved
-// mode; on the card it is the reference GPUJPEG's serialisation design:
-// one thread walks one segment row (B blocks of 64 coefficients) in
-// order, looks each symbol up in its block's class's DC (12) and AC (256)
-// tables of (len << 16 | code) entries held in shared memory, keeps a
-// 64-bit bit buffer, and writes finished bytes straight into its row, four
-// at a time as 32-bit words (row_writer.cuh, shared with
-// pack_stuff_rows.cu).
+// and rolls, with static per-sublane class masks for the interleaved mode.
 //
 // The contract, per block b of row s, slot j = b % bpm of its MCU:
 //   class:     luts0 iff bit j of luma_pat is set and (row_luma is null or
@@ -29,7 +22,8 @@
 //   valid:     valid[s * B + b] != 0, or, when valid is null, s * B + b <
 //              nblocks; a block that is not valid emits no token, but its
 //              DC still feeds the next difference of its component (the
-//              megakernel forms the difference before it masks)
+//              megakernel forms the difference before it masks); blocks
+//              past the last valid one of a prefix feed nothing
 //   marker:    after the padded row, 0xFF markers[s] unless markers[s] is 0
 // A non-interleaved scan is the one-slot special case (bpm 1, one class,
 // prefix validity, markers 0xD0 + s % 8 but none after the last row).
@@ -43,9 +37,47 @@
 //
 // Bound: bytes.  At 8K Q75 the kernel reads 66.4 MB of coefficients a
 // plane (199 MB for an interleaved 4:4:4 scan) and writes the realised
-// stream (a few MB); the serial walk makes the launch latency-bound in
-// practice (one thread a row: 129,600 rows at 4:2:0 fill about 1,000
-// warps on 132 SMs), which the per-frame numbers in PERF.md show.
+// stream (a few MB).  In practice the warp's instructions for each row,
+// block and token set the time, not the bytes: chip_smoke.py's probe
+// (the loads alone against the full kernel) puts the loads at about a
+// third of a launch (PERF.md, Findings).
+//
+// Design: a warp a segment row, as in the reference GPUJPEG's encode kernel
+// (gpujpeg_huffman_gpu_encoder.cu: ballot masks, __popc compaction of the
+// nonzero coefficients, a warp's tokens placed by their bit counts).  A
+// persistent grid of 8-warp CTAs walks the rows, a row a warp; the warp
+// codes its row in batches of 8 blocks:
+//   - load: a batch's 1 KB of coefficients comes into shared memory by
+//     cp.async, 32 contiguous bytes a lane, while the batch before it is
+//     coded (across rows too); lane l then takes coefficients l and l + 32
+//     of each block;
+//   - compaction: two ballots give a block's nonzero AC mask; each
+//     nonzero lane writes (k, value) to the block's list at its rank (the
+//     __popc of the mask below it);
+//   - blocks: lane b takes block b of the batch: its slot's class and
+//     component (uniform over a row's MCUs, so the modes add no
+//     divergence), its DC predictor (the block dprev[slot] back, by a
+//     shuffle, or carried from the batch before), its token count (DC, AC
+//     nonzeros, EOB when coefficient 63 is 0) and, by a warp scan, its
+//     first token;
+//   - tokens: lane l codes token t0 + l of the batch, 32 at a time: its
+//     block by the tokens' offsets, its run from its list neighbour, its
+//     symbol ((run % 16) << 4 | size) from the class's LUT in shared
+//     memory.  So the work goes with the tokens (about 10 a block at Q75),
+//     not with the 64 coefficients;
+//   - bit offsets: a warp exclusive scan of the tokens' bit counts places
+//     each in the row; each is ORed MSB first into the warp's bit buffer in
+//     shared memory (512 bytes a warp);
+//   - stuffing: when the buffer holds more than kFlushWords whole words,
+//     and at the row's end after the 1-bit pad, its whole bytes go out:
+//     each lane takes a word, counts its 0xFF bytes, a warp scan of the
+//     output bytes gives each byte its place, and a 0x00 follows each
+//     0xFF.  Then the unstuffed marker.  So the buffer needs no room for a
+//     whole row, and a row of any length (restart interval 0) codes the
+//     same way.
+// The stage template argument cuts the kernel for the decomposition probe
+// (gj::Stage; gj_huffman_segments_probe); the codec's entry point,
+// gj_huffman_segments, always launches the full kernel.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -53,20 +85,161 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "row_writer.cuh"
+#include "tile.cuh"
 
 namespace {
 
 constexpr int kLutWords = 272;   // DC entries at [0, 16), AC at [16, 272)
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+// blocks a warp loads at once: a one-slot row of 8 blocks is one batch
+constexpr int kBatch = 8;
+constexpr int kBufWords = 128;   // a warp's bit buffer
+// a round of 32 tokens adds at most 32 * (3 * 16 + 26) bits (74 words):
+// the buffer is emptied when it holds more than this many whole words
+constexpr int kFlushWords = kBufWords - 80;
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
+// a warp's shared memory
+struct WarpSmem {
+    uint4 stage[2][kBatch * 8];  // coefficients of two batches (cp.async)
+    uint32_t buf[kBufWords];     // bits, MSB first
+    // each block's nonzero AC coefficients in zig-zag order: k << 16 |
+    // (value & 0xFFFF)
+    uint32_t list[kBatch][64];
+    // each block's first token | AC count << 12 | luts0 << 20, and its DC
+    // difference
+    int info[kBatch][2];
+};
+
+// JPEG size category of v and its value bits (F.1.2.1)
 __device__ __forceinline__ void size_and_bits(int v, int& size,
                                               uint32_t& vb) {
     const int a = v < 0 ? -v : v;
-    size = a ? 32 - __clz(a) : 0;
+    size = 32 - __clz(a);
     vb = (uint32_t)(v < 0 ? v - 1 : v) & ((1u << size) - 1u);
 }
 
+// OR the n low bits of v (1 <= n <= 32, nothing above them) into the bit
+// buffer at bit p, MSB first
+__device__ __forceinline__ void put_bits(uint32_t* buf, int p, uint32_t v,
+                                         int n) {
+    const int w = p >> 5, sh = 32 - (p & 31) - n;
+    if (sh >= 0) {
+        atomicOr(buf + w, v << sh);
+    } else {
+        atomicOr(buf + w, v >> -sh);
+        atomicOr(buf + w + 1, v << (32 + sh));
+    }
+}
+
+// the first nbytes bytes of the bit buffer, stuffed, to out[outpos..];
+// advances outpos and nff (warp-wide, every lane gets the same values)
+template <bool kStore>
+__device__ __forceinline__ void flush_bytes(const uint32_t* buf, int nbytes,
+                                            uint8_t* out, int& outpos,
+                                            int& nff, int lane) {
+    const int nw = (nbytes + 3) >> 2;
+    for (int w0 = 0; w0 < nw; w0 += 32) {
+        const int w = w0 + lane;
+        int nb = nbytes - 4 * w;
+        nb = nb < 0 ? 0 : nb > 4 ? 4 : nb;
+        const uint32_t word = nb ? buf[w] : 0u;
+        // 0xFF bytes among the first nb (stream order: the high byte first)
+        const uint32_t inb = nb ? ~0u << (32 - 8 * nb) : 0u;
+        const int ff = __popc(__vcmpeq4(word, ~0u) & inb) >> 3;
+        const int left = nbytes - 4 * w0;
+        const int chunk = left < 128 ? left : 128;
+        if (!__any_sync(kAll, ff) && (outpos & 3) == 0) {
+            // no stuffing: whole words as words, a last part word by bytes
+            uint8_t* const o = out + outpos + 4 * lane;
+            if (kStore && nb == 4)
+                *reinterpret_cast<uint32_t*>(o) = __byte_perm(word, 0, 0x0123);
+            else if (kStore)
+                for (int q = 0; q < nb; ++q)
+                    o[q] = (uint8_t)(word >> (24 - 8 * q));
+            outpos += chunk;
+            continue;
+        }
+        const int mine = nb + ff;
+        int incl = mine;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int up = __shfl_up_sync(kAll, incl, d);
+            if (lane >= d) incl += up;
+        }
+        int o = outpos + incl - mine;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            if (kStore && q < nb) {
+                const uint32_t byte = (word >> (24 - 8 * q)) & 0xFFu;
+                out[o++] = (uint8_t)byte;
+                if (byte == 0xFFu) out[o++] = 0;
+            }
+        }
+        const int total = __shfl_sync(kAll, incl, 31);
+        nff += total - chunk;
+        outpos += total;
+    }
+}
+
+// Codes the tokens t0 .. t0 + 31 of a batch (lane l: token t0 + l, T in
+// all) into the bit buffer at bit pos; returns the bits added.  The tokens
+// of block i are st[i] (its DC difference), then its AC nonzeros in
+// order, each after its ZRLs, then EOB when its coefficient 63 is 0.
+__device__ __forceinline__ int code_round(const WarpSmem& ws, uint32_t* buf,
+                                          const uint32_t* lut,
+                                          const int (&st)[kBatch], int t0,
+                                          int T, int pos, int lane) {
+    const int t = t0 + lane;
+    int nz = 0, lz = 0, tlen = 0;
+    uint32_t zcode = 0, tok = 0;
+    if (t < T) {
+        int beta = 0;
+#pragma unroll
+        for (int i = 1; i < kBatch; ++i) beta += t >= st[i];
+        const int i0 = ws.info[beta][0];
+        const int r = t - (i0 & 0xFFF), nac = (i0 >> 12) & 63;
+        const uint32_t* const tab = lut + ((i0 >> 20) & 1 ? 0 : kLutWords);
+        // the DC difference (r = 0), an AC nonzero (r <= nac) or EOB, with
+        // no branch: every lane reads all three places
+        const bool isac = r > 0 && r <= nac;
+        const uint32_t le = ws.list[beta][isac ? r - 1 : 0];
+        const uint32_t lp = ws.list[beta][isac && r >= 2 ? r - 2 : 0];
+        const int dcd = ws.info[beta][1];
+        const int run = isac
+            ? (int)(le >> 16) - 1 - (r >= 2 ? (int)(lp >> 16) : 0) : 0;
+        int size;
+        uint32_t vb;
+        size_and_bits(r == 0 ? dcd : isac ? (int)(int16_t)(le & 0xFFFFu) : 0,
+                      size, vb);
+        // DC entries at [0, 16), AC at 16 + (run << 4 | size), EOB at 16
+        const uint32_t e = tab[r == 0 ? (size < 11 ? size : 11)
+                               : 16 + (isac ? (run & 15) << 4
+                                        | (size < 15 ? size : 15) : 0)];
+        tok = ((e & 0xFFFFu) << size) | vb;
+        tlen = (int)(e >> 16) + size;
+        nz = run >> 4;                           // ZRLs: only before a nonzero
+        if (nz) {
+            const uint32_t z = tab[16 + 0xF0];
+            zcode = z & 0xFFFFu;
+            lz = (int)(z >> 16);
+        }
+    }
+    const int mine = nz * lz + tlen;
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(kAll, incl, d);
+        if (lane >= d) incl += up;
+    }
+    int at = pos + incl - mine;
+    for (int q = 0; q < nz; ++q, at += lz) put_bits(buf, at, zcode, lz);
+    if (tlen) put_bits(buf, at, tok, tlen);
+    return __shfl_sync(kAll, incl, 31);
+}
+
+template <int kStage>
 __global__ void __launch_bounds__(kThreads)
 huffman_segments_kernel(const int16_t* __restrict__ coefs, int64_t nrows,
                         int B, int64_t nblocks,
@@ -80,73 +253,260 @@ huffman_segments_kernel(const int16_t* __restrict__ coefs, int64_t nrows,
                         int32_t* __restrict__ row_bytes,
                         int32_t* __restrict__ needs) {
     __shared__ uint32_t lut[2 * kLutWords];
-    for (int i = threadIdx.x; i < kLutWords; i += blockDim.x) {
+    __shared__ WarpSmem wsm[kWarps];
+    __shared__ int dprev[16];   // slot j: distance to its DC predictor
+    __shared__ uint8_t slot_of[48];             // x % bpm
+    __shared__ int cta_needs[2];
+    for (int i = threadIdx.x; i < kLutWords; i += kThreads) {
         lut[i] = luts0[i];
         lut[kLutWords + i] = luts1[i];
     }
-    __syncthreads();
-    const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= nrows) return;
-    const int16_t* seg = coefs + s * (int64_t)B * 64;
-    const uint32_t row_pat = (row_luma == nullptr || row_luma[s]) ? luma_pat
-                                                                 : 0u;
-    // blocks past the last valid one emit nothing and feed no later block
-    int nb = B;
-    if (valid == nullptr) {
-        const int64_t left = nblocks - s * B;
-        nb = left < B ? (left > 0 ? (int)left : 0) : B;
+    if (threadIdx.x < bpm) {
+        // the previous block of the same component is d slots back
+        const int j = threadIdx.x;
+        const uint32_t c = (comp_pat >> (2 * j)) & 3u;
+        int d = 1;
+        while (d < bpm && ((comp_pat >> (2 * ((j - d + bpm) % bpm))) & 3u)
+                              != c)
+            ++d;
+        dprev[j] = d;
     }
-    gj::RowWriter w(
-        reinterpret_cast<uint32_t*>(rows + s * (int64_t)stride));
-    int p0 = 0, p1 = 0, p2 = 0, p3 = 0;      // DC predictor per component
-    int j = 0;                               // slot of block b in its MCU
-    for (int b = 0; b < nb; ++b, j = (j + 1 == bpm) ? 0 : j + 1) {
-        const uint32_t* dcl = lut + (((row_pat >> j) & 1u) ? 0 : kLutWords);
-        const uint32_t* ac = dcl + 16;
-        const int comp = (int)((comp_pat >> (2 * j)) & 3u);
-        const int4* blk = reinterpret_cast<const int4*>(seg + b * 64);
-        const int dc = (int)(int16_t)(blk[0].x & 0xFFFF);
-        const int pred = comp == 0 ? p0 : comp == 1 ? p1 : comp == 2 ? p2
-                                                                     : p3;
-        p0 = comp == 0 ? dc : p0;
-        p1 = comp == 1 ? dc : p1;
-        p2 = comp == 2 ? dc : p2;
-        p3 = comp == 3 ? dc : p3;
-        if (valid != nullptr && !valid[s * B + b]) continue;
-        int size;
-        uint32_t vb;
-        size_and_bits(dc - pred, size, vb);  // DC: difference
-        w.emit_entry(dcl[size < 11 ? size : 11], size, vb);
-        int run = 0;
-        for (int q = 0; q < 8; ++q) {
-            const int4 pk = blk[q];          // 8 coefficients, 16 bytes
-            const int words[4] = {pk.x, pk.y, pk.z, pk.w};
+    if (threadIdx.x < 48)
+        slot_of[threadIdx.x] = (uint8_t)(threadIdx.x % bpm);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    WarpSmem& ws = wsm[warp];
+    uint32_t* const buf = ws.buf;
+    for (int i = lane; i < kBufWords; i += 32) buf[i] = 0;
+    if (threadIdx.x < 2) cta_needs[threadIdx.x] = 0;
+    __syncthreads();
+    const uint32_t below = (1u << lane) - 1u;    // lanes under this one
+    const int64_t rstep = (int64_t)gridDim.x * kWarps;
+    // blocks row s walks: all B, or a prefix of the first nblocks
+    const auto row_blocks = [&](int64_t s) -> int {
+        if (valid != nullptr) return B;
+        const int64_t left = nblocks - s * B;
+        return left < B ? (left > 0 ? (int)left : 0) : B;
+    };
+    // the next batch's coefficients into stage[sb] (one commit group; an
+    // empty one when there is none): lane l copies bytes 32 l .. 32 l + 31
+    const auto issue = [&](int64_t s, int b0, int nb, int sb) {
+        if (s < nrows && b0 < nb) {
+            const uint4* const src =
+                reinterpret_cast<const uint4*>(coefs + (s * B + b0) * 64);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                if (q == 0 && e == 0) continue;   // the DC, coded above
-                const int v = (int)(int16_t)(words[e >> 1] >> (16 * (e & 1)));
-                if (v == 0) {
-                    ++run;
-                    continue;
-                }
-                while (run >= 16) {          // ZRL only before a nonzero
-                    w.emit_entry(ac[0xF0], 0, 0);
-                    run -= 16;
-                }
-                size_and_bits(v, size, vb);
-                w.emit_entry(ac[(run << 4) | (size < 15 ? size : 15)], size,
-                             vb);
-                run = 0;
+            for (int u = 0; u < kBatch / 4; ++u) {
+                const int e = kBatch / 4 * lane + u;
+                const bool ok = (e >> 3) < nb - b0;
+                gj::cp_async<16>(&ws.stage[sb][e], ok ? src + e : src, ok);
             }
         }
-        if (run > 0) w.emit_entry(ac[0x00], 0, 0);   // EOB: slot 63 is 0
+        gj::cp_async_commit();
+    };
+    // the warp's largest stuffed-zero count and row length: needs gets
+    // one atomicMax a CTA
+    int max_nff = 0, max_len = 0;
+    int64_t s = (int64_t)blockIdx.x * kWarps + warp;
+    int sb = 0;                                  // stage of this batch
+    issue(s, 0, s < nrows ? row_blocks(s) : 0, 0);
+    for (; s < nrows; s += rstep) {
+        uint8_t* const out = rows + s * (int64_t)stride;
+        const uint32_t row_pat =
+            (row_luma == nullptr || row_luma[s]) ? luma_pat : 0u;
+        const int nb = row_blocks(s);
+        const int m = markers[s];                 // not stuffed; 0 = none
+        int pos = 0;                             // bits in the buffer
+        int outpos = 0, nff = 0;                 // row bytes, stuffed zeros
+        // DC of the last block of each component in earlier batches
+        int carry0 = 0, carry1 = 0, carry2 = 0, carry3 = 0;
+        uint32_t sink = 0;                       // the probe's loads
+        int jb = 0;                              // slot of block b0
+        for (int b0 = 0; b0 < nb; b0 += kBatch, jb = slot_of[jb + kBatch]) {
+            const int nbat = nb - b0 < kBatch ? nb - b0 : kBatch;
+            // lane b: block b0 + b is in the batch and valid
+            const bool inb = lane < nbat;
+            const bool ok = inb && (valid == nullptr
+                                    || valid[s * B + b0 + lane] != 0);
+            // the next batch flies while this one is coded
+            __syncwarp();
+            if (b0 + kBatch < nb)
+                issue(s, b0 + kBatch, nb, sb ^ 1);
+            else
+                issue(s + rstep, 0, s + rstep < nrows
+                      ? row_blocks(s + rstep) : 0, sb ^ 1);
+            gj::cp_async_wait<1>();
+            __syncwarp();
+            // lane l: coefficients l and l + 32 of each block
+            const int16_t* const c16 =
+                reinterpret_cast<const int16_t*>(ws.stage[sb]);
+            int lo[kBatch], hi[kBatch];
+#pragma unroll
+            for (int i = 0; i < kBatch; ++i) {
+                lo[i] = c16[i * 64 + lane];
+                hi[i] = c16[i * 64 + 32 + lane];
+            }
+            sb ^= 1;
+            if (kStage == gj::kLoadStore) {
+#pragma unroll
+                for (int i = 0; i < kBatch; ++i) sink ^= lo[i] + hi[i];
+                continue;
+            }
+            // nonzero AC coefficients, compacted in order (ballot + popc):
+            // lane l's rank among them is the count below it
+            uint32_t mylo = 0, myhi = 0;         // lane i: block i's masks
+            int mydc = 0;
+#pragma unroll
+            for (int i = 0; i < kBatch; ++i) {
+                if (i >= nbat) break;
+                const uint32_t mlo = __ballot_sync(kAll, lo[i] != 0) & ~1u;
+                const uint32_t mhi = __ballot_sync(kAll, hi[i] != 0);
+                const int dc = __shfl_sync(kAll, lo[i], 0);
+                if (lane == i) {
+                    mylo = mlo;
+                    myhi = mhi;
+                    mydc = dc;
+                }
+                if ((mlo >> lane) & 1u)
+                    ws.list[i][__popc(mlo & below)] =
+                        (uint32_t)lane << 16 | (lo[i] & 0xFFFF);
+                if ((mhi >> lane) & 1u)
+                    ws.list[i][__popc(mlo) + __popc(mhi & below)] =
+                        (uint32_t)(lane + 32) << 16 | (hi[i] & 0xFFFF);
+            }
+            // lane b: block b0 + b's slot, component, class, DC difference
+            // and tokens (its DC, AC nonzeros, EOB when coefficient 63 is
+            // 0), all blocks of the batch at once
+            const int j = slot_of[jb + lane];
+            const int comp = (int)((comp_pat >> (2 * j)) & 3u);
+            const int pb = lane - dprev[j];
+            const int pv = __shfl_sync(kAll, mydc, pb >= 0 ? pb : lane);
+            const int pred = pb >= 0 ? pv : comp == 0 ? carry0
+                : comp == 1 ? carry1 : comp == 2 ? carry2 : carry3;
+            const int nac = __popc(mylo) + __popc(myhi);
+            const int ntok = ok ? 1 + nac + (int)((myhi >> 31) == 0) : 0;
+            int incl = ntok;                     // lanes past 7 hold 0
+#pragma unroll
+            for (int d = 1; d < kBatch; d <<= 1) {
+                const int up = __shfl_up_sync(kAll, incl, d);
+                if (lane >= d) incl += up;
+            }
+            const int T = __shfl_sync(kAll, incl, kBatch - 1);
+            if (ok) {
+                ws.info[lane][0] = (incl - ntok) | nac << 12
+                    | (int)((row_pat >> j) & 1u) << 20;
+                ws.info[lane][1] = mydc - pred;
+            }
+            int st[kBatch];                      // first token of a block
+#pragma unroll
+            for (int i = 0; i < kBatch; ++i)
+                st[i] = i < nbat ? __shfl_sync(kAll, incl - ntok, i) : T;
+            if (b0 + kBatch < nb) {              // carry the predictors
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const uint32_t mc = __ballot_sync(kAll, inb && comp == c);
+                    const int last = 31 - __clz(mc);
+                    const int v = __shfl_sync(kAll, mydc, mc ? last : 0);
+                    if (mc) {
+                        carry0 = c == 0 ? v : carry0;
+                        carry1 = c == 1 ? v : carry1;
+                        carry2 = c == 2 ? v : carry2;
+                        carry3 = c == 3 ? v : carry3;
+                    }
+                }
+            }
+            __syncwarp();
+            for (int t0 = 0; t0 < T; t0 += 32) {
+                pos += code_round(ws, buf, lut, st, t0, T, pos, lane);
+                __syncwarp();
+                if ((pos >> 5) > kFlushWords) {   // whole words out
+                    const int nw = pos >> 5;
+                    flush_bytes<kStage == gj::kFull>(buf, 4 * nw, out,
+                                                     outpos, nff, lane);
+                    const uint32_t part = buf[nw];
+                    __syncwarp();
+                    for (int i = lane; i <= nw; i += 32) buf[i] = 0;
+                    __syncwarp();
+                    if (lane == 0) buf[0] = part;
+                    pos &= 31;
+                    __syncwarp();
+                }
+            }
+        }
+        if (pos & 7) {                            // F.1.2.3: 1-bits
+            const int pl = 8 - (pos & 7);
+            if (lane == 0) put_bits(buf, pos, (1u << pl) - 1u, pl);
+            pos += pl;
+        }
+        __syncwarp();
+        const int nbytes = pos >> 3;
+        flush_bytes<kStage == gj::kFull>(buf, nbytes, out, outpos, nff,
+                                         lane);
+        __syncwarp();
+        for (int i = lane; i < (nbytes + 3) >> 2; i += 32) buf[i] = 0;
+        if (m) {
+            if (lane == 0 && kStage == gj::kFull) {
+                out[outpos] = 0xFF;
+                out[outpos + 1] = (uint8_t)m;
+            }
+            outpos += 2;
+        }
+        if (lane == 0) row_bytes[s] = outpos;
+        if (kStage == gj::kLoadStore && sink == 0x9E3779B9u)
+            row_bytes[s] = -1;                   // keeps the loads
+        max_nff = nff > max_nff ? nff : max_nff;
+        max_len = outpos > max_len ? outpos : max_len;
     }
-    w.pad();                                 // F.1.2.3: 1-bits
-    w.marker((uint32_t)markers[s]);          // not stuffed; 0 = none
-    w.flush();
-    row_bytes[s] = w.nout;
-    atomicMax(&needs[0], w.nff);
-    atomicMax(&needs[1], w.nout);
+    gj::cp_async_wait<0>();
+    if (lane == 0) {
+        atomicMax(&cta_needs[0], max_nff);
+        atomicMax(&cta_needs[1], max_len);
+    }
+    __syncthreads();
+    if (threadIdx.x < 2)
+        atomicMax(&needs[threadIdx.x], cta_needs[threadIdx.x]);
+}
+
+template <int kStage>
+int run(const void* coefs, int64_t nrows, int B, int64_t nblocks,
+        const void* valid, const void* luts0, const void* luts1,
+        const void* row_luma, int bpm, int64_t luma_pat, int64_t comp_pat,
+        const void* markers, int stride, void* rows, void* row_bytes,
+        void* needs, void* stream) {
+    auto* kernel = huffman_segments_kernel<kStage>;
+    const int fit = gj::resident_ctas(kernel, kThreads, 0);
+    if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int64_t want = (nrows + kWarps - 1) / kWarps;
+    const int grid = want < fit ? (int)want : fit;
+    kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)coefs, nrows, B, nblocks, (const uint8_t*)valid,
+        (const uint32_t*)luts0, (const uint32_t*)luts1,
+        (const int32_t*)row_luma, bpm, (uint32_t)luma_pat,
+        (uint32_t)comp_pat, (const int32_t*)markers, stride,
+        (uint8_t*)rows, (int32_t*)row_bytes, (int32_t*)needs);
+    return (int)cudaGetLastError();
+}
+
+int launch(int stage, const void* coefs, int64_t nrows, int B,
+           int64_t nblocks, const void* valid, const void* luts0,
+           const void* luts1, const void* row_luma, int bpm,
+           int64_t luma_pat, int64_t comp_pat, const void* markers,
+           int stride, void* rows, void* row_bytes, void* needs,
+           void* stream) {
+    // coefs: (nrows, B*64) int16, 16-byte aligned; valid: (nrows, B) u8
+    // or null (then the first nblocks blocks are valid); luts0/1:
+    // int32[272] each; row_luma: (nrows,) i32 or null; 1 <= bpm <= 16,
+    // B % bpm == 0; luma_pat: bit j = slot j may take luts0; comp_pat: 2
+    // bits a slot; markers: (nrows,) i32; rows: (nrows, stride) u8;
+    // row_bytes: (nrows,) i32; needs: (2,) i32
+    if (bpm < 1 || bpm > 16 || B < 1 || B % bpm || (uintptr_t)coefs % 16)
+        return (int)cudaErrorInvalidValue;
+    if (nrows <= 0) return (int)cudaGetLastError();
+    const auto fn = stage == gj::kFull ? run<gj::kFull>
+        : stage == gj::kLoadStore ? run<gj::kLoadStore>
+        : stage == gj::kNoStore ? run<gj::kNoStore> : nullptr;
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return fn(coefs, nrows, B, nblocks, valid, luts0, luts1, row_luma, bpm,
+              luma_pat, comp_pat, markers, stride, rows, row_bytes, needs,
+              stream);
 }
 
 }  // namespace
@@ -159,21 +519,21 @@ extern "C" int gj_huffman_segments(const void* coefs, int64_t nrows, int B,
                                    const void* markers, int stride,
                                    void* rows, void* row_bytes, void* needs,
                                    void* stream) {
-    // coefs: (nrows, B*64) int16; valid: (nrows, B) u8 or null (then the
-    // first nblocks blocks are valid); luts0/1: int32[272] each; row_luma:
-    // (nrows,) i32 or null; 1 <= bpm <= 16, B % bpm == 0; luma_pat: bit j
-    // = slot j may take luts0; comp_pat: 2 bits a slot; markers: (nrows,)
-    // i32; rows: (nrows, stride) u8 with stride % 4 == 0; row_bytes:
-    // (nrows,) i32; needs: (2,) i32
-    if (nrows > 0) {
-        const int64_t grid = (nrows + kThreads - 1) / kThreads;
-        huffman_segments_kernel<<<(unsigned)grid, kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-            (const int16_t*)coefs, nrows, B, nblocks, (const uint8_t*)valid,
-            (const uint32_t*)luts0, (const uint32_t*)luts1,
-            (const int32_t*)row_luma, bpm, (uint32_t)luma_pat,
-            (uint32_t)comp_pat, (const int32_t*)markers, stride,
-            (uint8_t*)rows, (int32_t*)row_bytes, (int32_t*)needs);
-    }
-    return (int)cudaGetLastError();
+    return launch(gj::kFull, coefs, nrows, B, nblocks, valid, luts0, luts1,
+                  row_luma, bpm, luma_pat, comp_pat, markers, stride, rows,
+                  row_bytes, needs, stream);
+}
+
+// the probe's cut kernels (gj::Stage), same arguments after the stage:
+// loads and stores only walks the blocks' loads and DC predictors and
+// codes nothing; no store codes and stuffs but writes no byte
+extern "C" int gj_huffman_segments_probe(
+        int stage, const void* coefs, int64_t nrows, int B, int64_t nblocks,
+        const void* valid, const void* luts0, const void* luts1,
+        const void* row_luma, int bpm, int64_t luma_pat, int64_t comp_pat,
+        const void* markers, int stride, void* rows, void* row_bytes,
+        void* needs, void* stream) {
+    return launch(stage, coefs, nrows, B, nblocks, valid, luts0, luts1,
+                  row_luma, bpm, luma_pat, comp_pat, markers, stride, rows,
+                  row_bytes, needs, stream);
 }

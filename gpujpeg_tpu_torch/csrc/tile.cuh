@@ -1,5 +1,5 @@
 // The tile machinery of the port's tiled DCT kernels (fdct_quant.cu,
-// dpost_rgb.cu): asynchronous copies into shared memory, the FMA chains of
+// dpost_rgb.cu, idct_planes.cu): asynchronous copies into shared memory, the FMA chains of
 // 8 blocks x 8 outputs a thread over a transposed tile, the probe's stages
 // and the persistent grid's size.
 //
@@ -99,7 +99,17 @@ __device__ __forceinline__ void fma_tile8x8(const float* __restrict__ x,
     cur.fma(acc);
 }
 
-// the probe's stages of a tiled kernel (chip_smoke.py; never a codec path)
+// The sample of an IDCT chain (ops/dct.dequantize_idct): the separate add
+// of the 128 level shift, then one conversion that rounds half to even and
+// saturates to [0, 255]
+__device__ __forceinline__ uint32_t sample_u8(float acc) {
+    unsigned short v;
+    asm("cvt.rni.sat.u8.f32 %0, %1;" : "=h"(v) : "f"(__fadd_rn(acc, 128.f)));
+    return v;
+}
+
+// the probe's stages of a kernel (chip_smoke.py; never a codec path); the
+// Huffman coder (huffman_segments.cu) reads kLoadStore as its loads alone
 enum Stage : int {
     kFull = 0,       // the kernel
     kLoadStore = 1,  // loads and stores only, no arithmetic

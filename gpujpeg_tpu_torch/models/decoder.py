@@ -13,7 +13,8 @@ The decode of one codestream:
       dequantization + IDCT + upsampling + colour
       + store                                     prepost_kernel.decode_post
     or, for an interleaved scan and any other stream:
-      dequantization + IDCT, one plane each       prepost_kernel.idct_planes
+      dequantization + IDCT, a plane per
+      component, one launch                       prepost_kernel.idct_planes
       upsampling + colour + store                 prepost_kernel.
                                                   postprocess_packed
 
@@ -498,14 +499,12 @@ class Decoder:
                   out_pi: ImageParameters) -> torch.Tensor:
         """DC-integrated coefficients -> (H, W, 3) uint8 pixels: the fused
         dpost kernel where it applies (decode_post_supported), else one
-        IDCT plane a component and the postprocessor."""
+        IDCT launch for every component's plane and the postprocessor."""
         geo = plan.geo
         if prepost_kernel.decode_post_supported(geo, out_pi):
             return prepost_kernel.decode_post(coefs_t, plan.qtabs, geo,
                                               out_pi)
-        planes = [prepost_kernel.idct_planes(coefs_t, plan.qtabs[c.index],
-                                             geo, c)
-                  for c in geo.components]
+        planes = prepost_kernel.idct_planes(coefs_t, plan.qtabs, geo)
         return prepost_kernel.postprocess_packed(planes, geo, out_pi)
 
     def decode_to_device(self, data: bytes,

@@ -72,10 +72,9 @@ _SIGNATURES: Dict[str, List] = {
     # stream
     "dpost_rgb": [_P, _I64, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                   _P],
-    # coefs, L, bpm, off, sh, sv, mcux, data_h, data_w, qtab, idct matrix,
-    # out, stream
-    "idct_planes": [_P, _I64, _I, _I64, _I, _I, _I, _I, _I, _P, _P, _P,
-                    _P],
+    # coefs, L, geo (host int64[2 + 6 * 4]), qtabs, idct matrix, out0..3
+    # (null past the last component), stream
+    "idct_planes": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     # y, cb, cr, geo (host int32[9]), H, W, params (host int32[26]), out,
     # stream
     "post_rgb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
@@ -94,7 +93,7 @@ SOURCES: Dict[str, str] = {name: "relayout" for name in (
 
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
-PROBES = ("fdct_quant", "dpost_rgb")
+PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments")
 PROBE_STAGES = {"full": 0, "load_store": 1, "no_store": 2}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -41,6 +41,7 @@ vector: the largest stuffed-zero count and the largest row length.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -252,6 +253,13 @@ def segment_markers(nseg: int, device) -> torch.Tensor:
     return torch.where(s < nseg - 1, 0xD0 + (s & 7), 0).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=16)
+def _scan_markers(nseg: int, device) -> torch.Tensor:
+    """segment_markers(nseg), made once per size and device: the markers
+    of a call that gives none (read it, never write it)."""
+    return segment_markers(nseg, device)
+
+
 def _as_slots(tabs: Union[ClassTables, SlotTables]) -> SlotTables:
     return tabs if isinstance(tabs, SlotTables) else one_slot(tabs)
 
@@ -272,7 +280,7 @@ def _row_args(coefs: torch.Tensor, nblocks: Optional[int],
     if row_luma is not None and tuple(row_luma.shape) != (R,):
         raise ValueError(f"row_luma must be ({R},)")
     if markers is None:
-        markers = segment_markers(R, coefs.device)
+        markers = _scan_markers(R, coefs.device)
     if tuple(markers.shape) != (R,):
         raise ValueError(f"markers must be ({R},)")
     return R, B, markers
@@ -363,6 +371,14 @@ def huffman_segments(coefs: torch.Tensor, nblocks: Optional[int],
     if coefs.device.type == "cpu":
         return huffman_segments_plain(coefs, nblocks, st, markers, valid,
                                       row_luma)
+    out, args = _huffman_args(coefs, nblocks, st, markers, valid, row_luma)
+    _kernels.launch("huffman_segments", *args)
+    return out
+
+
+def _huffman_args(coefs, nblocks, st, markers, valid, row_luma):
+    """The outputs (rows, row_bytes, needs) and the C arguments of
+    csrc/huffman_segments.cu."""
     R, B, markers = _row_args(coefs, nblocks, st, markers, valid, row_luma)
     stride = st.stride(B, row_luma is not None)
     dev = coefs.device
@@ -376,18 +392,34 @@ def huffman_segments(coefs: torch.Tensor, nblocks: Optional[int],
     if coefs.dtype != torch.int16 or markers.dtype != torch.int32:
         raise ValueError("huffman_segments takes int16 coefficients and "
                          "int32 markers")
+    if coefs.data_ptr() % 16:
+        raise ValueError("huffman_segments takes 16-byte aligned "
+                         "coefficients")
     if valid is not None and valid.dtype not in (torch.bool, torch.uint8):
         raise ValueError("huffman_segments takes a bool or uint8 mask")
     if row_luma is not None and row_luma.dtype != torch.int32:
         raise ValueError("huffman_segments takes int32 row class flags")
     luma_pat = sum(1 << j for j, k in enumerate(st.slot_class) if k == 0)
     comp_pat = sum(c << (2 * j) for j, c in enumerate(st.slot_comp))
-    _kernels.launch("huffman_segments", coefs, R, B, nblocks or 0,
-                    valid.view(torch.uint8) if valid is not None else None,
-                    st.classes[0].luts, st.classes[1].luts, row_luma,
-                    st.bpm, luma_pat, comp_pat, markers, stride, rows,
-                    row_bytes, needs)
-    return rows, row_bytes, needs
+    return (rows, row_bytes, needs), (
+        coefs, R, B, nblocks or 0,
+        valid.view(torch.uint8) if valid is not None else None,
+        st.classes[0].luts, st.classes[1].luts, row_luma, st.bpm, luma_pat,
+        comp_pat, markers, stride, rows, row_bytes, needs)
+
+
+def huffman_segments_probe(coefs: torch.Tensor, nblocks: Optional[int],
+                           tabs: Union[ClassTables, SlotTables],
+                           stage: str, markers=None, valid=None,
+                           row_luma=None):
+    """huffman_segments' kernel cut to a decomposition stage
+    (_kernels.PROBE_STAGES: the full kernel; the blocks' loads alone; all
+    but the byte stores) for chip_smoke.py's probe; no codec path calls
+    it.  Only the "full" stage's output is the rows."""
+    out, args = _huffman_args(coefs, nblocks, _as_slots(tabs), markers,
+                              valid, row_luma)
+    _kernels.probe("huffman_segments", stage, *args)
+    return out
 
 
 def entropy_fused_u8(plane: torch.Tensor, tabs: ClassTables, rst: int):

@@ -18,18 +18,19 @@ it takes any block count where the TPU kernel needs 128-lane-aligned
 planes.
 
 Interleaved scans (and any other stream dpost does not take) decode in two
-steps: ``idct_planes`` (coefficients of one component -> its uint8 sample
-plane) wraps csrc/idct_planes.cu, whose JAX counterpart is XLA
-(gpujpeg_tpu.models.decoder._make_idct_post_fn_t_il); ``postprocess_packed``
-(planes -> RGB pixels: chroma upsampling, colour, the interleaved store)
-wraps csrc/post_rgb.cu, the counterpart of the JAX package's Pallas
+steps: ``idct_planes`` (coefficients of every component -> a uint8 sample
+plane each, one launch) wraps csrc/idct_planes.cu, whose JAX counterpart
+is XLA (gpujpeg_tpu.models.decoder._make_idct_post_fn_t_il);
+``postprocess_packed`` (planes -> RGB pixels: chroma upsampling, colour,
+the interleaved store) wraps csrc/post_rgb.cu, the counterpart of the JAX package's Pallas
 postprocessor (_post_kernel_body / postprocess_packed), with no RGBX words
 and no width alignment.
 
 For a CPU tensor each wrapper runs its plain version
 (``preprocess_packed_plain``, which is ops/sample.preprocess;
 ``decode_post_plain``, which is ops/dct.dequantize_idct then
-ops/sample.postprocess; ``idct_planes_plain``; ``postprocess_packed_plain``,
+ops/sample.postprocess; ``idct_planes_plain``, one component, which the
+CPU path calls for each; ``postprocess_packed_plain``,
 which is ops/sample.postprocess); for a CUDA tensor it launches its kernel
 or raises.
 """
@@ -263,27 +264,48 @@ def idct_planes_plain(coefs_t: torch.Tensor, qtab: torch.Tensor,
                                c.data_width).to(torch.uint8)
 
 
-def idct_planes(coefs_t: torch.Tensor, qtab: torch.Tensor, geo: Geometry,
-                c) -> torch.Tensor:
-    """Component c's blocks of coefs_t (64, L) int16 zig-zag coefficients
-    with DC integrated (phase C's layout, block_layout), qtab (64,) float32
-    zig-zag quant table -> (data_h, data_w) uint8 sample plane."""
+def idct_planes(coefs_t: torch.Tensor, qtabs: torch.Tensor,
+                geo: Geometry) -> List[torch.Tensor]:
+    """Every component's blocks of coefs_t (64, L) int16 zig-zag
+    coefficients with DC integrated (phase C's layout, block_layout), qtabs
+    (components, 64) float32 zig-zag quant tables -> [(data_h, data_w)
+    uint8 sample plane per component], in one launch on CUDA."""
     L = geo.segment_count * geo.max_blocks_per_seg
     if coefs_t.dtype != torch.int16 or tuple(coefs_t.shape) != (64, L):
         raise ValueError(f"expected (64, {L}) int16 coefficients, got "
                          f"{tuple(coefs_t.shape)} {coefs_t.dtype}")
-    if qtab.dtype != torch.float32 or tuple(qtab.shape) != (64,):
-        raise ValueError("expected a (64,) float32 quant table")
+    n = geo.comp_count
+    if qtabs.dtype != torch.float32 or tuple(qtabs.shape) != (n, 64):
+        raise ValueError(f"expected ({n}, 64) float32 quant tables")
     if coefs_t.device.type == "cpu":
-        return idct_planes_plain(coefs_t, qtab, geo, c)
-    out = torch.empty((c.data_height, c.data_width), dtype=torch.uint8,
-                      device=coefs_t.device)
+        return [idct_planes_plain(coefs_t, qtabs[c.index], geo, c)
+                for c in geo.components]
+    if n > 4 or geo.blocks_per_mcu > 16:
+        raise NotImplementedError(
+            "the IDCT-planes kernel takes at most 4 components and 16 "
+            "blocks an MCU")
+    # the planes are views of one buffer; the kernel takes, per component,
+    # its first column (a non-interleaved scan) or first MCU slot, its
+    # sampling, MCU grid and width (block_layout)
+    sizes = [c.data_height * c.data_width for c in geo.components]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=coefs_t.device)
+    planes = [p.view(c.data_height, c.data_width) for c, p in
+              zip(geo.components, torch.split(buf, sizes))]
     nmat = idct_matrix(coefs_t.device)
-    _kernels.require_cuda("idct_planes", coefs_t, qtab, nmat, out)
-    bpm, off, sh, sv, mcux = block_layout(geo, c)
-    _kernels.launch("idct_planes", coefs_t, L, bpm, off, sh, sv, mcux,
-                    c.data_height, c.data_width, qtab, nmat, out)
-    return out
+    _kernels.require_cuda("idct_planes", coefs_t, qtabs, nmat, buf)
+    g = np.zeros(2 + 6 * 4, np.int64)
+    g[:2] = n, int(geo.interleaved)
+    for c in geo.components:
+        _, first, sh, sv, _ = block_layout(geo, c)
+        if geo.interleaved:
+            mcux, mcuy = c.mcu_count_x, c.mcu_count_y
+        else:
+            mcux, mcuy = c.data_width // 8, c.data_height // 8
+        g[2 + 6 * c.index:8 + 6 * c.index] = (first, sh, sv, mcux, mcuy,
+                                              c.data_width)
+    _kernels.launch("idct_planes", coefs_t, L, g, qtabs, nmat, *planes,
+                    *[None] * (4 - n))
+    return planes
 
 
 def postprocess_packed_plain(planes: List[torch.Tensor], geo: Geometry,

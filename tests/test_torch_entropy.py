@@ -19,6 +19,8 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import fusedpack as tfp
 from gpujpeg_tpu_torch.ops import sample as tsample
 
+from .test_torch_kernels import _edge_blocks
+
 
 def _frame(h, w, seed, amp=40):
     rng = np.random.default_rng(seed)
@@ -100,21 +102,26 @@ def _jax_dct_coefs(luma, S, B, nblocks):
 
 
 @pytest.mark.parametrize("luma", [True, False])
-@pytest.mark.parametrize("source", ["synthetic", "jax_dct"])
+@pytest.mark.parametrize("source", ["synthetic", "jax_dct", "edge"])
 def test_huffman_plain_matches_coefficient_megakernel(rng, source, luma):
     S, B, nblocks = 12, 8, 12 * 8 - 3               # short last segment
     if source == "jax_dct":
         coefs = _jax_dct_coefs(luma, S, B, nblocks)
     else:
-        coefs = _synthetic_coefs(rng, S, B)
+        # edge: the card tests' edge blocks (ZRL runs of 15 to 48, runs
+        # that end at 63, DC steps of size 11, all-ones value bits, rows
+        # at their longest coding)
+        coefs = (_edge_blocks(rng, S * B).reshape(S, B, 64)
+                 if source == "edge" else _synthetic_coefs(rng, S, B))
         coefs.reshape(-1, 64)[nblocks:] = 0
     valid = (np.arange(S * B).reshape(S, B) < nblocks).astype(np.int32)
     rstm = np.asarray([0xD0 + (s % 8) for s in range(S - 1)] + [0],
                       np.uint32)
     r, ob, needs = jfp.entropy_fused(
         jnp.asarray(coefs.reshape(S, B * 64).T), jnp.asarray(valid.T),
-        jnp.asarray(np.full((1, S), int(luma), np.int32)), rstm, 64, 1024,
-        jt.entropy_kernel_consts(75), interpret=True)
+        jnp.asarray(np.full((1, S), int(luma), np.int32)), rstm,
+        128 if source == "edge" else 64, 1024, jt.entropy_kernel_consts(75),
+        interpret=True)
     tabs = tfp.class_tables(75, luma, "cpu")
     rows, rb, t_needs = tfp.huffman_segments(
         torch.from_numpy(coefs.reshape(S, B * 64)), nblocks, tabs)

@@ -97,6 +97,7 @@ def _inputs(rng, S, B, holes):
     (75, 12, 8, ((4, 3),)),                       # one interior hole
     (90, 12, 8, ((1, 0), (8, 7), (9, 4))),        # row starts and ends
     (50, 10, 6, ((2, 2), (2, 3))),                # 6 blocks, padded to 8
+    (75, 10, 4, ((3, 1),)),                       # 4 blocks, padded to 8
 ])
 def test_entropy_fused_plain_matches_megakernel(rng, q, S, B, holes):
     coefs, valid, luma, rstm = _inputs(rng, S, B, holes)

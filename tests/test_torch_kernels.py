@@ -129,13 +129,15 @@ def test_interleaved_wrappers_refuse_other_devices():
     hf = gt.Decoder(device="cpu").prepare(data)
     geo, pi = hf.plan.geo, hf.out_pi
     L = geo.segment_count * geo.max_blocks_per_seg
-    c = geo.components[1]
     with pytest.raises(ValueError, match="CUDA"):
         tpre.idct_planes(meta(64, L, dt=torch.int16),
-                         meta(64, dt=torch.float32), geo, c)
+                         meta(3, 64, dt=torch.float32), geo)
     with pytest.raises(ValueError, match="int16"):
         tpre.idct_planes(meta(64, L - 1, dt=torch.int16),
-                         meta(64, dt=torch.float32), geo, c)
+                         meta(3, 64, dt=torch.float32), geo)
+    with pytest.raises(ValueError, match="quant tables"):
+        tpre.idct_planes(meta(64, L, dt=torch.int16),
+                         meta(64, dt=torch.float32), geo)
     planes = [meta(k.data_height, k.data_width, dt=torch.uint8)
               for k in geo.components]
     with pytest.raises(ValueError, match="CUDA"):
@@ -518,28 +520,81 @@ def _il_geo(samp, hw):
         _il_params(SAMPLINGS.get(samp, ((1, 1),) * 3)))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("samp", ["420", "444"])
-@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311)])
-def test_idct_planes_matches_plain(cuda, samp, hw):
+def _idct_inputs(geo, cuda, seed=7):
+    """Dense and sparse random coefficients of geo's (64, L) layout, and
+    the components' quant tables, on the card."""
     from gpujpeg_tpu_torch.utils import tables as tt
 
-    geo = _il_geo(samp, hw)
     L = geo.segment_count * geo.max_blocks_per_seg
-    g = torch.Generator().manual_seed(7)
+    g = torch.Generator().manual_seed(seed)
     dense = torch.randint(-600, 600, (64, L), dtype=torch.int16, generator=g)
     sparse = torch.where(torch.rand((64, L), generator=g) < 0.8, 0,
                          dense // 8)
-    for co in (dense.to(cuda), sparse.to(cuda)):
-        for c in geo.components:
-            q = torch.from_numpy(tt.quant_table_zz(
-                c.index == 0, 75).astype(np.float32)).to(cuda)
-            _kernels.reset_launches()
-            got = tpre.idct_planes(co, q, geo, c)
-            torch.cuda.synchronize()
-            assert _kernels.LAUNCHES["idct_planes"] == 1
-            assert got.shape == (c.data_height, c.data_width)
-            assert torch.equal(got, tpre.idct_planes_plain(co, q, geo, c))
+    q = torch.from_numpy(np.stack([tt.quant_table_zz(c.index == 0, 75)
+                                   for c in geo.components]).astype(
+        np.float32)).to(cuda)
+    return [dense.to(cuda), sparse.to(cuda)], q
+
+
+def _check_idct_planes(co, q, geo):
+    _kernels.reset_launches()
+    got = tpre.idct_planes(co, q, geo)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["idct_planes"] == 1
+    assert len(got) == geo.comp_count
+    for c, plane in zip(geo.components, got):
+        assert plane.shape == (c.data_height, c.data_width)
+        assert torch.equal(plane,
+                           tpre.idct_planes_plain(co, q[c.index], geo, c))
+
+
+@pytest.mark.parametrize("samp", ["420", "422", "440", "444", "planar420"])
+def test_idct_planes_cpu_returns_every_plane(samp):
+    """On the CPU the one-call wrapper returns each component's plain
+    plane, at its (data_h, data_w), for every layout the kernel takes."""
+    geo = (_planar_geo(samp[-3:], (40, 56)) if samp.startswith("planar")
+           else _il_geo(samp, (40, 56)))
+    cos, q = _idct_inputs(geo, "cpu")
+    planes = tpre.idct_planes(cos[0], q, geo)
+    assert len(planes) == geo.comp_count
+    for c, plane in zip(geo.components, planes):
+        assert plane.dtype == torch.uint8
+        assert plane.shape == (c.data_height, c.data_width)
+        assert torch.equal(plane, tpre.idct_planes_plain(cos[0], q[c.index],
+                                                         geo, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["420", "422", "440", "444", "planar420"])
+@pytest.mark.parametrize("hw", [(1080, 1920), (233, 311)])
+def test_idct_planes_matches_plain(cuda, samp, hw):
+    """One launch a frame, every component's plane equal to the plain
+    version: interleaved scans at each sampling, and the non-interleaved
+    frame that dpost does not tile."""
+    geo = (_planar_geo(samp[-3:], hw) if samp.startswith("planar")
+           else _il_geo(samp, hw))
+    cos, q = _idct_inputs(geo, cuda)
+    for co in cos:
+        _check_idct_planes(co, q, geo)
+
+
+@pytest.mark.gpu
+def test_idct_planes_unaligned_layouts(cuda):
+    """A layout whose L is not a multiple of 8 (2-byte loads), and
+    coefficients whose base is 2 bytes off 16."""
+    geo = gt.Encoder(device="cpu").resolve(
+        np.zeros((233, 311, 3), np.uint8),
+        _il_params(((1, 1),) * 3, rst=1))
+    L = geo.segment_count * geo.max_blocks_per_seg
+    assert L % 8
+    cos, q = _idct_inputs(geo, cuda, seed=9)
+    for co in cos:
+        _check_idct_planes(co, q, geo)
+        flat = torch.zeros(64 * L + 1, dtype=torch.int16, device=cuda)
+        moved = flat[1:].view(64, L)
+        moved.copy_(co)
+        assert moved.data_ptr() % 16 == 2
+        _check_idct_planes(moved, q, geo)
 
 
 @pytest.mark.gpu
@@ -673,6 +728,146 @@ def test_huffman_one_slot_is_the_segment_contract(cuda):
         assert _rows_equal(out[0], out[1], other[0], other[1])
 
 
+def _edge_blocks(rng, n):
+    """n blocks of the Huffman coder's edge cases, cycling through: zero
+    runs of 15, 16, 17, 31, 32, 48 before one nonzero, runs that end at
+    coefficient 63 (EOB only), a last nonzero at 63 after a long run,
+    all-ones value bits (0xFF bytes anywhere in a word), every AC slot at
+    size 10 (a block's longest coding), and DC steps of size 11."""
+    out = np.zeros((n, 64), np.int16)
+    for i in range(n):
+        kind = i % 9
+        if kind < 6:                     # a run of r zeros, then 1 nonzero
+            r = (15, 16, 17, 31, 32, 48)[kind]
+            out[i, 1 + r] = rng.choice([1, -1, 511, -1023])
+        elif kind == 6:                  # runs of 16, 32, 48 to the end
+            out[i, 63 - 16 * (1 + i % 3)] = 7
+            out[i, 63] = 3 * (i % 2)
+        elif kind == 7:                  # value bits all ones
+            k = rng.integers(1, 11, 64)
+            sign = rng.choice([1, -1], 64)
+            v = np.where(sign > 0, (1 << k) - 1, -((1 << k) - 1))
+            out[i] = np.where(rng.random(64) < 0.6, v, 0)
+        else:                            # longest coding: size 10 everywhere
+            out[i] = rng.choice([1023, -1023, 512, -512], 64)
+        out[i, 0] = rng.choice([-1024, 1023, 0, 5])    # DC steps of size 11
+    return out
+
+
+def _unstuffed(row, marker):
+    """A stuffed row's scan bytes without the 0x00 after each 0xFF and
+    without its marker."""
+    data = row[:len(row) - (2 if marker else 0)]
+    keep = np.ones(len(data), bool)
+    keep[1:] = ~((data[:-1] == 0xFF) & (data[1:] == 0))
+    return data[keep]
+
+
+def _ff_coverage(rows, rb, markers):
+    """Where the rows' 0xFF bytes fall: the byte positions in a 32-bit
+    word, whether one is the last byte (pad included) and the byte before
+    it."""
+    seen = set()
+    rows, rb, markers = rows.cpu().numpy(), rb.cpu().numpy(), \
+        markers.cpu().numpy()
+    for r in range(rows.shape[0]):
+        u = _unstuffed(rows[r, :rb[r]], markers[r])
+        ff = np.flatnonzero(u == 0xFF)
+        seen.update(f"word byte {p % 4}" for p in ff)
+        if len(u) and u[-1] == 0xFF:
+            seen.add("last")
+        if len(u) > 1 and u[-2] == 0xFF:
+            seen.add("before last")
+    return seen
+
+
+#: (bpm, slot classes, slot components): one slot, and the interleaved
+#: patterns of 4:4:4, 4:2:2, 4:2:0 and a 16-slot MCU
+HUFF_PATTERNS = {1: ((0,), (0,)), 3: ((0, 1, 1), (0, 1, 2)),
+                 4: ((0, 0, 1, 1), (0, 0, 1, 2)),
+                 6: ((0, 0, 0, 0, 1, 1), (0, 0, 0, 0, 1, 2)),
+                 16: ((0,) * 8 + (1,) * 8, (0,) * 4 + (1,) * 4 + (2,) * 4
+                      + (3,) * 4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bpm", list(HUFF_PATTERNS))
+@pytest.mark.parametrize("masked", [False, True])
+def test_huffman_kernel_edge_rows(cuda, bpm, masked):
+    """A warp a row against the plain coder on rows of edge blocks: 0xFF at
+    every byte of a word and before the pad and the marker, ZRL runs, DC
+    steps of size 11, rows at their longest coding; every slot pattern with
+    per-row class flags; a valid mask with holes, or a prefix of blocks
+    that is not a multiple of B."""
+    rng = np.random.default_rng(20 + bpm)
+    B = bpm * max(1, 8 // bpm)
+    S = 1500
+    coefs = _edge_blocks(rng, S * B).reshape(S, B * 64)
+    x = torch.from_numpy(coefs).to(cuda)
+    classes = (tfp.class_tables(75, True, cuda),
+               tfp.class_tables(75, False, cuda))
+    st = tfp.SlotTables(classes, *HUFF_PATTERNS[bpm])
+    markers = torch.from_numpy(np.where(
+        rng.random(S) < 0.2, 0, 0xD0 + np.arange(S) % 8).astype(
+        np.int32)).to(cuda)
+    luma = torch.from_numpy((rng.random(S) < 0.5).astype(np.int32)).to(cuda)
+    if masked:
+        args = (None, st, markers, torch.from_numpy(
+            rng.random((S, B)) < 0.85).to(cuda), luma)
+    else:
+        args = (S * B - B // 2 - 1, st, markers, None, luma)
+    _kernels.reset_launches()
+    rows, rb, needs = tfp.huffman_segments(x, *args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffman_segments"] == 1
+    p_rows, p_rb, p_needs = tfp.huffman_segments_plain(x, *args)
+    assert torch.equal(needs, p_needs)
+    assert _rows_equal(rows, rb, p_rows, p_rb)
+    assert int(needs[1]) <= rows.shape[1]
+    assert _ff_coverage(p_rows, p_rb, markers) == {
+        "word byte 0", "word byte 1", "word byte 2", "word byte 3", "last",
+        "before last"}
+
+
+@pytest.mark.gpu
+def test_huffman_probe_uncounted(cuda):
+    """The Huffman coder's probe stages: the full stage equals the kernel,
+    the cut stages launch, and none is counted."""
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(_edge_blocks(rng, 400 * 8).reshape(400, 512)).to(
+        cuda)
+    tabs = tfp.class_tables(75, True, cuda)
+    want = tfp.huffman_segments(x, 400 * 8 - 3, tabs)
+    _kernels.reset_launches()
+    for stage in _kernels.PROBE_STAGES:
+        got = tfp.huffman_segments_probe(x, 400 * 8 - 3, tabs, stage)
+        torch.cuda.synchronize()
+        if stage == "full":
+            assert torch.equal(got[2], want[2])
+            assert _rows_equal(got[0], got[1], want[0], want[1])
+    assert _kernels.LAUNCHES["huffman_segments"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [256, 1024])
+def test_huffman_kernel_long_rows(cuda, B):
+    """Rows longer than a warp's bit buffer (restart interval 0 codes one
+    row of a whole plane): the buffer is emptied mid-row, with no byte
+    lost or stuffed twice."""
+    rng = np.random.default_rng(B)
+    S = 24
+    coefs = _edge_blocks(rng, S * B)
+    coefs = np.where(rng.random(coefs.shape) < 0.3, 0, coefs)
+    x = torch.from_numpy(coefs.reshape(S, B * 64)).to(cuda)
+    tabs = tfp.class_tables(75, True, cuda)
+    nblocks = S * B - 7
+    rows, rb, needs = tfp.huffman_segments(x, nblocks, tabs)
+    p_rows, p_rb, p_needs = tfp.huffman_segments_plain(x, nblocks, tabs)
+    assert torch.equal(needs, p_needs)
+    assert _rows_equal(rows, rb, p_rows, p_rb)
+    assert int(needs[1]) > 8 * 512
+
+
 def _planar_geo(samp, hw):
     frame = np.zeros((*hw, 3), np.uint8)
     return gt.Encoder(device="cpu").resolve(frame, gt.Parameters(
@@ -776,7 +971,7 @@ def test_new_layouts_on_card_match_cpu(cuda, layout, hw):
     fused = tpre.decode_post_supported(hf.plan.geo, hf.out_pi)
     assert fused == (layout != "il444" and hw[0] != 1080 and hw[1] != 311)
     assert _kernels.LAUNCHES["dpost_rgb"] == int(fused)
-    assert _kernels.LAUNCHES["idct_planes"] == 3 * (1 - int(fused))
+    assert _kernels.LAUNCHES["idct_planes"] == 1 - int(fused)
     assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
 
 
@@ -833,7 +1028,11 @@ def test_probes_take_cuda_tensors_only():
         tpre.decode_post_probe(torch.zeros((64, L), dtype=torch.int16),
                                torch.zeros((3, 64)), geo, pi, "no_store")
     assert set(_kernels.PROBE_STAGES) == {"full", "load_store", "no_store"}
-    assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb"}
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.huffman_segments_probe(torch.zeros((4, 512), dtype=torch.int16),
+                                   30, tabs, "load_store")
+    assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb",
+                                    "huffman_segments"}
 
 
 # -- MCU-order store of fdct_quant (the interleaved feed relayout) ----------
