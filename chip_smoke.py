@@ -33,7 +33,10 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
         read over those three), prints their PSNR against the source
         frames, per-frame wall ms (those three and EXTRA_FRAMES more,
         bytes in to a host array out) and a stage breakdown;
-     d. times each decode kernel at the main path's shapes;
+     d. times each decode kernel at the main path's shapes; phase A's
+        record also counts the tokens it walks (a DC a block, a nonzero
+        AC coefficient, ZRLs and EOBs, from the decoded coefficients)
+        and its ns a token;
   7. runs the interleaved 4:2:0 path (one scan, luma 2x2, chroma 1x1,
      Q75, restart interval auto = 1 MCU a segment; libjpeg's default
      layout):
@@ -62,12 +65,14 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      Huffman coder and its
      coefficient-input mode (the three planes' coefficients as rows of 8
      blocks, a class flag a row, one interior masked block, a zero marker
-     mid-scan) against their plain versions; decode through the IDCT
-     planes (one launch a frame, held against its plain version as the
-     record idct_planes:444) and the postprocessor;
+     mid-scan) against their plain versions; decode through phase A in
+     pattern mode, the IDCT planes (one launch a frame) and the
+     postprocessor, each held against its plain version and timed (the
+     records huffdec_scan:pattern_444, idct_planes:444, post_rgb:444);
   9. the same four steps for planar 4:2:0 (three non-interleaved scans,
      luma 2x2, chroma 1x1, 8 blocks a segment): the fused decode tail at
-     dx = dy = 2 against its plain version; encode through the decimating
+     dx = dy = 2 and phase A over the three scans against their plain
+     versions (huffdec_scan:planar_420); encode through the decimating
      preprocessor, the DCT and the one-slot Huffman coder per component;
  10. [relayout]: the four relayout and primitive kernels of
      csrc/relayout.cu (the H100 counterparts of the JAX package's TPU
@@ -89,7 +94,8 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
  12. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
-     yardstick where one exists; a note where a record is on no path);
+     yardstick where one exists; phase A's tokens and ns a token on each
+     of the four paths; a note where a record is on no path);
  13. prints {"ok": true, "device": {...}} as its last line.
 
 Launches are counted in windows around each path's three 8K frames
@@ -269,6 +275,65 @@ def huffman_bound_ms(coefs, rb, extra: int = 0) -> float:
             + int(rb.sum()) + 4 * rb.numel() + extra) / PEAK_BYTES_S * 1e3
 
 
+def scan_call(words, nbits, p):
+    """Phase A as the decoder calls it: the plan's slot pattern and
+    lookahead table."""
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+    return thd.scan_segments(words, nbits, p.nblocks, p.dc_luma, p.ac_luma,
+                             p.tables, p.bps, p.pattern, p.scan_lut)
+
+
+def scan_check(torch, words, nbits, p):
+    """Phase A's kernel against its plain version on the same rows:
+    (bstart, err, max_abs_err, plain ms)."""
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+    bstart, err = scan_call(words, nbits, p)
+    (p_bstart, p_err), ms = once_ms(torch, lambda: thd.scan_segments_plain(
+        words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps,
+        p.pattern))
+    return bstart, err, max(diff(bstart, p_bstart), diff(err, p_err)), ms
+
+
+def scan_tokens(torch, coefs, p) -> int:
+    """Tokens phase A walks in a frame, counted from the frame's decoded
+    coefficients (64, nseg * bps): a DC token a block, a token a nonzero
+    AC coefficient, a ZRL for every 16 zeros before one, and an EOB where
+    a block's last nonzero AC coefficient lies before position 63."""
+    dev = coefs.device
+    nseg = coefs.shape[1] // p.bps
+    valid = (torch.arange(p.bps, device=dev)[None, :]
+             < p.nblocks.to(dev)[:, None]).reshape(-1)
+    total = 0
+    for c0 in range(0, coefs.shape[1], 1 << 18):
+        co = coefs[1:, c0:c0 + (1 << 18)]
+        ac = co != 0
+        pos = torch.arange(1, 64, device=dev, dtype=torch.int32)[:, None]
+        last = torch.where(ac, pos, 0).cummax(0).values
+        prev = torch.cat([torch.zeros_like(last[:1]), last[:-1]])
+        zrl = torch.where(ac, (pos - prev - 1) // 16, 0).sum(0)
+        per_block = 1 + ac.sum(0) + zrl + (last[-1] < 63).int()
+        total += int(per_block[valid[c0:c0 + (1 << 18)]].sum())
+    assert nseg * p.bps == coefs.shape[1]
+    return total
+
+
+def scan_times(torch, k, words, nbits, coefs, p, flush) -> None:
+    """Phase A's ms a launch at the path's shapes into record k, its bytes
+    bound (the words the segments' bits fill, four per-segment vectors,
+    the tables and the lookahead table read once, bstart and err written
+    once), and its tokens a launch and ns a token."""
+    k["ms"] = event_ms(torch, lambda: scan_call(words, nbits, p), 20, flush)
+    nseg = words.shape[0]
+    read = (stream_word_bytes(nbits) + 4 * nseg * 4 + p.tables.numel() * 4
+            + p.scan_lut.numel() * 2)
+    k["bound_ms"] = (read + nseg * (p.bps + 1) * 4 + nseg) \
+        / PEAK_BYTES_S * 1e3
+    k["tokens"] = scan_tokens(torch, coefs, p)
+    k["ns_per_token"] = k["ms"] * 1e6 / k["tokens"]
+
+
 def planar_encode_stages(torch, enc, frame, params, stream, tag):
     """Stage breakdown of one encode of non-interleaved scans; returns
     what the per-launch timings reuse."""
@@ -332,7 +397,7 @@ def dpost_decode_stages(torch, np, dec, data, tag):
     words, nbits = dec.upload(hf)
     ev[1].record()
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps)
+    bstart, _ea = scan_call(words, nbits, p)
     ev[2].record()
     coefs, _ec = thd.decode_blocks(words, bstart, *args)
     ev[3].record()
@@ -400,12 +465,8 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
     for what, data in (("gradient", streams[0]), ("noise", noise_stream)):
         hf = dec.prepare(data)
         p, words, nbits, args = inputs(hf)
-        bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps)
-        (p_bstart, p_err_a), ms_a = once_ms(
-            torch, lambda: thd.scan_segments_plain(words, nbits, *args, p.bps))
-        record_err("huffdec_scan", max(
-            int((bstart - p_bstart).abs().max()),
-            int((err_a != p_err_a).sum())), what)
+        bstart, err_a, err, ms_a = scan_check(torch, words, nbits, p)
+        record_err("huffdec_scan", err, what)
         coefs, err_c = thd.decode_blocks(words, bstart, *args)
         (p_coefs, p_err_c), ms_c = once_ms(
             torch, lambda: thd.decode_blocks_plain(words, bstart, *args))
@@ -431,7 +492,7 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
             f"{words.shape[0]} segments x {words.shape[1]} words, "
             f"{coefs.shape[1]} block slots; plain ms {ms_a:.1f} / "
             f"{ms_c:.1f} / {ms_d:.1f}")
-        del coefs, img, p_img, words, bstart, p_bstart
+        del coefs, img, p_img, words, bstart
 
     # -- b. HD pixels: card == CPU -----------------------------------------
     hd = make_frame(torch, "gradient", 22, 1080, 1920, dev).cpu().numpy()
@@ -477,17 +538,13 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
 
     # -- d. per-kernel times at the main path's shapes ---------------------
-    kernels["huffdec_scan"]["ms"] = event_ms(
-        torch, lambda: thd.scan_segments(words, nbits, *args, p.bps), 20,
-        flush)
+    scan_times(torch, kernels["huffdec_scan"], words, nbits, coefs, p, flush)
     kernels["huffdec_block"]["ms"] = event_ms(
         torch, lambda: thd.decode_blocks(words, bstart, *args), 20, flush)
     nseg, W = words.shape
     L = coefs.shape[1]
     seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4   # nbits + 3 flags
     w_bytes = stream_word_bytes(nbits)
-    kernels["huffdec_scan"]["bound_ms"] = (
-        w_bytes + seg_bytes + bstart.numel() * 4 + nseg) / PEAK_BYTES_S * 1e3
     kernels["huffdec_block"]["bound_ms"] = (
         w_bytes + seg_bytes + bstart.numel() * 4 + L * 64 * 2 + L * 4) \
         / PEAK_BYTES_S * 1e3
@@ -738,13 +795,8 @@ def interleaved_phases(torch, np, gt, dev, flush):
         words = torch.from_numpy(hf.words).to(dev)
         nbits = torch.from_numpy(hf.nbits).to(dev)
         args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-        bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps,
-                                          p.pattern)
-        (p_bstart, p_err_a), ms_a = once_ms(
-            torch, lambda: thd.scan_segments_plain(words, nbits, *args, p.bps,
-                                                   p.pattern))
-        record_err("huffdec_scan:pattern",
-                   max(diff(bstart, p_bstart), diff(err_a, p_err_a)), fkind)
+        bstart, err_a, err, ms_a = scan_check(torch, words, nbits, p)
+        record_err("huffdec_scan:pattern", err, fkind)
         coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern)
         (p_coefs, p_err_c), ms_c = once_ms(
             torch, lambda: thd.decode_blocks_plain(words, bstart, *args,
@@ -928,9 +980,8 @@ def interleaved_phases(torch, np, gt, dev, flush):
 
     # -- d. per-launch times of the decode side at the path's shapes -------
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-    kernels["huffdec_scan:pattern"]["ms"] = event_ms(
-        torch, lambda: thd.scan_segments(words, nbits, *args, p.bps,
-                                         p.pattern), 20, flush)
+    scan_times(torch, kernels["huffdec_scan:pattern"], words, nbits, coefs,
+               p, flush)
     kernels["huffdec_block:pattern"]["ms"] = event_ms(
         torch, lambda: thd.decode_blocks(words, bstart, *args, p.pattern),
         20, flush)
@@ -942,8 +993,6 @@ def interleaved_phases(torch, np, gt, dev, flush):
     nseg = words.shape[0]
     seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4
     w_bytes = stream_word_bytes(nbits)
-    kernels["huffdec_scan:pattern"]["bound_ms"] = (
-        w_bytes + seg_bytes + bstart.numel() * 4 + nseg) / PEAK_BYTES_S * 1e3
     kernels["huffdec_block:pattern"]["bound_ms"] = (
         w_bytes + seg_bytes + bstart.numel() * 4 + L * 64 * 2 + L * 4) \
         / PEAK_BYTES_S * 1e3
@@ -1048,6 +1097,16 @@ def il444_phases(torch, np, gt, dev, flush):
             # no pallas_call: the JAX package's XLA interleaved tail
             replaces="gpujpeg_tpu/models/decoder.py:305",
             bound_by="operations", err=0),
+        "huffdec_scan:pattern_444": dict(
+            key="huffdec_scan",
+            source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:590",
+            bound_by="bytes", library_ms=None, err=0),
+        "post_rgb:444": dict(
+            key="post_rgb",
+            source="gpujpeg_tpu_torch/csrc/post_rgb.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:231",
+            bound_by="bytes", library_ms=None, err=0),
     }
 
     def record_err(name, err, what):
@@ -1097,9 +1156,14 @@ def il444_phases(torch, np, gt, dev, flush):
                    rows_err(torch, *k_out, *p_out), fkind)
         max_row = int(k_out[2][1])
         del p_out, rows_in
-        # the IDCT planes of the decoded scan, one launch
+        # phase A, then the IDCT planes of the decoded scan (one launch)
+        # and the postprocessor
         hf = dec.prepare(enc.assemble(geo, {"rows": [k_out[0]],
                                             "row_bytes": [k_out[1]]}))
+        words, nbits = dec.upload(hf)
+        _b, _e, err, ms_scan = scan_check(torch, words, nbits, hf.plan)
+        record_err("huffdec_scan:pattern_444", err, fkind)
+        del words, _b, _e
         coefs, err_a, err_c = dec.coefficients_t(hf)
         if bool(err_a.any()) or bool(err_c.any()):
             raise AssertionError(f"8K 4:4:4 interleaved {fkind} stream "
@@ -1109,7 +1173,13 @@ def il444_phases(torch, np, gt, dev, flush):
         ms_idct = idct_planes_check(torch, coefs, hf.plan, dplanes,
                                     lambda e: record_err("idct_planes:444",
                                                          e, fkind))
-        del k_out, hf, coefs, dplanes
+        img = prepost_kernel.postprocess_packed(dplanes, hf.plan.geo,
+                                                hf.out_pi)
+        ref, ms_post = once_ms(
+            torch, lambda: prepost_kernel.postprocess_packed_plain(
+                dplanes, hf.plan.geo, hf.out_pi))
+        record_err("post_rgb:444", diff(img, ref), fkind)
+        del k_out, hf, coefs, dplanes, img, ref
         cm = coefs_mode_inputs(planes, geo)
         k_out = fusedpack.entropy_fused(*cm, classes)
         cst = fusedpack.SlotTables(classes, (0,), (0,))
@@ -1122,13 +1192,15 @@ def il444_phases(torch, np, gt, dev, flush):
             kernels["huffman_segments:pattern"]["plain_ms"] = ms_pat
             kernels["huffman_segments:coefs"]["plain_ms"] = ms_coefs
             kernels["idct_planes:444"]["plain_ms"] = ms_idct
+            kernels["huffdec_scan:pattern_444"]["plain_ms"] = ms_scan
+            kernels["post_rgb:444"]["plain_ms"] = ms_post
             coefs_in = cm
         log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: fdct (MCU "
             f"order), huffman pattern ({geo.segment_count} rows of "
             f"{geo.blocks_per_mcu} x "
             f"{geo.segment_mcu_count} blocks, max row {max_row} B) and "
             f"coefficient-input mode ({cm[0].shape[0]} rows of 8 blocks), "
-            "idct planes (one launch) equal to plain")
+            "scan (pattern), idct planes (one launch), post equal to plain")
         del p_out, k_out, planes, frame, cm
 
     # -- b. HD: card == CPU, bytes and pixels --------------------------------
@@ -1173,9 +1245,9 @@ def il444_phases(torch, np, gt, dev, flush):
     log("[il444 8k enc] stages (CUDA events; assembly on the host clock; "
         f"{rows_in.numel() * 2} B of coefficients in MCU order): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    _b, coefs, _d, _i, _w, _n, p, _h = decode_stages(torch, np, dec,
-                                                      streams[0], "il444")
-    del _b, _d, _i, _w, _n, _h
+    _b, coefs, dplanes, img, words, nbits, p, hf = decode_stages(
+        torch, np, dec, streams[0], "il444")
+    del _b
 
     # -- d. per-launch times at the path's shapes ----------------------------
     kernels["huffman_segments:pattern"]["ms"] = event_ms(
@@ -1198,6 +1270,13 @@ def il444_phases(torch, np, gt, dev, flush):
     kernels["huffman_segments:coefs"]["bound_ms"] = huffman_bound_ms(
         coefs_in[0], c_rb, coefs_in[1].numel() + 4 * c_rb.numel())
     idct_planes_times(torch, kernels["idct_planes:444"], coefs, p, flush)
+    scan_times(torch, kernels["huffdec_scan:pattern_444"], words, nbits,
+               coefs, p, flush)
+    kernels["post_rgb:444"]["ms"] = event_ms(
+        torch, lambda: prepost_kernel.postprocess_packed(
+            dplanes, p.geo, hf.out_pi), 20, flush)
+    kernels["post_rgb:444"]["bound_ms"] = (
+        sum(d.numel() for d in dplanes) + img.numel()) / PEAK_BYTES_S * 1e3
     log_times("il444 time", kernels)
     return kernels, {name: launches[k["key"]] for name, k in kernels.items()}
 
@@ -1218,13 +1297,26 @@ def planar_phases(torch, np, gt, dev, flush):
             source="gpujpeg_tpu_torch/csrc/dpost_rgb.cu",
             replaces="gpujpeg_tpu/ops/prepost_kernel.py:379",
             bound_by="operations", err=0),
+        "huffdec_scan:planar_420": dict(
+            key="huffdec_scan",
+            source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:590",
+            bound_by="bytes", library_ms=None, err=0),
     }
 
-    # -- a. dpost at dx = dy = 2 against its plain version at 8K ------------
+    # -- a. phase A and dpost at dx = dy = 2 against their plain versions --
     for fkind, seed in (("gradient", 51), ("noise", 52)):
         frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
         data = enc.encode(frame, params)
         hf = dec.prepare(data)
+        words, nbits = dec.upload(hf)
+        _b, _e, err, ms_scan = scan_check(torch, words, nbits, hf.plan)
+        kernels["huffdec_scan:planar_420"]["err"] = max(
+            kernels["huffdec_scan:planar_420"]["err"], err)
+        if err:
+            raise AssertionError(f"huffdec_scan:planar_420 differs from its "
+                                 f"plain version ({fkind})")
+        del words, _b, _e
         coefs, err_a, err_c = dec.coefficients_t(hf)
         if bool(err_a.any()) or bool(err_c.any()):
             raise AssertionError(f"8K planar 4:2:0 {fkind} stream decodes "
@@ -1244,9 +1336,10 @@ def planar_phases(torch, np, gt, dev, flush):
                                  f"plain version ({fkind})")
         if fkind == "gradient":
             kernels["dpost_rgb:subsampled"]["plain_ms"] = ms
+            kernels["huffdec_scan:planar_420"]["plain_ms"] = ms_scan
         log(f"[planar kernels] 8K planar 4:2:0 {fkind}: {len(data)} B, "
-            f"{geo.segment_count} segments in 3 scans, dpost (dx = dy = 2) "
-            f"equal to plain, PSNR "
+            f"{geo.segment_count} segments in 3 scans, scan and dpost (dx = "
+            f"dy = 2) equal to plain, PSNR "
             f"{psnr(np, img.cpu().numpy(), frame.cpu().numpy()):.2f} dB")
         del coefs, img, ref, frame
 
@@ -1261,12 +1354,14 @@ def planar_phases(torch, np, gt, dev, flush):
         ("pack_stuff_rows", "idct_planes", "post_rgb"))
     planar_encode_stages(torch, enc, frames[0], params, streams[0],
                          "planar 4:2:0 8k enc")
-    _w, _n, _b, coefs, img, p, hf = dpost_decode_stages(
+    words, nbits, _b, coefs, img, p, hf = dpost_decode_stages(
         torch, np, dec, streams[0], "planar 4:2:0 8k dec")
 
-    # -- d. dpost's time, bound and yardstick at the path's shapes ----------
+    # -- d. times, bounds and yardstick at the path's shapes ----------------
     dpost_times(torch, kernels["dpost_rgb:subsampled"], coefs, img, p, hf,
                 flush)
+    scan_times(torch, kernels["huffdec_scan:planar_420"], words, nbits,
+               coefs, p, flush)
     log_times("planar time", kernels)
     return kernels, {name: launches[k_["key"]]
                      for name, k_ in kernels.items()}
@@ -1291,7 +1386,7 @@ def decode_stages(torch, np, dec, data, what):
     words, nbits = dec.upload(hf)
     ev[1].record()
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-    bstart, _ea = thd.scan_segments(words, nbits, *args, p.bps, p.pattern)
+    bstart, _ea = scan_call(words, nbits, p)
     ev[2].record()
     coefs, _ec = thd.decode_blocks(words, bstart, *args, p.pattern)
     ev[3].record()
@@ -1408,10 +1503,12 @@ def relayout_phase(torch, dev, flush):
 def log_times(tag, kernels):
     for name, k in kernels.items():
         lib = k["library_ms"]
+        tokens = (f", {k['tokens']} tokens, {k['ns_per_token']:.4f} ns a "
+                  "token" if "tokens" in k else "")
         log(f"[{tag}] {name}: {k['ms']:.4f} ms per launch (bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
             f"{k['plain_ms']:.3f} ms, library "
-            f"{'-' if lib is None else format(lib, '.4f')} ms")
+            f"{'-' if lib is None else format(lib, '.4f')} ms{tokens}")
 
 
 def main() -> int:
@@ -1670,7 +1767,8 @@ def main() -> int:
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"],
-         **({"note": k["note"]} if "note" in k else {})}
+         **{key: k[key] for key in ("tokens", "ns_per_token", "note")
+            if key in k}}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

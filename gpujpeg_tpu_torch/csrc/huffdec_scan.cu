@@ -7,12 +7,8 @@
 // its tokens in lockstep with 1,023 others, refilling its window through
 // a select chain over the row's words; here one thread walks one segment
 // row, as the reference decoder does (gpujpeg_huffman_gpu_decoder.cu:
-// 390-536), reading its row through the L1 cache and decoding each token
-// from the class's canonical table in shared memory (huffdec.cuh); a
-// block's class comes from its segment's flags and, in an interleaved
-// scan, from the slot pattern of its MCU (huffdec.cuh).  The
-// byteswap of the big-endian stream happens on load, in place of the JAX
-// package's separate pass over the matrix.
+// 390-536).  A block's class comes from its segment's flags and, in an
+// interleaved scan, from the slot pattern of its MCU (huffdec.cuh).
 //
 // Semantics as _scan_kernel_body: bstart[s][0] = 0, bstart[s][b+1] is the
 // bit cursor after block b, entries past the last decoded block hold
@@ -25,11 +21,39 @@
 //
 // Bound: bytes.  At 8K Q75 the kernel reads the 25.7 MB word matrix and
 // writes 7.0 MB of bstart, about 0.010 ms at 3.35 TB/s.  In practice it
-// is bound by the serial walk: a thread decodes bps blocks of up to 64
-// tokens each, one dependent table lookup after another, and the threads
-// of a warp diverge on their token counts.  The design keeps that walk
-// short (one thread per segment: 194,400 threads at 8K, 1,519 CTAs of
-// 128) and its tables in shared memory.
+// is bound by the serial walk: about 84 tokens a segment at 8K Q75, one
+// after another, and the lanes of a warp diverge on their token counts.
+// What the design cuts is what each step of the walk costs and how many
+// steps there are:
+//
+//   - a lookahead table (ops/huffdec_kernel.scan_lut, built on the host)
+//     indexed by class and the next SCAN_LUT_BITS = 11 bits: a DC entry is
+//     one token, an AC entry the tokens that follow one another inside
+//     the 11 bits, summed: the cursor's advance, the step of the block
+//     position (a ZRL is a step of 16) and whether the last is an end of
+//     block.  One 16-bit shared-memory load a step.  An
+//     entry of 0 (a code longer than 11 bits, or an invalid one), or one
+//     whose step would pass position 64, takes one token from the
+//     canonical tables in shared memory instead (a binary search of the
+//     code lengths).  A block never ends inside an entry but at its last
+//     token, so position and index checks fold into one (a new position
+//     past 64), and an overrun of nbits anywhere in an entry is the error
+//     of its last token: no block boundary lies between.
+//   - a register bit window: 64 bits (MSB first) with at least 32 valid
+//     at each step, refilled a 32-bit word at a time from a 16-byte quad
+//     held in registers; the next quad's load is issued when the current
+//     one is first used, four words ahead.  Loads are 16-byte aligned: a
+//     row starts at any word (rows are W words apart), so the first quad
+//     may begin up to 3 words before the row (those words are skipped),
+//     and a load never leaves the aligned 16 bytes of a word the row owns
+//     (no page is touched that the row does not touch).  Words at and
+//     past W read as 0, as the plain version's; quads wholly past the row
+//     are not loaded.
+//   - bstart stored as the walk goes, a word at a time at a stride of bps
+//     + 1 words between lanes: the L2 merges the lanes' stores; staging
+//     a warp's rows in shared memory to store them coalesced was slower
+//     on three of the four 8K paths (PERF.md, PR 8).  err is one byte a
+//     lane, contiguous.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -41,7 +65,110 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kLutBits = 11;          // huffdec_kernel.SCAN_LUT_BITS
+constexpr int kLutSize = 1 << kLutBits;
+
+// scan_entry layout (ops/huffdec_kernel.scan_entry): advance, step, EOB
+constexpr uint32_t kStepShift = 5, kEob = 1u << 11;
+
+__device__ __forceinline__ uint32_t entry_of(int clen, int sym, bool is_dc) {
+    const uint32_t inc = is_dc ? 1u : (uint32_t)(sym >> 4) + 1u;
+    const uint32_t eob = (!is_dc && sym == 0) ? kEob : 0u;
+    return (uint32_t)(clen + (sym & 15)) | (inc << kStepShift) | eob;
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u16(uint32_t addr) {
+    unsigned short v;
+    asm volatile("ld.shared.u16 %0, [%1];" : "=h"(v) : "r"(addr));
+    return v;
+}
+
+// One token from canonical table t (huffdec.cuh layout) and a left-aligned
+// 16-bit peek: decode_token's (clen, sym), with the code length found by
+// a binary search of the monotone mono[1..15] instead of 15 compares.
+__device__ __forceinline__ void decode_one(const int32_t* t, int p16,
+                                           int& clen, int& sym) {
+    int c = 0;                         // #{l in 1..15 : p16 > mono[l]}
+#pragma unroll
+    for (int half = 8; half >= 1; half >>= 1)
+        if (c + half <= 15 && p16 > t[c + half]) c += half;
+    const int l = c + 1;
+    const int code = p16 >> (16 - l);
+    const int idx = min(max(code + t[17 + l], 0), 255);
+    sym = t[34 + idx];
+    clen = p16 > t[16] ? 0 : l;
+}
+
+// The bits of one segment row, MSB first.
+struct BitWindow {
+    const uint4* q;      // the 16-byte-aligned quad holding the row's word 0
+    int lead;            // words of quad 0 before the row (0..3)
+    int W;
+    int k;               // index of quad cur (from q)
+    uint4 cur;           // quad k as loaded, masked; the next word in .x
+    uint4 next;          // quad k + 1 as loaded
+    uint64_t buf;        // the window; bits past n are 0
+    int n;
+
+    __device__ __forceinline__ uint4 fetch(int kk) const {
+        // load quad kk only when it holds a word of the row
+        const int r0 = 4 * kk - lead;
+        if (max(r0, 0) < W) return __ldg(q + kk);
+        return make_uint4(0u, 0u, 0u, 0u);
+    }
+
+    // quad kk with its words at and past the row's end zeroed (only the
+    // quad that holds the row's last word has any)
+    __device__ __forceinline__ uint4 mask(uint4 v, int kk) const {
+        const int r0 = 4 * kk - lead;
+        if (r0 + 3 >= W) {
+            v.y = r0 + 1 < W ? v.y : 0u;
+            v.z = r0 + 2 < W ? v.z : 0u;
+            v.w = 0u;
+        }
+        return v;
+    }
+
+    // the next word of the row, byteswapped to stream order; the fourth
+    // moves to the next quad and issues the load of the one after
+    __device__ __forceinline__ uint32_t take(int& j) {
+        const uint32_t w = __byte_perm(cur.x, 0, 0x0123);
+        cur.x = cur.y;
+        cur.y = cur.z;
+        cur.z = cur.w;
+        if (++j == 4) {
+            j = 0;
+            ++k;
+            cur = mask(next, k);
+            next = fetch(k + 1);
+        }
+        return w;
+    }
+
+    // append 32 bits (n < 32)
+    __device__ __forceinline__ void refill(int& j) {
+        buf |= (uint64_t)take(j) << (32 - n);
+        n += 32;
+    }
+
+    __device__ __forceinline__ void init(const uint32_t* row, int W_,
+                                         int& j) {
+        const uintptr_t addr = (uintptr_t)row;
+        q = (const uint4*)(addr & ~(uintptr_t)15);
+        lead = (int)((addr >> 2) & 3);
+        W = W_;
+        k = 0;
+        cur = mask(fetch(0), 0);
+        next = fetch(1);
+        j = 0;
+        for (int i = 0; i < lead; ++i) take(j);
+        buf = 0;
+        n = 0;
+        refill(j);
+        refill(j);
+    }
+};
 
 __global__ void __launch_bounds__(kThreads)
 huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
@@ -50,51 +177,76 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                     const int32_t* __restrict__ dc_luma,
                     const int32_t* __restrict__ ac_luma, int bpm,
                     uint32_t dc_pat, uint32_t ac_pat,
-                    const int32_t* __restrict__ tables, int bps,
+                    const int32_t* __restrict__ tables,
+                    const uint16_t* __restrict__ lut_g, int bps,
                     int32_t* __restrict__ bstart, bool* __restrict__ err) {
     __shared__ int32_t tab[gj::kTablesWords];
-    gj::load_tables(tables, tab);
-    const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= nseg) return;
-    const gj::RowReader rd{words + s * (int64_t)W, W};
-    const int nbits = nbits_a[s];
-    const int nb = nblocks_a[s];
-    const int sdc = dc_luma[s], sac = ac_luma[s];
-    int32_t* out = bstart + s * (int64_t)(bps + 1);
-    out[0] = 0;
-    int cursor = 0, blk = 0, pos = 0, slot = 0;   // slot = blk % bpm
-    bool bad = false;
-    while (blk < nb) {
-        const uint32_t peek = rd.peek32(cursor);
-        const bool is_dc = pos == 0;
-        int clen, sym;
-        gj::decode_token(is_dc ? gj::dc_table(tab, sdc, dc_pat, slot)
-                               : gj::ac_table(tab, sac, ac_pat, slot),
-                         peek, clen, sym);
-        const int run = sym >> 4;
-        const int after = cursor + clen + (sym & 15);
-        const bool is_eob = !is_dc && sym == 0;
-        const bool is_zrl = !is_dc && sym == 0xF0;
-        const int coef_idx = is_dc ? 0 : pos + run;
-        const int new_pos = is_dc ? 1
-                            : is_eob ? 64
-                            : is_zrl ? pos + 16 : coef_idx + 1;
-        if (clen == 0 || after > nbits || coef_idx > 63 || new_pos > 64) {
-            bad = true;
-            break;
+    __shared__ __align__(16) uint16_t lut[4 * kLutSize];
+    for (int i = threadIdx.x; i < 4 * kLutSize / 8; i += blockDim.x)
+        reinterpret_cast<uint4*>(lut)[i] =
+            __ldg(reinterpret_cast<const uint4*>(lut_g) + i);
+    gj::load_tables(tables, tab);        // ends in __syncthreads()
+    // the table's shared-window address, computed once
+    const uint32_t lut_s = (uint32_t)__cvta_generic_to_shared(lut);
+
+    const int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+    if (s < nseg) {
+        int32_t* out = bstart + s * (int64_t)(bps + 1);
+        const int nbits = nbits_a[s];
+        const int nb = nblocks_a[s];
+        const int sdc = dc_luma[s], sac = ac_luma[s];
+        BitWindow bw;
+        int j;
+        bw.init(words + s * (int64_t)W, W, j);
+        out[0] = 0;
+        int cursor = 0, blk = 0, pos = 0, slot = 0;   // slot = blk % bpm
+        bool bad = false;
+        // a slot's class bits: its DC table is set 0 when bit slot of dm
+        // is set, its AC table when that of am is
+        const uint32_t dm = sdc ? dc_pat : 0u, am = sac ? ac_pat : 0u;
+        int dcls = (int)(~dm & 1u), acls = 3 - (int)(am & 1u);
+        while (blk < nb) {
+            if (bw.n < 32) bw.refill(j);
+            const bool is_dc = pos == 0;
+            const int cls = is_dc ? dcls : acls;
+            uint32_t e = ld_shared_u16(
+                lut_s + 2u * ((uint32_t)(cls << kLutBits)
+                              | (uint32_t)(bw.buf >> (64 - kLutBits))));
+            int new_pos = pos + (int)((e >> kStepShift) & 63u);
+            if (e == 0 || new_pos > 64) {
+                int clen, sym;
+                decode_one(tab + cls * gj::kTableWords,
+                           (int)(bw.buf >> 48), clen, sym);
+                if (clen == 0) {
+                    bad = true;
+                    break;
+                }
+                e = entry_of(clen, sym, is_dc);
+                new_pos = pos + (int)(e >> kStepShift & 63u);
+            }
+            const int adv = (int)(e & 31u);
+            const int after = cursor + adv;
+            if (after > nbits || new_pos > 64) {
+                bad = true;
+                break;
+            }
+            cursor = after;
+            bw.buf <<= adv;
+            bw.n -= adv;
+            if ((e & kEob) || new_pos == 64) {
+                ++blk;
+                if (++slot == bpm) slot = 0;
+                out[blk] = after;
+                pos = 0;
+                dcls = (int)(~(dm >> slot) & 1u);
+                acls = 3 - (int)((am >> slot) & 1u);
+            } else {
+                pos = new_pos;
+            }
         }
-        cursor = after;
-        if (new_pos >= 64) {
-            ++blk;
-            if (++slot == bpm) slot = 0;
-            if (blk <= bps) out[blk] = after;
-            pos = 0;
-        } else {
-            pos = new_pos;
-        }
+        for (int b = blk + 1; b <= bps; ++b) out[b] = nbits;
+        err[s] = bad || blk < nb;
     }
-    for (int b = blk + 1; b <= bps; ++b) out[b] = nbits;
-    err[s] = bad || blk < nb;
 }
 
 }  // namespace
@@ -103,12 +255,13 @@ extern "C" int gj_huffdec_scan(const void* words, int64_t nseg, int W,
                                const void* nbits, const void* nblocks,
                                const void* dc_luma, const void* ac_luma,
                                int bpm, int dc_pat, int ac_pat,
-                               const void* tables, int bps, void* bstart,
-                               void* err, void* stream) {
-    // words: (nseg, W) host-order u32 rows; nbits, nblocks, dc_luma,
-    // ac_luma: (nseg,) i32 with nblocks <= bps; bpm, dc_pat, ac_pat: the
-    // slot pattern (huffdec.cuh); tables: (4, 290) i32; bstart: (nseg,
-    // bps+1) i32; err: (nseg,) bool
+                               const void* tables, const void* lut, int bps,
+                               void* bstart, void* err, void* stream) {
+    // words: (nseg, W) host-order u32 rows, 4-byte aligned; nbits, nblocks,
+    // dc_luma, ac_luma: (nseg,) i32 with nblocks <= bps; bpm, dc_pat,
+    // ac_pat: the slot pattern (huffdec.cuh); tables: (4, 290) i32; lut:
+    // (4, 2048) u16 (ops/huffdec_kernel.scan_lut), 16-byte aligned;
+    // bstart: (nseg, bps+1) i32; err: (nseg,) bool
     if (nseg > 0) {
         const int64_t grid = (nseg + kThreads - 1) / kThreads;
         huffdec_scan_kernel<<<(unsigned)grid, kThreads, 0,
@@ -116,8 +269,8 @@ extern "C" int gj_huffdec_scan(const void* words, int64_t nseg, int W,
             (const uint32_t*)words, nseg, W, (const int32_t*)nbits,
             (const int32_t*)nblocks, (const int32_t*)dc_luma,
             (const int32_t*)ac_luma, bpm, (uint32_t)dc_pat,
-            (uint32_t)ac_pat, (const int32_t*)tables, bps,
-            (int32_t*)bstart, (bool*)err);
+            (uint32_t)ac_pat, (const int32_t*)tables, (const uint16_t*)lut,
+            bps, (int32_t*)bstart, (bool*)err);
     }
     return (int)cudaGetLastError();
 }

@@ -249,6 +249,8 @@ class Plan:
     dc_luma: torch.Tensor     # (nseg,) int32 1 = DC table set 0
     ac_luma: torch.Tensor     # (nseg,) int32 1 = AC table set 0
     tables: torch.Tensor      # (4, DECODE_TABLE_WORDS) int32
+    scan_lut: torch.Tensor    # (4, 1 << SCAN_LUT_BITS) int16, phase A's
+    #                           lookahead table (huffdec_kernel.scan_lut)
     qtabs: torch.Tensor       # (3, 64) float32 zig-zag quant tables
     # slot pattern (bpm, dc mask, ac mask): block slot j of a segment takes
     # table set 0 when its segment's flag and bit j % bpm are set
@@ -270,6 +272,7 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
     tab = huffdec_kernel.decode_tables(
         pick(ps.huff_dc, dc_ids, 0), pick(ps.huff_dc, dc_ids, 1),
         pick(ps.huff_ac, ac_ids, 0), pick(ps.huff_ac, ac_ids, 1))
+    lut = huffdec_kernel.scan_lut(tab)
     bps = geo.max_blocks_per_seg
     qtabs = np.stack([ps.quant_tables[ps.quant_map[c.index]]
                       for c in geo.components]).astype(np.float32)
@@ -298,7 +301,8 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
                     nblocks=dev(np.clip(geo.mcu_count - rst * np.arange(S),
                                         0, rst) * bpm),
                     dc_luma=dev(np.ones(S)), ac_luma=dev(np.ones(S)),
-                    tables=dev(tab), qtabs=dev(qtabs, np.float32),
+                    tables=dev(tab), scan_lut=dev(lut, np.int16),
+                    qtabs=dev(qtabs, np.float32),
                     pattern=(bpm, dc_pat, ac_pat),
                     comp_slots=comp_slots)
     nb, dcl, acl = [], [], []
@@ -309,7 +313,7 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
         acl.append(np.full(S, comp_ac[c.index] == ac_ids[0]))
     return Plan(geo=geo, bps=bps, nblocks=dev(nb), dc_luma=dev(dcl),
                 ac_luma=dev(acl), tables=dev(tab),
-                qtabs=dev(qtabs, np.float32))
+                scan_lut=dev(lut, np.int16), qtabs=dev(qtabs, np.float32))
 
 
 @dataclasses.dataclass
@@ -487,7 +491,7 @@ class Decoder:
         words, nbits = self.upload(hf)
         bstart, err_a = huffdec_kernel.scan_segments(
             words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps,
-            p.pattern)
+            p.pattern, p.scan_lut)
         coefs_t, err_c = huffdec_kernel.decode_blocks(
             words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
             p.pattern)

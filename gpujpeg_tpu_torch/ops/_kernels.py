@@ -60,9 +60,9 @@ _SIGNATURES: Dict[str, List] = {
     # bits, lens, R, T, markers, stride, rows, row_bytes, needs, stream
     "pack_stuff_rows": [_P, _P, _I64, _I, _P, _I, _P, _P, _P, _P],
     # words, nseg, W, nbits, nblocks, dc_luma, ac_luma, bpm, dc_pat,
-    # ac_pat, tables, bps, bstart, err, stream
-    "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
-                     _P, _P],
+    # ac_pat, tables, lookahead table, bps, bstart, err, stream
+    "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
+                     _P, _P, _P],
     # words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, bpm, dc_pat,
     # ac_pat, tables, coefs, err, stream
     "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,

@@ -29,7 +29,11 @@ values, which is what the decoder gates on, the canonical decode gives
 the same (code length, symbol) as the JAX package's arithmetic decode
 (affine_ac_decode / dc_identity_decode) on every 16-bit peek, invalid
 codes included (code length 0); tests/test_torch_huffdec.py checks all
-65,536 peeks.
+65,536 peeks.  Phase A's kernel also takes a lookahead table built here
+from the canonical tables (scan_lut: the tokens inside the next 11 bits,
+summed); what it cannot resolve the kernel decodes from the canonical
+tables, and tests/test_torch_scan_lut.py holds every entry against an
+independent decode.
 
 Words are the host-order rows of stream/segments.pack_segments_matrix
 (stream byte k is byte k of the row) as int32; the kernels and the plain
@@ -44,7 +48,7 @@ the kernel's arithmetic vectorised over segments (phase A) or blocks
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,12 +66,78 @@ _MONO, _VALOFF, _HUFFVAL = 0, 17, 34
 #: segment's flags alone decide a block's classes
 NO_PATTERN = (1, 1, 1)
 
+#: phase A's lookahead table is indexed by the next SCAN_LUT_BITS bits
+SCAN_LUT_BITS = 11
+
 
 def decode_tables(dc_l, dc_c, ac_l, ac_c) -> np.ndarray:
     """(4, DECODE_TABLE_WORDS) int32 from four (bits, values) DHT tables:
     DC luma, DC chroma, AC luma, AC chroma."""
     return np.stack([tables.kernel_decode_table(*t)
                      for t in (dc_l, dc_c, ac_l, ac_c)])
+
+
+def scan_entry(clen, sym, is_dc):
+    """Phase A's summary of one decoded token (numpy or torch integers),
+    the layout of a lookahead-table entry: bits 0-4 the cursor's advance
+    (code plus value bits), bits 5-10 the step of the block position (1
+    for a DC token, run + 1 for an AC token; a ZRL is run 15), bit 11 an
+    AC end of block.  Never 0 for a valid code."""
+    inc = 1 if is_dc else (sym >> 4) + 1
+    eob = 0 if is_dc else (sym == 0) * 1
+    return (clen + (sym & 15)) | (inc << 5) | (eob << 11)
+
+
+def scan_lut(tab: np.ndarray) -> np.ndarray:
+    """Phase A's lookahead table of the four canonical tables `tab` (4,
+    DECODE_TABLE_WORDS): (4, 1 << SCAN_LUT_BITS) int16 of scan_entry
+    layout, indexed by class and by the next K = SCAN_LUT_BITS bits of the
+    row.
+
+    A DC entry summarises the one token whose code lies within the K bits
+    (_decode_token).  An AC entry sums the tokens that follow one another
+    inside the K bits: every token's code lies within the K bits and so
+    does every bit before it, the last may take its value bits past them;
+    it stops after an end of block, before a token that would take the
+    step past 63, and where the next code does not fit.  Its advance is
+    then the bits of all of them, its step the sum of their steps, and
+    its EOB bit that of the last.  An entry is 0 ("slow") where the first
+    code does not fit in K bits or is invalid; the kernel decodes such a
+    token from the canonical table, and so it does the first token alone
+    when an entry's step would pass position 64 (a block that ends inside
+    the entry, or an error).
+
+    A pure function of the tables; the decoder caches it on its plan
+    (models/decoder.Plan.scan_lut)."""
+    K = SCAN_LUT_BITS
+    t64 = torch.from_numpy(np.asarray(tab, np.int64))
+    prefix = np.arange(1 << K, dtype=np.int64)
+    out = np.zeros((4, 1 << K), np.int16)
+    for t in range(4):
+        is_dc = t < 2
+        adv = np.zeros(1 << K, np.int64)
+        step = np.zeros_like(adv)
+        eob = np.zeros_like(adv)
+        count = np.zeros_like(adv)
+        live = np.ones(1 << K, bool)
+        for _ in range(1 if is_dc else K):   # a token takes a bit or more
+            # the bits after `adv`, left-aligned, zeros past the K bits
+            peek16 = ((prefix << np.minimum(adv, K)) & ((1 << K) - 1)) \
+                << (16 - K)
+            clen, sym = (x.numpy() for x in _decode_token(
+                t64, torch.full((1 << K,), t, dtype=torch.int64),
+                torch.from_numpy(peek16)))
+            inc = 1 if is_dc else (sym >> 4) + 1
+            ok = (live & (clen >= 1) & (clen <= K - adv)
+                  & (step + inc <= 63))
+            adv = np.where(ok, adv + clen + (sym & 15), adv)
+            step = np.where(ok, step + inc, step)
+            end = ok & (sym == 0) & (not is_dc)
+            eob = np.where(ok, end, eob)
+            count += ok
+            live = ok & ~end & (adv < K)
+        out[t] = np.where(count > 0, adv | (step << 5) | (eob << 11), 0)
+    return out
 
 
 # --- plain versions -----------------------------------------------------------
@@ -264,7 +334,8 @@ def _check_pattern(pattern) -> None:
 def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
                   nblocks: torch.Tensor, dc_luma: torch.Tensor,
                   ac_luma: torch.Tensor, tab: torch.Tensor, bps: int,
-                  pattern: Tuple[int, int, int] = NO_PATTERN
+                  pattern: Tuple[int, int, int] = NO_PATTERN,
+                  lut: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase A: (words (nseg, W) int32 host-order rows; nbits, nblocks,
     dc_luma, ac_luma (nseg,) int32; tab (4, DECODE_TABLE_WORDS) int32) ->
@@ -275,20 +346,30 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
     when a token of the segment is invalid, overruns the segment's bits
     or the block's 64 coefficients, or the segment ends short of
     nblocks[s] blocks (huffdec_kernel._scan_kernel_body).  pattern is
-    the slot pattern (bpm, dc mask, ac mask) of the module docstring."""
+    the slot pattern (bpm, dc mask, ac mask) of the module docstring.
+
+    lut is scan_lut(tab) on the words' device, which the kernel reads its
+    tokens through (the decoder passes the one cached on its plan); a
+    CUDA call raises without it.  The plain version does not use it."""
     _check("scan_segments", words, tab, nbits, nblocks, dc_luma, ac_luma)
     _check_pattern(pattern)
     if words.device.type == "cpu":
         return scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma,
                                    tab, bps, pattern)
+    _kernels.require_cuda("huffdec_scan", words, nbits, nblocks, dc_luma,
+                          ac_luma, tab)
+    if lut is None or tuple(lut.shape) != (4, 1 << SCAN_LUT_BITS) or \
+            lut.dtype != torch.int16 or lut.data_ptr() % 16:
+        raise ValueError(f"scan_segments: lut must be (4, "
+                         f"{1 << SCAN_LUT_BITS}) int16 (scan_lut), 16-byte "
+                         "aligned")
     nseg, W = words.shape
     bstart = torch.empty((nseg, bps + 1), dtype=torch.int32,
                          device=words.device)
     err = torch.empty(nseg, dtype=torch.bool, device=words.device)
-    _kernels.require_cuda("huffdec_scan", words, nbits, nblocks, dc_luma,
-                          ac_luma, tab, bstart, err)
+    _kernels.require_cuda("huffdec_scan", words, lut, bstart, err)
     _kernels.launch("huffdec_scan", words, nseg, W, nbits, nblocks,
-                    dc_luma, ac_luma, *pattern, tab, bps, bstart, err)
+                    dc_luma, ac_luma, *pattern, tab, lut, bps, bstart, err)
     return bstart, err
 
 

@@ -1,0 +1,136 @@
+"""Segment rows for the phase-A scan tests (tests/test_torch_scan_lut.py on
+the CPU, tests/test_torch_kernels.py on the card): canonical tables with
+codes of up to 16 bits and seeded token streams coded with them, packed
+as the decoder's word matrix (stream/segments.pack_segments_matrix: byte
+k of a row is stream byte k, host-order int32 words, nbits = 8 x bytes).
+Imports neither JAX nor the JAX package."""
+
+import numpy as np
+import torch
+
+from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+from gpujpeg_tpu_torch.utils import tables as tt
+
+#: AC code lengths by rank: 2 of 2 bits, 2 of 3, 4 of 5, 8 of 8, 32 of
+#: 10, 64 of 12, 32 of 14, the rest (18) of 16 bits
+_AC_LENGTHS = [2] * 2 + [3] * 2 + [5] * 4 + [8] * 8 + [10] * 32 + \
+    [12] * 64 + [14] * 32 + [16] * 18
+#: DC code lengths of sizes 0..11
+_DC_LENGTHS = [2, 2, 3, 3, 10, 11, 12, 13, 14, 15, 16, 16]
+
+
+def _dht(lengths, symbols):
+    """(bits[17], values) of symbols in rank order with these lengths."""
+    order = np.argsort(lengths, kind="stable")
+    bits = np.zeros(17, np.int32)
+    for l in lengths:
+        bits[l] += 1
+    return bits, np.asarray(symbols, np.int32)[order]
+
+
+def long_code_tables(seed=0):
+    """(dc, ac) DHT (bits, values) pairs whose codes run from 2 to 16 bits,
+    most AC symbols at 10 bits or longer: EOB, (0,1), (0,2), (1,1), (0,3)
+    and ZRL get the short codes, the other 156 symbols take the longer
+    ranks in a seeded order."""
+    rng = np.random.default_rng(seed)
+    first = [0x00, 0x01, 0x02, 0x11, 0x03, 0xF0]
+    rest = [(r << 4) | s for r in range(16) for s in range(1, 11)
+            if (r << 4) | s not in first]
+    rest = [rest[i] for i in rng.permutation(len(rest))]
+    ac = _dht(_AC_LENGTHS, first + rest)
+    dc = _dht(_DC_LENGTHS, list(range(12)))
+    return dc, ac
+
+
+class _Coder:
+    """Canonical codes of one DHT table: symbol -> (code, length)."""
+
+    def __init__(self, dht):
+        syms, lens, codes = tt.huffman_canonical(*dht)
+        self.code = {int(s): (int(c), int(l))
+                     for s, l, c in zip(syms, lens, codes)}
+        self.symbols = [int(s) for s in syms]
+
+
+def _block_tokens(rng, dc, ac, long_share, bad_run=False):
+    """One block's tokens as (symbol, coder, value size) tuples: a DC size,
+    then AC (run, size) symbols, ZRLs and an EOB unless position 64 is
+    reached.  long_share is the chance of drawing any AC symbol (most
+    have long codes) instead of one of the six short ones.  bad_run ends
+    the block with a run past coefficient 63 (from position 60)."""
+    toks = [(int(rng.integers(0, 12)), dc, None)]
+    if bad_run:          # 59 steps of 1 to position 60, then a run of 15
+        return toks + [(0x01, ac, None)] * 59 + [(0xF1, ac, None)]
+    pos = 1
+    while pos < 64:
+        if rng.random() < 0.08:
+            toks.append((0x00, ac, 0))
+            return toks
+        pool = ac.symbols if rng.random() < long_share else \
+            [0x01, 0x02, 0x11, 0x03, 0xF0]
+        sym = int(pool[rng.integers(0, len(pool))])
+        if sym == 0x00:
+            return toks + [(0x00, ac, 0)]
+        run = 16 if sym == 0xF0 else (sym >> 4) + 1
+        if pos + run > 64:
+            continue
+        toks.append((sym, ac, None))
+        pos += run
+    return toks
+
+
+def segment_rows(rng, nseg, bps, tabs, pattern=thd.NO_PATTERN, flags=None,
+                 nblocks=None, long_share=0.3, bad_run=()):
+    """Seeded segments coded with two table sets.
+
+    tabs: ((dc, ac) set 0, (dc, ac) set 1) DHT pairs; pattern and flags
+    (dc_luma, ac_luma per segment; default all 1) pick each block's set as
+    the kernels do.  nblocks: blocks coded a segment (default bps).
+    bad_run: segments whose last block runs past coefficient 63.  Returns
+    (rows: list of bytes, nblocks (nseg,) int32, dc_luma, ac_luma)."""
+    bpm, dc_pat, ac_pat = pattern
+    coders = [(_Coder(d), _Coder(a)) for d, a in tabs]
+    if flags is None:
+        flags = (np.ones(nseg, np.int32), np.ones(nseg, np.int32))
+    if nblocks is None:
+        nblocks = np.full(nseg, bps, np.int32)
+    rows = []
+    for s in range(nseg):
+        bits = []
+        for j in range(int(nblocks[s])):
+            slot = j % bpm
+            dset = 0 if flags[0][s] and (dc_pat >> slot) & 1 else 1
+            aset = 0 if flags[1][s] and (ac_pat >> slot) & 1 else 1
+            bad = s in bad_run and j == int(nblocks[s]) - 1
+            for sym, coder, size in _block_tokens(
+                    rng, coders[dset][0], coders[aset][1], long_share, bad):
+                code, length = coder.code[sym]
+                bits.extend((code >> (length - 1 - i)) & 1
+                            for i in range(length))
+                size = sym & 15 if size is None else size
+                bits.extend(int(b) for b in rng.integers(0, 2, size))
+        bits.extend([1] * (-len(bits) % 8))       # T.81 padding bits
+        rows.append(np.packbits(np.asarray(bits, np.uint8)).tobytes()
+                    if bits else b"")
+    return (rows, np.asarray(nblocks, np.int32),
+            np.asarray(flags[0], np.int32), np.asarray(flags[1], np.int32))
+
+
+def word_matrix(rows, W=None):
+    """(words (nseg, W) int32, nbits (nseg,) int32) of byte rows; W
+    defaults to the longest row's words."""
+    need = max([-(-len(r) // 4) for r in rows] + [1])
+    W = need if W is None else W
+    assert W >= need
+    buf = np.zeros((len(rows), W * 4), np.uint8)
+    for i, r in enumerate(rows):
+        buf[i, :len(r)] = np.frombuffer(r, np.uint8)
+    nbits = np.asarray([8 * len(r) for r in rows], np.int32)
+    return buf.view("<u4").view(np.int32).copy(), nbits
+
+
+def decode_tables(tabs) -> torch.Tensor:
+    """(4, DECODE_TABLE_WORDS) int32 of ((dc, ac) set 0, (dc, ac) set 1)."""
+    (d0, a0), (d1, a1) = tabs
+    return torch.from_numpy(thd.decode_tables(d0, d1, a0, a1))

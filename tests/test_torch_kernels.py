@@ -20,6 +20,8 @@ from gpujpeg_tpu_torch.ops import _kernels, fusedpack as tfp
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 from gpujpeg_tpu_torch.ops import relayout as trel
+from gpujpeg_tpu_torch.utils import tables as tt
+from tests import scan_rows
 
 
 @pytest.fixture
@@ -208,7 +210,10 @@ def test_huffdec_kernels_match_plain(cuda, kind):
     hf, p, words, nbits = _device_frame(data, cuda)
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     _kernels.reset_launches()
-    bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps)
+    with pytest.raises(ValueError, match="lut"):
+        thd.scan_segments(words, nbits, *args, p.bps)
+    bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps,
+                                      lut=p.scan_lut)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["huffdec_scan"] == 1
     p_bstart, p_err_a = thd.scan_segments_plain(words, nbits, *args, p.bps)
@@ -231,7 +236,8 @@ def test_huffdec_kernels_corrupt_segment(cuda):
     nbits = nbits.clone()
     nbits[5] //= 2                            # cut segment 5 short
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
-    bstart, err_a = thd.scan_segments(w, nbits, *args, p.bps)
+    bstart, err_a = thd.scan_segments(w, nbits, *args, p.bps,
+                                      lut=p.scan_lut)
     p_bstart, p_err_a = thd.scan_segments_plain(w, nbits, *args, p.bps)
     assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
     coefs, err_c = thd.decode_blocks(w, bstart, *args)
@@ -489,7 +495,8 @@ def test_huffdec_kernels_pattern_mode(cuda, samp, kind):
     assert p.pattern[0] == 4 + 2 if samp == "420" else p.pattern[0] == 4
     args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     _kernels.reset_launches()
-    bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps, p.pattern)
+    bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps, p.pattern,
+                                      p.scan_lut)
     coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["huffdec_scan"] == 1
@@ -503,13 +510,137 @@ def test_huffdec_kernels_pattern_mode(cuda, samp, kind):
     assert not bool(err_a.any()) and not bool(err_c.any())
     w = words.clone()
     w[w.shape[0] // 2, 1] ^= 0x5A5A5A5A        # damage one segment
-    bstart, err_a = thd.scan_segments(w, nbits, *args, p.bps, p.pattern)
+    bstart, err_a = thd.scan_segments(w, nbits, *args, p.bps, p.pattern,
+                                      p.scan_lut)
     p_bstart, p_err_a = thd.scan_segments_plain(w, nbits, *args, p.bps,
                                                 p.pattern)
     assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
     coefs, err_c = thd.decode_blocks(w, bstart, *args, p.pattern)
     p_coefs, p_err_c = thd.decode_blocks_plain(w, bstart, *args, p.pattern)
     assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
+
+
+def _scan_both(cuda, rows_args, tab, bps, pattern=thd.NO_PATTERN,
+               offset=0):
+    """The scan kernel and the plain scan on the same rows (words, nbits,
+    nblocks, dc_luma, ac_luma as numpy arrays): equal bstart and err,
+    which are returned.  offset puts the card's word matrix that many
+    words past a 16-byte boundary."""
+    words, nbits, nb, dcl, acl = (torch.from_numpy(np.ascontiguousarray(
+        a, np.int32)) for a in rows_args)
+    buf = torch.zeros(words.numel() + 4, dtype=torch.int32, device=cuda)
+    w_dev = buf[offset:offset + words.numel()].view(words.shape)
+    w_dev.copy_(words)
+    assert w_dev.data_ptr() % 16 == 4 * offset
+    args = [a.to(cuda) for a in (nbits, nb, dcl, acl)]
+    _kernels.reset_launches()
+    lut = torch.from_numpy(thd.scan_lut(tab.numpy())).to(cuda)
+    got = thd.scan_segments(w_dev, *args, tab.to(cuda), bps, pattern, lut)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffdec_scan"] == 1
+    want = thd.scan_segments_plain(words, nbits, nb, dcl, acl, tab, bps,
+                                   pattern)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    return want
+
+
+def _scan_tabs(seed):
+    """Table set 0 with codes of 2-16 bits (most AC codes of 10 or more, so
+    the lookahead table sends them to the canonical decode), set 1
+    Annex-K chroma."""
+    return [scan_rows.long_code_tables(seed),
+            (tt.huffman_spec_for("dc", False),
+             tt.huffman_spec_for("ac", False))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bps,W", [(1, 5), (2, 37), (8, 130), (40, 301),
+                                   (100, None)])
+def test_scan_kernel_coded_rows(cuda, bps, W):
+    """Rows longer than the bit window and its prefetch (W up to a few
+    hundred words, W % 4 != 0, so rows start at every word of a 16-byte
+    quad), rows of bstart from 2 to 101 words, nblocks from 0 to bps, long
+    codes: bit for bit the plain scan, no error."""
+    rng = np.random.default_rng(bps)
+    tabs = _scan_tabs(bps)
+    nseg = 300
+    nblocks = rng.integers(0, bps + 1, nseg)
+    rows, nb, dcl, acl = scan_rows.segment_rows(
+        rng, nseg, bps, tabs, flags=(rng.integers(0, 2, nseg),
+                                     rng.integers(0, 2, nseg)),
+        nblocks=nblocks, long_share=0.4)
+    W = max(max(-(-len(r) // 4) for r in rows), W or 0)
+    words, nbits = scan_rows.word_matrix(rows, W + (W % 4 == 0))
+    _, err = _scan_both(cuda, (words, nbits, nb, dcl, acl),
+                        scan_rows.decode_tables(tabs), bps)
+    assert not bool(err.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 7, 64])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_scan_kernel_random_words(cuda, W, offset):
+    """Random rows (mostly bad tokens: invalid codes, runs past 63, bits
+    past nbits), random bit counts including 0, nblocks from 0 to bps, a
+    random slot pattern, the word matrix off 16-byte alignment: bit for
+    bit the plain scan."""
+    rng = np.random.default_rng(100 * W + offset)
+    nseg, bps = 777, 6
+    bpm = int(rng.integers(1, 11))
+    pattern = (bpm, int(rng.integers(0, 1 << bpm)),
+               int(rng.integers(0, 1 << bpm)))
+    words = rng.integers(-(1 << 31), 1 << 31, (nseg, W))
+    nbits = rng.integers(0, 32 * W + 1, nseg)
+    nbits[::7] = 0
+    _scan_both(cuda, (words, nbits, rng.integers(0, bps + 1, nseg),
+                      rng.integers(0, 2, nseg), rng.integers(0, 2, nseg)),
+               scan_rows.decode_tables(_scan_tabs(W)), bps, pattern,
+               offset)
+
+
+@pytest.mark.gpu
+def test_scan_kernel_error_kinds(cuda):
+    """Each error kind on coded rows: an invalid code, a token ending past
+    nbits, a run past coefficient 63, a segment short of its blocks; and
+    empty segments, expected empty or not."""
+    rng = np.random.default_rng(7)
+    tabs = _scan_tabs(7)
+    nseg, bps = 10, 4
+    rows, nb, dcl, acl = scan_rows.segment_rows(rng, nseg, bps, tabs,
+                                                bad_run=(3,))
+    words, nbits = scan_rows.word_matrix(
+        rows, max(len(r) for r in rows) // 4 + 3)
+    words[1, 0] = -1                    # 32 one bits: no valid code
+    nbits[2] -= 9                       # the last token ends past nbits
+    nb[4] = bps + 1                     # one block more than coded
+    words[5], nbits[5], nb[5] = 0, 0, 0
+    nbits[6], nb[6] = 0, 1
+    _, err = _scan_both(cuda, (words, nbits, nb, dcl, acl),
+                        scan_rows.decode_tables(tabs), bps + 1)
+    assert err.tolist() == [False, True, True, True, True, False, True,
+                            False, False, False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bpm", list(range(1, 11)))
+def test_scan_kernel_slot_patterns(cuda, bpm):
+    """Slot patterns of 1-10 slots with random masks and segment flags,
+    rows of whole and partial MCUs: bit for bit the plain scan, no
+    error."""
+    rng = np.random.default_rng(bpm)
+    tabs = _scan_tabs(bpm + 20)
+    nseg, bps = 200, 3 * bpm
+    pattern = (bpm, int(rng.integers(0, 1 << bpm)),
+               int(rng.integers(0, 1 << bpm)))
+    rows, nb, dcl, acl = scan_rows.segment_rows(
+        rng, nseg, bps, tabs, pattern,
+        (rng.integers(0, 2, nseg), rng.integers(0, 2, nseg)),
+        rng.integers(0, bps + 1, nseg))
+    words, nbits = scan_rows.word_matrix(rows)
+    _, err = _scan_both(cuda, (words, nbits, nb, dcl, acl),
+                        scan_rows.decode_tables(tabs), bps, pattern)
+    assert not bool(err.any())
 
 
 def _il_geo(samp, hw):
@@ -615,6 +746,69 @@ def test_post_kernel_matches_plain(cuda, samp, hw):
     assert _kernels.LAUNCHES["post_rgb"] == 1
     assert got.shape == (*hw, 3)
     assert torch.equal(got, tpre.postprocess_packed_plain(planes, geo, pi))
+
+
+def _post_inputs(samp, hw, cuda, cs="RGB", seed=3):
+    geo = _il_geo(samp, hw)
+    pi = gt.ImageParameters(width=hw[1], height=hw[0],
+                            color_space=gt.ColorSpace[cs],
+                            pixel_format=gt.PixelFormat.P444_U8_P012)
+    g = torch.Generator().manual_seed(seed)
+    planes = [torch.randint(0, 256, (c.data_height, c.data_width),
+                            dtype=torch.uint8, generator=g).to(cuda)
+              for c in geo.components]
+    return planes, geo, pi
+
+
+def _check_post(planes, geo, pi):
+    _kernels.reset_launches()
+    got = tpre.postprocess_packed(planes, geo, pi)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["post_rgb"] == 1
+    assert got.shape == (pi.height, pi.width, 3)
+    assert torch.equal(got, tpre.postprocess_packed_plain(planes, geo, pi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["420", "422", "440", "444"])
+@pytest.mark.parametrize("W", [1, 2, 7, 8, 15, 16, 17, 24, 31, 33])
+def test_post_kernel_any_width(cuda, samp, W):
+    """Widths 1 to 33 (W % 16 != 0 stores bytes, partial groups) and odd
+    heights at each chroma (fy, fx) in {1, 2}^2."""
+    for H in (1, 5, 17):
+        _check_post(*_post_inputs(samp, (H, W), cuda, seed=W + H))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["420", "444"])
+@pytest.mark.parametrize("hw", [(48, 64), (37, 45)])
+def test_post_kernel_generic_factors(cuda, monkeypatch, samp, hw):
+    """Chroma factors outside {1, 2} (3 x 3 here) and planes off 8-byte
+    alignment take the generic instance: bit for bit the plain version."""
+    planes, geo, pi = _post_inputs(samp, hw, cuda)
+    real = tpre.sample.upsample_factors
+    monkeypatch.setattr(tpre.sample, "upsample_factors",
+                        lambda g, p: [(1, 1)] + [(3, 3)] * 2)
+    _check_post(planes, geo, pi)
+    monkeypatch.setattr(tpre.sample, "upsample_factors", real)
+    shifted = []
+    for p in planes:
+        buf = torch.empty(p.numel() + 1, dtype=torch.uint8, device=cuda)
+        v = buf[1:].view(p.shape)
+        v.copy_(p)
+        shifted.append(v)
+    assert shifted[0].data_ptr() % 8 == 1
+    _check_post(shifted, geo, pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["444", "420"])
+@pytest.mark.parametrize("cs", ["YCBCR_BT709", "YCBCR_BT601_256LVLS"])
+def test_post_kernel_colour_transforms(cuda, samp, cs):
+    """post_rgb to an output space other than RGB (a "to" step after the
+    "from" step, or none), at 8K width and an odd one."""
+    for hw in ((16, 7680), (9, 61)):
+        _check_post(*_post_inputs(samp, hw, cuda, cs))
 
 
 @pytest.mark.gpu
