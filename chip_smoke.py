@@ -20,7 +20,9 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      configuration), checks SOI/EOI and that the RST count equals segments
      minus scans, and prints per-frame wall ms (those three and
      EXTRA_FRAMES more), a stage breakdown and each kernel's CUDA-event
-     time;
+     time; the preprocessor writes a frame's three planes in one launch
+     (checked on every path: 3 launches over the three frames) and its
+     records are ms a frame;
   6. decodes on the card (gpujpeg_tpu_torch.Decoder), fed by step 5's 8K
      streams and one 8K noise stream:
      a. each decode kernel (phase-A scan, phase-C block decode, fused
@@ -36,17 +38,19 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      d. times each decode kernel at the main path's shapes; phase A's
         record also counts the tokens it walks (a DC a block, a nonzero
         AC coefficient, ZRLs and EOBs, from the decoded coefficients)
-        and its ns a token;
+        and its ns a token, and phase C's record (the same tokens, each
+        read through the plan's lookahead table Plan.block_lut) its ns a
+        token;
   7. runs the interleaved 4:2:0 path (one scan, luma 2x2, chroma 1x1,
      Q75, restart interval auto = 1 MCU a segment; libjpeg's default
      layout):
      a. each kernel and mode of that path against its plain version at
         8K on a gradient and a noise frame, bit for bit: the decimating
-        preprocessor, the DCT storing MCU order (interleaved_rows, three
-        fdct_quant launches, against interleaved_rows_plain: raster
-        order, then a torch copy), the slot-pattern Huffman coder, the
-        token-row packer
-        (on no encode path; fed the plain tokenizer's token rows of
+        preprocessor (luma and chroma in one launch), the DCT storing MCU
+        order (interleaved_rows, three fdct_quant launches, against
+        interleaved_rows_plain: raster order, then a torch copy), the
+        slot-pattern Huffman coder, the token-row packer (on no encode
+        path; fed the plain tokenizer's token rows of
         the same coefficients, it must also give the Huffman coder's
         bytes), the Huffman decode phases in slot-pattern mode, the IDCT
         to planes and the postprocessor;
@@ -65,15 +69,17 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      Huffman coder and its
      coefficient-input mode (the three planes' coefficients as rows of 8
      blocks, a class flag a row, one interior masked block, a zero marker
-     mid-scan) against their plain versions; decode through phase A in
-     pattern mode, the IDCT planes (one launch a frame) and the
+     mid-scan) against their plain versions; decode through phases A and
+     C in pattern mode, the IDCT planes (one launch a frame) and the
      postprocessor, each held against its plain version and timed (the
-     records huffdec_scan:pattern_444, idct_planes:444, post_rgb:444);
+     records huffdec_scan:pattern_444, huffdec_block:pattern_444,
+     idct_planes:444, post_rgb:444);
   9. the same four steps for planar 4:2:0 (three non-interleaved scans,
      luma 2x2, chroma 1x1, 8 blocks a segment): the fused decode tail at
-     dx = dy = 2 and phase A over the three scans against their plain
-     versions (huffdec_scan:planar_420); encode through the decimating
-     preprocessor, the DCT and the one-slot Huffman coder per component;
+     dx = dy = 2 and phases A and C over the three scans against their
+     plain versions (huffdec_scan:planar_420, huffdec_block:planar_420);
+     encode through the decimating preprocessor, the DCT and the one-slot
+     Huffman coder per component;
  10. [relayout]: the four relayout and primitive kernels of
      csrc/relayout.cu (the H100 counterparts of the JAX package's TPU
      probes tools/proto_xbdkernel.py, tools/profile_transpose.py and
@@ -81,9 +87,12 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      on seeded words, each against its plain version on the card, timed
      beside its bound and the PyTorch call that computes the same;
  11. prints the decomposition line of the tiled kernels (fdct_quant,
-     dpost_rgb at 4:4:4 and 4:2:0) and of the Huffman coder (one slot,
+     dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
-     coefficient 0), timed at 8K in steps 5 to 9:
+     coefficient 0) and of phase C (planar 4:4:4, interleaved 4:2:0:
+     full, every block's loads and window with no token decoded and the
+     zero tiles stored, the decode without the coefficient store), timed
+     at 8K in steps 5 to 9:
      each kernel's CUDA-event ms in three stages built from its own
      source (csrc/tile.cuh gj::Stage) -- full, loads and stores only with
      no arithmetic (the Huffman coder: the coefficient loads alone), and
@@ -94,8 +103,9 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
  12. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
-     yardstick where one exists; phase A's tokens and ns a token on each
-     of the four paths; a note where a record is on no path);
+     yardstick where one exists; the tokens and ns a token of phases A
+     and C on each of the four paths; the preprocessor in ms a frame,
+     one launch a frame; a note where a record is on no path);
  13. prints {"ok": true, "device": {...}} as its last line.
 
 Launches are counted in windows around each path's three 8K frames
@@ -176,15 +186,16 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def probe_ms(torch, fn, plain, flush) -> dict:
+def probe_ms(torch, fn, plain, flush, err_of=None) -> dict:
     """CUDA-event ms of each decomposition stage of a tiled kernel
     (_kernels.PROBE_STAGES), fn(stage) launching that stage; the full
-    stage's output (a tensor, or Huffman rows, lengths and needs) must
-    equal plain() (its max_abs_err, 0)."""
+    stage's output (a tensor, or Huffman rows, lengths and needs, or what
+    err_of(out, ref) compares) must equal plain() (its max_abs_err, 0)."""
     from gpujpeg_tpu_torch.ops import _kernels
 
     out, ref = fn("full"), plain()
-    err = (rows_err(torch, *out, *ref) if isinstance(out, tuple)
+    err = (err_of(out, ref) if err_of is not None
+           else rows_err(torch, *out, *ref) if isinstance(out, tuple)
            else diff(out, ref))
     if err:
         raise AssertionError("a probe's full stage differs from the plain "
@@ -266,6 +277,13 @@ def hd_check(torch, np, gt, dev, params, seed: int, what: str) -> None:
         f"and pixels), PSNR {psnr(np, got, hd):.2f} dB")
 
 
+def pre_once_a_frame(launches, frames: int, what: str) -> None:
+    """The preprocessor writes every plane of a frame in one launch."""
+    if launches["pre_rgb_to_planes"] != frames:
+        raise AssertionError(f"{what} encode: {launches['pre_rgb_to_planes']}"
+                             f" preprocessor launches for {frames} frames")
+
+
 def huffman_bound_ms(coefs, rb, extra: int = 0) -> float:
     """Bytes bound of one huffman_segments launch: every coefficient read
     once (the rows hold no pad blocks at 8K), both classes' tables, the
@@ -334,6 +352,57 @@ def scan_times(torch, k, words, nbits, coefs, p, flush) -> None:
     k["ns_per_token"] = k["ms"] * 1e6 / k["tokens"]
 
 
+def block_call(words, bstart, p):
+    """Phase C as the decoder calls it: the plan's slot pattern and
+    lookahead table."""
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+    return thd.decode_blocks(words, bstart, p.nblocks, p.dc_luma, p.ac_luma,
+                             p.tables, p.pattern, p.block_lut)
+
+
+def block_check(torch, words, bstart, p):
+    """Phase C's kernel against its plain version on the same rows:
+    (coefs, err, max_abs_err, plain ms)."""
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+    coefs, err = block_call(words, bstart, p)
+    (p_coefs, p_err), ms = once_ms(torch, lambda: thd.decode_blocks_plain(
+        words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
+        p.pattern))
+    return coefs, err, max(diff(coefs, p_coefs), diff(err, p_err)), ms
+
+
+def block_times(torch, k, words, nbits, bstart, p, flush, tokens,
+                probe=False) -> None:
+    """Phase C's ms a launch at the path's shapes into record k, its bytes
+    bound (the words the segments' bits fill, bstart, four per-segment
+    vectors, the tables and the lookahead table read once, the
+    coefficients and err written once), and phase A's token count of the
+    same frame with its ns a token; with `probe`, its decomposition
+    stages too."""
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+    k["ms"] = event_ms(torch, lambda: block_call(words, bstart, p), 20,
+                       flush)
+    args = (words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
+            p.pattern)
+    if probe:
+        k["probe"] = probe_ms(
+            torch, lambda st: thd.decode_blocks_probe(*args, p.block_lut,
+                                                      st),
+            lambda: thd.decode_blocks_plain(*args), flush,
+            lambda out, ref: max(diff(out[0], ref[0]),
+                                 diff(out[1], ref[1])))
+    nseg = words.shape[0]
+    L = nseg * p.bps
+    read = (stream_word_bytes(nbits) + bstart.numel() * 4 + 4 * nseg * 4
+            + p.tables.numel() * 4 + p.block_lut.numel() * 4)
+    k["bound_ms"] = (read + L * 64 * 2 + L * 4) / PEAK_BYTES_S * 1e3
+    k["tokens"] = tokens
+    k["ns_per_token"] = k["ms"] * 1e6 / tokens
+
+
 def planar_encode_stages(torch, enc, frame, params, stream, tag):
     """Stage breakdown of one encode of non-interleaved scans; returns
     what the per-launch timings reuse."""
@@ -383,7 +452,6 @@ def dpost_decode_stages(torch, np, dec, data, tag):
     """Stage breakdown of one decode through dpost_rgb; returns what the
     per-launch timings reuse."""
     from gpujpeg_tpu_torch.models import decoder as tdec
-    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
     from gpujpeg_tpu_torch.ops import prepost_kernel
 
     dev = dec.device
@@ -396,10 +464,9 @@ def dpost_decode_stages(torch, np, dec, data, tag):
     ev[0].record()
     words, nbits = dec.upload(hf)
     ev[1].record()
-    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     bstart, _ea = scan_call(words, nbits, p)
     ev[2].record()
-    coefs, _ec = thd.decode_blocks(words, bstart, *args)
+    coefs, _ec = block_call(words, bstart, p)
     ev[3].record()
     coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
     ev[4].record()
@@ -430,8 +497,7 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
                   flush):
     """Step 6; returns (kernel records, launches over the main path)."""
     from gpujpeg_tpu_torch.models import decoder as tdec
-    from gpujpeg_tpu_torch.ops import _kernels, huffdec_kernel as thd
-    from gpujpeg_tpu_torch.ops import prepost_kernel
+    from gpujpeg_tpu_torch.ops import _kernels, prepost_kernel
 
     dec = gt.Decoder(device=dev)
     kernels = {
@@ -453,7 +519,7 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         p = hf.plan
         words = torch.from_numpy(hf.words).to(dev)
         nbits = torch.from_numpy(hf.nbits).to(dev)
-        return p, words, nbits, (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+        return p, words, nbits
 
     def record_err(name, err, what):
         kernels[name]["err"] = max(kernels[name]["err"], err)
@@ -464,18 +530,13 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
     # -- a. kernels against their plain versions at 8K ---------------------
     for what, data in (("gradient", streams[0]), ("noise", noise_stream)):
         hf = dec.prepare(data)
-        p, words, nbits, args = inputs(hf)
+        p, words, nbits = inputs(hf)
         bstart, err_a, err, ms_a = scan_check(torch, words, nbits, p)
         record_err("huffdec_scan", err, what)
-        coefs, err_c = thd.decode_blocks(words, bstart, *args)
-        (p_coefs, p_err_c), ms_c = once_ms(
-            torch, lambda: thd.decode_blocks_plain(words, bstart, *args))
-        record_err("huffdec_block", max(
-            int((coefs.int() - p_coefs.int()).abs().max()),
-            int((err_c - p_err_c).abs().max())), what)
+        coefs, err_c, err, ms_c = block_check(torch, words, bstart, p)
+        record_err("huffdec_block", err, what)
         if bool(err_a.any()) or bool(err_c.any()):
             raise AssertionError(f"8K {what} stream decodes with errors")
-        del p_coefs
         coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
         geo, pi = p.geo, hf.out_pi
         img = prepost_kernel.decode_post(coefs, p.qtabs, geo, pi)
@@ -535,19 +596,11 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
     # stage breakdown of one more frame
     words, nbits, bstart, coefs, img, p, hf = dpost_decode_stages(
         torch, np, dec, streams[0], "dec 8k")
-    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
 
     # -- d. per-kernel times at the main path's shapes ---------------------
     scan_times(torch, kernels["huffdec_scan"], words, nbits, coefs, p, flush)
-    kernels["huffdec_block"]["ms"] = event_ms(
-        torch, lambda: thd.decode_blocks(words, bstart, *args), 20, flush)
-    nseg, W = words.shape
-    L = coefs.shape[1]
-    seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4   # nbits + 3 flags
-    w_bytes = stream_word_bytes(nbits)
-    kernels["huffdec_block"]["bound_ms"] = (
-        w_bytes + seg_bytes + bstart.numel() * 4 + L * 64 * 2 + L * 4) \
-        / PEAK_BYTES_S * 1e3
+    block_times(torch, kernels["huffdec_block"], words, nbits, bstart, p,
+                flush, kernels["huffdec_scan"]["tokens"], probe=True)
     dpost_times(torch, kernels["dpost_rgb"], coefs, img, p, hf, flush)
     log_times("dec time", kernels)
     return kernels, launches
@@ -678,9 +731,7 @@ def interleaved_phases(torch, np, gt, dev, flush):
     launches over its main path).  Records of a new mode of an older
     kernel are named kernel:mode and count that kernel's launches."""
     from gpujpeg_tpu_torch.models import decoder as tdec
-    from gpujpeg_tpu_torch.ops import _kernels, fusedpack
-    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
-    from gpujpeg_tpu_torch.ops import prepost_kernel
+    from gpujpeg_tpu_torch.ops import _kernels, fusedpack, prepost_kernel
 
     params = gt.Parameters(
         quality=QUALITY, restart_interval=gt.RESTART_AUTO,
@@ -794,19 +845,14 @@ def interleaved_phases(torch, np, gt, dev, flush):
         p = hf.plan
         words = torch.from_numpy(hf.words).to(dev)
         nbits = torch.from_numpy(hf.nbits).to(dev)
-        args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
         bstart, err_a, err, ms_a = scan_check(torch, words, nbits, p)
         record_err("huffdec_scan:pattern", err, fkind)
-        coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern)
-        (p_coefs, p_err_c), ms_c = once_ms(
-            torch, lambda: thd.decode_blocks_plain(words, bstart, *args,
-                                                   p.pattern))
-        record_err("huffdec_block:pattern",
-                   max(diff(coefs, p_coefs), diff(err_c, p_err_c)), fkind)
+        coefs, err_c, err, ms_c = block_check(torch, words, bstart, p)
+        record_err("huffdec_block:pattern", err, fkind)
         if bool(err_a.any()) or bool(err_c.any()):
             raise AssertionError(f"8K 4:2:0 {fkind} stream decodes with "
                                  "errors")
-        del p_coefs, words
+        del words
         coefs = tdec._dc_fixup_t(coefs, p.geo.segment_count, p.bps,
                                  p.comp_slots)
         dplanes = prepost_kernel.idct_planes(coefs, p.qtabs, p.geo)
@@ -853,6 +899,7 @@ def interleaved_phases(torch, np, gt, dev, flush):
     end_window()
     launches = {n: _kernels.LAUNCHES[n] for n in (
         "pre_rgb_to_planes", "fdct_quant", "huffman_segments")}
+    pre_once_a_frame(launches, len(frames), "il 4:2:0")
     MCU_ORDER["launches"] += launches["fdct_quant"]
     if _kernels.LAUNCHES["pack_stuff_rows"]:
         raise AssertionError("the 4:2:0 encode went through pack_stuff_rows")
@@ -907,7 +954,7 @@ def interleaved_phases(torch, np, gt, dev, flush):
     # per-launch times of the encode side at the path's shapes (frame 0)
     kernels["pre_rgb_to_planes:decimate"]["ms"] = event_ms(
         torch, lambda: prepost_kernel.preprocess_packed(
-            x, geo, geo.param_image), 20, flush) / 2     # 2 launches
+            x, geo, geo.param_image), 20, flush)       # 1 launch a frame
     kernels["huffman_segments:pattern_420"]["ms"] = event_ms(
         torch, lambda: fusedpack.huffman_segments(rows_in, nblocks, st,
                                                   markers), 10, flush)
@@ -932,7 +979,7 @@ def interleaved_phases(torch, np, gt, dev, flush):
                                                  stride), 10, flush)
     pl_bytes = sum(p_.numel() for p_ in planes)
     kernels["pre_rgb_to_planes:decimate"]["bound_ms"] = (
-        x.numel() + pl_bytes) / 2 / PEAK_BYTES_S * 1e3
+        x.numel() + pl_bytes) / PEAK_BYTES_S * 1e3
     kernels["huffman_segments:pattern_420"]["bound_ms"] = huffman_bound_ms(
         rows_in, rb)
     # every length is read; bits only in the 4-slot quads that hold a token
@@ -979,23 +1026,15 @@ def interleaved_phases(torch, np, gt, dev, flush):
         torch, np, dec, streams[0], "il 4:2:0")
 
     # -- d. per-launch times of the decode side at the path's shapes -------
-    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     scan_times(torch, kernels["huffdec_scan:pattern"], words, nbits, coefs,
                p, flush)
-    kernels["huffdec_block:pattern"]["ms"] = event_ms(
-        torch, lambda: thd.decode_blocks(words, bstart, *args, p.pattern),
-        20, flush)
-    L = coefs.shape[1]
+    block_times(torch, kernels["huffdec_block:pattern"], words, nbits,
+                bstart, p, flush, kernels["huffdec_scan:pattern"]["tokens"],
+                probe=True)
     idct_planes_times(torch, kernels["idct_planes"], coefs, p, flush)
     kernels["post_rgb"]["ms"] = event_ms(
         torch, lambda: prepost_kernel.postprocess_packed(
             dplanes, p.geo, hf.out_pi), 20, flush)
-    nseg = words.shape[0]
-    seg_bytes = 4 * nseg * 4 + p.tables.numel() * 4
-    w_bytes = stream_word_bytes(nbits)
-    kernels["huffdec_block:pattern"]["bound_ms"] = (
-        w_bytes + seg_bytes + bstart.numel() * 4 + L * 64 * 2 + L * 4) \
-        / PEAK_BYTES_S * 1e3
     kernels["post_rgb"]["bound_ms"] = (
         sum(d.numel() for d in dplanes) + img.numel()) / PEAK_BYTES_S * 1e3
     log_times("il time", kernels)
@@ -1031,6 +1070,8 @@ def main_path_8k(torch, np, gt, dev, enc, dec, params, seed0, what,
             if launches[n] <= 0:
                 raise AssertionError(f"kernel {n} was not launched on the "
                                      f"{what} path")
+        if stage == "enc":
+            pre_once_a_frame(launches, len(frames), what)
         for n in forbidden:
             if _kernels.LAUNCHES[n]:
                 raise AssertionError(f"the {what} {stage} went through {n}")
@@ -1102,6 +1143,11 @@ def il444_phases(torch, np, gt, dev, flush):
             source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
             replaces="gpujpeg_tpu/ops/huffdec_kernel.py:590",
             bound_by="bytes", library_ms=None, err=0),
+        "huffdec_block:pattern_444": dict(
+            key="huffdec_block",
+            source="gpujpeg_tpu_torch/csrc/huffdec_block.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:283",
+            bound_by="bytes", library_ms=None, err=0),
         "post_rgb:444": dict(
             key="post_rgb",
             source="gpujpeg_tpu_torch/csrc/post_rgb.cu",
@@ -1161,9 +1207,11 @@ def il444_phases(torch, np, gt, dev, flush):
         hf = dec.prepare(enc.assemble(geo, {"rows": [k_out[0]],
                                             "row_bytes": [k_out[1]]}))
         words, nbits = dec.upload(hf)
-        _b, _e, err, ms_scan = scan_check(torch, words, nbits, hf.plan)
+        bstart, _e, err, ms_scan = scan_check(torch, words, nbits, hf.plan)
         record_err("huffdec_scan:pattern_444", err, fkind)
-        del words, _b, _e
+        _c, _e, err, ms_block = block_check(torch, words, bstart, hf.plan)
+        record_err("huffdec_block:pattern_444", err, fkind)
+        del words, bstart, _c, _e
         coefs, err_a, err_c = dec.coefficients_t(hf)
         if bool(err_a.any()) or bool(err_c.any()):
             raise AssertionError(f"8K 4:4:4 interleaved {fkind} stream "
@@ -1193,6 +1241,7 @@ def il444_phases(torch, np, gt, dev, flush):
             kernels["huffman_segments:coefs"]["plain_ms"] = ms_coefs
             kernels["idct_planes:444"]["plain_ms"] = ms_idct
             kernels["huffdec_scan:pattern_444"]["plain_ms"] = ms_scan
+            kernels["huffdec_block:pattern_444"]["plain_ms"] = ms_block
             kernels["post_rgb:444"]["plain_ms"] = ms_post
             coefs_in = cm
         log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: fdct (MCU "
@@ -1200,7 +1249,8 @@ def il444_phases(torch, np, gt, dev, flush):
             f"{geo.blocks_per_mcu} x "
             f"{geo.segment_mcu_count} blocks, max row {max_row} B) and "
             f"coefficient-input mode ({cm[0].shape[0]} rows of 8 blocks), "
-            "scan (pattern), idct planes (one launch), post equal to plain")
+            "scan and block (pattern), idct planes (one launch), post equal "
+            "to plain")
         del p_out, k_out, planes, frame, cm
 
     # -- b. HD: card == CPU, bytes and pixels --------------------------------
@@ -1245,9 +1295,8 @@ def il444_phases(torch, np, gt, dev, flush):
     log("[il444 8k enc] stages (CUDA events; assembly on the host clock; "
         f"{rows_in.numel() * 2} B of coefficients in MCU order): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    _b, coefs, dplanes, img, words, nbits, p, hf = decode_stages(
+    bstart, coefs, dplanes, img, words, nbits, p, hf = decode_stages(
         torch, np, dec, streams[0], "il444")
-    del _b
 
     # -- d. per-launch times at the path's shapes ----------------------------
     kernels["huffman_segments:pattern"]["ms"] = event_ms(
@@ -1272,6 +1321,9 @@ def il444_phases(torch, np, gt, dev, flush):
     idct_planes_times(torch, kernels["idct_planes:444"], coefs, p, flush)
     scan_times(torch, kernels["huffdec_scan:pattern_444"], words, nbits,
                coefs, p, flush)
+    block_times(torch, kernels["huffdec_block:pattern_444"], words, nbits,
+                bstart, p, flush,
+                kernels["huffdec_scan:pattern_444"]["tokens"])
     kernels["post_rgb:444"]["ms"] = event_ms(
         torch, lambda: prepost_kernel.postprocess_packed(
             dplanes, p.geo, hf.out_pi), 20, flush)
@@ -1302,21 +1354,31 @@ def planar_phases(torch, np, gt, dev, flush):
             source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
             replaces="gpujpeg_tpu/ops/huffdec_kernel.py:590",
             bound_by="bytes", library_ms=None, err=0),
+        "huffdec_block:planar_420": dict(
+            key="huffdec_block",
+            source="gpujpeg_tpu_torch/csrc/huffdec_block.cu",
+            replaces="gpujpeg_tpu/ops/huffdec_kernel.py:283",
+            bound_by="bytes", library_ms=None, err=0),
     }
 
-    # -- a. phase A and dpost at dx = dy = 2 against their plain versions --
+    def record_err(name, err, what):
+        kernels[name]["err"] = max(kernels[name]["err"], err)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({what})")
+
+    # -- a. phases A and C and dpost at dx = dy = 2 against their plain
+    # versions -------------------------------------------------------------
     for fkind, seed in (("gradient", 51), ("noise", 52)):
         frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
         data = enc.encode(frame, params)
         hf = dec.prepare(data)
         words, nbits = dec.upload(hf)
-        _b, _e, err, ms_scan = scan_check(torch, words, nbits, hf.plan)
-        kernels["huffdec_scan:planar_420"]["err"] = max(
-            kernels["huffdec_scan:planar_420"]["err"], err)
-        if err:
-            raise AssertionError(f"huffdec_scan:planar_420 differs from its "
-                                 f"plain version ({fkind})")
-        del words, _b, _e
+        bstart, _e, err, ms_scan = scan_check(torch, words, nbits, hf.plan)
+        record_err("huffdec_scan:planar_420", err, fkind)
+        _c, _e, err, ms_block = block_check(torch, words, bstart, hf.plan)
+        record_err("huffdec_block:planar_420", err, fkind)
+        del words, bstart, _c, _e
         coefs, err_a, err_c = dec.coefficients_t(hf)
         if bool(err_a.any()) or bool(err_c.any()):
             raise AssertionError(f"8K planar 4:2:0 {fkind} stream decodes "
@@ -1328,18 +1390,14 @@ def planar_phases(torch, np, gt, dev, flush):
         img = prepost_kernel.decode_post(coefs, hf.plan.qtabs, geo, pi)
         ref, ms = once_ms(torch, lambda: prepost_kernel.decode_post_plain(
             coefs, hf.plan.qtabs, geo, pi))
-        err = diff(img, ref)
-        kernels["dpost_rgb:subsampled"]["err"] = max(
-            kernels["dpost_rgb:subsampled"]["err"], err)
-        if err:
-            raise AssertionError(f"dpost_rgb:subsampled differs from its "
-                                 f"plain version ({fkind})")
+        record_err("dpost_rgb:subsampled", diff(img, ref), fkind)
         if fkind == "gradient":
             kernels["dpost_rgb:subsampled"]["plain_ms"] = ms
             kernels["huffdec_scan:planar_420"]["plain_ms"] = ms_scan
+            kernels["huffdec_block:planar_420"]["plain_ms"] = ms_block
         log(f"[planar kernels] 8K planar 4:2:0 {fkind}: {len(data)} B, "
-            f"{geo.segment_count} segments in 3 scans, scan and dpost (dx = "
-            f"dy = 2) equal to plain, PSNR "
+            f"{geo.segment_count} segments in 3 scans, scan, block and dpost "
+            f"(dx = dy = 2) equal to plain, PSNR "
             f"{psnr(np, img.cpu().numpy(), frame.cpu().numpy()):.2f} dB")
         del coefs, img, ref, frame
 
@@ -1354,7 +1412,7 @@ def planar_phases(torch, np, gt, dev, flush):
         ("pack_stuff_rows", "idct_planes", "post_rgb"))
     planar_encode_stages(torch, enc, frames[0], params, streams[0],
                          "planar 4:2:0 8k enc")
-    words, nbits, _b, coefs, img, p, hf = dpost_decode_stages(
+    words, nbits, bstart, coefs, img, p, hf = dpost_decode_stages(
         torch, np, dec, streams[0], "planar 4:2:0 8k dec")
 
     # -- d. times, bounds and yardstick at the path's shapes ----------------
@@ -1362,6 +1420,9 @@ def planar_phases(torch, np, gt, dev, flush):
                 flush)
     scan_times(torch, kernels["huffdec_scan:planar_420"], words, nbits,
                coefs, p, flush)
+    block_times(torch, kernels["huffdec_block:planar_420"], words, nbits,
+                bstart, p, flush,
+                kernels["huffdec_scan:planar_420"]["tokens"])
     log_times("planar time", kernels)
     return kernels, {name: launches[k_["key"]]
                      for name, k_ in kernels.items()}
@@ -1372,7 +1433,6 @@ def decode_stages(torch, np, dec, data, what):
     interleaved scan, or a stream dpost does not take); returns what the
     per-launch timings reuse."""
     from gpujpeg_tpu_torch.models import decoder as tdec
-    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
     from gpujpeg_tpu_torch.ops import prepost_kernel
 
     dev = dec.device
@@ -1385,10 +1445,9 @@ def decode_stages(torch, np, dec, data, what):
     ev[0].record()
     words, nbits = dec.upload(hf)
     ev[1].record()
-    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
     bstart, _ea = scan_call(words, nbits, p)
     ev[2].record()
-    coefs, _ec = thd.decode_blocks(words, bstart, *args, p.pattern)
+    coefs, _ec = block_call(words, bstart, p)
     ev[3].record()
     coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps, p.comp_slots)
     ev[4].record()
@@ -1653,6 +1712,7 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
+    pre_once_a_frame(launches, len(frames), "4:4:4")
     log(f"[8k] {len(frames)} frames 7680x4320 Q75 rst "
         f"{geo.param.restart_interval}: bytes {sizes}, segments "
         f"{geo.segment_count}, RST markers ok, launches {launches}")

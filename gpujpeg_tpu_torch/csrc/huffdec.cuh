@@ -1,6 +1,7 @@
 // Shared pieces of the port's two Huffman decode kernels
 // (huffdec_scan.cu, huffdec_block.cu): the canonical tables in shared
-// memory, a bit reader over one segment row, and the token decode.
+// memory, the canonical decode of one token, and the register bit window
+// that both read their segment rows through.
 //
 // Tables: four of ops/huffdec_kernel.decode_tables (DC luma, DC chroma, AC
 // luma, AC chroma), each int32[kTableWords] = mono[17] | valoff[17] |
@@ -10,7 +11,10 @@
 // huffval[(peek16 >> (16 - clen)) + valoff[clen]].  For the tuned tables
 // the decoder accepts this gives the JAX package's (clen, sym) exactly
 // (gpujpeg_tpu/ops/huffdec_kernel.py: affine_ac_decode,
-// dc_identity_decode); clen 0 marks an invalid code.
+// dc_identity_decode); clen 0 marks an invalid code.  Both kernels look a
+// token up in a lookahead table built on the host first (huffdec_kernel
+// scan_lut, block_lut) and take this decode only where the table has no
+// entry.
 //
 // Classes: a block takes table set 0 ("luma") or 1 for its DC and its AC
 // token.  Segment s has flags dc_luma[s] / ac_luma[s]; block slot j of the
@@ -42,46 +46,109 @@ __device__ __forceinline__ void load_tables(const int32_t* __restrict__ src,
     __syncthreads();
 }
 
-__device__ __forceinline__ const int32_t* dc_table(const int32_t* tab,
-                                                  int seg_luma, uint32_t pat,
-                                                  int slot) {
-    return tab + ((seg_luma && ((pat >> slot) & 1u)) ? 0 : 1) * kTableWords;
-}
-
-__device__ __forceinline__ const int32_t* ac_table(const int32_t* tab,
-                                                  int seg_luma, uint32_t pat,
-                                                  int slot) {
-    return tab + ((seg_luma && ((pat >> slot) & 1u)) ? 2 : 3) * kTableWords;
-}
-
-struct RowReader {
-    const uint32_t* row;
-    int W;
-
-    __device__ __forceinline__ uint32_t word(int wi) const {
-        return wi < W ? __byte_perm(row[wi], 0, 0x0123) : 0u;
-    }
-
-    // the 32 bits of the row from bit `cursor` on
-    __device__ __forceinline__ uint32_t peek32(int cursor) const {
-        const int wi = cursor >> 5;
-        const int r = cursor & 31;
-        const uint64_t w = ((uint64_t)word(wi) << 32) | word(wi + 1);
-        return (uint32_t)((w << r) >> 32);
-    }
-};
-
-__device__ __forceinline__ void decode_token(const int32_t* t,
-                                             uint32_t peek32, int& clen,
-                                             int& sym) {
-    const int p16 = (int)(peek32 >> 16);
-    int l = 1;
+// One token from canonical table t (the layout above) and a left-aligned
+// 16-bit peek: (clen, sym), the code length found by a binary search of
+// the monotone mono[1..15].
+__device__ __forceinline__ void decode_one(const int32_t* t, int p16,
+                                           int& clen, int& sym) {
+    int c = 0;                         // #{l in 1..15 : p16 > mono[l]}
 #pragma unroll
-    for (int i = 1; i < 16; ++i) l += p16 > t[i] ? 1 : 0;
+    for (int half = 8; half >= 1; half >>= 1)
+        if (c + half <= 15 && p16 > t[c + half]) c += half;
+    const int l = c + 1;
     const int code = p16 >> (16 - l);
     const int idx = min(max(code + t[17 + l], 0), 255);
     sym = t[34 + idx];
     clen = p16 > t[16] ? 0 : l;
 }
+
+// The bits of one segment row, MSB first: 64 bits (buf) with at least 32
+// valid at each step of a walk that refills when n < 32, fed a 32-bit
+// word at a time from a 16-byte quad held in registers; the next quad's
+// load is issued when the current one is first used, four words ahead.
+// Loads are 16-byte aligned: a row starts at any word, so the first quad
+// may begin up to 3 words before it (those words are skipped), and a load
+// never leaves the aligned 16 bytes of a word the row owns.  Words at and
+// past W read as 0; quads wholly past the row are not loaded.
+struct BitWindow {
+    const uint4* q;      // the 16-byte-aligned quad holding the row's word 0
+    int lead;            // words of quad 0 before the row (0..3)
+    int W;
+    int k;               // index of quad cur (from q)
+    uint4 cur;           // quad k as loaded, masked; the next word in .x
+    uint4 next;          // quad k + 1 as loaded
+    uint64_t buf;        // the window; bits past n are 0
+    int n;
+
+    __device__ __forceinline__ uint4 fetch(int kk) const {
+        // load quad kk only when it holds a word of the row
+        const int r0 = 4 * kk - lead;
+        if (max(r0, 0) < W) return __ldg(q + kk);
+        return make_uint4(0u, 0u, 0u, 0u);
+    }
+
+    // quad kk with its words at and past the row's end zeroed (only the
+    // quad that holds the row's last word has any)
+    __device__ __forceinline__ uint4 mask(uint4 v, int kk) const {
+        const int r0 = 4 * kk - lead;
+        if (r0 + 3 >= W) {
+            v.y = r0 + 1 < W ? v.y : 0u;
+            v.z = r0 + 2 < W ? v.z : 0u;
+            v.w = 0u;
+        }
+        return v;
+    }
+
+    // the next word of the row, byteswapped to stream order; the fourth
+    // moves to the next quad and issues the load of the one after
+    __device__ __forceinline__ uint32_t take(int& j) {
+        const uint32_t w = __byte_perm(cur.x, 0, 0x0123);
+        cur.x = cur.y;
+        cur.y = cur.z;
+        cur.z = cur.w;
+        if (++j == 4) {
+            j = 0;
+            ++k;
+            cur = mask(next, k);
+            next = fetch(k + 1);
+        }
+        return w;
+    }
+
+    // append 32 bits (n < 32)
+    __device__ __forceinline__ void refill(int& j) {
+        buf |= (uint64_t)take(j) << (32 - n);
+        n += 32;
+    }
+
+    // the row's words from word 0 on: 64 valid bits
+    __device__ __forceinline__ void init(const uint32_t* row, int W_,
+                                         int& j) {
+        const uintptr_t addr = (uintptr_t)row;
+        q = (const uint4*)(addr & ~(uintptr_t)15);
+        lead = (int)((addr >> 2) & 3);
+        W = W_;
+        k = 0;
+        cur = mask(fetch(0), 0);
+        next = fetch(1);
+        j = 0;
+        for (int i = 0; i < lead; ++i) take(j);
+        buf = 0;
+        n = 0;
+        refill(j);
+        refill(j);
+    }
+
+    // the row of W_ words from bit `bit` on (0 <= bit): the window of
+    // the row's word bit >> 5, with bit & 31 bits shifted out (at least
+    // 33 valid)
+    __device__ __forceinline__ void start_at(const uint32_t* row, int W_,
+                                             int bit, int& j) {
+        const int wi = bit >> 5;
+        init(row + wi, W_ - wi, j);
+        buf <<= bit & 31;
+        n -= bit & 31;
+    }
+};
 
 }  // namespace gj

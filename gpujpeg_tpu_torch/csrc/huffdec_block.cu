@@ -8,121 +8,329 @@
 // into a VMEM tile through one-hot compares, and its segment row has to be
 // expanded into every lane; here one thread decodes one block: it reads
 // its segment's row from bit bstart[s][j] (phase A's boundary) up to
-// bstart[s][j+1], keeps the 64 coefficients in a local array, and stores
-// them at the end into the (64, L) layout, where at a fixed coefficient
-// neighbouring threads store neighbouring int16s.  No per-block buffers
-// (the JAX package's phase B) are made.
+// bstart[s][j+1].  No per-block buffers (the JAX package's phase B) are
+// made.
 //
 // Semantics as _block_kernel_body: the DC token is decoded first and is
 // bad on an invalid code, an overrun of the block's end or a symbol above
 // 15; a block whose cursor reaches its end right after DC is done; then
-// at most MAX_AC_STEPS = 66 AC tokens, each bad on an invalid code, an
-// overrun, a coefficient index past 63 or a new position past 64; only
-// good tokens that are neither EOB nor ZRL and carry value bits write a
-// coefficient; a block still unfinished after the 66 steps is an error;
-// slots j >= nblocks[s] are all zero with err 0.  DC is differential (the
-// caller integrates it per component along the segment).  A block's
-// table class comes from its segment's flags and the slot pattern
-// (huffdec.cuh), as the JAX kernel's per-block class rows.
+// AC tokens, each bad on an invalid code, an overrun, a coefficient index
+// past 63 or a new position past 64; only good tokens that are neither
+// EOB nor ZRL and carry value bits write a coefficient; slots j >=
+// nblocks[s] are all zero with err 0.  Every good AC token advances the
+// position, so a block ends within 63 of them and the JAX kernel's cap of
+// MAX_AC_STEPS = 66 never binds: the walk needs no step count.  A
+// coefficient index of at most 63 gives a new position of at most 64, so
+// one check covers both.  DC is differential (the caller integrates it
+// per component along the segment).  A block's table class comes from
+// its segment's flags and the slot pattern (huffdec.cuh), as the JAX
+// kernel's per-block class rows.
 //
-// Bound: bytes.  At 8K Q75 the kernel reads the 25.7 MB word matrix and
-// 7.0 MB of bstart and writes 199.1 MB of coefficients and 6.2 MB of
-// error flags, about 0.071 ms at 3.35 TB/s.  The serial token walk of a
-// block (up to 64 dependent table lookups) and the 128-byte local array,
-// which the compiler keeps in local memory, cost more; the final stores
-// coalesce, and the row reads of the 8 threads of one segment hit the
-// same L1 lines.
+// Bound: bytes.  At 8K Q75 (planar 4:4:4) the kernel reads the 25.7 MB
+// word matrix and 7.0 MB of bstart and writes 199.1 MB of coefficients
+// and 6.2 MB of error flags, about 0.07 ms at 3.35 TB/s.  What it costs
+// beyond that is the serial token walk of each block (about 10 tokens at
+// 8K Q75), whose integer instructions a lane issues one after another
+// while the lanes of a warp wait for the longest block, and, in the
+// earlier design, a 128-byte local array with its 64 zero stores,
+// scattered writes and reloads.  So:
+//
+//   - a lookahead table (ops/huffdec_kernel.block_lut, built on the host)
+//     indexed by class and the next BLOCK_LUT_BITS = 9 bits: one token an
+//     entry, its advance, code length, run and end of block, and its
+//     decoded value where the value bits lie inside the 9 bits too.  One
+//     32-bit shared load a token, at a table address held in a register.
+//     An entry of 0 (a code longer than 9 bits, an invalid one, a DC
+//     symbol above 15) takes the canonical decode (huffdec.cuh
+//     gj::decode_one); a value that does not fit comes from the window;
+//   - the register bit window of phase A (huffdec.cuh gj::BitWindow),
+//     started at the block's first bit: its word, then bstart & 31 bits
+//     shifted out;
+//   - coefficients in shared memory: each warp owns a tile of 32 blocks x
+//     64 coefficients (4 KB, coefficient-major, so row k of the tile is
+//     contiguous in the (64, L) output), zero when the warp starts on it;
+//     a lane writes only its block's nonzero coefficients, then the warp
+//     stores the tile with 16-byte stores (64 contiguous bytes a
+//     coefficient row) and zeroes it on the way; no per-thread array;
+//   - a persistent grid (tile.cuh gj::resident_ctas): as many CTAs of 8
+//     warps as fit on the card, each loading the canonical tables (4.6
+//     KB) and the lookahead table (8 KB) once, its warps walking tiles
+//     independently (a warp barrier a tile, no CTA barrier).  45.6 KB of
+//     static shared memory a CTA; a 10-bit table (16 KB) would leave room
+//     for 4 warps only, which was slower on three of the four 8K paths
+//     (PERF.md).
+//
+// The stage template argument cuts the kernel for chip_smoke.py's probe
+// (gj::Stage; gj_huffdec_block_probe); the codec's entry point,
+// gj_huffdec_block, runs the full kernel.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "huffdec.cuh"
+#include "tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxAcSteps = 66;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 32;             // blocks a warp tile (a block a lane)
+constexpr int kLutBits = 9;           // huffdec_kernel.BLOCK_LUT_BITS
+constexpr int kLutSize = 1 << kLutBits;
 
-// `size` value bits after a `clen`-bit code, sign-extended (T.81 F.2.2.1)
-__device__ __forceinline__ int value_bits(uint32_t peek, int clen,
-                                          int size) {
+// block_entry layout (ops/huffdec_kernel.block_entry): advance, code
+// length, run, AC end of block, value present, value
+constexpr uint32_t kEob = 1u << 14, kFit = 1u << 15;
+
+// block_entry of a token from the canonical decode (no value)
+__device__ __forceinline__ uint32_t entry_of(int clen, int sym, bool is_dc) {
+    const uint32_t eob = (!is_dc && sym == 0) ? kEob : 0u;
+    return (uint32_t)(clen + (sym & 15)) | ((uint32_t)clen << 5)
+           | ((uint32_t)(sym >> 4) << 10) | eob;
+}
+
+// the sign-extended value (T.81 F.2.2.1) of a token whose entry holds
+// none: its value bits after the code at the top of the window (0 when it
+// has none)
+__device__ __forceinline__ int window_value(uint32_t e, uint64_t buf) {
+    const int clen = (int)((e >> 5) & 31u);
+    const int size = (int)(e & 31u) - clen;
     if (size == 0) return 0;
-    const uint32_t vu = (peek << clen) >> (32 - size);
+    const uint32_t vu = (uint32_t)((buf << clen) >> (64 - size));
     return vu < (1u << (size - 1)) ? (int)vu - (1 << size) + 1 : (int)vu;
 }
 
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+    return v;
+}
+
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, int v) {
+    asm volatile("st.shared.u16 [%0], %1;"
+                 :: "r"(addr), "h"((unsigned short)v) : "memory");
+}
+
+// x through an opaque move: a shared address computed once stays in a
+// register (the compiler would otherwise recompute it in the walk)
+__device__ __forceinline__ uint32_t pinned(uint32_t x) {
+    uint32_t y;
+    asm volatile("mov.u32 %0, %1;" : "=r"(y) : "r"(x));
+    return y;
+}
+
+// the lookahead entry of the window's next kLutBits bits in the table at
+// shared address t
+__device__ __forceinline__ uint32_t lookup(uint32_t t, uint64_t buf) {
+    return ld_shared_u32(t + ((uint32_t)(buf >> (64 - kLutBits)) << 2));
+}
+
+// One block from its window (at the block's first bit, `cursor`) up to
+// bit `bend`: its nonzero coefficients into this lane's column of the
+// warp's tile (shared address col_s, a row of kTile int16 a coefficient),
+// with the DC and AC lookahead tables at shared addresses dlut_s, alut_s
+// and the canonical tables dtab, atab; true when the block is bad.
+__device__ __forceinline__ bool decode_block(gj::BitWindow& bw, int& jq,
+                                             int cursor, int bend,
+                                             uint32_t dlut_s,
+                                             uint32_t alut_s,
+                                             const int32_t* dtab,
+                                             const int32_t* atab,
+                                             uint32_t col_s) {
+    // DC token
+    uint32_t e = lookup(dlut_s, bw.buf);
+    int v;
+    if (!(e & kFit)) {
+        if (e == 0) {
+            int clen, sym;
+            gj::decode_one(dtab, (int)(bw.buf >> 48), clen, sym);
+            e = clen == 0 || sym > 15 ? 0u : entry_of(clen, sym, true);
+        }
+        v = window_value(e, bw.buf);
+    } else {
+        v = (int)e >> 16;
+    }
+    int adv = (int)(e & 31u);
+    if (e == 0 || cursor + adv > bend) return true;
+    if (v != 0) st_shared_u16(col_s, v);
+    cursor += adv;
+    if (cursor >= bend) return false;    // the block ends after its DC
+    bw.buf <<= adv;
+    bw.n -= adv;
+    // AC tokens
+    int pos = 1;
+    while (true) {
+        if (bw.n < 32) bw.refill(jq);
+        e = lookup(alut_s, bw.buf);
+        if (!(e & kFit)) {        // a long or invalid code, or a value past
+            if (e == 0) {         // the table's bits
+                int clen, sym;
+                gj::decode_one(atab, (int)(bw.buf >> 48), clen, sym);
+                if (clen == 0) return true;
+                e = entry_of(clen, sym, false);
+            }
+            v = window_value(e, bw.buf);
+        } else {
+            v = (int)e >> 16;
+        }
+        adv = (int)(e & 31u);
+        const int coef = pos + (int)((e >> 10) & 15u);
+        if (cursor + adv > bend || coef > 63) return true;
+        if (v != 0) st_shared_u16(col_s + coef * (2 * kTile), v);
+        if ((e & kEob) || coef == 63) return false;
+        cursor += adv;
+        pos = coef + 1;
+        bw.buf <<= adv;
+        bw.n -= adv;
+    }
+}
+
+template <int kStage>
 __global__ void __launch_bounds__(kThreads)
-huffdec_block_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
-                     const int32_t* __restrict__ bstart, int bps,
+huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
+                     const int32_t* __restrict__ bstart, int bps, int L,
                      const int32_t* __restrict__ nblocks,
                      const int32_t* __restrict__ dc_luma,
                      const int32_t* __restrict__ ac_luma, int bpm,
                      uint32_t dc_pat, uint32_t ac_pat,
                      const int32_t* __restrict__ tables,
+                     const uint32_t* __restrict__ lut_g, bool vec,
                      int16_t* __restrict__ coefs,
                      int32_t* __restrict__ err_out) {
     __shared__ int32_t tab[gj::kTablesWords];
-    gj::load_tables(tables, tab);
-    const int64_t L = nseg * bps;
-    const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= L) return;
-    const int64_t s = b / bps;
-    const int j = (int)(b - s * bps);
-    const int slot = j % bpm;
-    int16_t c[64];
-#pragma unroll
-    for (int k = 0; k < 64; ++k) c[k] = 0;
-    bool err = false;
-    if (j < nblocks[s]) {
-        const gj::RowReader rd{words + s * (int64_t)W, W};
-        const int32_t* bs = bstart + s * (int64_t)(bps + 1) + j;
-        const int bend = bs[1];
-        int cursor = bs[0];
-        // DC token
-        uint32_t peek = rd.peek32(cursor);
-        int clen, sym;
-        gj::decode_token(gj::dc_table(tab, dc_luma[s], dc_pat, slot), peek,
-                         clen, sym);
-        int size = sym & 15;
-        bool done;
-        if (clen == 0 || cursor + clen + size > bend || sym > 15) {
-            err = true;
-            done = true;
-        } else {
-            c[0] = (int16_t)value_bits(peek, clen, size);
-            cursor += clen + size;
-            done = cursor >= bend;
-        }
-        const int32_t* act = gj::ac_table(tab, ac_luma[s], ac_pat, slot);
-        int pos = 1;
-        for (int step = 0; step < kMaxAcSteps && !done; ++step) {
-            peek = rd.peek32(cursor);
-            gj::decode_token(act, peek, clen, sym);
-            size = sym & 15;
-            const int after = cursor + clen + size;
-            const bool is_eob = sym == 0;
-            const bool is_zrl = sym == 0xF0;
-            const int coef_idx = pos + (sym >> 4);
-            const int new_pos = is_eob ? 64 : is_zrl ? pos + 16
-                                                     : coef_idx + 1;
-            if (clen == 0 || after > bend || coef_idx > 63 || new_pos > 64) {
-                err = true;
-                break;
+    __shared__ __align__(16) uint32_t lut[4 * kLutSize];
+    __shared__ __align__(16) int16_t tiles[kWarps][64 * kTile];
+    for (int i = threadIdx.x; i < 4 * kLutSize / 4; i += kThreads)
+        reinterpret_cast<uint4*>(lut)[i] =
+            __ldg(reinterpret_cast<const uint4*>(lut_g) + i);
+    for (int i = threadIdx.x; i < kWarps * 64 * kTile / 8; i += kThreads)
+        reinterpret_cast<uint4*>(&tiles[0][0])[i] = make_uint4(0, 0, 0, 0);
+    gj::load_tables(tables, tab);        // ends in __syncthreads()
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int16_t* tile = tiles[warp];
+    // shared-window addresses, computed once: the tables, and this lane's
+    // column of its warp's tile
+    const uint32_t lut_s = pinned((uint32_t)__cvta_generic_to_shared(lut));
+    const uint32_t col_s = pinned(
+        (uint32_t)__cvta_generic_to_shared(tile) + 2u * lane);
+    const int ntiles = (L + kTile - 1) / kTile;
+    // this lane's slot b = s * bps + j, stepped along the grid's stride
+    // without a division
+    const int stride = gridDim.x * kWarps;
+    const int step = stride * kTile;
+    const int step_s = step / bps, step_j = step - step_s * bps;
+    int t = blockIdx.x * kWarps + warp;
+    int b = t * kTile + lane;
+    int s = b / bps, j = b - s * bps;
+    for (; t < ntiles; t += stride) {
+        const int b0 = t * kTile;
+        bool bad = false;
+        if (b < L) {
+            // the slot's loads, issued together
+            const int32_t* bs = bstart + (int64_t)s * (bps + 1) + j;
+            const int cursor = __ldg(bs), bend = __ldg(bs + 1);
+            const int nb = __ldg(nblocks + s);
+            const int dflag = __ldg(dc_luma + s), aflag = __ldg(ac_luma + s);
+            if (j < nb) {
+                const int slot = bpm == 1 ? 0 : j % bpm;
+                const int dcls = dflag && ((dc_pat >> slot) & 1u) ? 0 : 1;
+                const int acls = aflag && ((ac_pat >> slot) & 1u) ? 2 : 3;
+                gj::BitWindow bw;
+                int jq;
+                bw.start_at(words + (int64_t)s * W, W, cursor, jq);
+                if (kStage == gj::kLoadStore)      // the loads alone
+                    bad = bw.buf == 0x9E3779B97F4A7C15ull;
+                else
+                    bad = decode_block(
+                        bw, jq, cursor, bend,
+                        pinned(lut_s + dcls * (4 * kLutSize)),
+                        pinned(lut_s + acls * (4 * kLutSize)),
+                        tab + dcls * gj::kTableWords,
+                        tab + acls * gj::kTableWords, col_s);
             }
-            if (!is_eob && !is_zrl && size > 0)
-                c[coef_idx] = (int16_t)value_bits(peek, clen, size);
-            cursor = after;
-            pos = new_pos;
-            done = new_pos >= 64;
         }
-        err = err || !done;
-    }
+        b += step;
+        s += step_s;
+        j += step_j;
+        if (j >= bps) {
+            j -= bps;
+            ++s;
+        }
+        __syncwarp();
+        // the tile's 64 coefficient rows, each kTile columns from b0 on;
+        // every tile entry is zeroed for the next tile
+        const int nb = min(kTile, L - b0);
+        if (vec) {
 #pragma unroll
-    for (int k = 0; k < 64; ++k) coefs[k * L + b] = c[k];
-    err_out[b] = err ? 1 : 0;
+            for (int m = 0; m < 64 * kTile / 8 / 32; ++m) {
+                const int i = lane + 32 * m;     // 16-byte chunk of the tile
+                const int k = i / (kTile / 8), c = i % (kTile / 8);
+                uint4* src = reinterpret_cast<uint4*>(tile) + i;
+                if (kStage != gj::kNoStore && c * 8 < nb)
+                    *reinterpret_cast<uint4*>(coefs + (int64_t)k * L + b0
+                                              + c * 8) = *src;
+                *src = make_uint4(0, 0, 0, 0);
+            }
+        } else {
+            for (int k = 0; k < 64; ++k) {
+                if (kStage != gj::kNoStore && lane < nb)
+                    coefs[(int64_t)k * L + b0 + lane] =
+                        tile[k * kTile + lane];
+                tile[k * kTile + lane] = 0;
+            }
+        }
+        if (b0 + lane < L) err_out[b0 + lane] = bad ? 1 : 0;
+        __syncwarp();
+    }
+}
+
+template <int kStage>
+int run(const void* words, int64_t nseg, int W, const void* bstart, int bps,
+        const void* nblocks, const void* dc_luma, const void* ac_luma,
+        int bpm, int dc_pat, int ac_pat, const void* tables, const void* lut,
+        void* coefs, void* err, void* stream) {
+    const int64_t L = nseg * bps;
+    auto* kernel = huffdec_block_kernel<kStage>;
+    const int fit = gj::resident_ctas(kernel, kThreads, 0);
+    if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int64_t want = ((L + kTile - 1) / kTile + kWarps - 1) / kWarps;
+    const int grid = want < fit ? (int)want : fit;
+    const bool vec = L % 8 == 0 && ((uintptr_t)coefs & 15) == 0;
+    kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, W, (const int32_t*)bstart, bps, (int)L,
+        (const int32_t*)nblocks, (const int32_t*)dc_luma,
+        (const int32_t*)ac_luma, bpm, (uint32_t)dc_pat, (uint32_t)ac_pat,
+        (const int32_t*)tables, (const uint32_t*)lut, vec, (int16_t*)coefs,
+        (int32_t*)err);
+    return (int)cudaGetLastError();
+}
+
+int launch(int stage, const void* words, int64_t nseg, int W,
+           const void* bstart, int bps, const void* nblocks,
+           const void* dc_luma, const void* ac_luma, int bpm, int dc_pat,
+           int ac_pat, const void* tables, const void* lut, void* coefs,
+           void* err, void* stream) {
+    // words: (nseg, W) host-order u32 rows, 4-byte aligned; bstart: (nseg,
+    // bps+1) i32 with entries in [0, 32 W]; nblocks, dc_luma, ac_luma:
+    // (nseg,) i32; bpm, dc_pat, ac_pat: the slot pattern (huffdec.cuh);
+    // tables: (4, 290) i32; lut: (4, 512) i32 (ops/huffdec_kernel.
+    // block_lut), 16-byte aligned; coefs: (64, nseg*bps) i16; err:
+    // (nseg*bps,) i32
+    const int64_t L = nseg * bps;
+    if (L > INT_MAX / 2 || ((uintptr_t)lut & 15))
+        return (int)cudaErrorInvalidValue;
+    if (L <= 0) return (int)cudaGetLastError();
+    const auto fn = stage == gj::kFull ? run<gj::kFull>
+        : stage == gj::kLoadStore ? run<gj::kLoadStore>
+        : stage == gj::kNoStore ? run<gj::kNoStore> : nullptr;
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return fn(words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, bpm,
+              dc_pat, ac_pat, tables, lut, coefs, err, stream);
 }
 
 }  // namespace
@@ -131,22 +339,28 @@ extern "C" int gj_huffdec_block(const void* words, int64_t nseg, int W,
                                 const void* bstart, int bps,
                                 const void* nblocks, const void* dc_luma,
                                 const void* ac_luma, int bpm, int dc_pat,
-                                int ac_pat, const void* tables, void* coefs,
-                                void* err, void* stream) {
-    // words: (nseg, W) host-order u32 rows; bstart: (nseg, bps+1) i32;
-    // nblocks, dc_luma, ac_luma: (nseg,) i32; bpm, dc_pat, ac_pat: the
-    // slot pattern (huffdec.cuh); tables: (4, 290) i32; coefs: (64,
-    // nseg*bps) i16; err: (nseg*bps,) i32
-    const int64_t L = nseg * bps;
-    if (L > 0) {
-        const int64_t grid = (L + kThreads - 1) / kThreads;
-        huffdec_block_kernel<<<(unsigned)grid, kThreads, 0,
-                               (cudaStream_t)stream>>>(
-            (const uint32_t*)words, nseg, W, (const int32_t*)bstart, bps,
-            (const int32_t*)nblocks, (const int32_t*)dc_luma,
-            (const int32_t*)ac_luma, bpm, (uint32_t)dc_pat,
-            (uint32_t)ac_pat, (const int32_t*)tables,
-            (int16_t*)coefs, (int32_t*)err);
-    }
-    return (int)cudaGetLastError();
+                                int ac_pat, const void* tables,
+                                const void* lut, void* coefs, void* err,
+                                void* stream) {
+    return launch(gj::kFull, words, nseg, W, bstart, bps, nblocks, dc_luma,
+                  ac_luma, bpm, dc_pat, ac_pat, tables, lut, coefs, err,
+                  stream);
+}
+
+// the probe's cut kernels (gj::Stage), same arguments after the stage:
+// loads and stores only starts every block's window and stores its zero
+// tile, decoding no token; no store decodes every block into the tile but
+// writes no coefficient
+extern "C" int gj_huffdec_block_probe(int stage, const void* words,
+                                      int64_t nseg, int W,
+                                      const void* bstart, int bps,
+                                      const void* nblocks,
+                                      const void* dc_luma,
+                                      const void* ac_luma, int bpm,
+                                      int dc_pat, int ac_pat,
+                                      const void* tables, const void* lut,
+                                      void* coefs, void* err, void* stream) {
+    return launch(stage, words, nseg, W, bstart, bps, nblocks, dc_luma,
+                  ac_luma, bpm, dc_pat, ac_pat, tables, lut, coefs, err,
+                  stream);
 }

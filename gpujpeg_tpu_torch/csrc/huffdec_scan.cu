@@ -39,16 +39,13 @@
 //     token, so position and index checks fold into one (a new position
 //     past 64), and an overrun of nbits anywhere in an entry is the error
 //     of its last token: no block boundary lies between.
-//   - a register bit window: 64 bits (MSB first) with at least 32 valid
-//     at each step, refilled a 32-bit word at a time from a 16-byte quad
-//     held in registers; the next quad's load is issued when the current
-//     one is first used, four words ahead.  Loads are 16-byte aligned: a
-//     row starts at any word (rows are W words apart), so the first quad
-//     may begin up to 3 words before the row (those words are skipped),
-//     and a load never leaves the aligned 16 bytes of a word the row owns
-//     (no page is touched that the row does not touch).  Words at and
-//     past W read as 0, as the plain version's; quads wholly past the row
-//     are not loaded.
+//   - a register bit window (huffdec.cuh gj::BitWindow, shared with the
+//     block kernel): 64 bits (MSB first) with at least 32 valid at each
+//     step, refilled a 32-bit word at a time from a 16-byte quad held in
+//     registers, the next quad loaded four words ahead.  Rows start at
+//     any word (rows are W words apart); loads stay 16-byte aligned and
+//     inside the aligned 16 bytes of a word the row owns, and words at
+//     and past W read as 0, as the plain version's.
 //   - bstart stored as the walk goes, a word at a time at a stride of bps
 //     + 1 words between lanes: the L2 merges the lanes' stores; staging
 //     a warp's rows in shared memory to store them coalesced was slower
@@ -84,92 +81,6 @@ __device__ __forceinline__ uint32_t ld_shared_u16(uint32_t addr) {
     return v;
 }
 
-// One token from canonical table t (huffdec.cuh layout) and a left-aligned
-// 16-bit peek: decode_token's (clen, sym), with the code length found by
-// a binary search of the monotone mono[1..15] instead of 15 compares.
-__device__ __forceinline__ void decode_one(const int32_t* t, int p16,
-                                           int& clen, int& sym) {
-    int c = 0;                         // #{l in 1..15 : p16 > mono[l]}
-#pragma unroll
-    for (int half = 8; half >= 1; half >>= 1)
-        if (c + half <= 15 && p16 > t[c + half]) c += half;
-    const int l = c + 1;
-    const int code = p16 >> (16 - l);
-    const int idx = min(max(code + t[17 + l], 0), 255);
-    sym = t[34 + idx];
-    clen = p16 > t[16] ? 0 : l;
-}
-
-// The bits of one segment row, MSB first.
-struct BitWindow {
-    const uint4* q;      // the 16-byte-aligned quad holding the row's word 0
-    int lead;            // words of quad 0 before the row (0..3)
-    int W;
-    int k;               // index of quad cur (from q)
-    uint4 cur;           // quad k as loaded, masked; the next word in .x
-    uint4 next;          // quad k + 1 as loaded
-    uint64_t buf;        // the window; bits past n are 0
-    int n;
-
-    __device__ __forceinline__ uint4 fetch(int kk) const {
-        // load quad kk only when it holds a word of the row
-        const int r0 = 4 * kk - lead;
-        if (max(r0, 0) < W) return __ldg(q + kk);
-        return make_uint4(0u, 0u, 0u, 0u);
-    }
-
-    // quad kk with its words at and past the row's end zeroed (only the
-    // quad that holds the row's last word has any)
-    __device__ __forceinline__ uint4 mask(uint4 v, int kk) const {
-        const int r0 = 4 * kk - lead;
-        if (r0 + 3 >= W) {
-            v.y = r0 + 1 < W ? v.y : 0u;
-            v.z = r0 + 2 < W ? v.z : 0u;
-            v.w = 0u;
-        }
-        return v;
-    }
-
-    // the next word of the row, byteswapped to stream order; the fourth
-    // moves to the next quad and issues the load of the one after
-    __device__ __forceinline__ uint32_t take(int& j) {
-        const uint32_t w = __byte_perm(cur.x, 0, 0x0123);
-        cur.x = cur.y;
-        cur.y = cur.z;
-        cur.z = cur.w;
-        if (++j == 4) {
-            j = 0;
-            ++k;
-            cur = mask(next, k);
-            next = fetch(k + 1);
-        }
-        return w;
-    }
-
-    // append 32 bits (n < 32)
-    __device__ __forceinline__ void refill(int& j) {
-        buf |= (uint64_t)take(j) << (32 - n);
-        n += 32;
-    }
-
-    __device__ __forceinline__ void init(const uint32_t* row, int W_,
-                                         int& j) {
-        const uintptr_t addr = (uintptr_t)row;
-        q = (const uint4*)(addr & ~(uintptr_t)15);
-        lead = (int)((addr >> 2) & 3);
-        W = W_;
-        k = 0;
-        cur = mask(fetch(0), 0);
-        next = fetch(1);
-        j = 0;
-        for (int i = 0; i < lead; ++i) take(j);
-        buf = 0;
-        n = 0;
-        refill(j);
-        refill(j);
-    }
-};
-
 __global__ void __launch_bounds__(kThreads)
 huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                     const int32_t* __restrict__ nbits_a,
@@ -195,7 +106,7 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
         const int nbits = nbits_a[s];
         const int nb = nblocks_a[s];
         const int sdc = dc_luma[s], sac = ac_luma[s];
-        BitWindow bw;
+        gj::BitWindow bw;
         int j;
         bw.init(words + s * (int64_t)W, W, j);
         out[0] = 0;
@@ -215,7 +126,7 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
             int new_pos = pos + (int)((e >> kStepShift) & 63u);
             if (e == 0 || new_pos > 64) {
                 int clen, sym;
-                decode_one(tab + cls * gj::kTableWords,
+                gj::decode_one(tab + cls * gj::kTableWords,
                            (int)(bw.buf >> 48), clen, sym);
                 if (clen == 0) {
                     bad = true;

@@ -251,6 +251,8 @@ class Plan:
     tables: torch.Tensor      # (4, DECODE_TABLE_WORDS) int32
     scan_lut: torch.Tensor    # (4, 1 << SCAN_LUT_BITS) int16, phase A's
     #                           lookahead table (huffdec_kernel.scan_lut)
+    block_lut: torch.Tensor   # (4, 1 << BLOCK_LUT_BITS) int32, phase C's
+    #                           lookahead table (huffdec_kernel.block_lut)
     qtabs: torch.Tensor       # (3, 64) float32 zig-zag quant tables
     # slot pattern (bpm, dc mask, ac mask): block slot j of a segment takes
     # table set 0 when its segment's flag and bit j % bpm are set
@@ -273,6 +275,7 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
         pick(ps.huff_dc, dc_ids, 0), pick(ps.huff_dc, dc_ids, 1),
         pick(ps.huff_ac, ac_ids, 0), pick(ps.huff_ac, ac_ids, 1))
     lut = huffdec_kernel.scan_lut(tab)
+    blut = huffdec_kernel.block_lut(tab)
     bps = geo.max_blocks_per_seg
     qtabs = np.stack([ps.quant_tables[ps.quant_map[c.index]]
                       for c in geo.components]).astype(np.float32)
@@ -302,7 +305,7 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
                                         0, rst) * bpm),
                     dc_luma=dev(np.ones(S)), ac_luma=dev(np.ones(S)),
                     tables=dev(tab), scan_lut=dev(lut, np.int16),
-                    qtabs=dev(qtabs, np.float32),
+                    block_lut=dev(blut), qtabs=dev(qtabs, np.float32),
                     pattern=(bpm, dc_pat, ac_pat),
                     comp_slots=comp_slots)
     nb, dcl, acl = [], [], []
@@ -313,7 +316,8 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
         acl.append(np.full(S, comp_ac[c.index] == ac_ids[0]))
     return Plan(geo=geo, bps=bps, nblocks=dev(nb), dc_luma=dev(dcl),
                 ac_luma=dev(acl), tables=dev(tab),
-                scan_lut=dev(lut, np.int16), qtabs=dev(qtabs, np.float32))
+                scan_lut=dev(lut, np.int16), block_lut=dev(blut),
+                qtabs=dev(qtabs, np.float32))
 
 
 @dataclasses.dataclass
@@ -494,7 +498,7 @@ class Decoder:
             p.pattern, p.scan_lut)
         coefs_t, err_c = huffdec_kernel.decode_blocks(
             words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
-            p.pattern)
+            p.pattern, p.block_lut)
         return (_dc_fixup_t(coefs_t, words.shape[0], p.bps, p.comp_slots),
                 err_a, err_c)
 

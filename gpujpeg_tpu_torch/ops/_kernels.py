@@ -45,9 +45,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 #: kernel name -> argtypes of its C entry point gj_<name>
 _SIGNATURES: Dict[str, List] = {
-    # raw, H, W, dx, dy, data_h, data_w, params (host int32[26]), out0,
-    # out1, out2 (null = not requested), stream
-    "pre_rgb_to_planes": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # raw, H, W, geo (host int32[12]: dx, dy, data_h, data_w a plane),
+    # params (host int32[26]), out0, out1, out2, vector instance, stream
+    "pre_rgb_to_planes": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     # plane, data_h, data_w, nblocks_out, then the output map (bpm, off,
     # sh, sv, mcux; 1, 0, 1, 1, blocks a row = raster order), mq, bias,
     # out, stream
@@ -64,9 +64,9 @@ _SIGNATURES: Dict[str, List] = {
     "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
                      _P, _P, _P],
     # words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, bpm, dc_pat,
-    # ac_pat, tables, coefs, err, stream
+    # ac_pat, tables, lookahead table, coefs, err, stream
     "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
-                      _P, _P],
+                      _P, _P, _P],
     # coefs, L, offsets (host int64[3]), luma blocks, luma blocks per row,
     # dx, dy, H, W, qtabs, idct matrix, params (host int32[26]), out,
     # stream
@@ -93,7 +93,7 @@ SOURCES: Dict[str, str] = {name: "relayout" for name in (
 
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
-PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments")
+PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments", "huffdec_block")
 PROBE_STAGES = {"full": 0, "load_store": 1, "no_store": 2}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -29,11 +29,13 @@ values, which is what the decoder gates on, the canonical decode gives
 the same (code length, symbol) as the JAX package's arithmetic decode
 (affine_ac_decode / dc_identity_decode) on every 16-bit peek, invalid
 codes included (code length 0); tests/test_torch_huffdec.py checks all
-65,536 peeks.  Phase A's kernel also takes a lookahead table built here
-from the canonical tables (scan_lut: the tokens inside the next 11 bits,
-summed); what it cannot resolve the kernel decodes from the canonical
-tables, and tests/test_torch_scan_lut.py holds every entry against an
-independent decode.
+65,536 peeks.  Each kernel also takes a lookahead table built here from
+the canonical tables: phase A's scan_lut (the tokens inside the next 11
+bits, summed) and phase C's block_lut (one token of the next 9 bits
+with its value where the value bits fit too); what a table cannot
+resolve the kernel decodes from the canonical tables.
+tests/test_torch_scan_lut.py and tests/test_torch_block_lut.py hold
+every entry against independent decodes.
 
 Words are the host-order rows of stream/segments.pack_segments_matrix
 (stream byte k is byte k of the row) as int32; the kernels and the plain
@@ -68,6 +70,14 @@ NO_PATTERN = (1, 1, 1)
 
 #: phase A's lookahead table is indexed by the next SCAN_LUT_BITS bits
 SCAN_LUT_BITS = 11
+
+#: phase C's lookahead table is indexed by the next BLOCK_LUT_BITS bits
+BLOCK_LUT_BITS = 9
+
+#: block_entry's fields: bits 0-4 the advance (code plus value bits),
+#: 5-9 the code length, 10-13 the run, bit 14 an AC end of block, bit 15
+#: "the value is in bits 16-31" (a signed 16-bit value)
+BLOCK_FIT = 1 << 15
 
 
 def decode_tables(dc_l, dc_c, ac_l, ac_c) -> np.ndarray:
@@ -137,6 +147,55 @@ def scan_lut(tab: np.ndarray) -> np.ndarray:
             count += ok
             live = ok & ~end & (adv < K)
         out[t] = np.where(count > 0, adv | (step << 5) | (eob << 11), 0)
+    return out
+
+
+def block_entry(clen, sym, is_dc, value=0, fits=False):
+    """Phase C's summary of one decoded token (numpy or torch integers), the
+    layout of a block_lut entry (BLOCK_FIT's fields): the advance clen +
+    size, the code length, the run, an AC end of block and, where `fits`,
+    the token's sign-extended value.  Never 0 for a valid code."""
+    eob = 0 if is_dc else (sym == 0) * 1
+    return ((clen + (sym & 15)) | (clen << 5) | ((sym >> 4) << 10)
+            | (eob << 14) | (fits * BLOCK_FIT) | ((value & 0xFFFF) << 16))
+
+
+def block_lut(tab: np.ndarray) -> np.ndarray:
+    """Phase C's lookahead table of the four canonical tables `tab` (4,
+    DECODE_TABLE_WORDS): (4, 1 << BLOCK_LUT_BITS) int32 of block_entry
+    layout, indexed by class and by the next K = BLOCK_LUT_BITS bits of
+    the row, one token an entry (libjpeg's "fast AC" lookahead,
+    jdhuff.c).
+
+    An entry holds the token whose code lies within the K bits
+    (_decode_token), and its decoded value (T.81 F.2.2.1) where its value
+    bits lie within them too.  It is 0 ("slow") where the code is longer
+    than K bits or invalid, and for a DC symbol above 15 (an error the
+    kernel finds on its slow path); the kernel decodes such a token from
+    the canonical table, and takes the value bits of a token whose value
+    does not fit from its bit window.
+
+    A pure function of the tables; the decoder caches it on its plan
+    (models/decoder.Plan.block_lut)."""
+    K = BLOCK_LUT_BITS
+    t64 = torch.from_numpy(np.asarray(tab, np.int64))
+    prefix = np.arange(1 << K, dtype=np.int64)
+    out = np.zeros((4, 1 << K), np.int32)
+    for t in range(4):
+        is_dc = t < 2
+        clen, sym = (x.numpy() for x in _decode_token(
+            t64, torch.full((1 << K,), t, dtype=torch.int64),
+            torch.from_numpy(prefix << (16 - K))))
+        size = sym & 15
+        fast = (clen >= 1) & (clen <= K) & ((sym <= 15) | (not is_dc))
+        fits = fast & (clen + size <= K)
+        vu = (prefix >> np.maximum(K - clen - size, 0)) \
+            & ((1 << size) - 1)
+        value = np.where(vu < (1 << np.maximum(size - 1, 0)),
+                         vu - (1 << size) + 1, vu)
+        value = np.where(fits & (size > 0), value, 0)
+        e = block_entry(clen, sym, is_dc, value, fits)
+        out[t] = np.where(fast, e, 0).astype(np.uint32).view(np.int32)
     return out
 
 
@@ -376,14 +435,19 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
 def decode_blocks(words: torch.Tensor, bstart: torch.Tensor,
                   nblocks: torch.Tensor, dc_luma: torch.Tensor,
                   ac_luma: torch.Tensor, tab: torch.Tensor,
-                  pattern: Tuple[int, int, int] = NO_PATTERN
+                  pattern: Tuple[int, int, int] = NO_PATTERN,
+                  lut: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase C, segment-row contract: block slot b = s*bps + j decodes
-    from bit bstart[s, j] to bstart[s, j+1] of segment row s ->
-    (coefs_t (64, nseg*bps) int16 zig-zag with DIFFERENTIAL DC, err
-    (nseg*bps,) int32).  Slots j >= nblocks[s] are all zero with err 0;
-    every slot a block does not write is 0
-    (huffdec_kernel._block_kernel_body).  pattern as scan_segments."""
+    from bit bstart[s, j] to bstart[s, j+1] of segment row s (bstart from
+    0 to 32 W) -> (coefs_t (64, nseg*bps) int16 zig-zag with DIFFERENTIAL
+    DC, err (nseg*bps,) int32).  Slots j >= nblocks[s] are all zero with
+    err 0; every slot a block does not write is 0
+    (huffdec_kernel._block_kernel_body).  pattern as scan_segments.
+
+    lut is block_lut(tab) on the words' device, which the kernel reads its
+    tokens through (the decoder passes the one cached on its plan); a
+    CUDA call raises without it.  The plain version does not use it."""
     _check("decode_blocks", words, tab, nblocks, dc_luma, ac_luma)
     _check_pattern(pattern)
     nseg = words.shape[0]
@@ -393,13 +457,43 @@ def decode_blocks(words: torch.Tensor, bstart: torch.Tensor,
     if words.device.type == "cpu":
         return decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma,
                                    tab, pattern)
-    bps = bstart.shape[1] - 1
+    coefs, err, args = _block_args(words, bstart, nblocks, dc_luma, ac_luma,
+                                   tab, pattern, lut)
+    _kernels.launch("huffdec_block", *args)
+    return coefs, err
+
+
+def _block_args(words, bstart, nblocks, dc_luma, ac_luma, tab, pattern, lut):
+    """The outputs and the C arguments of csrc/huffdec_block.cu."""
+    _kernels.require_cuda("huffdec_block", words, bstart, nblocks, dc_luma,
+                          ac_luma, tab)
+    if lut is None or tuple(lut.shape) != (4, 1 << BLOCK_LUT_BITS) or \
+            lut.dtype != torch.int32 or lut.data_ptr() % 16:
+        raise ValueError(f"decode_blocks: lut must be (4, "
+                         f"{1 << BLOCK_LUT_BITS}) int32 (block_lut), "
+                         "16-byte aligned")
+    nseg, bps = words.shape[0], bstart.shape[1] - 1
     L = nseg * bps
     coefs = torch.empty((64, L), dtype=torch.int16, device=words.device)
     err = torch.empty(L, dtype=torch.int32, device=words.device)
-    _kernels.require_cuda("huffdec_block", words, bstart, nblocks, dc_luma,
-                          ac_luma, tab, coefs, err)
-    _kernels.launch("huffdec_block", words, nseg, words.shape[1], bstart,
-                    bps, nblocks, dc_luma, ac_luma, *pattern, tab, coefs,
-                    err)
+    _kernels.require_cuda("huffdec_block", words, lut, coefs, err)
+    return coefs, err, (words, nseg, words.shape[1], bstart, bps, nblocks,
+                        dc_luma, ac_luma, *pattern, tab, lut, coefs, err)
+
+
+def decode_blocks_probe(words: torch.Tensor, bstart: torch.Tensor,
+                        nblocks: torch.Tensor, dc_luma: torch.Tensor,
+                        ac_luma: torch.Tensor, tab: torch.Tensor,
+                        pattern: Tuple[int, int, int], lut: torch.Tensor,
+                        stage: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """decode_blocks' kernel cut to a decomposition stage
+    (_kernels.PROBE_STAGES: the full kernel; every block's loads and
+    window with no token decoded, the zero tiles stored; the decode
+    without the coefficient store) for chip_smoke.py's probe; no codec
+    path calls it.  Only the "full" stage's output is the coefficients."""
+    _check("decode_blocks", words, tab, nblocks, dc_luma, ac_luma)
+    _check_pattern(pattern)
+    coefs, err, args = _block_args(words, bstart, nblocks, dc_luma, ac_luma,
+                                   tab, pattern, lut)
+    _kernels.probe("huffdec_block", stage, *args)
     return coefs, err

@@ -5,8 +5,10 @@ halves.
 decimated) wraps csrc/pre_rgb_to_planes.cu, the counterpart of the JAX
 package's Pallas preprocessor (gpujpeg_tpu.ops.prepost_kernel:
 _pre_kernel_body / preprocess_packed).  The JAX kernel emits planes of 4
-samples packed per little-endian u32 word; the port emits the same bytes as
-uint8 planes, which are that memory read byte by byte.
+samples packed per little-endian u32 word, one launch a decimation group;
+the port emits the same bytes as uint8 planes, which are that memory read
+byte by byte, all three in one launch (``pre_vector`` picks the kernel's
+vector or generic instance).
 
 ``decode_post`` (coefficients -> RGB pixels: dequantization, inverse DCT,
 colour and the interleaved store in one pass) wraps csrc/dpost_rgb.cu, the
@@ -68,7 +70,8 @@ def preprocess_packed(raw: torch.Tensor, geo: Geometry,
     """raw (H, W, 3) uint8 -> [(data_h, data_w) uint8 plane per component],
     colour-transformed from pi.color_space to
     geo.param.color_space_internal, component c sampled at (y * dy, x *
-    dx) with (dx, dy) its decimation, and zero-padded."""
+    dx) with (dx, dy) its decimation, and zero-padded.  On CUDA one launch
+    writes every plane."""
     if not pre_supported(geo, pi):
         raise NotImplementedError(
             "the preprocessor kernel takes 3-component P444_U8_P012 input "
@@ -81,25 +84,44 @@ def preprocess_packed(raw: torch.Tensor, geo: Geometry,
         return preprocess_packed_plain(raw, geo, pi)
     params = color.kernel_params(pi.color_space,
                                  geo.param.color_space_internal)
-    # one launch for the components that share a decimation (and so a
-    # plane size), as the JAX package groups its pre kernel's outputs
-    groups = {}
-    for c in geo.components:
-        groups.setdefault((geo.max_h // c.samp_h, geo.max_v // c.samp_v),
-                          []).append(c)
-    planes = [None] * geo.comp_count
-    for (dx, dy), comps in groups.items():
-        c0 = comps[0]
-        out = torch.empty((len(comps), c0.data_height, c0.data_width),
-                          dtype=torch.uint8, device=raw.device)
-        _kernels.require_cuda("pre_rgb_to_planes", raw, out)
-        ptrs = [None] * 3
-        for k, c in enumerate(comps):
-            planes[c.index] = out[k]
-            ptrs[c.index] = out[k]
-        _kernels.launch("pre_rgb_to_planes", raw, H, W, dx, dy,
-                        c0.data_height, c0.data_width, params, *ptrs)
+    # one launch for every plane: views of one buffer (each plane's bytes
+    # are a multiple of 64, so every view starts 16-byte aligned)
+    sizes = [c.data_height * c.data_width for c in geo.components]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=raw.device)
+    planes = [p.view(c.data_height, c.data_width) for c, p in
+              zip(geo.components, torch.split(buf, sizes))]
+    _kernels.require_cuda("pre_rgb_to_planes", raw, buf)
+    g = pre_geometry(geo)
+    _kernels.launch("pre_rgb_to_planes", raw, H, W, g, params, *planes,
+                    int(pre_vector(raw, planes, g)))
     return planes
+
+
+def pre_geometry(geo: Geometry) -> np.ndarray:
+    """(dx, dy, data_h, data_w) of each component's plane, flattened
+    (int32[12]): the preprocessor kernel's geometry argument."""
+    return np.asarray([(geo.max_h // c.samp_h, geo.max_v // c.samp_v,
+                        c.data_height, c.data_width)
+                       for c in geo.components], np.int32).reshape(-1)
+
+
+def pre_vector(raw: torch.Tensor, planes: List[torch.Tensor],
+               geo_i: np.ndarray) -> bool:
+    """True when the preprocessor's vector instance takes these tensors
+    (csrc/pre_rgb_to_planes.cu): plane 0 at (dx, dy) = (1, 1), planes 1
+    and 2 of one shape at one (dx, dy) in {1, 2}^2, the image 16-byte
+    aligned with W % 16 == 0, and every plane's width and address a
+    multiple of its 16 / dx bytes; else the generic instance runs.
+    geo_i: pre_geometry's array."""
+    g = np.asarray(geo_i).reshape(3, 4)
+    dx, dy = g[1, 0], g[1, 1]
+    if (tuple(g[0, :2]) != (1, 1) or tuple(g[2]) != tuple(g[1])
+            or dx not in (1, 2) or dy not in (1, 2)
+            or raw.shape[1] % 16 or raw.data_ptr() % 16):
+        return False
+    return all(int(w) % (16 // int(x)) == 0
+               and p.data_ptr() % (16 // int(x)) == 0
+               for (x, _, _, w), p in zip(g, planes))
 
 
 def dpost_decimation(geo: Geometry) -> Tuple[int, int]:

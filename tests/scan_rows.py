@@ -1,9 +1,11 @@
-"""Segment rows for the phase-A scan tests (tests/test_torch_scan_lut.py on
-the CPU, tests/test_torch_kernels.py on the card): canonical tables with
-codes of up to 16 bits and seeded token streams coded with them, packed
-as the decoder's word matrix (stream/segments.pack_segments_matrix: byte
-k of a row is stream byte k, host-order int32 words, nbits = 8 x bytes).
-Imports neither JAX nor the JAX package."""
+"""Segment rows for the Huffman decode tests (tests/test_torch_scan_lut.py
+and tests/test_torch_block_lut.py on the CPU, tests/test_torch_kernels.py
+on the card): canonical tables with codes of up to 16 bits and seeded
+token streams coded with them, packed as the decoder's word matrix
+(stream/segments.pack_segments_matrix: byte k of a row is stream byte k,
+host-order int32 words, nbits = 8 x bytes), and hand-coded rows with
+block boundaries for each of phase C's error kinds.  Imports neither JAX
+nor the JAX package."""
 
 import numpy as np
 import torch
@@ -134,3 +136,71 @@ def decode_tables(tabs) -> torch.Tensor:
     """(4, DECODE_TABLE_WORDS) int32 of ((dc, ac) set 0, (dc, ac) set 1)."""
     (d0, a0), (d1, a1) = tabs
     return torch.from_numpy(thd.decode_tables(d0, d1, a0, a1))
+
+
+def annexk_tables():
+    """((dc, ac) luma, (dc, ac) chroma) DHT pairs of T.81 Annex K."""
+    return [(tt.huffman_spec_for("dc", luma), tt.huffman_spec_for("ac", luma))
+            for luma in (True, False)]
+
+
+def dc_with_big_symbols():
+    """A DC table whose codes include symbols above 15 (bad in a block),
+    at 3, 7 and 11 bits, and sizes 10 and 11 at 12 and 13 bits."""
+    bits = np.zeros(17, np.int32)
+    bits[2], bits[3] = 2, 3
+    bits[4:14] = 1
+    return bits, np.asarray([0, 1, 2, 3, 0x10, 4, 5, 6, 0x1F, 7, 8, 9, 0x33,
+                             10, 11], np.int32)
+
+
+def _bits(tokens):
+    """Bytes of (code, length) pairs, 1-padded."""
+    bits = []
+    for code, length in tokens:
+        bits.extend((code >> (length - 1 - i)) & 1 for i in range(length))
+    bits.extend([1] * (-len(bits) % 8))
+    return np.packbits(np.asarray(bits, np.uint8)).tobytes()
+
+
+def block_error_rows():
+    """Five hand-coded segments of 3 block slots, with phase C's block
+    boundaries, for each of its error kinds (table set 0: DC
+    dc_with_big_symbols, AC Annex-K luma; set 1 Annex-K chroma):
+
+      0. a good block (DC 5, AC 1, EOB), a DC symbol 0x10, a block whose
+         bits end right after its DC (good);
+      1. a run past coefficient 63, a good block, a slot past nblocks;
+      2. all one bits: invalid DC codes;
+      3. a block cut 1 bit short (its EOB overruns), then a block of 2
+         bits whose DC does not fit;
+      4. a good DC, then an invalid AC code.
+
+    Returns (words, bstart (5, 4), nblocks, tables (4, 290) int32 tensor,
+    expected err (5, 3))."""
+    dc_t = dc_with_big_symbols()
+    ac_t = annexk_tables()[0][1]
+    tab = decode_tables([(dc_t, ac_t), annexk_tables()[1]])
+    dcc, acc = _Coder(dc_t), _Coder(ac_t)
+    eob = acc.code[0x00]
+    blk0 = [dcc.code[3], (0b101, 3), acc.code[0x01], (1, 1), eob]
+    L0 = sum(l for _, l in blk0)
+    run = [dcc.code[0]] + [acc.code[0x01], (0, 1)] * 59 + \
+        [acc.code[0xF1], (1, 1)]
+    Lr = sum(l for _, l in run)
+    d16 = dcc.code[0x10][1] + eob[1]
+    d0 = dcc.code[0][1]
+    rows = [blk0 + [dcc.code[0x10], eob, dcc.code[0]],
+            run + blk0,
+            [(0xFFFF, 16)] * 4,
+            blk0 * 2,
+            [dcc.code[0], (0xFFFF, 16), (0xFFFF, 16)]]
+    words, _ = word_matrix([_bits(r) for r in rows], 12)
+    bstart = np.asarray([[0, L0, L0 + d16, L0 + d16 + d0],
+                         [0, Lr, Lr + L0, Lr + L0],
+                         [0, 10, 40, 64],
+                         [0, L0 - 1, L0 + 1, L0 + 1],
+                         [0, d0 + 32, d0 + 32, d0 + 32]], np.int32)
+    nblocks = np.asarray([3, 2, 3, 2, 1], np.int32)
+    want = [[0, 1, 0], [1, 0, 0], [1, 1, 1], [1, 1, 0], [1, 0, 0]]
+    return words, bstart, nblocks, tab, want

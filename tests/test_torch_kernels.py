@@ -78,6 +78,45 @@ def test_wrappers_refuse_other_devices():
                                          device="meta"), 4, tabs)
 
 
+def test_pre_vector_choice():
+    """The preprocessor wrapper picks the vector instance only where it
+    applies: luma at (1, 1), one chroma decimation in {1, 2}^2, W % 16
+    == 0, the image 16-byte aligned, planes aligned to their vectors."""
+    frame = _frame(32, 48, 0)
+    raw = torch.from_numpy(frame)
+    base = torch.empty(3 * 64 * 64 + 128, dtype=torch.uint8)
+    first = (-base.data_ptr()) % 64
+
+    def planes(geo, skew=0):
+        sizes = [c.data_height * c.data_width for c in geo.components]
+        start = first + skew
+        out = []
+        for c, n in zip(geo.components, sizes):
+            out.append(base[start:start + n].view(c.data_height,
+                                                  c.data_width))
+            start += n
+        return out
+
+    def vec(samp, raw=raw, skew=0, il=False):
+        geo = gt.Encoder(device="cpu").resolve(frame, gt.Parameters(
+            quality=75, interleaved=il).chroma_subsampled(samp))
+        return tpre.pre_vector(raw, planes(geo, skew),
+                               tpre.pre_geometry(geo))
+
+    assert raw.data_ptr() % 16 == 0
+    for samp in ("444", "420", "422", "440"):
+        assert vec(PRE_SAMPLINGS[samp])
+        assert vec(PRE_SAMPLINGS[samp], il=True)
+    assert not vec(PRE_SAMPLINGS["mixed"])
+    assert not vec(PRE_SAMPLINGS["444"], skew=8)
+    assert not vec(PRE_SAMPLINGS["444"],
+                   raw=torch.from_numpy(frame[:, :40].copy()))
+    off = torch.empty(frame.size + 16, dtype=torch.uint8)
+    k = (-off.data_ptr()) % 16 + 1
+    assert not vec(PRE_SAMPLINGS["420"],
+                   raw=off[k:k + frame.size].view(frame.shape))
+
+
 def test_decode_wrappers_refuse_other_devices():
     """The decode wrappers, like the encode ones, run their plain versions
     only for CPU tensors and refuse inputs they do not take."""
@@ -219,7 +258,9 @@ def test_huffdec_kernels_match_plain(cuda, kind):
     p_bstart, p_err_a = thd.scan_segments_plain(words, nbits, *args, p.bps)
     assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
     assert not bool(err_a.any())
-    coefs, err_c = thd.decode_blocks(words, bstart, *args)
+    with pytest.raises(ValueError, match="lut"):
+        thd.decode_blocks(words, bstart, *args)
+    coefs, err_c = thd.decode_blocks(words, bstart, *args, lut=p.block_lut)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["huffdec_block"] == 1
     p_coefs, p_err_c = thd.decode_blocks_plain(words, bstart, *args)
@@ -240,7 +281,7 @@ def test_huffdec_kernels_corrupt_segment(cuda):
                                       lut=p.scan_lut)
     p_bstart, p_err_a = thd.scan_segments_plain(w, nbits, *args, p.bps)
     assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
-    coefs, err_c = thd.decode_blocks(w, bstart, *args)
+    coefs, err_c = thd.decode_blocks(w, bstart, *args, lut=p.block_lut)
     p_coefs, p_err_c = thd.decode_blocks_plain(w, bstart, *args)
     assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
     assert bool(err_a[5])
@@ -447,7 +488,7 @@ def test_pre_kernel_decimates_like_plain(cuda, samp, hw):
     _kernels.reset_launches()
     got = tpre.preprocess_packed(raw, geo, geo.param_image)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["pre_rgb_to_planes"] == 2   # luma; chroma
+    assert _kernels.LAUNCHES["pre_rgb_to_planes"] == 1   # every plane
     ref = tpre.preprocess_packed_plain(raw, geo, geo.param_image)
     for c, a, b in zip(geo.components, got, ref):
         assert a.shape == (c.data_height, c.data_width)
@@ -497,7 +538,8 @@ def test_huffdec_kernels_pattern_mode(cuda, samp, kind):
     _kernels.reset_launches()
     bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps, p.pattern,
                                       p.scan_lut)
-    coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern)
+    coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern,
+                                     p.block_lut)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["huffdec_scan"] == 1
     assert _kernels.LAUNCHES["huffdec_block"] == 1
@@ -515,7 +557,8 @@ def test_huffdec_kernels_pattern_mode(cuda, samp, kind):
     p_bstart, p_err_a = thd.scan_segments_plain(w, nbits, *args, p.bps,
                                                 p.pattern)
     assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
-    coefs, err_c = thd.decode_blocks(w, bstart, *args, p.pattern)
+    coefs, err_c = thd.decode_blocks(w, bstart, *args, p.pattern,
+                                     p.block_lut)
     p_coefs, p_err_c = thd.decode_blocks_plain(w, bstart, *args, p.pattern)
     assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
 
@@ -641,6 +684,170 @@ def test_scan_kernel_slot_patterns(cuda, bpm):
     _, err = _scan_both(cuda, (words, nbits, nb, dcl, acl),
                         scan_rows.decode_tables(tabs), bps, pattern)
     assert not bool(err.any())
+
+
+def _block_both(cuda, words, bstart, nb, dcl, acl, tab,
+                pattern=thd.NO_PATTERN, offset=0):
+    """The block kernel and the plain block decode on the same rows (numpy
+    words, bstart, nblocks, dc_luma, ac_luma): equal coefficients and err,
+    which are returned.  offset puts the card's word matrix that many
+    words past a 16-byte boundary."""
+    words = torch.from_numpy(np.ascontiguousarray(words, np.int32))
+    buf = torch.zeros(words.numel() + 4, dtype=torch.int32, device=cuda)
+    w_dev = buf[offset:offset + words.numel()].view(words.shape)
+    w_dev.copy_(words)
+    rows = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+            for a in (bstart, nb, dcl, acl)]
+    lut = torch.from_numpy(thd.block_lut(tab.numpy())).to(cuda)
+    _kernels.reset_launches()
+    got = thd.decode_blocks(w_dev, *[r.to(cuda) for r in rows],
+                            tab.to(cuda), pattern, lut)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffdec_block"] == 1
+    want = thd.decode_blocks_plain(words, *rows, tab, pattern)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
+    return want
+
+
+def _coded_blocks(seed, nseg, bps, pattern, long_share=0.4):
+    """Coded rows with long codes, random segment flags and ragged block
+    counts, and phase A's bstart of them (the plain scan): (words, bstart,
+    nblocks, dc_luma, ac_luma, tables)."""
+    rng = np.random.default_rng(seed)
+    tabs = _scan_tabs(seed)
+    rows, nb, dcl, acl = scan_rows.segment_rows(
+        rng, nseg, bps, tabs, pattern,
+        (rng.integers(0, 2, nseg), rng.integers(0, 2, nseg)),
+        rng.integers(0, bps + 1, nseg), long_share=long_share)
+    words, nbits = scan_rows.word_matrix(rows)
+    tab = scan_rows.decode_tables(tabs)
+    bstart, err = thd.scan_segments_plain(
+        *(torch.from_numpy(np.asarray(a, np.int32))
+          for a in (words, nbits, nb, dcl, acl)), tab, bps, pattern)
+    assert not bool(err.any())
+    return words, bstart.numpy(), nb, dcl, acl, tab
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bps,nseg,bpm", [(1, 300, 1), (6, 211, 6),
+                                          (8, 300, 4), (10, 97, 10),
+                                          (40, 50, 4), (7, 3, 7)])
+def test_block_kernel_coded_rows(cuda, bps, nseg, bpm):
+    """Coded rows with long codes (the canonical decode and values from
+    the window), slot patterns, ragged nblocks; segments that cross a
+    warp's 32-block tile (bps 6, 10, 40), block counts L that are not a
+    multiple of 8 (the 2-byte store path) or below one tile: bit for bit
+    the plain decode, no error."""
+    rng = np.random.default_rng(bps)
+    pattern = (bpm, int(rng.integers(0, 1 << bpm)),
+               int(rng.integers(0, 1 << bpm)))
+    words, bstart, nb, dcl, acl, tab = _coded_blocks(bps + 50, nseg, bps,
+                                                     pattern)
+    coefs, err = _block_both(cuda, words, bstart, nb, dcl, acl, tab,
+                             pattern)
+    assert not bool(err.any()) and bool(coefs.any())
+
+
+@pytest.mark.gpu
+def test_block_kernel_error_kinds(cuda):
+    """Each error kind (scan_rows.block_error_rows): an invalid code at a
+    DC and after a good DC, a DC symbol above 15, a token past the block's
+    end at DC and at AC, a run past coefficient 63; a block ending right
+    after its DC and slots past nblocks: bit for bit the plain decode."""
+    words, bstart, nb, tab, want = scan_rows.block_error_rows()
+    ones = np.ones(len(nb), np.int32)
+    _, err = _block_both(cuda, words, bstart, nb, ones, ones, tab)
+    assert err.view(len(nb), 3).tolist() == want
+
+
+@pytest.mark.gpu
+def test_block_kernel_shifted_starts(cuda):
+    """Blocks started a few bits off phase A's boundaries (garbage:
+    invalid codes, overruns, runs past 63 at every bit phase): bit for bit
+    the plain decode."""
+    pattern = (6, 0b001111, 0b001111)
+    words, bstart, nb, dcl, acl, tab = _coded_blocks(9, 400, 12, pattern)
+    rng = np.random.default_rng(9)
+    bstart[:, :-1] += rng.integers(-3, 4, bstart[:, :-1].shape)
+    bstart = np.clip(bstart, 0, 32 * words.shape[1])
+    _, err = _block_both(cuda, words, bstart, nb, dcl, acl, tab, pattern)
+    assert bool(err.any()) and not bool(err.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 3, 64])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_block_kernel_random_words(cuda, W, offset):
+    """Random rows and random ascending block boundaries in [0, 32 W]
+    (mostly bad tokens), nblocks from 0 to bps, a random slot pattern, the
+    word matrix off 16-byte alignment: bit for bit the plain decode."""
+    rng = np.random.default_rng(10 * W + offset)
+    nseg, bps = 333, 5
+    bpm = int(rng.integers(1, 11))
+    pattern = (bpm, int(rng.integers(0, 1 << bpm)),
+               int(rng.integers(0, 1 << bpm)))
+    words = rng.integers(-(1 << 31), 1 << 31, (nseg, W))
+    bstart = np.sort(rng.integers(0, 32 * W + 1, (nseg, bps + 1)), axis=1)
+    _block_both(cuda, words, bstart, rng.integers(0, bps + 1, nseg),
+                rng.integers(0, 2, nseg), rng.integers(0, 2, nseg),
+                scan_rows.decode_tables(_scan_tabs(W)), pattern, offset)
+
+
+PRE_SAMPLINGS = {"444": ((1, 1), (1, 1), (1, 1)),
+                 "420": ((2, 2), (1, 1), (1, 1)),
+                 "422": ((2, 1), (1, 1), (1, 1)),
+                 "440": ((1, 2), (1, 1), (1, 1)),
+                 "mixed": ((2, 2), (2, 1), (1, 1))}
+
+
+def _pre_both(cuda, frame, geo, raw=None):
+    """One preprocessor launch on the card against the plain version;
+    returns whether the vector instance ran."""
+    raw = torch.from_numpy(frame).to(cuda) if raw is None else raw
+    _kernels.reset_launches()
+    got = tpre.preprocess_packed(raw, geo, geo.param_image)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pre_rgb_to_planes"] == 1
+    ref = tpre.preprocess_packed_plain(raw, geo, geo.param_image)
+    for c, a, b in zip(geo.components, got, ref):
+        assert a.shape == (c.data_height, c.data_width)
+        assert torch.equal(a, b)
+    return tpre.pre_vector(raw, got, tpre.pre_geometry(geo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", list(PRE_SAMPLINGS))
+@pytest.mark.parametrize("hw", [(233, 311), (240, 320), (64, 72)])
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_pre_kernel_one_launch(cuda, samp, hw, interleaved):
+    """Every plane of a frame in one launch at each (dx, dy) in {1, 2}^2
+    and at mixed chroma decimations, planar and interleaved padding,
+    widths that are and are not a multiple of 16: bit for bit the plain
+    version; the vector instance runs exactly where W % 16 == 0 and the
+    chroma planes share one decimation."""
+    frame = _frame(*hw, 4, amp=128)
+    geo = gt.Encoder(device="cpu").resolve(frame, gt.Parameters(
+        quality=75, restart_interval=gt.RESTART_AUTO,
+        interleaved=interleaved).chroma_subsampled(PRE_SAMPLINGS[samp]))
+    vec = _pre_both(cuda, frame, geo)
+    assert vec == (hw[1] % 16 == 0 and samp != "mixed")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["444", "420"])
+def test_pre_kernel_misaligned_raw(cuda, samp):
+    """An image that is a view 1 byte past a 16-byte boundary takes the
+    generic instance: bit for bit the plain version."""
+    frame = _frame(240, 320, 6, amp=128)
+    geo = gt.Encoder(device="cpu").resolve(frame, gt.Parameters(
+        quality=75, restart_interval=gt.RESTART_AUTO).chroma_subsampled(
+        PRE_SAMPLINGS[samp]))
+    buf = torch.zeros(frame.size + 16, dtype=torch.uint8, device=cuda)
+    raw = buf[1:1 + frame.size].view(frame.shape)
+    raw.copy_(torch.from_numpy(frame))
+    assert raw.data_ptr() % 16 == 1
+    assert not _pre_both(cuda, frame, geo, raw)
 
 
 def _il_geo(samp, hw):
@@ -1225,8 +1432,37 @@ def test_probes_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         tfp.huffman_segments_probe(torch.zeros((4, 512), dtype=torch.int16),
                                    30, tabs, "load_store")
+    tab = torch.zeros((4, 290), dtype=torch.int32)
+    rows = [torch.zeros(6, dtype=torch.int32) for _ in range(3)]
+    with pytest.raises(ValueError, match="CUDA"):
+        thd.decode_blocks_probe(torch.zeros((6, 9), dtype=torch.int32),
+                                torch.zeros((6, 9), dtype=torch.int32),
+                                *rows, tab, thd.NO_PATTERN,
+                                torch.zeros((4, 512), dtype=torch.int32),
+                                "no_store")
     assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb",
-                                    "huffman_segments"}
+                                    "huffman_segments", "huffdec_block"}
+
+
+@pytest.mark.gpu
+def test_block_probe_stages_uncounted(cuda):
+    """The block decoder's probe stages: the full stage equals the plain
+    decode, the others launch, and none is counted."""
+    pattern = (4, 0b0101, 0b0011)
+    words, bstart, nb, dcl, acl, tab = _coded_blocks(33, 150, 8, pattern)
+    rows = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
+            for a in (words, bstart, nb, dcl, acl)]
+    lut = torch.from_numpy(thd.block_lut(tab.numpy())).to(cuda)
+    want = thd.decode_blocks_plain(*[r.cpu() for r in rows], tab, pattern)
+    _kernels.reset_launches()
+    for stage in _kernels.PROBE_STAGES:
+        coefs, err = thd.decode_blocks_probe(*rows, tab.to(cuda), pattern,
+                                             lut, stage)
+        torch.cuda.synchronize()
+        if stage == "full":
+            assert torch.equal(coefs.cpu(), want[0])
+            assert torch.equal(err.cpu(), want[1])
+    assert _kernels.LAUNCHES["huffdec_block"] == 0
 
 
 # -- MCU-order store of fdct_quant (the interleaved feed relayout) ----------
