@@ -12,7 +12,10 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      8K (7680x4320) shapes of the main path: the preprocessor and the DCT
      must match bit for bit, the Huffman coder's rows and row lengths
      exactly, on a seeded gradient-plus-noise frame and a uniform-noise
-     frame;
+     frame; the token-row packer (on no encode path) on the plain
+     tokenizer's token rows of the luma plane's coefficients (64,800 rows
+     of 512 slots, the rows Annex-K's planar route would bring) must
+     equal its plain version and the Huffman coder's bytes;
   4. encodes a 1920x1080 frame with Encoder(device="cuda") and with
      Encoder(device="cpu") and requires identical bytes;
   5. encodes three seeded 8K RGB frames through Encoder.encode at Q75,
@@ -20,9 +23,10 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      configuration), checks SOI/EOI and that the RST count equals segments
      minus scans, and prints per-frame wall ms (those three and
      EXTRA_FRAMES more), a stage breakdown and each kernel's CUDA-event
-     time; the preprocessor writes a frame's three planes in one launch
-     (checked on every path: 3 launches over the three frames) and its
-     records are ms a frame;
+     time (the token-row packer's at step 3's luma token rows); the
+     preprocessor writes a frame's three planes in one launch (checked on
+     every path: 3 launches over the three frames) and its records are ms
+     a frame;
   6. decodes on the card (gpujpeg_tpu_torch.Decoder), fed by step 5's 8K
      streams and one 8K noise stream:
      a. each decode kernel (phase-A scan, phase-C block decode, fused
@@ -65,8 +69,8 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
         MCU-order DCT beside the planar store's three launches on the
         same planes;
   8. the same four steps for interleaved 4:4:4 (one scan, Q75, restart
-     auto = 2 MCUs a segment): the MCU-order DCT, the slot-pattern
-     Huffman coder and its
+     auto = 2 MCUs a segment): the preprocessor (pre_rgb_to_planes:il_444),
+     the MCU-order DCT, the slot-pattern Huffman coder and its
      coefficient-input mode (the three planes' coefficients as rows of 8
      blocks, a class flag a row, one interior masked block, a zero marker
      mid-scan) against their plain versions; decode through phases A and
@@ -75,7 +79,8 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      records huffdec_scan:pattern_444, huffdec_block:pattern_444,
      idct_planes:444, post_rgb:444);
   9. the same four steps for planar 4:2:0 (three non-interleaved scans,
-     luma 2x2, chroma 1x1, 8 blocks a segment): the fused decode tail at
+     luma 2x2, chroma 1x1, 8 blocks a segment): the decimating
+     preprocessor (pre_rgb_to_planes:planar_420), the fused decode tail at
      dx = dy = 2 and phases A and C over the three scans against their
      plain versions (huffdec_scan:planar_420, huffdec_block:planar_420);
      encode through the decimating preprocessor, the DCT and the one-slot
@@ -85,14 +90,18 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      probes tools/proto_xbdkernel.py, tools/profile_transpose.py and
      tools/profile_prims.py; on no codec path) at those tools' 8K shapes
      on seeded words, each against its plain version on the card, timed
-     beside its bound and the PyTorch call that computes the same;
+     beside its bound and the PyTorch call that computes the same; the xbd
+     relayout's line names the instance its C entry takes (the 16-byte
+     vector one at rst 8, or the generic one);
  11. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
-     coefficient 0) and of phase C (planar 4:4:4, interleaved 4:2:0:
+     coefficient 0), of phase C (planar 4:4:4, interleaved 4:2:0:
      full, every block's loads and window with no token decoded and the
-     zero tiles stored, the decode without the coefficient store), timed
-     at 8K in steps 5 to 9:
+     zero tiles stored, the decode without the coefficient store) and of
+     the token-row packer (4:2:0 and 4:4:4 luma token rows: full, the
+     lengths and the token quads' bits loaded with nothing coded, no byte
+     store), timed at 8K in steps 5 to 9:
      each kernel's CUDA-event ms in three stages built from its own
      source (csrc/tile.cuh gj::Stage) -- full, loads and stores only with
      no arithmetic (the Huffman coder: the coefficient loads alone), and
@@ -291,6 +300,68 @@ def huffman_bound_ms(coefs, rb, extra: int = 0) -> float:
     `extra` bytes of inputs (mask, class flags)."""
     return (coefs.numel() * 2 + 2 * 272 * 4 + 4 * rb.numel()
             + int(rb.sum()) + 4 * rb.numel() + extra) / PEAK_BYTES_S * 1e3
+
+
+def token_rows(torch, coefs, st):
+    """The plain tokenizer's token rows (fusedpack.segment_tokens) of
+    coefficient rows in the slot layout st, every block valid, made on the
+    card a chunk at a time -> (bits, lens), int32 (R, blocks * 64)."""
+    from gpujpeg_tpu_torch.ops import fusedpack
+
+    R, B = coefs.shape[0], coefs.shape[1] // 64
+    ok = torch.ones((R, B), dtype=torch.bool, device=coefs.device)
+    cls = torch.tensor(st.slot_class, device=coefs.device).repeat(
+        B // st.bpm).expand(R, B)
+    bits, lens = [], []
+    for r0 in range(0, R, fusedpack.PLAIN_CHUNK_ROWS):
+        sl = slice(r0, r0 + fusedpack.PLAIN_CHUNK_ROWS)
+        b_, l_ = fusedpack.segment_tokens(coefs[sl], st, ok[sl], cls[sl])
+        bits.append(b_.to(torch.int32))
+        lens.append(l_)
+    return torch.cat(bits), torch.cat(lens)
+
+
+def pack_check(torch, bits, lens, markers, stride, coded):
+    """pack_stuff_rows on token rows against its plain version and against
+    the Huffman coder's (rows, row_bytes, needs) `coded` of the same
+    coefficients -> (error, plain ms, bytes of the rows)."""
+    from gpujpeg_tpu_torch.ops import fusedpack
+
+    k_out = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
+    p_out, ms = once_ms(torch, lambda: fusedpack.pack_stuff_rows_plain(
+        bits, lens, markers, stride))
+    err = max(rows_err(torch, *k_out, *p_out), rows_err(torch, *k_out,
+                                                         *coded))
+    return err, ms, int(k_out[1].sum())
+
+
+def pack_bound_ms(lens, markers, nbytes: int, slots: int = 4) -> float:
+    """Bytes bound of one pack_stuff_rows launch: every length read, the
+    bits of only the 4-slot quads that hold a token (the kernel skips a
+    quad whose lengths are all 0), the markers, the realised rows and
+    their lengths written.  slots=8 counts the bits in whole 32-byte
+    sectors (two quads; rows start on 32 bytes when T % 8 == 0), what
+    the card reads when a quad's neighbour holds no token."""
+    groups = int((lens.view(lens.shape[0], -1, slots) != 0).any(-1).sum())
+    return (lens.numel() * 4 + groups * 4 * slots + markers.numel() * 4
+            + nbytes + lens.shape[0] * 4) / PEAK_BYTES_S * 1e3
+
+
+def pack_times(torch, k, bits, lens, markers, stride, nbytes, flush):
+    """A pack_stuff_rows record's ms, bound and probe stages (full | the
+    lengths and the token quads' bits loaded, nothing coded | no byte
+    store) on token rows."""
+    from gpujpeg_tpu_torch.ops import fusedpack
+
+    k["ms"] = event_ms(torch, lambda: fusedpack.pack_stuff_rows(
+        bits, lens, markers, stride), 10, flush)
+    k["bound_ms"] = pack_bound_ms(lens, markers, nbytes)
+    k["probe"] = probe_ms(
+        torch, lambda st: fusedpack.pack_stuff_rows_probe(
+            bits, lens, markers, stride, st),
+        lambda: fusedpack.pack_stuff_rows_plain(bits, lens, markers,
+                                                stride), flush)
+    k["probe"]["sector_bound_ms"] = pack_bound_ms(lens, markers, nbytes, 8)
 
 
 def scan_call(words, nbits, p):
@@ -816,29 +887,14 @@ def interleaved_phases(torch, np, gt, dev, flush):
                    rows_err(torch, rows, rb, needs, *p_out), fkind)
         del p_out
         # pack_stuff_rows on the same rows' tokens from the plain tokenizer
-        R, B = rows_in.shape[0], rows_in.shape[1] // 64
-        ok = torch.ones((R, B), dtype=torch.bool, device=dev)
-        cls = torch.tensor(st.slot_class, device=dev).repeat(
-            B // st.bpm).expand(R, B)
-        bits, lens = [], []
-        for r0 in range(0, R, fusedpack.PLAIN_CHUNK_ROWS):
-            sl = slice(r0, r0 + fusedpack.PLAIN_CHUNK_ROWS)
-            b_, l_ = fusedpack.segment_tokens(rows_in[sl], st, ok[sl],
-                                              cls[sl])
-            bits.append(b_.to(torch.int32))
-            lens.append(l_)
-        bits, lens = torch.cat(bits), torch.cat(lens)
-        stride = st.stride(B)
-        k_out = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
-        p_out, ms_pack = once_ms(
-            torch, lambda: fusedpack.pack_stuff_rows_plain(bits, lens,
-                                                           markers, stride))
-        record_err("pack_stuff_rows", max(
-            rows_err(torch, *k_out, *p_out),
-            rows_err(torch, *k_out, rows, rb, needs)), fkind)
+        bits, lens = token_rows(torch, rows_in, st)
+        stride = st.stride(rows_in.shape[1] // 64)
+        err, ms_pack, p_bytes = pack_check(torch, bits, lens, markers,
+                                           stride, (rows, rb, needs))
+        record_err("pack_stuff_rows", err, fkind)
         if fkind == "gradient":
-            pack_in = (bits, lens, markers, stride, int(k_out[1].sum()))
-        del p_out, k_out, bits, lens
+            pack_in = (bits, lens, markers, stride, p_bytes)
+        del bits, lens
         data = enc.assemble(geo, {"rows": [rows], "row_bytes": [rb]})
         del rows
         hf = dec.prepare(data)
@@ -973,22 +1029,13 @@ def interleaved_phases(torch, np, gt, dev, flush):
     del zeros
     mcu_order_times(torch, planes, geo, classes, flush, mcu_plain_ms,
                     "il time")
-    bits, lens, p_markers, stride, p_bytes = pack_in
-    kernels["pack_stuff_rows"]["ms"] = event_ms(
-        torch, lambda: fusedpack.pack_stuff_rows(bits, lens, p_markers,
-                                                 stride), 10, flush)
+    pack_times(torch, kernels["pack_stuff_rows"], *pack_in, flush)
     pl_bytes = sum(p_.numel() for p_ in planes)
     kernels["pre_rgb_to_planes:decimate"]["bound_ms"] = (
         x.numel() + pl_bytes) / PEAK_BYTES_S * 1e3
     kernels["huffman_segments:pattern_420"]["bound_ms"] = huffman_bound_ms(
         rows_in, rb)
-    # every length is read; bits only in the 4-slot quads that hold a token
-    # (the kernel skips a quad whose lengths are all 0)
-    quads = int((lens.view(lens.shape[0], -1, 4) != 0).any(-1).sum())
-    kernels["pack_stuff_rows"]["bound_ms"] = (
-        lens.numel() * 4 + quads * 16 + p_markers.numel() * 4 + p_bytes
-        + lens.shape[0] * 4) / PEAK_BYTES_S * 1e3
-    del bits, lens, rows, rows_in, planes, x, pack_in
+    del rows, rows_in, planes, x, pack_in
 
     # decode of the three streams
     torch.cuda.synchronize()
@@ -1118,6 +1165,11 @@ def il444_phases(torch, np, gt, dev, flush):
     enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
     classes = enc.classes(QUALITY)
     kernels = {
+        "pre_rgb_to_planes:il_444": dict(
+            key="pre_rgb_to_planes",
+            source="gpujpeg_tpu_torch/csrc/pre_rgb_to_planes.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:88",
+            bound_by="bytes", library_ms=None, err=0),
         "huffman_segments:pattern": dict(
             key="huffman_segments",
             source="gpujpeg_tpu_torch/csrc/huffman_segments.cu",
@@ -1186,6 +1238,12 @@ def il444_phases(torch, np, gt, dev, flush):
         geo = enc.resolve(frame, params)
         planes = prepost_kernel.preprocess_packed(frame, geo,
                                                   geo.param_image)
+        ref, ms_pre = once_ms(
+            torch, lambda: prepost_kernel.preprocess_packed_plain(
+                frame, geo, geo.param_image))
+        record_err("pre_rgb_to_planes:il_444",
+                   max(diff(a, b) for a, b in zip(planes, ref)), fkind)
+        del ref
         rows_in = fusedpack.interleaved_rows(planes, geo, classes)
         ms_mcu = mcu_order_check(torch, planes, geo, classes, rows_in,
                                  f"4:4:4 interleaved {fkind}")
@@ -1237,6 +1295,7 @@ def il444_phases(torch, np, gt, dev, flush):
         record_err("huffman_segments:coefs",
                    rows_err(torch, *k_out, *p_out), fkind)
         if fkind == "gradient":
+            kernels["pre_rgb_to_planes:il_444"]["plain_ms"] = ms_pre
             kernels["huffman_segments:pattern"]["plain_ms"] = ms_pat
             kernels["huffman_segments:coefs"]["plain_ms"] = ms_coefs
             kernels["idct_planes:444"]["plain_ms"] = ms_idct
@@ -1244,7 +1303,7 @@ def il444_phases(torch, np, gt, dev, flush):
             kernels["huffdec_block:pattern_444"]["plain_ms"] = ms_block
             kernels["post_rgb:444"]["plain_ms"] = ms_post
             coefs_in = cm
-        log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: fdct (MCU "
+        log(f"[il444 kernels] 8K 4:4:4 interleaved {fkind}: pre, fdct (MCU "
             f"order), huffman pattern ({geo.segment_count} rows of "
             f"{geo.blocks_per_mcu} x "
             f"{geo.segment_mcu_count} blocks, max row {max_row} B) and "
@@ -1311,6 +1370,11 @@ def il444_phases(torch, np, gt, dev, flush):
                                                  markers), flush)
     mcu_order_times(torch, planes, geo, classes, flush, mcu_plain_ms,
                     "il444 time")
+    kernels["pre_rgb_to_planes:il_444"]["ms"] = event_ms(
+        torch, lambda: prepost_kernel.preprocess_packed(
+            x, geo, geo.param_image), 20, flush)       # 1 launch a frame
+    kernels["pre_rgb_to_planes:il_444"]["bound_ms"] = (
+        x.numel() + sum(p_.numel() for p_ in planes)) / PEAK_BYTES_S * 1e3
     del rows, rows_in, planes, x
     kernels["huffman_segments:coefs"]["ms"] = event_ms(
         torch, lambda: fusedpack.entropy_fused(*coefs_in, classes), 10,
@@ -1344,6 +1408,11 @@ def planar_phases(torch, np, gt, dev, flush):
         ((2, 2), (1, 1), (1, 1)))
     enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
     kernels = {
+        "pre_rgb_to_planes:planar_420": dict(
+            key="pre_rgb_to_planes",
+            source="gpujpeg_tpu_torch/csrc/pre_rgb_to_planes.cu",
+            replaces="gpujpeg_tpu/ops/prepost_kernel.py:88",
+            bound_by="bytes", library_ms=None, err=0),
         "dpost_rgb:subsampled": dict(
             key="dpost_rgb",
             source="gpujpeg_tpu_torch/csrc/dpost_rgb.cu",
@@ -1371,6 +1440,15 @@ def planar_phases(torch, np, gt, dev, flush):
     # versions -------------------------------------------------------------
     for fkind, seed in (("gradient", 51), ("noise", 52)):
         frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
+        egeo = enc.resolve(frame, params)
+        planes = prepost_kernel.preprocess_packed(frame, egeo,
+                                                  egeo.param_image)
+        ref, ms_pre = once_ms(
+            torch, lambda: prepost_kernel.preprocess_packed_plain(
+                frame, egeo, egeo.param_image))
+        record_err("pre_rgb_to_planes:planar_420",
+                   max(diff(a, b) for a, b in zip(planes, ref)), fkind)
+        del planes, ref
         data = enc.encode(frame, params)
         hf = dec.prepare(data)
         words, nbits = dec.upload(hf)
@@ -1392,12 +1470,13 @@ def planar_phases(torch, np, gt, dev, flush):
             coefs, hf.plan.qtabs, geo, pi))
         record_err("dpost_rgb:subsampled", diff(img, ref), fkind)
         if fkind == "gradient":
+            kernels["pre_rgb_to_planes:planar_420"]["plain_ms"] = ms_pre
             kernels["dpost_rgb:subsampled"]["plain_ms"] = ms
             kernels["huffdec_scan:planar_420"]["plain_ms"] = ms_scan
             kernels["huffdec_block:planar_420"]["plain_ms"] = ms_block
         log(f"[planar kernels] 8K planar 4:2:0 {fkind}: {len(data)} B, "
-            f"{geo.segment_count} segments in 3 scans, scan, block and dpost "
-            f"(dx = dy = 2) equal to plain, PSNR "
+            f"{geo.segment_count} segments in 3 scans, pre, scan, block and "
+            f"dpost (dx = dy = 2) equal to plain, PSNR "
             f"{psnr(np, img.cpu().numpy(), frame.cpu().numpy()):.2f} dB")
         del coefs, img, ref, frame
 
@@ -1410,8 +1489,15 @@ def planar_phases(torch, np, gt, dev, flush):
         ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"),
         ("huffdec_scan", "huffdec_block", "dpost_rgb"),
         ("pack_stuff_rows", "idct_planes", "post_rgb"))
-    planar_encode_stages(torch, enc, frames[0], params, streams[0],
-                         "planar 4:2:0 8k enc")
+    x, planes, _, _, _ = planar_encode_stages(
+        torch, enc, frames[0], params, streams[0], "planar 4:2:0 8k enc")
+    egeo = enc.resolve(frames[0], params)
+    kernels["pre_rgb_to_planes:planar_420"]["ms"] = event_ms(
+        torch, lambda: prepost_kernel.preprocess_packed(
+            x, egeo, egeo.param_image), 20, flush)     # 1 launch a frame
+    kernels["pre_rgb_to_planes:planar_420"]["bound_ms"] = (
+        x.numel() + sum(p_.numel() for p_ in planes)) / PEAK_BYTES_S * 1e3
+    del x, planes
     words, nbits, bstart, coefs, img, p, hf = dpost_decode_stages(
         torch, np, dec, streams[0], "planar 4:2:0 8k dec")
 
@@ -1548,9 +1634,15 @@ def relayout_phase(torch, dev, flush):
             lib.append(event_ms(torch, lambda: lib_fn(x), 20, flush))
             plain.append(p_ms)
             bound.append((x.numel() + got.numel()) * 4 / PEAK_BYTES_S * 1e3)
-            log(f"[relayout] {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
-                f"equal to plain; {ms[-1]:.4f} ms (bound {bound[-1]:.4f} ms "
-                f"by bytes), library {lib[-1]:.4f} ms, plain {p_ms:.3f} ms")
+            inst = ""
+            if name == "xbd_relayout":     # the C entry's rule, xbd_vector
+                inst = (" (16-byte vector instance, rst 8)"
+                        if rl.xbd_vector(x, 8) else " (generic instance)")
+                k["note"] += "; instance:" + inst
+            log(f"[relayout] {name}{inst} {tuple(x.shape)} -> "
+                f"{tuple(got.shape)}: equal to plain; {ms[-1]:.4f} ms (bound "
+                f"{bound[-1]:.4f} ms by bytes), library {lib[-1]:.4f} ms, "
+                f"plain {p_ms:.3f} ms")
             del got, ref
         k.update(ms=sum(ms) / len(ms), plain_ms=sum(plain) / len(plain),
                  library_ms=sum(lib) / len(lib),
@@ -1624,6 +1716,16 @@ def main() -> int:
             replaces="gpujpeg_tpu/ops/fusedpack.py:459",
             bound_by="bytes", library_ms=None, err=0),
     }
+    # the token-row packer on the luma plane's token rows (64,800 x 512
+    # slots): on no encode path, the rows Annex-K's planar route would bring
+    pack444 = dict(
+        source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
+        replaces="gpujpeg_tpu/ops/fusedpack.py:107", bound_by="bytes",
+        library_ms=None, err=0,
+        note="on no encode path; the plain tokenizer's 8K planar 4:4:4 "
+             "luma token rows (64,800 x 512 slots), the rows Annex-K's "
+             "planar route would bring; held against the plain version "
+             "and the Huffman coder's rows")
     for fkind, seed in (("gradient", 11), ("noise", 12)):
         frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
         geo = enc.resolve(frame, params)
@@ -1672,6 +1774,20 @@ def main() -> int:
                 raise AssertionError(
                     f"huffman kernel differs from plain ({fkind}, comp "
                     f"{c.index})")
+            if c.index == 0:
+                st0 = fusedpack.one_slot(tabs)
+                bits, lens = token_rows(torch, coefs, st0)
+                err, ms, _ = pack_check(
+                    torch, bits, lens, fusedpack.segment_markers(
+                        coefs.shape[0], dev), stride, (rows, rb, needs))
+                pack444["err"] = max(pack444["err"], err)
+                if err:
+                    raise AssertionError("pack_stuff_rows differs from its "
+                                         f"plain version or the Huffman "
+                                         f"coder (4:4:4 luma, {fkind})")
+                if fkind == "gradient":
+                    pack444["plain_ms"] = ms
+                del bits, lens
             if fkind == "gradient" and c.index == 0:
                 kernels["fdct_quant"]["plain_ms"] = event_ms(
                     torch, lambda: fusedpack.fdct_quant_plain(
@@ -1680,7 +1796,8 @@ def main() -> int:
                     torch, lambda: fusedpack.huffman_segments_plain(
                         coefs, c.mcu_count, tabs), 2)
             log(f"[kernels] 8K {fkind} comp {c.index}: pre, fdct, huffman "
-                f"equal to plain; max row {int(needs[1])} B, stuffed "
+                + ("and pack (plain tokens) " if c.index == 0 else "")
+                + f"equal to plain; max row {int(needs[1])} B, stuffed "
                 f"zeros <= {int(needs[0])}, stride {stride} B")
         del planes, ref, coefs, p_coefs, rows, p_rows
 
@@ -1713,6 +1830,10 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
     pre_once_a_frame(launches, len(frames), "4:4:4")
+    if _kernels.LAUNCHES["pack_stuff_rows"]:
+        raise AssertionError("the 4:4:4 encode went through pack_stuff_rows")
+    kernels["pack_stuff_rows:planar_444_luma"] = pack444
+    launches["pack_stuff_rows:planar_444_luma"] = 0
     log(f"[8k] {len(frames)} frames 7680x4320 Q75 rst "
         f"{geo.param.restart_interval}: bytes {sizes}, segments "
         f"{geo.segment_count}, RST markers ok, launches {launches}")
@@ -1768,6 +1889,10 @@ def main() -> int:
                                                  tabs0), flush)
     kernels["fdct_quant"]["bound_ms"] = sum(bound_f) / 3
     kernels["huffman_segments"]["bound_ms"] = sum(bound_h) / 3
+    bits, lens = token_rows(torch, coefs[0], fusedpack.one_slot(tabs0))
+    pack_times(torch, pack444, bits, lens, fusedpack.segment_markers(
+        coefs[0].shape[0], dev), rows[0].shape[1], int(rbs[0].sum()), flush)
+    del bits, lens
     pre_bytes = x.numel() + 3 * c0.data_height * c0.data_width
     kernels["pre_rgb_to_planes"]["bound_ms"] = pre_bytes / PEAK_BYTES_S * 1e3
     log_times("time", kernels)

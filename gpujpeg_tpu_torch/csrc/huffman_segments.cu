@@ -67,12 +67,13 @@
 //     not with the 64 coefficients;
 //   - bit offsets: a warp exclusive scan of the tokens' bit counts places
 //     each in the row; each is ORed MSB first into the warp's bit buffer in
-//     shared memory (512 bytes a warp);
+//     shared memory (512 bytes a warp; put_bits, bitbuf.cuh);
 //   - stuffing: when the buffer holds more than kFlushWords whole words,
 //     and at the row's end after the 1-bit pad, its whole bytes go out:
 //     each lane takes a word, counts its 0xFF bytes, a warp scan of the
 //     output bytes gives each byte its place, and a 0x00 follows each
-//     0xFF.  Then the unstuffed marker.  So the buffer needs no room for a
+//     0xFF (flush_bytes, bitbuf.cuh, shared with pack_stuff_rows.cu).
+//     Then the unstuffed marker.  So the buffer needs no room for a
 //     whole row, and a row of any length (restart interval 0) codes the
 //     same way.
 // The stage template argument cuts the kernel for the decomposition probe
@@ -85,6 +86,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bitbuf.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -98,7 +100,9 @@ constexpr int kBufWords = 128;   // a warp's bit buffer
 // a round of 32 tokens adds at most 32 * (3 * 16 + 26) bits (74 words):
 // the buffer is emptied when it holds more than this many whole words
 constexpr int kFlushWords = kBufWords - 80;
-constexpr unsigned kAll = 0xFFFFFFFFu;
+using gj::flush_bytes;
+using gj::kAll;
+using gj::put_bits;
 
 // a warp's shared memory
 struct WarpSmem {
@@ -118,69 +122,6 @@ __device__ __forceinline__ void size_and_bits(int v, int& size,
     const int a = v < 0 ? -v : v;
     size = 32 - __clz(a);
     vb = (uint32_t)(v < 0 ? v - 1 : v) & ((1u << size) - 1u);
-}
-
-// OR the n low bits of v (1 <= n <= 32, nothing above them) into the bit
-// buffer at bit p, MSB first
-__device__ __forceinline__ void put_bits(uint32_t* buf, int p, uint32_t v,
-                                         int n) {
-    const int w = p >> 5, sh = 32 - (p & 31) - n;
-    if (sh >= 0) {
-        atomicOr(buf + w, v << sh);
-    } else {
-        atomicOr(buf + w, v >> -sh);
-        atomicOr(buf + w + 1, v << (32 + sh));
-    }
-}
-
-// the first nbytes bytes of the bit buffer, stuffed, to out[outpos..];
-// advances outpos and nff (warp-wide, every lane gets the same values)
-template <bool kStore>
-__device__ __forceinline__ void flush_bytes(const uint32_t* buf, int nbytes,
-                                            uint8_t* out, int& outpos,
-                                            int& nff, int lane) {
-    const int nw = (nbytes + 3) >> 2;
-    for (int w0 = 0; w0 < nw; w0 += 32) {
-        const int w = w0 + lane;
-        int nb = nbytes - 4 * w;
-        nb = nb < 0 ? 0 : nb > 4 ? 4 : nb;
-        const uint32_t word = nb ? buf[w] : 0u;
-        // 0xFF bytes among the first nb (stream order: the high byte first)
-        const uint32_t inb = nb ? ~0u << (32 - 8 * nb) : 0u;
-        const int ff = __popc(__vcmpeq4(word, ~0u) & inb) >> 3;
-        const int left = nbytes - 4 * w0;
-        const int chunk = left < 128 ? left : 128;
-        if (!__any_sync(kAll, ff) && (outpos & 3) == 0) {
-            // no stuffing: whole words as words, a last part word by bytes
-            uint8_t* const o = out + outpos + 4 * lane;
-            if (kStore && nb == 4)
-                *reinterpret_cast<uint32_t*>(o) = __byte_perm(word, 0, 0x0123);
-            else if (kStore)
-                for (int q = 0; q < nb; ++q)
-                    o[q] = (uint8_t)(word >> (24 - 8 * q));
-            outpos += chunk;
-            continue;
-        }
-        const int mine = nb + ff;
-        int incl = mine;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int up = __shfl_up_sync(kAll, incl, d);
-            if (lane >= d) incl += up;
-        }
-        int o = outpos + incl - mine;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            if (kStore && q < nb) {
-                const uint32_t byte = (word >> (24 - 8 * q)) & 0xFFu;
-                out[o++] = (uint8_t)byte;
-                if (byte == 0xFFu) out[o++] = 0;
-            }
-        }
-        const int total = __shfl_sync(kAll, incl, 31);
-        nff += total - chunk;
-        outpos += total;
-    }
 }
 
 // Codes the tokens t0 .. t0 + 31 of a batch (lane l: token t0 + l, T in

@@ -22,52 +22,116 @@
 // by the (8, 128) tiling and its lane/sublane transposes; here each kernel
 // moves words so that a warp's global loads and stores are contiguous,
 // and the transposing ones turn the access order around in shared memory
-// with one pad word a row against bank conflicts.  Simple first: 4-byte
-// accesses in the two transposing kernels, 16-byte vectors in the two
-// row kernels where the rows allow them.
+// (a pad word a row in the transpose, swizzled 16-byte chunks in the xbd
+// relayout) against bank conflicts.  16-byte vectors where the shapes and
+// the tensors' alignment allow them in the xbd relayout and the two row
+// kernels, 4-byte accesses in the transpose.
 //
 // Words are u32 bit patterns (int32 tensors in the wrappers).  Plain C
 // interface for ctypes; each launches on the caller's stream and returns
 // cudaGetLastError().
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
+
+#include "tile.cuh"
 
 namespace {
 
 // ---- xbd relayout ----------------------------------------------------------
-// in (H, W4) words, H = nbh * 8, W4 = nsr * rst * 2; out (rst * 16, nbh *
-// nsr): out[b * 16 + r * 2 + k][g * nsr + sr] = in[g * 8 + r][(sr * rst +
-// b) * 2 + k].  A CTA takes block row g and kSeg segments sr0.. of it: it
-// reads the 8 rows' kSeg * 2 rst words (contiguous runs), keeps them in
-// shared memory at a row pitch of 2 rst + 1 words a segment (so the
-// store's reads, one segment a lane, fall in distinct banks), and writes
-// each of the rst * 16 output rows' kSeg contiguous words.
-constexpr int kSeg = 32;          // segments a CTA (one a lane)
+// in (H, W4) words, H = nbh * 8, W4 = nsr * q with q = 2 rst; out (rst *
+// 16, nbh * nsr): out[b * 16 + r * 2 + k][g * nsr + sr] = in[g * 8 + r][(sr
+// * rst + b) * 2 + k].  With c = 2 b + k, a segment's word, output row
+// (c >> 1) * 16 + r * 2 + (c & 1) is the run of word c of every segment of
+// input row r.  A CTA takes block row g and kSeg segments sr0.. of it:
+//   - loads: each of the 8 input rows' run of nseg * q contiguous words,
+//     kW words (16 bytes in the vector instances) a load, all of a
+//     thread's loads (of 4 rows at a time in the generic instance) issued
+//     before the first is stored (32 KB a CTA in flight at rst 8);
+//   - staging: word c of segment j of row r goes to shared memory row r *
+//     q + c, column j, so each output row's run is a contiguous shared row.
+//     The segment j and word c of a loaded word come from its offset e in
+//     the run by j = e / q, a multiply-high by a precomputed reciprocal
+//     (the constant q of the rst = 8 instance: a shift), and c = e - j q;
+//     no division.  A row's 16-byte chunks are swizzled (chunk ^ 2 ((c >>
+//     2) & 3)), which at rst = 8 spreads a warp's staging stores over all
+//     32 banks; the stores' reads, a chunk a lane along one row, are free
+//     of bank conflicts at any rst;
+//   - stores: a lane writes kW consecutive segments of one output row (16
+//     bytes in the vector instances), a warp 16 lanes a row: each output
+//     row's run is 256 contiguous bytes.
+// The vector instances need nsr % 4 == 0 (so W4 % 8 == 0, every run and
+// every output row 16-byte aligned) and 16-byte aligned tensors; the
+// generic one (kW = 1) takes the rest.  rst = 8 (the tools' shape) has its
+// own instance with q a constant.
+constexpr int kSeg = 64;          // segments a CTA
 constexpr int kXbdThreads = 256;
+constexpr int kMaxRst = 23;
 
+template <int kRst, int kW>
 __global__ void __launch_bounds__(kXbdThreads)
 xbd_relayout_kernel(const uint32_t* __restrict__ in, int W4, int nsr,
-                    int rst, int64_t out_pitch, uint32_t* __restrict__ out) {
-    extern __shared__ uint32_t s[];  // [r][seg][2 rst + 1]
+                    int rst_rt, uint32_t recip, int64_t out_pitch,
+                    uint32_t* __restrict__ out) {
+    extern __shared__ __align__(16) uint32_t s[];   // [r * q + c][kSeg]
+    const int q = kRst ? 2 * kRst : 2 * rst_rt;
     const int g = blockIdx.y, sr0 = blockIdx.x * kSeg;
     const int nseg = min(kSeg, nsr - sr0);
-    const int q = 2 * rst, pitch = q + 1;
-    const int run = nseg * q;                      // words a row
-    for (int e = threadIdx.x; e < 8 * run; e += kXbdThreads) {
-        const int r = e / run, c = e - r * run;
-        const int j = c / q;
-        s[(r * kSeg + j) * pitch + c - j * q] =
-            in[(int64_t)(g * 8 + r) * W4 + (int64_t)sr0 * q + c];
+    const int run = nseg * q;                      // words an input row
+    // a thread's loads of one row, at most
+    constexpr int kPer = (kSeg * 2 * (kRst ? kRst : kMaxRst) / kW
+                          + kXbdThreads - 1) / kXbdThreads;
+    using Vec = typename std::conditional<kW == 4, uint4, uint32_t>::type;
+    // rows a batch of loads: the generic instance's 12 words a row and
+    // thread would take 96 registers for all 8
+    constexpr int kRows = kW == 4 ? 8 : 4;
+    const uint32_t* const src = in + (int64_t)g * 8 * W4 + (int64_t)sr0 * q;
+#pragma unroll
+    for (int r0 = 0; r0 < 8; r0 += kRows) {
+        Vec v[kRows][kPer];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int p = 0; p < kPer; ++p) {
+                const int e = (threadIdx.x + p * kXbdThreads) * kW;
+                if (e < run)
+                    v[r][p] = *reinterpret_cast<const Vec*>(
+                        src + (int64_t)(r0 + r) * W4 + e);
+            }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int p = 0; p < kPer; ++p) {
+                const int e0 = (threadIdx.x + p * kXbdThreads) * kW;
+                if (e0 >= run) continue;
+                const uint32_t* const w = reinterpret_cast<const uint32_t*>(
+                    &v[r][p]);
+#pragma unroll
+                for (int i = 0; i < kW; ++i) {
+                    const uint32_t e = (uint32_t)(e0 + i);
+                    const int j = kRst ? (int)(e / (2 * kRst))
+                                       : (int)__umulhi(e, recip);
+                    const int c = (int)e - j * q;
+                    const int col = ((j >> 2) ^ (((c >> 2) & 3) << 1)) << 2
+                        | (j & 3);
+                    s[((r0 + r) * q + c) * kSeg + col] = w[i];
+                }
+            }
     }
     __syncthreads();
+    // output row `row`, chunk u of kW segments; kSeg / kW chunks a row
+    constexpr int kChunks = kSeg / kW;
     uint32_t* const o = out + (int64_t)g * nsr + sr0;
-    for (int e = threadIdx.x; e < 16 * rst * kSeg; e += kXbdThreads) {
-        const int row = e / kSeg, j = e - row * kSeg;  // row = b*16 + r*2 + k
-        if (j < nseg) {
-            const int b = row >> 4, r = (row >> 1) & 7, k = row & 1;
-            o[row * out_pitch + j] = s[(r * kSeg + j) * pitch + b * 2 + k];
-        }
+    for (int f = threadIdx.x; f < 8 * q * kChunks; f += kXbdThreads) {
+        const int row = f / kChunks, u = f % kChunks;   // powers of 2
+        const int j = u * kW;
+        if (j >= nseg) continue;
+        const int c = (row >> 4) * 2 + (row & 1), r = (row >> 1) & 7;
+        const int col = ((j >> 2) ^ (((c >> 2) & 3) << 1)) << 2 | (j & 3);
+        *reinterpret_cast<Vec*>(o + row * out_pitch + j) =
+            *reinterpret_cast<const Vec*>(&s[(r * q + c) * kSeg + col]);
     }
 }
 
@@ -166,24 +230,45 @@ int row_grid(int64_t steps) {
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
+
+template <int kRst, int kW>
+int xbd_launch(const void* in, int nbh, int W4, int nsr, int rst,
+               void* out, cudaStream_t st) {
+    auto* kernel = xbd_relayout_kernel<kRst, kW>;
+    const int smem = 8 * 2 * rst * kSeg * 4;
+    // once a device: the dynamic shared memory above 48 KB (rst > 12)
+    if (gj::resident_ctas(kernel, kXbdThreads, 8 * 2 * kMaxRst * kSeg * 4)
+            <= 0)
+        return (int)cudaErrorInvalidConfiguration;
+    // ceil(2^32 / q): j = umulhi(e, recip) == e / q for every e < 2^32 / q
+    const uint32_t recip = (uint32_t)((0xFFFFFFFFull + 2 * rst) / (2 * rst));
+    const dim3 grid((nsr + kSeg - 1) / kSeg, nbh);
+    kernel<<<grid, kXbdThreads, smem, st>>>(
+        (const uint32_t*)in, W4, nsr, rst, recip, (int64_t)nbh * nsr,
+        (uint32_t*)out);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // in: (H, W4) words, H a multiple of 8, W4 a multiple of 2 rst; out:
-// (rst * 16, H / 8 * W4 / (2 rst)) words.  rst at most 23 (the CTA's
-// shared memory stays within 48 KB).
+// (rst * 16, H / 8 * W4 / (2 rst)) words; rst at most 23.  The vector
+// instances when nsr = W4 / (2 rst) is a multiple of 4 and both tensors
+// are 16-byte aligned (ops/relayout.xbd_vector, the same rule), the rst = 8
+// one at rst 8; else the generic one.
 extern "C" int gj_xbd_relayout(const void* in, int H, int W4, int rst,
                                void* out, void* stream) {
-    if (H % 8 || rst < 1 || rst > 23 || W4 % (2 * rst))
+    if (H % 8 || rst < 1 || rst > kMaxRst || W4 % (2 * rst))
         return (int)cudaErrorInvalidValue;
     const int nbh = H / 8, nsr = W4 / (2 * rst);
     if (nbh == 0 || nsr == 0) return (int)cudaGetLastError();
     if (nbh > 65535) return (int)cudaErrorInvalidValue;
-    const dim3 grid((nsr + kSeg - 1) / kSeg, nbh);
-    const size_t smem = (size_t)8 * kSeg * (2 * rst + 1) * 4;
-    xbd_relayout_kernel<<<grid, kXbdThreads, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)in, W4, nsr, rst, (int64_t)nbh * nsr,
-        (uint32_t*)out);
-    return (int)cudaGetLastError();
+    auto* st = (cudaStream_t)stream;
+    const bool vec = nsr % 4 == 0 && aligned16(in) && aligned16(out);
+    if (vec && rst == 8)
+        return xbd_launch<8, 4>(in, nbh, W4, nsr, rst, out, st);
+    if (vec) return xbd_launch<0, 4>(in, nbh, W4, nsr, rst, out, st);
+    return xbd_launch<0, 1>(in, nbh, W4, nsr, rst, out, st);
 }
 
 // in: (R, C) words; out: (C, R) words

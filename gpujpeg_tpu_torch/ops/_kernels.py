@@ -14,8 +14,8 @@ is not 0.  Nothing here runs when the module is imported, and nothing runs
 on the CPU: the wrappers in prepost_kernel.py, fusedpack.py,
 huffdec_kernel.py and relayout.py take their plain versions for CPU
 tensors and call ``launch`` for CUDA tensors.  ``csrc/*.cuh`` are headers
-shared between kernels (colour transform, IDCT chain, bit writer, Huffman
-tables).
+shared between kernels (colour transform, DCT tiles, the Huffman coders'
+warp bit buffer, the Huffman decoders' bit window).
 
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.  ``probe`` launches the decomposition stages of a tiled
@@ -93,7 +93,8 @@ SOURCES: Dict[str, str] = {name: "relayout" for name in (
 
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
-PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments", "huffdec_block")
+PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments", "huffdec_block",
+          "pack_stuff_rows")
 PROBE_STAGES = {"full": 0, "load_store": 1, "no_store": 2}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -25,7 +25,8 @@ has no counterpart on an encode path.  Its kernel is ported all the same:
   pack_stuff_rows   csrc/pack_stuff_rows.cu   token rows -> byte rows
 
 for the token rows that Annex-K tables will produce (ROADMAP queue 1 item
-7).
+7).  Both kernels code a row a warp and share the warp's bit buffer and
+its stuffing (csrc/bitbuf.cuh).
 
 For CPU tensors each wrapper runs its plain version (ops/dct.py;
 ``segment_tokens`` plus ``pack_rows`` below); for CUDA tensors it launches
@@ -537,21 +538,10 @@ def pack_stuff_rows_plain(bits: torch.Tensor, lens: torch.Tensor,
     return rows, row_bytes, needs
 
 
-def pack_stuff_rows(bits: torch.Tensor, lens: torch.Tensor,
-                    markers: torch.Tensor, stride: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Token rows -> stuffed byte rows (the JAX package's pack_stuff_fused
-    without its capacities): bits/lens (R, T) int32 right-aligned tokens of
-    at most 27 bits and their lengths (0 = no token), markers (R,) int32
-    second RST byte after each row (0 = none), stride a worst case for the
-    rows (pack_stride) -> (rows (R, stride) uint8, row_bytes (R,) int32,
-    needs (2,) int32 = [max stuffed zeros, max row bytes])."""
+def _pack_args(bits: torch.Tensor, lens: torch.Tensor,
+               markers: torch.Tensor, stride: int):
+    """The outputs and C arguments of csrc/pack_stuff_rows.cu."""
     R, T = bits.shape
-    if tuple(lens.shape) != (R, T) or tuple(markers.shape) != (R,):
-        raise ValueError("pack_stuff_rows: bits and lens must be (R, T), "
-                         "markers (R,)")
-    if bits.device.type == "cpu":
-        return pack_stuff_rows_plain(bits, lens, markers, stride)
     rows = torch.empty((R, stride), dtype=torch.uint8, device=bits.device)
     row_bytes = torch.empty(R, dtype=torch.int32, device=bits.device)
     needs = torch.zeros(2, dtype=torch.int32, device=bits.device)
@@ -561,6 +551,46 @@ def pack_stuff_rows(bits: torch.Tensor, lens: torch.Tensor,
             or markers.dtype != torch.int32 or T % 4 or stride % 4):
         raise ValueError("pack_stuff_rows takes int32 tensors, T and the "
                          "stride multiples of 4")
-    _kernels.launch("pack_stuff_rows", bits, lens, R, T, markers, stride,
-                    rows, row_bytes, needs)
-    return rows, row_bytes, needs
+    if bits.data_ptr() % 16 or lens.data_ptr() % 16:
+        raise ValueError("pack_stuff_rows reads bits and lens 16 bytes at "
+                         "a time: both must be 16-byte aligned")
+    return (rows, row_bytes, needs), (bits, lens, R, T, markers, stride,
+                                      rows, row_bytes, needs)
+
+
+def _pack_shapes(bits: torch.Tensor, lens: torch.Tensor,
+                 markers: torch.Tensor) -> None:
+    R, T = bits.shape
+    if tuple(lens.shape) != (R, T) or tuple(markers.shape) != (R,):
+        raise ValueError("pack_stuff_rows: bits and lens must be (R, T), "
+                         "markers (R,)")
+
+
+def pack_stuff_rows(bits: torch.Tensor, lens: torch.Tensor,
+                    markers: torch.Tensor, stride: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Token rows -> stuffed byte rows (the JAX package's pack_stuff_fused
+    without its capacities): bits/lens (R, T) int32 right-aligned tokens of
+    at most 27 bits and their lengths (0 = no token), markers (R,) int32
+    second RST byte after each row (0 = none), stride a worst case for the
+    rows (pack_stride) -> (rows (R, stride) uint8, row_bytes (R,) int32,
+    needs (2,) int32 = [max stuffed zeros, max row bytes])."""
+    _pack_shapes(bits, lens, markers)
+    if bits.device.type == "cpu":
+        return pack_stuff_rows_plain(bits, lens, markers, stride)
+    out, args = _pack_args(bits, lens, markers, stride)
+    _kernels.launch("pack_stuff_rows", *args)
+    return out
+
+
+def pack_stuff_rows_probe(bits: torch.Tensor, lens: torch.Tensor,
+                          markers: torch.Tensor, stride: int, stage: str):
+    """pack_stuff_rows' kernel cut to a decomposition stage
+    (_kernels.PROBE_STAGES: the full kernel; the lengths and the bits of
+    the quads that hold tokens loaded, nothing coded; all but the byte
+    stores) for chip_smoke.py's probe; no codec path calls it.  Only the
+    "full" stage's output is the rows."""
+    _pack_shapes(bits, lens, markers)
+    out, args = _pack_args(bits, lens, markers, stride)
+    _kernels.probe("pack_stuff_rows", stage, *args)
+    return out

@@ -46,6 +46,17 @@ def xbd_relayout_plain(p32: torch.Tensor, rst: int) -> torch.Tensor:
         rst * 16, nbh * nsr)
 
 
+def xbd_vector(p32: torch.Tensor, rst: int) -> bool:
+    """Whether xbd_relayout's kernel takes a 16-byte vector instance for
+    p32: nsr = W/(8 rst) segments a block row a multiple of 4 (every input
+    run and output row then starts on 16 bytes) and p32 16-byte aligned
+    (the output is a fresh allocation); else its generic instance, a word
+    an access.  The C entry (csrc/relayout.cu gj_xbd_relayout) applies
+    the same rule to both tensors, and at rst 8 takes the vector instance
+    built for that rst."""
+    return (p32.shape[1] // (2 * rst)) % 4 == 0 and p32.data_ptr() % 16 == 0
+
+
 def xbd_relayout(p32: torch.Tensor, rst: int) -> torch.Tensor:
     """(H, W/4) words, H a multiple of 8 and W/4 of 2 rst -> (rst*16,
     nbh*nsr): out[b*16 + r*2 + k, g*nsr + sr] = p32[g*8 + r,

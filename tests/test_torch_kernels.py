@@ -495,26 +495,45 @@ def test_pre_kernel_decimates_like_plain(cuda, samp, hw):
         assert torch.equal(a, b)
 
 
-def _token_rows(rng, R, T, ff_bias=False):
+def _token_rows(rng, R, T, ff_bias=False, empty=None):
+    """Random token rows: about half the slots a token of 1..27 bits (all
+    ones with ff_bias: runs of 0xFF bytes), row 3 empty, and rows `empty`
+    (a slice) empty too; no marker after every third row."""
     lens = rng.integers(1, 28, (R, T))
     lens = np.where(rng.random((R, T)) < 0.5, 0, lens)
     bits = rng.integers(0, 1 << 27, (R, T))
     if ff_bias:
         bits = (1 << 27) - 1             # all-ones tokens: runs of 0xFF
     bits = bits & ((1 << lens) - 1)
-    lens[3] = 0                          # an empty row
+    lens[3 % R] = 0                      # an empty row
+    if empty is not None:
+        lens[empty] = 0
     markers = np.where(np.arange(R) % 3 == 2, 0, 0xD0 + np.arange(R) % 8)
     return (torch.from_numpy(bits.astype(np.int32)),
             torch.from_numpy(lens.astype(np.int32)),
             torch.from_numpy(markers.astype(np.int32)))
 
 
+def _pack_stride(T):
+    """A worst case for a row of T tokens of 27 bits: doubled for
+    stuffing, plus the marker, rounded up to 16 (as fusedpack.pack_stride)."""
+    return -(-(2 * -(-T * 27 // 8) + 2) // 16) * 16
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("ff_bias", [False, True])
-def test_pack_stuff_rows_matches_plain(cuda, ff_bias):
-    rng = np.random.default_rng(11)
-    bits, lens, markers = _token_rows(rng, 3000, 384, ff_bias)
-    stride = 4 * 384 * 27 // 8 + 16
+@pytest.mark.parametrize("R,T,ff_bias,empty", [
+    (3000, 384, False, None), (3000, 384, True, None),
+    (150_001, 4, False, None), (1001, 512, False, None),
+    (97, 4096, False, None), (97, 4096, True, None),
+    (2000, 384, False, slice(256, 1500))])
+def test_pack_stuff_rows_matches_plain(cuda, R, T, ff_bias, empty):
+    """The warp-a-row packer against the plain version: the 4:2:0 and
+    planar 4:4:4 luma row widths, T = 4, rows longer than the warp's bit
+    buffer (T = 4096, all-ones tokens across its flushes), more rows than
+    the persistent grid has warps, and a block of empty rows."""
+    rng = np.random.default_rng(11 + T)
+    bits, lens, markers = _token_rows(rng, R, T, ff_bias, empty)
+    stride = _pack_stride(T)
     bits, lens, markers = bits.to(cuda), lens.to(cuda), markers.to(cuda)
     _kernels.reset_launches()
     rows, rb, needs = tfp.pack_stuff_rows(bits, lens, markers, stride)
@@ -525,6 +544,48 @@ def test_pack_stuff_rows_matches_plain(cuda, ff_bias):
     assert torch.equal(needs, p_needs)
     assert _rows_equal(rows, rb, p_rows, p_rb)
     assert int(needs[0]) > 0
+    if empty is not None:                # an empty row is its marker only
+        assert set(rb[empty].tolist()) == {0, 2}
+
+
+@pytest.mark.gpu
+def test_pack_stuff_rows_64bit_offsets(cuda):
+    """Rows whose byte offsets pass 2^31: the last rows equal the plain
+    version of the same rows packed alone."""
+    R, T, stride = 70_000_000, 4, 32
+    lens = torch.zeros((R, T), dtype=torch.int32, device=cuda)
+    bits = torch.zeros((R, T), dtype=torch.int32, device=cuda)
+    markers = torch.full((R,), 0xD3, dtype=torch.int32, device=cuda)
+    tail = slice(R - 1000, R)
+    rng = np.random.default_rng(5)
+    b, ln, _ = _token_rows(rng, 1000, T, ff_bias=False)
+    bits[tail], lens[tail] = b.to(cuda), ln.to(cuda)
+    rows, rb, needs = tfp.pack_stuff_rows(bits, lens, markers, stride)
+    torch.cuda.synchronize()
+    assert R * stride > 1 << 31
+    p_rows, p_rb, p_needs = tfp.pack_stuff_rows_plain(
+        bits[tail], lens[tail], markers[tail], stride)
+    assert _rows_equal(rows[tail], rb[tail], p_rows, p_rb)
+    assert torch.equal(needs, p_needs)
+    assert bool((rb[:R - 1000] == 2).all())
+
+
+@pytest.mark.gpu
+def test_pack_stuff_rows_probe_uncounted(cuda):
+    """The packer's probe stages: the full stage equals the kernel, the
+    cut stages launch, and none is counted."""
+    rng = np.random.default_rng(17)
+    bits, lens, markers = (t.to(cuda) for t in _token_rows(rng, 777, 384))
+    stride = _pack_stride(384)
+    want = tfp.pack_stuff_rows(bits, lens, markers, stride)
+    _kernels.reset_launches()
+    for stage in _kernels.PROBE_STAGES:
+        got = tfp.pack_stuff_rows_probe(bits, lens, markers, stride, stage)
+        torch.cuda.synchronize()
+        if stage == "full":
+            assert torch.equal(got[2], want[2])
+            assert _rows_equal(got[0], got[1], want[0], want[1])
+    assert _kernels.LAUNCHES["pack_stuff_rows"] == 0
 
 
 @pytest.mark.gpu
@@ -1440,8 +1501,13 @@ def test_probes_take_cuda_tensors_only():
                                 *rows, tab, thd.NO_PATTERN,
                                 torch.zeros((4, 512), dtype=torch.int32),
                                 "no_store")
+    z = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.pack_stuff_rows_probe(z, z, torch.zeros(4, dtype=torch.int32),
+                                  64, "load_store")
     assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb",
-                                    "huffman_segments", "huffdec_block"}
+                                    "huffman_segments", "huffdec_block",
+                                    "pack_stuff_rows"}
 
 
 @pytest.mark.gpu
@@ -1557,11 +1623,22 @@ def _words(rng, shape, cuda, low=0, high=1 << 32):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nbh,nsr,rst", [(3, 45, 8), (1, 1, 1), (5, 33, 3),
-                                         (2, 70, 23)])
-def test_xbd_relayout_matches_plain(cuda, nbh, nsr, rst):
-    p32 = _words(np.random.default_rng(nbh * nsr), (nbh * 8, nsr * 2 * rst),
-                 cuda)
+@pytest.mark.parametrize("nbh,nsr,rst,skew,vector", [
+    (3, 45, 8, 0, False), (1, 1, 1, 0, False), (5, 33, 3, 0, False),
+    (2, 70, 23, 0, False), (3, 120, 8, 0, True), (540, 120, 8, 0, True),
+    (3, 120, 8, 1, False), (2, 68, 23, 0, True), (4, 132, 3, 0, True),
+    (2, 4, 1, 0, True)])
+def test_xbd_relayout_matches_plain(cuda, nbh, nsr, rst, skew, vector):
+    """The xbd relayout against its plain version, in the instance the
+    wrapper's rule (xbd_vector) picks: 16-byte vectors where nsr % 4 == 0
+    and the input is aligned (the tools' rst 8 at their 8K shape, odd rst
+    with vectors across segments, segments past a CTA's 64), one word an
+    access otherwise (nsr % 4 != 0, an input 4 bytes off)."""
+    shape = (nbh * 8, nsr * 2 * rst)
+    flat = _words(np.random.default_rng(nbh * nsr + skew),
+                  (shape[0] * shape[1] + skew,), cuda)
+    p32 = flat[skew:].view(shape)
+    assert trel.xbd_vector(p32, rst) == vector
     _kernels.reset_launches()
     got = trel.xbd_relayout(p32, rst)
     torch.cuda.synchronize()
