@@ -92,7 +92,11 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      on seeded words, each against its plain version on the card, timed
      beside its bound and the PyTorch call that computes the same; the xbd
      relayout's line names the instance its C entry takes (the 16-byte
-     vector one at rst 8, or the generic one);
+     vector one at rst 8, or the generic one); the two row kernels
+     (pair_sum_rows, pack_u8_quads) also print the median and minimum of
+     200 launches, the same of an empty kernel launched as each is (its
+     grid and block, through the same path) and of a
+     device-to-device copy_ that moves the same bytes, read and written;
  11. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
@@ -179,6 +183,12 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
     """Mean CUDA-event time of fn() over reps runs, each timed on its own;
     `flush` (a large tensor) is rewritten before each run so that the run
     finds its inputs outside the 50 MB L2, as the encoder does."""
+    return sum(event_times(torch, fn, reps, flush)) / reps
+
+
+def event_times(torch, fn, reps: int, flush=None) -> list:
+    """The CUDA-event ms of each of reps runs of fn(), as event_ms times
+    them, sorted."""
     fn()
     torch.cuda.synchronize()
     pairs = []
@@ -192,7 +202,7 @@ def event_ms(torch, fn, reps: int, flush=None) -> float:
         e.record()
         pairs.append((s, e))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+    return sorted(s.elapsed_time(e) for s, e in pairs)
 
 
 def probe_ms(torch, fn, plain, flush, err_of=None) -> dict:
@@ -1634,21 +1644,57 @@ def relayout_phase(torch, dev, flush):
             lib.append(event_ms(torch, lambda: lib_fn(x), 20, flush))
             plain.append(p_ms)
             bound.append((x.numel() + got.numel()) * 4 / PEAK_BYTES_S * 1e3)
-            inst = ""
+            inst, floor = "", ""
             if name == "xbd_relayout":     # the C entry's rule, xbd_vector
                 inst = (" (16-byte vector instance, rst 8)"
                         if rl.xbd_vector(x, 8) else " (generic instance)")
                 k["note"] += "; instance:" + inst
+            if name in ("pair_sum_rows", "pack_u8_quads"):
+                inst = (" (16-byte vector instance)" if rl.row_vector(x)
+                        else " (generic instance)")
+                k.update(row_floor(torch, name, fn, x, got, flush))
+                floor = (
+                    f"; of 200: median {k['ms_median']:.4f} min "
+                    f"{k['ms_min']:.4f} ms; empty kernel launched as it is: "
+                    f"median {k['empty_ms_median']:.4f} min "
+                    f"{k['empty_ms_min']:.4f} ms; copy_ of the same bytes: "
+                    f"median {k['copy_ms_median']:.4f} min "
+                    f"{k['copy_ms_min']:.4f} ms")
             log(f"[relayout] {name}{inst} {tuple(x.shape)} -> "
                 f"{tuple(got.shape)}: equal to plain; {ms[-1]:.4f} ms (bound "
                 f"{bound[-1]:.4f} ms by bytes), library {lib[-1]:.4f} ms, "
-                f"plain {p_ms:.3f} ms")
+                f"plain {p_ms:.3f} ms{floor}")
             del got, ref
         k.update(ms=sum(ms) / len(ms), plain_ms=sum(plain) / len(plain),
                  library_ms=sum(lib) / len(lib),
                  bound_ms=sum(bound) / len(bound))
         kernels[name] = k
     return kernels
+
+
+#: the keys of row_floor's records (ms of 200 launches each)
+ROW_FLOOR_KEYS = ("ms_median", "ms_min", "empty_ms_median", "empty_ms_min",
+                  "copy_ms_median", "copy_ms_min")
+
+
+def row_floor(torch, name, fn, x, got, flush) -> dict:
+    """The median and minimum CUDA-event ms of 200 launches of a row
+    kernel, of 200 empty kernels launched as it is, and of 200
+    device-to-device copy_ calls moving its bytes (input read and output
+    written: half of them each way), each after the flush."""
+    from gpujpeg_tpu_torch.ops import relayout as rl
+
+    words = (x.numel() + got.numel()) // 2
+    src = torch.empty(words, dtype=torch.int32, device=x.device)
+    dst = torch.empty_like(src)
+    rec = {}
+    for key, run in (("ms", lambda: fn(x)),
+                     ("empty_ms", lambda: rl.empty_launch(name, x)),
+                     ("copy_ms", lambda: dst.copy_(src))):
+        t = event_times(torch, run, 200, flush)
+        rec[f"{key}_median"] = (t[99] + t[100]) / 2
+        rec[f"{key}_min"] = t[0]
+    return rec
 
 
 def log_times(tag, kernels):
@@ -1952,8 +1998,8 @@ def main() -> int:
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"],
-         **{key: k[key] for key in ("tokens", "ns_per_token", "note")
-            if key in k}}
+         **{key: k[key] for key in ROW_FLOOR_KEYS + (
+             "tokens", "ns_per_token", "note") if key in k}}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

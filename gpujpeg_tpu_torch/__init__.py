@@ -12,11 +12,16 @@ __version__ = "0.1.0"
 from .types import (  # noqa: F401
     ColorSpace,
     CorruptStreamError,
+    HeaderType,
     ImageInfo,
     ImageParameters,
     Parameters,
     PixelFormat,
     RESTART_AUTO,
+    RESTART_NONE,
+    SamplingFactor,
+    default_image_parameters,
+    default_parameters,
     from_reference,
 )
 

@@ -3,7 +3,8 @@
 // the relayouts and primitives of its encode feed and pre kernel.  No
 // codec path launches them: the port's interleaved feed relayout is the
 // MCU-order store of fdct_quant.cu, and its pre kernel reads RGB bytes
-// directly.  Four entry points, one library:
+// directly.  Four entry points, one library (and gj_<name>_empty of the
+// two row kernels, an empty kernel launched as each is):
 //
 //   gj_xbd_relayout   tools/proto_xbdkernel.py (make_fn -> _kernel) and
 //                     tools/profile_transpose.py (pallas_t -> kern_body):
@@ -161,72 +162,103 @@ transpose_kernel(const uint32_t* __restrict__ in, int R, int C,
 }
 
 // ---- row pair sums and byte quads ------------------------------------------
-// Both walk the output in a grid-stride loop, 4 words (one 16-byte
-// vector) a step when C % 4 == 0 and the pointers are 16-byte aligned,
-// else one word.
+// out[i, j] = fold(in[F i, j], .., in[F i + F - 1, j]): F = 2 the pair sum
+// (u32, wraparound), F = 4 the byte quad (the low byte of row F i + k in
+// byte k).  Bound: bytes, each word read and written once; at the tools'
+// (23040, 128) words the input is 11.8 MB, 89 KB an SM, so the fixed cost
+// of a launch weighs as much as the transfer (on an H100 80GB HBM3 at 700
+// W an empty kernel launched the same way takes 0.0045-0.0055 ms of their
+// 0.011-0.012; PERF.md, Findings).
+// The design puts every byte of the input in flight at once and pays no
+// more than one DRAM round trip a thread:
+//   - grid: the CTAs that fit on the card at once (gj::resident_ctas, the
+//     device's SM count times the CTAs an SM holds), each a contiguous band
+//     of `band` output rows, whose F input rows each are one contiguous run;
+//   - the vector instance (C % 4 == 0 and both tensors 16-byte aligned, the
+//     rule of ops/relayout.row_vector): thread t takes the band's 16-byte
+//     output chunks t, t + 256, ..., as (row r, chunk q) stepped by (dr, dq)
+//     = divmod(256, C / 4) from the host, with no division in the loop; it
+//     issues the streaming loads of kUnroll chunks (F 16-byte loads each)
+//     before it folds them and writes them with streaming stores;
+//   - the generic instance (any C, any alignment) walks the same bands a
+//     word an access, a row at a time, with no division.
+// A ring of TMA bulk copies into shared memory (a stage's mbarrier armed
+// with its bytes) ran as fast at pair and 3% slower at pack there: a
+// launch that takes shared memory costs more (PERF.md, Findings).
 constexpr int kRowThreads = 256;
-
-template <bool kVec>
-__global__ void __launch_bounds__(kRowThreads)
-pair_sum_kernel(const uint32_t* __restrict__ in, int64_t rows_out, int C,
-                uint32_t* __restrict__ out) {
-    const int w = kVec ? 4 : 1;
-    const int cw = C / w;
-    const int64_t n = rows_out * cw;
-    for (int64_t e = blockIdx.x * (int64_t)kRowThreads + threadIdx.x; e < n;
-         e += (int64_t)gridDim.x * kRowThreads) {
-        const int64_t i = e / cw;
-        const int c = (int)(e - i * cw) * w;
-        const uint32_t* const a = in + 2 * i * C + c;
-        if (kVec) {
-            const uint4 x = *reinterpret_cast<const uint4*>(a);
-            const uint4 y = *reinterpret_cast<const uint4*>(a + C);
-            *reinterpret_cast<uint4*>(out + i * C + c) =
-                make_uint4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
-        } else {
-            out[i * C + c] = a[0] + a[C];
-        }
-    }
-}
+constexpr int kUnroll = 4;          // output chunks a thread has in flight
 
 __device__ __forceinline__ uint32_t quad(uint32_t a, uint32_t b, uint32_t c,
                                          uint32_t d) {
     return (a & 255u) | (b & 255u) << 8 | (c & 255u) << 16 | d << 24;
 }
 
-template <bool kVec>
+template <int F>
+__device__ __forceinline__ uint32_t fold(uint32_t a, uint32_t b, uint32_t c,
+                                         uint32_t d) {
+    return F == 2 ? a + b : quad(a, b, c, d);
+}
+
+template <int F>
 __global__ void __launch_bounds__(kRowThreads)
-pack_quads_kernel(const uint32_t* __restrict__ in, int64_t rows_out, int C,
-                  uint32_t* __restrict__ out) {
-    const int w = kVec ? 4 : 1;
-    const int cw = C / w;
-    const int64_t n = rows_out * cw;
-    for (int64_t e = blockIdx.x * (int64_t)kRowThreads + threadIdx.x; e < n;
-         e += (int64_t)gridDim.x * kRowThreads) {
-        const int64_t i = e / cw;
-        const int c = (int)(e - i * cw) * w;
-        const uint32_t* const a = in + 4 * i * C + c;
-        if (kVec) {
-            uint4 v[4];
+rows_vec_kernel(const uint32_t* __restrict__ in, int64_t rows, int C,
+                int64_t band, int dr, int dq, uint32_t* __restrict__ out) {
+    const int64_t lo = blockIdx.x * band;
+    const int64_t hi = lo + band < rows ? lo + band : rows;
+    const int w4 = C >> 2;                  // 16-byte chunks a row
+    const int t0 = threadIdx.x / w4;        // once a thread
+    int64_t r = lo + t0;
+    int q = threadIdx.x - t0 * w4;
+    while (r < hi) {
+        uint4 v[kUnroll][4] = {};
+        int64_t rr[kUnroll];
+        int qq[kUnroll];
 #pragma unroll
-            for (int k = 0; k < 4; ++k)
-                v[k] = *reinterpret_cast<const uint4*>(a + k * C);
-            *reinterpret_cast<uint4*>(out + i * C + c) = make_uint4(
-                quad(v[0].x, v[1].x, v[2].x, v[3].x),
-                quad(v[0].y, v[1].y, v[2].y, v[3].y),
-                quad(v[0].z, v[1].z, v[2].z, v[3].z),
-                quad(v[0].w, v[1].w, v[2].w, v[3].w));
-        } else {
-            out[i * C + c] = quad(a[0], a[C], a[2 * C], a[3 * C]);
+        for (int u = 0; u < kUnroll; ++u) {
+            rr[u] = r;
+            qq[u] = q;
+            if (r < hi) {
+#pragma unroll
+                for (int k = 0; k < F; ++k)
+                    v[u][k] = __ldcs(reinterpret_cast<const uint4*>(
+                        in + (r * F + k) * C + 4 * q));
+            }
+            r += dr;
+            q += dq;
+            if (q >= w4) { q -= w4; ++r; }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            if (rr[u] >= hi) continue;
+            const uint4* const x = v[u];
+            __stcs(reinterpret_cast<uint4*>(out + rr[u] * C + 4 * qq[u]),
+                   make_uint4(fold<F>(x[0].x, x[1].x, x[2].x, x[3].x),
+                              fold<F>(x[0].y, x[1].y, x[2].y, x[3].y),
+                              fold<F>(x[0].z, x[1].z, x[2].z, x[3].z),
+                              fold<F>(x[0].w, x[1].w, x[2].w, x[3].w)));
         }
     }
 }
 
-// CTAs of a grid-stride row kernel: enough to cover the card a few times
-int row_grid(int64_t steps) {
-    const int64_t want = (steps + kRowThreads - 1) / kRowThreads;
-    return (int)(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
+template <int F>
+__global__ void __launch_bounds__(kRowThreads)
+rows_word_kernel(const uint32_t* __restrict__ in, int64_t rows, int C,
+                 int64_t band, uint32_t* __restrict__ out) {
+    const int64_t lo = blockIdx.x * band;
+    const int64_t hi = lo + band < rows ? lo + band : rows;
+    for (int64_t i = lo; i < hi; ++i) {
+        const uint32_t* const a = in + i * F * C;
+        for (int c = threadIdx.x; c < C; c += kRowThreads) {
+            uint32_t v[4] = {};
+#pragma unroll
+            for (int k = 0; k < F; ++k) v[k] = a[(int64_t)k * C + c];
+            out[i * C + c] = fold<F>(v[0], v[1], v[2], v[3]);
+        }
+    }
 }
+
+// an empty kernel, launched as a row kernel is (chip_smoke.py's floor)
+__global__ void empty_kernel() {}
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
@@ -246,6 +278,39 @@ int xbd_launch(const void* in, int nbh, int W4, int nsr, int rst,
     kernel<<<grid, kXbdThreads, smem, st>>>(
         (const uint32_t*)in, W4, nsr, rst, recip, (int64_t)nbh * nsr,
         (uint32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// in: (R, C) words, R a multiple of F; out: (R / F, C) words.  The vector
+// instance when C % 4 == 0 and both tensors are 16-byte aligned
+// (ops/relayout.row_vector, the same rule), else the generic one; `empty`
+// launches empty_kernel on the same grid and block instead.
+template <int F>
+int rows_entry(const void* in, int64_t R, int C, void* out, void* stream,
+               bool empty) {
+    if (R < 0 || R % F || C < 0) return (int)cudaErrorInvalidValue;
+    const int64_t rows = R / F;
+    if (rows == 0 || C == 0) return (int)cudaGetLastError();
+    auto* st = (cudaStream_t)stream;
+    const bool vec = C % 4 == 0 && aligned16(in) && aligned16(out);
+    auto* vector = rows_vec_kernel<F>;
+    auto* word = rows_word_kernel<F>;
+    const int ctas = vec ? gj::resident_ctas(vector, kRowThreads, 0)
+                         : gj::resident_ctas(word, kRowThreads, 0);
+    if (ctas <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int64_t band = (rows + ctas - 1) / ctas;
+    const int grid = (int)((rows + band - 1) / band);
+    if (empty) {
+        empty_kernel<<<grid, kRowThreads, 0, st>>>();
+    } else if (vec) {
+        const int w4 = C / 4;
+        vector<<<grid, kRowThreads, 0, st>>>(
+            (const uint32_t*)in, rows, C, band, kRowThreads / w4,
+            kRowThreads % w4, (uint32_t*)out);
+    } else {
+        word<<<grid, kRowThreads, 0, st>>>(
+            (const uint32_t*)in, rows, C, band, (uint32_t*)out);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -286,36 +351,23 @@ extern "C" int gj_transpose_u32(const void* in, int R, int C, void* out,
 // in: (R, C) words, R even; out: (R / 2, C) words
 extern "C" int gj_pair_sum_rows(const void* in, int64_t R, int C, void* out,
                                 void* stream) {
-    if (R < 0 || R % 2 || C < 0) return (int)cudaErrorInvalidValue;
-    const int64_t rows = R / 2;
-    const bool vec = C % 4 == 0 && aligned16(in) && aligned16(out);
-    const int64_t steps = rows * (vec ? C / 4 : C);
-    if (steps == 0) return (int)cudaGetLastError();
-    auto* st = (cudaStream_t)stream;
-    if (vec)
-        pair_sum_kernel<true><<<row_grid(steps), kRowThreads, 0, st>>>(
-            (const uint32_t*)in, rows, C, (uint32_t*)out);
-    else
-        pair_sum_kernel<false><<<row_grid(steps), kRowThreads, 0, st>>>(
-            (const uint32_t*)in, rows, C, (uint32_t*)out);
-    return (int)cudaGetLastError();
+    return rows_entry<2>(in, R, C, out, stream, false);
 }
 
 // in: (R, C) words (their low bytes are used), R a multiple of 4; out:
 // (R / 4, C) words
 extern "C" int gj_pack_u8_quads(const void* in, int64_t R, int C, void* out,
                                 void* stream) {
-    if (R < 0 || R % 4 || C < 0) return (int)cudaErrorInvalidValue;
-    const int64_t rows = R / 4;
-    const bool vec = C % 4 == 0 && aligned16(in) && aligned16(out);
-    const int64_t steps = rows * (vec ? C / 4 : C);
-    if (steps == 0) return (int)cudaGetLastError();
-    auto* st = (cudaStream_t)stream;
-    if (vec)
-        pack_quads_kernel<true><<<row_grid(steps), kRowThreads, 0, st>>>(
-            (const uint32_t*)in, rows, C, (uint32_t*)out);
-    else
-        pack_quads_kernel<false><<<row_grid(steps), kRowThreads, 0, st>>>(
-            (const uint32_t*)in, rows, C, (uint32_t*)out);
-    return (int)cudaGetLastError();
+    return rows_entry<4>(in, R, C, out, stream, false);
+}
+
+// the empty kernel on the launch that gj_<kernel> would make
+extern "C" int gj_pair_sum_rows_empty(const void* in, int64_t R, int C,
+                                      void* out, void* stream) {
+    return rows_entry<2>(in, R, C, out, stream, true);
+}
+
+extern "C" int gj_pack_u8_quads_empty(const void* in, int64_t R, int C,
+                                      void* out, void* stream) {
+    return rows_entry<4>(in, R, C, out, stream, true);
 }

@@ -54,6 +54,7 @@ from ..types import (ColorSpace, CorruptStreamError, ImageInfo,
                      YCBCR_JPEG, from_reference, pixel_format_unit_size)
 from ..utils import tables
 from ..utils.geometry import Geometry, get_geometry
+from .encoder import not_ported
 
 log = logging.getLogger("gpujpeg_tpu_torch")
 
@@ -363,6 +364,46 @@ class Decoder:
         self._reuse_scratch = self.device.type == "cuda"
         self._prep_buf: Optional[np.ndarray] = None
         self._prep_event = None
+        self._output_request: Optional[ImageParameters] = None
+
+    def get_stats(self):
+        """The session's DecoderStats: not ported yet."""
+        not_ported("Decoder.get_stats")
+
+    def set_output_format(self, color_space, pixel_format) -> None:
+        """Request the output color space and pixel format for the
+        decodes that pass no param_image; either may be a pseudo value
+        (ColorSpace.NONE for the default, a PixelFormatRequest), resolved
+        against each stream by resolve_output
+        (gpujpeg_decoder_set_output_format).  A request that resolves to
+        anything but P444_U8_P012 raises at decode time (item 6)."""
+        self._output_request = ImageParameters(
+            width=0, height=0, color_space=color_space,
+            pixel_format=pixel_format)
+
+    @staticmethod
+    def print_options() -> str:
+        """gpujpeg_decoder_print_options: not ported yet."""
+        not_ported("Decoder.print_options")
+
+    def compile_stream_pipeline(self, data: bytes):
+        """One device function for streams shaped like data: not ported
+        yet."""
+        not_ported("Decoder.compile_stream_pipeline")
+
+    def warmup(self, example: bytes) -> None:
+        """Pre-build for streams shaped like example: not ported yet."""
+        not_ported("Decoder.warmup")
+
+    def decode_pipelined(self, streams):
+        """Double-buffered decode of a stream sequence: not ported yet."""
+        not_ported("Decoder.decode_pipelined")
+
+    def pack_stream(self, data: bytes, geo: Geometry, max_words: int,
+                    comp_widths=None, table_sig=None):
+        """Host prep of one stream against a fixed geometry: not ported
+        yet."""
+        not_ported("Decoder.pack_stream")
 
     def set_option(self, key: str, value: str) -> None:
         """Reference-compatible string options (gpujpeg_decoder.c:485-524)
@@ -518,12 +559,13 @@ class Decoder:
     def decode_to_device(self, data: bytes,
                          param_image: Optional[ImageParameters] = None
                          ) -> torch.Tensor:
-        """Decode to an (H, W, 3) uint8 tensor on the session's device.
+        """Decode to an (H, W, 3) uint8 tensor on the session's device,
+        in the output that param_image, else set_output_format, asks for.
         A corrupt segment is decoded as far as it goes and logged as a
         warning; the rest of the frame is unaffected.  Any exception drops
         the reused segment buffer before it propagates."""
         try:
-            hf = self.prepare(data, param_image)
+            hf = self.prepare(data, param_image or self._output_request)
             coefs_t, err_a, err_c = self.coefficients_t(hf)
             out = self.back_half(coefs_t, hf.plan, hf.out_pi)
             if bool(err_a.any()) or bool(err_c.any()):

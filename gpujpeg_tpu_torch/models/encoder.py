@@ -74,6 +74,14 @@ def adjust_params(param: Parameters, pi: ImageParameters) -> Parameters:
     return param
 
 
+def not_ported(what: str):
+    """Raise for a public method of the JAX package's sessions that the
+    port does not have yet (the session surface, ROADMAP queue 1 item
+    10)."""
+    raise NotImplementedError(
+        f"{what} is not ported (ROADMAP queue 1 item 10)")
+
+
 #: luma sampling factors of the ported layouts, chroma at 1x1
 SAMPLINGS = ((1, 1), (2, 1), (1, 2), (2, 2))
 
@@ -127,6 +135,41 @@ class Encoder:
             f"encoder option {key!r} is not ported (ROADMAP queue 1 item "
             f"{item.get(key, 10)})")
 
+    @staticmethod
+    def print_options() -> str:
+        """gpujpeg_encoder_print_options: not ported yet."""
+        not_ported("Encoder.print_options")
+
+    def allocate(self, param: Parameters,
+                 param_image: ImageParameters) -> None:
+        """gpujpeg_encoder_allocate: not ported yet."""
+        not_ported("Encoder.allocate")
+
+    @staticmethod
+    def estimate_memory(param: Parameters,
+                        param_image: ImageParameters) -> int:
+        """Device bytes of one frame's encode: not ported yet."""
+        not_ported("Encoder.estimate_memory")
+
+    @staticmethod
+    def max_pixels(param: Parameters, memory_bytes: int) -> int:
+        """gpujpeg_encoder_max_pixels: not ported yet."""
+        not_ported("Encoder.max_pixels")
+
+    @staticmethod
+    def max_memory(param: Parameters, pixels: int) -> int:
+        """gpujpeg_encoder_max_memory: not ported yet."""
+        not_ported("Encoder.max_memory")
+
+    def encode_pipelined(self, frames, param: Optional[Parameters] = None,
+                         param_image: Optional[ImageParameters] = None):
+        """Double-buffered encode of a frame sequence: not ported yet."""
+        not_ported("Encoder.encode_pipelined")
+
+    def get_stats(self):
+        """The session's DurationStats: not ported yet."""
+        not_ported("Encoder.get_stats")
+
     def class_tables(self, quality: int,
                      luma: bool) -> fusedpack.ClassTables:
         key = (quality, luma)
@@ -159,11 +202,14 @@ class Encoder:
         return get_geometry(param, param_image)
 
     def encode_to_device(self, image, param: Optional[Parameters] = None,
-                         param_image: Optional[ImageParameters] = None):
+                         param_image: Optional[ImageParameters] = None,
+                         check: bool = True):
         """Device-side encode.  Returns (geo, res): res["rows"] holds one
         (segments, stride) uint8 tensor per scan (one for an interleaved
         scan) and res["row_bytes"] one (segments,) int32 tensor per scan,
-        still on the device."""
+        still on the device.  The rows have a worst-case stride, so there
+        is no overflow readback for check=False to skip: check is taken
+        for the JAX package's signature and not read."""
         geo = self.resolve(image, param, param_image)
         check_supported(geo)
         if isinstance(image, torch.Tensor):
@@ -186,11 +232,12 @@ class Encoder:
             row_bytes.append(rb)
         return geo, {"rows": rows, "row_bytes": row_bytes}
 
-    def assemble(self, geo: Geometry, res) -> bytes:
+    def assemble(self, geo: Geometry, res, meta=None) -> bytes:
         """Host codestream assembly: headers, then each scan's rows cut to
         their byte counts (RST markers and stuffing come from the
         device).  Each scan's rows are sliced to the longest row on the
-        device before the copy to the host."""
+        device before the copy to the host.  meta is taken for the JAX
+        package's signature and not read, as there."""
         rb_all = torch.cat(res["row_bytes"]).cpu().numpy()
         out = bytearray(jwriter.write_header(geo))
         for k in range(geo.scan_count):

@@ -20,7 +20,10 @@ warp bit buffer, the Huffman decoders' bit window).
 ``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
 that adds to it.  ``probe`` launches the decomposition stages of a tiled
 kernel (``PROBE_STAGES``, entry point gj_<name>_probe) for chip_smoke.py's
-probe; no codec path calls it, and it counts nothing.
+probe; no codec path calls it, and it counts nothing.  ``empty`` launches
+an empty kernel as a row kernel of relayout.cu would be launched
+(``EMPTIES``, entry point gj_<name>_empty), chip_smoke.py's floor of a
+launch; it counts nothing either.
 """
 
 from __future__ import annotations
@@ -96,6 +99,10 @@ SOURCES: Dict[str, str] = {name: "relayout" for name in (
 PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments", "huffdec_block",
           "pack_stuff_rows")
 PROBE_STAGES = {"full": 0, "load_store": 1, "no_store": 2}
+
+#: kernels with a gj_<name>_empty entry point: an empty kernel on the
+#: grid and block that gj_<name> would launch for the same arguments
+EMPTIES = ("pair_sum_rows", "pack_u8_quads")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -205,6 +212,10 @@ def _lib(name: str) -> ctypes.CDLL:
                 pf = getattr(lib, f"gj_{kname}_probe")
                 pf.argtypes = [_I] + _SIGNATURES[kname]
                 pf.restype = ctypes.c_int
+            if kname in EMPTIES:
+                ef = getattr(lib, f"gj_{kname}_empty")
+                ef.argtypes = _SIGNATURES[kname]
+                ef.restype = ctypes.c_int
         _LIBS[src] = lib
     return lib
 
@@ -234,6 +245,12 @@ def probe(name: str, stage: str, *args) -> None:
     """Launch decomposition stage `stage` (PROBE_STAGES) of kernel `name`
     with launch's arguments; not counted in LAUNCHES."""
     _call(name, f"gj_{name}_probe", (PROBE_STAGES[stage],), args)
+
+
+def empty(name: str, *args) -> None:
+    """Launch an empty kernel on the grid and block that kernel `name`
+    (EMPTIES) takes for launch's arguments; not counted."""
+    _call(name, f"gj_{name}_empty", (), args)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

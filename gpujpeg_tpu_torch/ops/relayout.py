@@ -12,6 +12,10 @@ package's TPU probes in tools/ (csrc/relayout.cu).
   pack_u8_quads  tools/profile_prims.py (f_b): the low bytes of rows 4i ..
                  4i + 3 into one word, row 4i in the low byte
 
+The last two run on a grid of the CTAs that fit on the card, each a band
+of output rows, with 16-byte streaming loads and stores where row_vector
+allows.
+
 No codec path calls them: the port's interleaved feed relayout is
 fdct_quant's MCU-order store (fusedpack.interleaved_rows).  Words are u32
 bit patterns held in int32 tensors.  For CPU tensors each wrapper runs its
@@ -92,6 +96,33 @@ def transpose_u32(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def row_vector(x: torch.Tensor) -> bool:
+    """Whether pair_sum_rows and pack_u8_quads take their vector instance
+    (16-byte streaming loads and stores, the loads of 4 output chunks a
+    thread in flight) for x: C % 4 == 0 and x 16-byte aligned (the output
+    is a fresh allocation); else their generic instance, a word an
+    access.  The C entries (csrc/relayout.cu rows_entry) apply the same
+    rule to both tensors."""
+    return x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+
+
+def _rows(name: str, x: torch.Tensor, fold: int, launch) -> torch.Tensor:
+    R, C = x.shape
+    out = torch.empty((R // fold, C), dtype=torch.int32, device=x.device)
+    _kernels.require_cuda(name, x, out)
+    launch(name, x, R, C, out)
+    return out
+
+
+def empty_launch(name: str, x: torch.Tensor) -> None:
+    """An empty kernel launched as kernel `name` (pair_sum_rows or
+    pack_u8_quads) would be for the CUDA tensor x: the same path, grid and
+    block (chip_smoke.py's floor of a launch); not counted."""
+    fold = {"pair_sum_rows": 2, "pack_u8_quads": 4}[name]
+    _check(name, x, fold)
+    _rows(name, x, fold, _kernels.empty)
+
+
 def pair_sum_rows_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of pair_sum_rows, on any device: the sums in int64,
     then cut to 32 bits."""
@@ -104,11 +135,7 @@ def pair_sum_rows(x: torch.Tensor) -> torch.Tensor:
     _check("pair_sum_rows", x, 2)
     if x.device.type == "cpu":
         return pair_sum_rows_plain(x)
-    R, C = x.shape
-    out = torch.empty((R // 2, C), dtype=torch.int32, device=x.device)
-    _kernels.require_cuda("pair_sum_rows", x, out)
-    _kernels.launch("pair_sum_rows", x, R, C, out)
-    return out
+    return _rows("pair_sum_rows", x, 2, _kernels.launch)
 
 
 def pack_u8_quads_plain(x: torch.Tensor) -> torch.Tensor:
@@ -124,8 +151,4 @@ def pack_u8_quads(x: torch.Tensor) -> torch.Tensor:
     _check("pack_u8_quads", x, 4)
     if x.device.type == "cpu":
         return pack_u8_quads_plain(x)
-    R, C = x.shape
-    out = torch.empty((R // 4, C), dtype=torch.int32, device=x.device)
-    _kernels.require_cuda("pack_u8_quads", x, out)
-    _kernels.launch("pack_u8_quads", x, R, C, out)
-    return out
+    return _rows("pack_u8_quads", x, 4, _kernels.launch)

@@ -104,6 +104,42 @@ def test_unported_output_raises():
     assert np.array_equal(got, dec.decode(data))
 
 
+@pytest.mark.parametrize("request_kind", ["none_autodetect", "rgb_p444"])
+def test_set_output_format_matches_jax(request_kind):
+    """After set_output_format with the default request or RGB
+    P444_U8_P012, a decode equals the JAX decoder's after the same call."""
+    from gpujpeg_tpu.types import PixelFormatRequest as JRequest
+    from gpujpeg_tpu_torch.types import PixelFormatRequest as TRequest
+
+    data = _encode(_gradient(40, 56, 8))
+    jdec, dec = gj.Decoder(), gt.Decoder(device="cpu")
+    if request_kind == "none_autodetect":
+        jdec.set_output_format(gj.ColorSpace.NONE, JRequest.AUTODETECT)
+        dec.set_output_format(gt.ColorSpace.NONE, TRequest.AUTODETECT)
+    else:
+        jdec.set_output_format(gj.ColorSpace.RGB,
+                               gj.PixelFormat.P444_U8_P012)
+        dec.set_output_format(gt.ColorSpace.RGB, gt.PixelFormat.P444_U8_P012)
+    ref = np.asarray(jdec.decode(data))
+    got = dec.decode(data)
+    assert got.shape == ref.shape and np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("fmt", ["P444_U8_P0P1P2", "P4444_U8_P0123"])
+def test_set_output_format_other_format_raises(fmt):
+    """A request for another pixel format reaches the decode's item-6
+    gate; a param_image passed to decode still takes precedence."""
+    data = STREAMS["grey"]()
+    dec = gt.Decoder(device="cpu")
+    dec.set_output_format(gt.ColorSpace.RGB, gt.PixelFormat[fmt])
+    with pytest.raises(NotImplementedError) as e:
+        dec.decode(data)
+    assert {int(m) for m in re.findall(r"item (\d+)", str(e.value))} == {6}
+    got = dec.decode(data, gt.ImageParameters(
+        pixel_format=gt.PixelFormat.P444_U8_P012))
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
+
+
 def test_corrupt_stream_is_contained(caplog):
     """A damaged segment logs the warning on the port's logger; block rows
     outside it decode as before (template: tests/test_dec_kernel.py)."""

@@ -1659,12 +1659,20 @@ def test_transpose_u32_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,skew", [((6, 7), 0), ((10, 128), 0),
-                                        ((10, 128), 1), ((2, 4), 0)])
+@pytest.mark.parametrize("shape,skew", [
+    ((6, 7), 0), ((10, 128), 0), ((10, 128), 1), ((2, 4), 0),
+    ((23040, 128), 0), ((92160, 128), 0), ((74, 12), 0), ((400, 4), 0),
+    ((6, 2052), 0), ((10, 516), 0), ((4, 1024), 0), ((46080, 132), 1),
+    ((4, 2052), 3)])
 def test_row_kernels_match_plain(cuda, shape, skew):
     """pair_sum_rows (with wraparound) and pack_u8_quads (low bytes of any
-    int32) on odd widths, 16-byte vectors and a misaligned base (scalar
-    path)."""
+    int32), shape[0] / 2 output rows of shape[1] words: the vector instance
+    (16-byte accesses, 4 chunks a thread in flight) at the tools' 8K shape
+    and at four times it (several rounds of kUnroll chunks a thread),
+    bands with ragged tails, C = 4 and 12 (a thread's chunks across rows),
+    rows of more chunks than a CTA has threads (C = 2052, 1024, 516); the
+    generic instance (a word an access) on odd widths and misaligned
+    bases."""
     rng = np.random.default_rng(shape[1] + skew)
     for rows_mult, fn, plain, name in (
             (2, trel.pair_sum_rows, trel.pair_sum_rows_plain,
@@ -1674,11 +1682,28 @@ def test_row_kernels_match_plain(cuda, shape, skew):
         R = shape[0] * rows_mult // 2
         flat = _words(rng, (R * shape[1] + skew,), cuda)
         x = flat[skew:].view(R, shape[1])
+        assert trel.row_vector(x) == (shape[1] % 4 == 0 and skew % 4 == 0)
         _kernels.reset_launches()
         got = fn(x)
         torch.cuda.synchronize()
         assert _kernels.LAUNCHES[name] == 1
         assert torch.equal(got, plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,skew", [((23040, 128), 0), ((10, 7), 1)])
+def test_row_kernels_empty_launch(cuda, shape, skew):
+    """The empty kernel launched as each row kernel would be runs on both
+    instances' launches and counts nothing."""
+    flat = _words(np.random.default_rng(3), (2 * shape[0] * shape[1] + skew,),
+                  cuda)
+    for fold, name in ((2, "pair_sum_rows"), (4, "pack_u8_quads")):
+        x = flat[skew:skew + fold * shape[0] // 2 * shape[1]].view(
+            -1, shape[1])
+        _kernels.reset_launches()
+        trel.empty_launch(name, x)
+        torch.cuda.synchronize()
+        assert sum(_kernels.LAUNCHES.values()) == 0
 
 
 def test_relayout_wrappers_refuse_other_devices():
