@@ -12,10 +12,10 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      8K (7680x4320) shapes of the main path: the preprocessor and the DCT
      must match bit for bit, the Huffman coder's rows and row lengths
      exactly, on a seeded gradient-plus-noise frame and a uniform-noise
-     frame; the token-row packer (on no encode path) on the plain
-     tokenizer's token rows of the luma plane's coefficients (64,800 rows
-     of 512 slots, the rows Annex-K's planar route would bring) must
-     equal its plain version and the Huffman coder's bytes;
+     frame; the token-row packer (on no tuned encode path; step 10 runs
+     it on the Annex-K paths) on the plain tokenizer's token rows of the
+     luma plane's coefficients (64,800 rows of 512 slots) must equal its
+     plain version and the Huffman coder's bytes;
   4. encodes a 1920x1080 frame with Encoder(device="cuda") and with
      Encoder(device="cpu") and requires identical bytes;
   5. encodes three seeded 8K RGB frames through Encoder.encode at Q75,
@@ -85,7 +85,20 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      plain versions (huffdec_scan:planar_420, huffdec_block:planar_420);
      encode through the decimating preprocessor, the DCT and the one-slot
      Huffman coder per component;
- 10. [relayout]: the four relayout and primitive kernels of
+ 10. [foreign]: the streams other encoders write (foreign_phases), in
+     planar 4:4:4 and interleaved 4:2:0 at 8K: Annex-K tables at restart
+     auto (the token-row packer on the encode's token rows, phases A and
+     C on the stream, each against its plain version; pixels equal to
+     the tuned stream's of the same frame), restart interval 0 (a scan
+     one segment; pixels equal to restart auto's; phases A and C against
+     their plain versions on a 128x96 restart-0 stream), three Huffman
+     table sets (the Annex-K stream rewritten; the four-set kernel
+     instances against their plain versions, pixels equal to the
+     unmodified stream's), HD card bytes and pixels against the CPU's;
+     then three 8K frames encoded and decoded on each path (launches
+     counted; the packer must run on the Annex-K encodes), their wall ms
+     and stages, and the packer's and both phases' ms on these streams;
+ 11. [relayout]: the four relayout and primitive kernels of
      csrc/relayout.cu (the H100 counterparts of the JAX package's TPU
      probes tools/proto_xbdkernel.py, tools/profile_transpose.py and
      tools/profile_prims.py; on no codec path) at those tools' 8K shapes
@@ -97,7 +110,7 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      200 launches, the same of an empty kernel launched as each is (its
      grid and block, through the same path) and of a
      device-to-device copy_ that moves the same bytes, read and written;
- 11. prints the decomposition line of the tiled kernels (fdct_quant,
+ 12. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
      coefficient 0), of phase C (planar 4:4:4, interleaved 4:2:0:
@@ -105,7 +118,8 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      zero tiles stored, the decode without the coefficient store) and of
      the token-row packer (4:2:0 and 4:4:4 luma token rows: full, the
      lengths and the token quads' bits loaded with nothing coded, no byte
-     store), timed at 8K in steps 5 to 9:
+     store; also on the Annex-K token rows), timed at 8K in steps 5 to
+     10:
      each kernel's CUDA-event ms in three stages built from its own
      source (csrc/tile.cuh gj::Stage) -- full, loads and stores only with
      no arithmetic (the Huffman coder: the coefficient loads alone), and
@@ -113,13 +127,13 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      counterpart of the JAX package's TPU probes tools/proto_xq.py and
      tools/profile_dpost5.py; the full stage is held against the plain
      version (error 0);
- 12. prints one JSON line of per-kernel records, every kernel and mode
+ 13. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists; the tokens and ns a token of phases A
      and C on each of the four paths; the preprocessor in ms a frame,
      one launch a frame; a note where a record is on no path);
- 13. prints {"ok": true, "device": {...}} as its last line.
+ 14. prints {"ok": true, "device": {...}} as its last line.
 
 Launches are counted in windows around each path's three 8K frames
 (end_window); a record's launches are its kernel's sum over those
@@ -313,22 +327,16 @@ def huffman_bound_ms(coefs, rb, extra: int = 0) -> float:
 
 
 def token_rows(torch, coefs, st):
-    """The plain tokenizer's token rows (fusedpack.segment_tokens) of
-    coefficient rows in the slot layout st, every block valid, made on the
-    card a chunk at a time -> (bits, lens), int32 (R, blocks * 64)."""
+    """The tokenizer's token rows (fusedpack.rows_tokens) of coefficient
+    rows in the slot layout st, every block valid, made on the card a
+    chunk at a time -> (bits, lens), int32 (R, blocks * 64)."""
     from gpujpeg_tpu_torch.ops import fusedpack
 
     R, B = coefs.shape[0], coefs.shape[1] // 64
     ok = torch.ones((R, B), dtype=torch.bool, device=coefs.device)
     cls = torch.tensor(st.slot_class, device=coefs.device).repeat(
         B // st.bpm).expand(R, B)
-    bits, lens = [], []
-    for r0 in range(0, R, fusedpack.PLAIN_CHUNK_ROWS):
-        sl = slice(r0, r0 + fusedpack.PLAIN_CHUNK_ROWS)
-        b_, l_ = fusedpack.segment_tokens(coefs[sl], st, ok[sl], cls[sl])
-        bits.append(b_.to(torch.int32))
-        lens.append(l_)
-    return torch.cat(bits), torch.cat(lens)
+    return fusedpack.rows_tokens(coefs, st, ok, cls)
 
 
 def pack_check(torch, bits, lens, markers, stride, coded):
@@ -418,12 +426,14 @@ def scan_tokens(torch, coefs, p) -> int:
     return total
 
 
-def scan_times(torch, k, words, nbits, coefs, p, flush) -> None:
-    """Phase A's ms a launch at the path's shapes into record k, its bytes
-    bound (the words the segments' bits fill, four per-segment vectors,
-    the tables and the lookahead table read once, bstart and err written
-    once), and its tokens a launch and ns a token."""
-    k["ms"] = event_ms(torch, lambda: scan_call(words, nbits, p), 20, flush)
+def scan_times(torch, k, words, nbits, coefs, p, flush, reps=20) -> None:
+    """Phase A's ms a launch (mean of reps) at the path's shapes into
+    record k, its bytes bound (the words the segments' bits fill, four
+    per-segment vectors, the tables and the lookahead table read once,
+    bstart and err written once), and its tokens a launch and ns a
+    token."""
+    k["ms"] = event_ms(torch, lambda: scan_call(words, nbits, p), reps,
+                       flush)
     nseg = words.shape[0]
     read = (stream_word_bytes(nbits) + 4 * nseg * 4 + p.tables.numel() * 4
             + p.scan_lut.numel() * 2)
@@ -836,10 +846,10 @@ def interleaved_phases(torch, np, gt, dev, flush):
             source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
             replaces="gpujpeg_tpu/ops/fusedpack.py:107",
             bound_by="bytes", library_ms=None, err=0,
-            note="on no encode path (huffman_segments codes every scan); "
-                 "checked here on the plain tokenizer's 8K 4:2:0 token "
-                 "rows; Annex-K tables (ROADMAP queue 1 item 7) will route "
-                 "through it"),
+            note="on no tuned encode path (huffman_segments codes every "
+                 "tuned scan); checked here on the plain tokenizer's 8K "
+                 "4:2:0 token rows of the tuned tables; the Annex-K paths "
+                 "run it (records pack_stuff_rows:annexk_*)"),
         "huffdec_scan:pattern": dict(
             key="huffdec_scan",
             source="gpujpeg_tpu_torch/csrc/huffdec_scan.cu",
@@ -1100,11 +1110,11 @@ def interleaved_phases(torch, np, gt, dev, flush):
 
 
 def main_path_8k(torch, np, gt, dev, enc, dec, params, seed0, what,
-                 enc_kernels, dec_kernels, forbidden):
+                 enc_kernels, dec_kernels, forbidden, extra=EXTRA_FRAMES):
     """Three seeded 8K frames through Encoder.encode, then their streams
     through Decoder.decode, launch counts read over each; checks SOI/EOI,
     the RST count, the PSNR, that every kernel named was launched and no
-    forbidden one was, and prints the wall ms of those and EXTRA_FRAMES
+    forbidden one was, and prints the wall ms of those and `extra`
     more.  Returns (launches, frames, streams)."""
     from gpujpeg_tpu_torch.ops import _kernels
 
@@ -1150,7 +1160,7 @@ def main_path_8k(torch, np, gt, dev, enc, dec, params, seed0, what,
             log(f"[{what} 8k dec] 3 streams: PSNR vs source "
                 + ", ".join(f"{v:.2f}" for v in psnrs)
                 + f" dB, launches {launches}")
-        for i in range(EXTRA_FRAMES):
+        for i in range(extra):
             t0 = time.perf_counter()
             if stage == "enc":
                 enc.encode(frames[i % 3], params)
@@ -1573,8 +1583,377 @@ def decode_stages(torch, np, dec, data, what):
     return bstart, coefs, dplanes, img, words, nbits, p, hf
 
 
+#: the layouts of the [foreign] step: planar 4:4:4 (the reference's
+#: headline) and interleaved 4:2:0 (libjpeg's default)
+FOREIGN_LAYOUTS = (("444", False, None),
+                   ("420", True, ((2, 2), (1, 1), (1, 1))))
+#: 8K frames timed after the three counted ones on a restart-0 path (a
+#: decode takes about a second there: phase A walks each scan on one
+#: thread)
+RESTART0_EXTRA_FRAMES = 1
+#: launches timed for a phase-A record at restart interval 0
+RESTART0_REPS = 3
+
+
+def foreign_params(gt, il, samp, tables, rst):
+    p = gt.Parameters(quality=QUALITY, restart_interval=rst, interleaved=il,
+                      huffman_tables=tables)
+    return p.chroma_subsampled(samp) if samp else p
+
+
+def token_scans(fusedpack, planes, geo, classes):
+    """The scans of a token-route encode: (coefficient rows, real blocks,
+    slot layout) a scan, as Encoder.encode_to_device and
+    _encode_host_entropy make them."""
+    if geo.interleaved:
+        return [(fusedpack.interleaved_rows(planes, geo, classes),
+                 geo.mcu_count * geo.blocks_per_mcu,
+                 fusedpack.interleaved_slots(geo, classes))]
+    return [(fusedpack.fdct_quant(planes[c.index], classes[c.table_index],
+                                  c.segment_mcu_count), c.mcu_count,
+             fusedpack.one_slot(classes[c.table_index]))
+            for c in geo.components]
+
+
+def token_args(fusedpack, coefs, n, st):
+    """The token-row packer's inputs for a scan's coefficient rows: (bits,
+    lens, markers, stride)."""
+    R, B = coefs.shape[0], coefs.shape[1] // 64
+    ok, cls = fusedpack._block_masks(R, B, st, n, None, None, coefs.device)
+    bits, lens = fusedpack.rows_tokens(coefs, st, ok, cls)
+    return (bits, lens, fusedpack.segment_markers(R, coefs.device),
+            st.stride(B))
+
+
+def token_encode_stages(torch, enc, frame, params, stream, tag):
+    """Stage breakdown of one encode on the token route: Annex-K rows
+    (tokens, token-row packer, assembly) or restart-0 scans (each scan's
+    tokens, then the copy to the host and the host packer with the
+    headers).  Returns the first scan's (coefficient rows, real blocks,
+    slot layout) and, on the Annex-K route, its packer inputs."""
+    from gpujpeg_tpu_torch import native
+    from gpujpeg_tpu_torch.ops import fusedpack, prepost_kernel
+    from gpujpeg_tpu_torch.stream import writer
+
+    dev = enc.device
+    geo = enc.resolve(frame, params)
+    rst0 = geo.param.restart_interval == 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    x = torch.from_numpy(frame).to(dev)
+    ev[1].record()
+    planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
+    ev[2].record()
+    scans = token_scans(fusedpack, planes, geo,
+                        enc.classes(QUALITY, geo.param.huffman_tables))
+    ev[3].record()
+    if rst0:
+        toks = [fusedpack.scan_tokens(*sc) for sc in scans]
+        ev[4].record()
+        ev[5].record()
+    else:
+        pin = [token_args(fusedpack, *sc) for sc in scans]
+        ev[4].record()
+        rows = [fusedpack.pack_stuff_rows(*a) for a in pin]
+        ev[5].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if rst0:
+        out = bytearray(writer.write_header(geo))
+        for k, (b, ln) in enumerate(toks):
+            out += writer.write_scan_header(geo, k)
+            out += native.pack_tokens(b.cpu().numpy(), ln.cpu().numpy())
+        out = bytes(out + b"\xff\xd9")
+    else:
+        out = enc.assemble(geo, {"rows": [r[0] for r in rows],
+                                 "row_bytes": [r[1] for r in rows]})
+    t2 = time.perf_counter()
+    if out != stream:
+        raise AssertionError(f"stage-by-stage {tag} encode differs from "
+                             "encode()")
+    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+                  pre_ms=ev[1].elapsed_time(ev[2]),
+                  fdct_ms=ev[2].elapsed_time(ev[3]),
+                  tokens_ms=ev[3].elapsed_time(ev[4]),
+                  pack_stuff_rows_ms=ev[4].elapsed_time(ev[5]),
+                  device_wall_ms=(t1 - t0) * 1e3)
+    if rst0:
+        del stages["pack_stuff_rows_ms"]
+        stages["d2h_host_pack_tokens_ms"] = (t2 - t1) * 1e3
+        stages["tokens"] = sum(int(ln.numel()) for _, ln in toks)
+    else:
+        stages["assemble_d2h_host_ms"] = (t2 - t1) * 1e3
+    log(f"[{tag}] stages (CUDA events; the host part on the host clock): "
+        + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in stages.items()))
+    return scans[0], (None if rst0 else pin[0])
+
+
+def foreign_phases(torch, np, gt, dev, flush):
+    """Step 10, [foreign]: the streams other encoders write, at 8K, in
+    planar 4:4:4 and interleaved 4:2:0 (FOREIGN_LAYOUTS); returns (kernel
+    records, launches over its main-path windows).
+
+      a. Annex-K tables, restart auto: the token-row packer on the
+         encode's token rows (its first scan: the luma plane, or the
+         interleaved scan) against its plain version; phases A and C on
+         the Annex-K stream against theirs; the decoded pixels equal to
+         the tuned stream's of the same frame (the quantized coefficients
+         depend on neither the tables nor the interval);
+      b. restart interval 0 (a scan one segment), Annex-K: the 8K encode
+         and decode, pixels equal to a.'s; phases A and C against their
+         plain versions on a 128x96 restart-0 stream (the plain phase A
+         steps a token of the longest segment at a time, about 3 ms a
+         step on the card: an 8K scan is millions of steps);
+      c. three table sets: a.'s 8K stream rewritten (the repo's
+         legacy-decode rewrite, tests/scan_rows.three_sets), decoded
+         by the four-set kernel instances, pixels equal to a.'s; phases A
+         and C against their plain versions on it;
+      d. HD: the card's Annex-K and restart-0 bytes equal the CPU's, the
+         card's Annex-K pixels the CPU's and its restart-0 pixels its
+         Annex-K ones (the CPU's plain phase A on a whole HD scan would
+         take minutes);
+      e. main-path windows: three 8K frames encoded and decoded on each
+         new path (EXTRA_FRAMES more timed at restart auto,
+         RESTART0_EXTRA_FRAMES at 0), the three-set streams decoded; stage
+         breakdowns; per-launch times of the packer and both phases on
+         each stream (RESTART0_REPS launches of phase A at restart 0)."""
+    from gpujpeg_tpu_torch.ops import _kernels, fusedpack
+    from tests.scan_rows import three_sets
+
+    kernels = {}
+
+    def rec(name, note=None):
+        key = name.split(":")[0]
+        kernels[name] = dict(
+            key=key, source=f"gpujpeg_tpu_torch/csrc/{key}.cu",
+            replaces={"pack_stuff_rows": "gpujpeg_tpu/ops/fusedpack.py:107",
+                      "huffdec_scan": "gpujpeg_tpu/ops/huffdec_kernel.py:590",
+                      "huffdec_block":
+                          "gpujpeg_tpu/ops/huffdec_kernel.py:283"}[key],
+            bound_by="bytes", library_ms=None, err=0,
+            **({"note": note} if note else {}))
+        return kernels[name]
+
+    def record_err(name, err, what):
+        kernels[name]["err"] = max(kernels[name]["err"], err)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({what})")
+
+    launches = {}
+    for li, (tag, il, samp) in enumerate(FOREIGN_LAYOUTS):
+        t_layout = time.perf_counter()
+        enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+        pa = foreign_params(gt, il, samp, "annexk", gt.RESTART_AUTO)
+        p0 = foreign_params(gt, il, samp, "annexk", 0)
+        pt = foreign_params(gt, il, samp, "tuned", gt.RESTART_AUTO)
+        pk, sk, bk = (rec(f"pack_stuff_rows:annexk_{tag}"),
+                      rec(f"huffdec_scan:annexk_{tag}"),
+                      rec(f"huffdec_block:annexk_{tag}"))
+        s0 = rec(f"huffdec_scan:restart0_{tag}",
+                 "plain_ms and max_abs_err on a 128x96 restart-0 stream "
+                 "(the plain scan steps a token of the longest segment at a "
+                 "time); ms, bound and tokens on the 8K one")
+        b0 = rec(f"huffdec_block:restart0_{tag}",
+                 "max_abs_err on the 128x96 restart-0 stream and the 8K "
+                 "one, plain_ms on the 8K one; ms, bound and tokens on the "
+                 "8K one")
+        s3, b3 = (rec(f"huffdec_scan:three_sets_{tag}",
+                      "four-set instance: the Annex-K stream rewritten to "
+                      "three AC table sets"),
+                  rec(f"huffdec_block:three_sets_{tag}",
+                      "four-set instance, CTAs of 4 warps: the Annex-K "
+                      "stream rewritten to three AC table sets"))
+        what = f"8K {'il' if il else 'planar'} {tag}"
+
+        # -- a. Annex-K, restart auto ---------------------------------------
+        frame = make_frame(torch, "gradient", 600 + li, H8K, W8K, dev)
+        frame_np = frame.cpu().numpy()
+        geo = enc.resolve(frame_np, pa)
+        planes, classes = enc._front(frame, geo)
+        coefs, n, st = token_scans(fusedpack, planes, geo, classes)[0]
+        del planes
+        bits, lens, markers, stride = token_args(fusedpack, coefs, n, st)
+        k_out = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
+        p_out, pk["plain_ms"] = once_ms(
+            torch, lambda: fusedpack.pack_stuff_rows_plain(bits, lens,
+                                                           markers, stride))
+        record_err(f"pack_stuff_rows:annexk_{tag}",
+                   rows_err(torch, *k_out, *p_out), what)
+        del k_out, p_out, bits, lens, coefs
+        data_a = enc.encode(frame_np, pa)
+        data_t = enc.encode(frame_np, pt)
+        hf = dec.prepare(data_a)
+        p = hf.plan
+        words, nbits = dec.upload(hf)
+        bstart, err_a, err, sk["plain_ms"] = scan_check(torch, words, nbits,
+                                                        p)
+        record_err(f"huffdec_scan:annexk_{tag}", err, what)
+        _c, err_c, err, bk["plain_ms"] = block_check(torch, words, bstart, p)
+        record_err(f"huffdec_block:annexk_{tag}", err, what)
+        if bool(err_a.any()) or bool(err_c.any()):
+            raise AssertionError(f"{what} Annex-K stream decodes with errors")
+        del words, bstart, _c
+        img_a = dec.decode(data_a)
+        if not np.array_equal(img_a, dec.decode(data_t)):
+            raise AssertionError(f"{what}: the Annex-K stream's pixels "
+                                 "differ from the tuned stream's")
+        log(f"[foreign] {what} Annex-K: {len(data_a)} B (tuned "
+            f"{len(data_t)} B), {p.geo.segment_count} segments; pack, scan, "
+            "block equal to plain; pixels == the tuned stream's, PSNR "
+            f"{psnr(np, img_a, frame_np):.2f} dB")
+
+        # -- b. restart interval 0 ------------------------------------------
+        data_0 = enc.encode(frame_np, p0)
+        img_0 = dec.decode(data_0)
+        if not np.array_equal(img_0, img_a):
+            raise AssertionError(f"{what}: the restart-0 stream's pixels "
+                                 "differ from the restart-auto stream's")
+        small = make_frame(torch, "gradient", 610 + li, 96, 128,
+                           dev).cpu().numpy()
+        hf0 = dec.prepare(enc.encode(small, p0))
+        w0, nb0 = dec.upload(hf0)
+        bst0, ea0, err, s0["plain_ms"] = scan_check(torch, w0, nb0,
+                                                    hf0.plan)
+        record_err(f"huffdec_scan:restart0_{tag}", err, "128x96 restart 0")
+        _c, ec0, err, _ms = block_check(torch, w0, bst0, hf0.plan)
+        record_err(f"huffdec_block:restart0_{tag}", err, "128x96 restart 0")
+        if bool(ea0.any()) or bool(ec0.any()) or w0.shape[0] != \
+                hf0.plan.geo.scan_count:
+            raise AssertionError("128x96 restart-0 stream: errors, or not "
+                                 "a segment a scan")
+        hf = dec.prepare(data_0)
+        words, nbits = dec.upload(hf)
+        bstart, err_a = scan_call(words, nbits, hf.plan)
+        _c, err_c, err, b0["plain_ms"] = block_check(torch, words, bstart,
+                                                     hf.plan)
+        record_err(f"huffdec_block:restart0_{tag}", err, what + " restart 0")
+        if bool(err_a.any()) or bool(err_c.any()):
+            raise AssertionError(f"{what} restart-0 stream decodes with "
+                                 "errors")
+        log(f"[foreign] {what} restart 0: {len(data_0)} B, "
+            f"{words.shape[0]} segments x {words.shape[1]} words, "
+            f"{hf.plan.bps} block slots a row; pixels == restart auto; "
+            "128x96: scan and block equal to plain")
+        del words, bstart, _c
+
+        # -- c. three table sets --------------------------------------------
+        data_3 = three_sets(data_a)
+        hf = dec.prepare(data_3)
+        if tuple(hf.plan.tables.shape) != (8, 290):
+            raise AssertionError("the three-set stream took no four-set plan")
+        words, nbits = dec.upload(hf)
+        bstart, err_a, err, s3["plain_ms"] = scan_check(torch, words, nbits,
+                                                        hf.plan)
+        record_err(f"huffdec_scan:three_sets_{tag}", err, what)
+        _c, err_c, err, b3["plain_ms"] = block_check(torch, words, bstart,
+                                                     hf.plan)
+        record_err(f"huffdec_block:three_sets_{tag}", err, what)
+        if bool(err_a.any()) or bool(err_c.any()):
+            raise AssertionError(f"{what} three-set stream decodes with "
+                                 "errors")
+        if not np.array_equal(dec.decode(data_3), img_a):
+            raise AssertionError(f"{what}: the three-set stream's pixels "
+                                 "differ from the unmodified stream's")
+        log(f"[foreign] {what} three table sets: scan and block (four-set "
+            "instances) equal to plain, pixels == the unmodified stream's")
+        del words, bstart, _c, frame, img_0
+
+        # -- d. HD: card == CPU ---------------------------------------------
+        hd = make_frame(torch, "gradient", 620 + li, 1080, 1920,
+                        dev).cpu().numpy()
+        hd_a = enc.encode(hd, pa)
+        hd_0 = enc.encode(hd, p0)
+        cpu = gt.Encoder(device="cpu")
+        if hd_a != cpu.encode(hd, pa) or hd_0 != cpu.encode(hd, p0):
+            raise AssertionError(f"HD {tag} Annex-K or restart-0 encode on "
+                                 "the card differs from the CPU")
+        got_a = dec.decode(hd_a)
+        if not np.array_equal(got_a, gt.Decoder(device="cpu").decode(hd_a)) \
+                or not np.array_equal(dec.decode(hd_0), got_a):
+            raise AssertionError(f"HD {tag} Annex-K or restart-0 decode on "
+                                 "the card differs")
+        log(f"[foreign hd] 1920x1080 {tag}: Annex-K {len(hd_a)} B and "
+            f"restart 0 {len(hd_0)} B card == cpu (bytes); Annex-K pixels "
+            "card == cpu, restart-0 pixels == Annex-K's")
+
+        # -- e. main-path windows, stages and times -------------------------
+        tail = ("idct_planes", "post_rgb") if il else ("dpost_rgb",)
+        la, frames, streams_a = main_path_8k(
+            torch, np, gt, dev, enc, dec, pa, 630 + 10 * li,
+            f"annexk {tag}", ("pre_rgb_to_planes", "fdct_quant",
+                              "pack_stuff_rows"),
+            ("huffdec_scan", "huffdec_block") + tail, ("huffman_segments",))
+        l0, _f0, streams_0 = main_path_8k(
+            torch, np, gt, dev, enc, dec, p0, 630 + 10 * li,
+            f"restart0 {tag}", ("pre_rgb_to_planes", "fdct_quant"),
+            ("huffdec_scan", "huffdec_block") + tail,
+            ("huffman_segments", "pack_stuff_rows"), RESTART0_EXTRA_FRAMES)
+        streams_3 = [three_sets(d) for d in streams_a]
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        walls = []
+        for d, f in zip(streams_3, frames):
+            t0 = time.perf_counter()
+            out = dec.decode(d)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if psnr(np, out, f) < 20:
+                raise AssertionError(f"8K three-set {tag} decode PSNR")
+        end_window()
+        l3 = dict(_kernels.LAUNCHES)
+        log(f"[three_sets {tag} 8k dec] launches "
+            f"{ {n: l3[n] for n in ('huffdec_scan', 'huffdec_block')} }, "
+            "wall ms per frame, " + quartiles(np, walls))
+        for name, ln in ((f"pack_stuff_rows:annexk_{tag}", la),
+                         (f"huffdec_scan:annexk_{tag}", la),
+                         (f"huffdec_block:annexk_{tag}", la),
+                         (f"huffdec_scan:restart0_{tag}", l0),
+                         (f"huffdec_block:restart0_{tag}", l0),
+                         (f"huffdec_scan:three_sets_{tag}", l3),
+                         (f"huffdec_block:three_sets_{tag}", l3)):
+            launches[name] = ln[kernels[name]["key"]]
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched on its path")
+
+        _sc, pin = token_encode_stages(torch, enc, frames[0], pa,
+                                       streams_a[0], f"annexk {tag} 8k enc")
+        pack_times(torch, pk, *pin, int(fusedpack.pack_stuff_rows(*pin)[1]
+                                        .sum()), flush)
+        del pin, _sc
+        token_encode_stages(torch, enc, frames[0], p0, streams_0[0],
+                            f"restart0 {tag} 8k enc")
+        stages = decode_stages if il else dpost_decode_stages
+        for data, ks, kb, name, reps in (
+                (streams_a[0], sk, bk, "annexk", 20),
+                (streams_0[0], s0, b0, "restart0", RESTART0_REPS)):
+            out = stages(torch, np, dec, data, f"{name} {tag}")
+            if il:
+                bstart, coefs, _dp, _img, words, nbits, p, _hf = out
+            else:
+                words, nbits, bstart, coefs, _img, p, _hf = out
+            scan_times(torch, ks, words, nbits, coefs, p, flush, reps)
+            block_times(torch, kb, words, nbits, bstart, p, flush,
+                        ks["tokens"])
+            del out, words, bstart, coefs
+        hf = dec.prepare(streams_3[0])
+        words, nbits = dec.upload(hf)
+        bstart, _e = scan_call(words, nbits, hf.plan)
+        coefs, _e = block_call(words, bstart, hf.plan)
+        scan_times(torch, s3, words, nbits, coefs, hf.plan, flush)
+        block_times(torch, b3, words, nbits, bstart, hf.plan, flush,
+                    s3["tokens"])
+        del words, bstart, coefs
+        log_times(f"foreign {tag} time",
+                  {k: v for k, v in kernels.items() if k.endswith(tag)})
+        log(f"[foreign {tag}] {time.perf_counter() - t_layout:.1f} s")
+    return kernels, launches
+
+
 def relayout_phase(torch, dev, flush):
-    """Step 10: the relayout and primitive kernels of csrc/relayout.cu at
+    """Step 11: the relayout and primitive kernels of csrc/relayout.cu at
     the 8K shapes of the TPU probes they replace, on seeded u32 words;
     returns their kernel records (on no codec path: their launches are
     the main-path windows' counts, 0)."""
@@ -1768,10 +2147,11 @@ def main() -> int:
         source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
         replaces="gpujpeg_tpu/ops/fusedpack.py:107", bound_by="bytes",
         library_ms=None, err=0,
-        note="on no encode path; the plain tokenizer's 8K planar 4:4:4 "
-             "luma token rows (64,800 x 512 slots), the rows Annex-K's "
-             "planar route would bring; held against the plain version "
-             "and the Huffman coder's rows")
+        note="on no tuned encode path; the plain tokenizer's 8K planar "
+             "4:4:4 luma token rows of the tuned tables (64,800 x 512 "
+             "slots); held against the plain version and the Huffman "
+             "coder's rows; the Annex-K paths run it (records "
+             "pack_stuff_rows:annexk_*)")
     for fkind, seed in (("gradient", 11), ("noise", 12)):
         frame = make_frame(torch, fkind, seed, H8K, W8K, dev)
         geo = enc.resolve(frame, params)
@@ -1952,9 +2332,10 @@ def main() -> int:
     kernels.update(dec_kernels)
     launches.update(dec_launches)
 
-    # -- 7-9. the interleaved 4:2:0, interleaved 4:4:4 and planar 4:2:0
-    # paths ------------------------------------------------------------------
-    for phases in (interleaved_phases, il444_phases, planar_phases):
+    # -- 7-10. the interleaved 4:2:0, interleaved 4:4:4 and planar 4:2:0
+    # paths, then the streams other encoders write ([foreign]) -------------
+    for phases in (interleaved_phases, il444_phases, planar_phases,
+                   foreign_phases):
         t_step = time.perf_counter()
         step_kernels, step_launches = phases(torch, np, gt, dev, flush)
         kernels.update(step_kernels)
@@ -1977,7 +2358,7 @@ def main() -> int:
         + ", ".join(f"{v:.4f}" for v in mo["ms"]) + "; planar store of the "
         "same planes: " + ", ".join(f"{v:.4f}" for v in mo["planar_ms"]))
 
-    # -- 10. relayout and primitive kernels ----------------------------------
+    # -- 11. relayout and primitive kernels ----------------------------------
     t_step = time.perf_counter()
     kernels.update(relayout_phase(torch, dev, flush))
     for name in ("xbd_relayout", "transpose_u32", "pair_sum_rows",
@@ -1985,13 +2366,13 @@ def main() -> int:
         launches[name] = PATH_LAUNCHES.get(name, 0)
     log(f"[relayout_phase] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 11. decomposition line -----------------------------------------------
+    # -- 12. decomposition line -----------------------------------------------
     log("[probe] decomposition ms at 8K (full | loads and stores only | "
         "full without the output store; the full stage's error against "
         "the plain version): " + json.dumps(
             {name: k["probe"] for name, k in kernels.items()
              if "probe" in k}))
-    # -- 12. kernels line ----------------------------------------------------
+    # -- 13. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -2003,7 +2384,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 13. result ----------------------------------------------------------
+    # -- 14. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

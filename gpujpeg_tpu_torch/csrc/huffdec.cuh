@@ -3,28 +3,36 @@
 // memory, the canonical decode of one token, and the register bit window
 // that both read their segment rows through.
 //
-// Tables: four of ops/huffdec_kernel.decode_tables (DC luma, DC chroma, AC
-// luma, AC chroma), each int32[kTableWords] = mono[17] | valoff[17] |
-// huffval[256] (utils/tables.kernel_decode_table).  For a left-aligned
-// 16-bit peek the code length is 1 + #{l in 1..15 : peek16 > mono[l]}, the
-// code is invalid when peek16 > mono[16], and the symbol is
-// huffval[(peek16 >> (16 - clen)) + valoff[clen]].  For the tuned tables
-// the decoder accepts this gives the JAX package's (clen, sym) exactly
-// (gpujpeg_tpu/ops/huffdec_kernel.py: affine_ac_decode,
+// Tables: the 2 * kSets of ops/huffdec_kernel.decode_tables for kSets = 2
+// or 4 table sets (the DC tables, then the AC tables: DC luma, DC chroma,
+// AC luma, AC chroma for two), each int32[kTableWords] = mono[17] |
+// valoff[17] | huffval[256] (utils/tables.kernel_decode_table), any
+// baseline DHT table.  For a left-aligned 16-bit peek the code length is
+// 1 + #{l in 1..15 : peek16 > mono[l]}, the code is invalid when peek16 >
+// mono[16], and the symbol is huffval[(peek16 >> (16 - clen)) +
+// valoff[clen]].  For the tuned tables this gives the JAX package's (clen,
+// sym) exactly (gpujpeg_tpu/ops/huffdec_kernel.py: affine_ac_decode,
 // dc_identity_decode); clen 0 marks an invalid code.  Both kernels look a
 // token up in a lookahead table built on the host first (huffdec_kernel
 // scan_lut, block_lut) and take this decode only where the table has no
 // entry.
 //
-// Classes: a block takes table set 0 ("luma") or 1 for its DC and its AC
-// token.  Segment s has flags dc_luma[s] / ac_luma[s]; block slot j of the
-// segment also takes bit j % bpm of a slot pattern (one 32-bit mask for DC
-// and one for AC; bpm <= 10 in baseline JPEG), and its class is luma when
-// both are set.  A non-interleaved scan passes bpm = 1 and masks 1 (the
-// segment's flag decides, one component a row); an interleaved scan
-// passes flags 1 and the pattern of one MCU's blocks, as the JAX package's
-// luma_patterns (gpujpeg_tpu/ops/huffdec_kernel.py: _scan_kernel_body,
-// flags(blk)).
+// Classes: a block takes one of the kSets table sets for its DC and its
+// AC token.  Segment s has selectors dc_sel[s] / ac_sel[s]; block slot j
+// of the segment also takes field j % bpm of a slot pattern (one 32-bit
+// mask for DC and one for AC; bpm <= 10 in baseline JPEG):
+//   kSets = 2: a selector is a luma flag, a field one bit, and the block
+//     takes set 0 ("luma") when both are set, else set 1.  A
+//     non-interleaved scan passes bpm = 1 and masks 1 (the segment's flag
+//     decides, one component a row); an interleaved scan passes flags 1
+//     and the pattern of one MCU's blocks, as the JAX package's
+//     luma_patterns (gpujpeg_tpu/ops/huffdec_kernel.py:
+//     _scan_kernel_body, flags(blk));
+//   kSets = 4: a selector is a set index, a field 2 bits (slot j at bits
+//     2j, 2j + 1), and the block takes set (selector + field) & 3; a
+//     non-interleaved scan passes masks 0, an interleaved one selectors 0.
+// set_of gives a slot's set; its DC table is that set, its AC table kSets
+// plus it.
 //
 // Rows: the host-order words of stream/segments.pack_segments_matrix
 // (stream byte k is byte k of the row); a word is byteswapped as it is
@@ -37,13 +45,27 @@
 namespace gj {
 
 constexpr int kTableWords = 17 + 17 + 256;
-constexpr int kTablesWords = 4 * kTableWords;
 
+// the words of the 2 * kSets canonical tables
+template <int kSets>
+constexpr int kTablesWords = 2 * kSets * kTableWords;
+
+template <int kSets>
 __device__ __forceinline__ void load_tables(const int32_t* __restrict__ src,
                                             int32_t* dst) {
-    for (int i = threadIdx.x; i < kTablesWords; i += blockDim.x)
+    for (int i = threadIdx.x; i < kTablesWords<kSets>; i += blockDim.x)
         dst[i] = src[i];
     __syncthreads();
+}
+
+// the table set of slot `slot` of a segment with selector sel, in the
+// pattern mask pat (the classes above)
+template <int kSets>
+__device__ __forceinline__ int set_of(int sel, uint32_t pat, int slot) {
+    if constexpr (kSets == 2)
+        return sel && ((pat >> slot) & 1u) ? 0 : 1;
+    else
+        return (sel + (int)((pat >> (2 * slot)) & 3u)) & 3;
 }
 
 // One token from canonical table t (the layout above) and a left-aligned

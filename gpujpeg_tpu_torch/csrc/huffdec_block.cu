@@ -23,8 +23,12 @@
 // coefficient index of at most 63 gives a new position of at most 64, so
 // one check covers both.  DC is differential (the caller integrates it
 // per component along the segment).  A block's table class comes from
-// its segment's flags and the slot pattern (huffdec.cuh), as the JAX
-// kernel's per-block class rows.
+// its segment's selectors and the slot pattern (huffdec.cuh), as the JAX
+// kernel's per-block class rows, among two table sets or, in the second
+// instance of each stage, four (T.81's table ids 0-3; the JAX package
+// decodes such streams on its legacy path).  The tables are any baseline
+// DHT tables (the JAX kernel's "generic" mode, _block_kernel_body's
+// generic branch).
 //
 // Bound: bytes.  At 8K Q75 (planar 4:4:4) the kernel reads the 25.7 MB
 // word matrix and 7.0 MB of bstart and writes 199.1 MB of coefficients
@@ -58,7 +62,14 @@
 //     independently (a warp barrier a tile, no CTA barrier).  45.6 KB of
 //     static shared memory a CTA; a 10-bit table (16 KB) would leave room
 //     for 4 warps only, which was slower on three of the four 8K paths
-//     (PERF.md).
+//     (PERF.md).  The four-set instance holds twice the tables (9.3 KB)
+//     and twice the lookahead table (16 KB), so it runs CTAs of 4 warps
+//     (16 KB of tiles, 41.3 KB in all) and keeps the static limit.
+//
+// At restart interval 0 a segment is a whole scan (518,400 blocks of 8K
+// 4:4:4 luma): its blocks still decode in parallel from phase A's
+// cursors, a tile of 32 a warp, and the grid's slot stepping carries
+// (s, j) across the row without a division.
 //
 // The stage template argument cuts the kernel for chip_smoke.py's probe
 // (gj::Stage; gj_huffdec_block_probe); the codec's entry point,
@@ -76,8 +87,11 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
+// warps a CTA of the instance with kSets table sets
+template <int kSets>
+constexpr int kWarps = kSets == 2 ? 8 : 4;
+template <int kSets>
+constexpr int kThreads = 32 * kWarps<kSets>;
 constexpr int kTile = 32;             // blocks a warp tile (a block a lane)
 constexpr int kLutBits = 9;           // huffdec_kernel.BLOCK_LUT_BITS
 constexpr int kLutSize = 1 << kLutBits;
@@ -189,27 +203,28 @@ __device__ __forceinline__ bool decode_block(gj::BitWindow& bw, int& jq,
     }
 }
 
-template <int kStage>
-__global__ void __launch_bounds__(kThreads)
+template <int kStage, int kSets>
+__global__ void __launch_bounds__(kThreads<kSets>)
 huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
                      const int32_t* __restrict__ bstart, int bps, int L,
                      const int32_t* __restrict__ nblocks,
-                     const int32_t* __restrict__ dc_luma,
-                     const int32_t* __restrict__ ac_luma, int bpm,
+                     const int32_t* __restrict__ dc_sel,
+                     const int32_t* __restrict__ ac_sel, int bpm,
                      uint32_t dc_pat, uint32_t ac_pat,
                      const int32_t* __restrict__ tables,
                      const uint32_t* __restrict__ lut_g, bool vec,
                      int16_t* __restrict__ coefs,
                      int32_t* __restrict__ err_out) {
-    __shared__ int32_t tab[gj::kTablesWords];
-    __shared__ __align__(16) uint32_t lut[4 * kLutSize];
-    __shared__ __align__(16) int16_t tiles[kWarps][64 * kTile];
-    for (int i = threadIdx.x; i < 4 * kLutSize / 4; i += kThreads)
+    constexpr int kW = kWarps<kSets>, kT = kThreads<kSets>;
+    __shared__ int32_t tab[gj::kTablesWords<kSets>];
+    __shared__ __align__(16) uint32_t lut[2 * kSets * kLutSize];
+    __shared__ __align__(16) int16_t tiles[kW][64 * kTile];
+    for (int i = threadIdx.x; i < 2 * kSets * kLutSize / 4; i += kT)
         reinterpret_cast<uint4*>(lut)[i] =
             __ldg(reinterpret_cast<const uint4*>(lut_g) + i);
-    for (int i = threadIdx.x; i < kWarps * 64 * kTile / 8; i += kThreads)
+    for (int i = threadIdx.x; i < kW * 64 * kTile / 8; i += kT)
         reinterpret_cast<uint4*>(&tiles[0][0])[i] = make_uint4(0, 0, 0, 0);
-    gj::load_tables(tables, tab);        // ends in __syncthreads()
+    gj::load_tables<kSets>(tables, tab);     // ends in __syncthreads()
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     int16_t* tile = tiles[warp];
@@ -221,10 +236,10 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
     const int ntiles = (L + kTile - 1) / kTile;
     // this lane's slot b = s * bps + j, stepped along the grid's stride
     // without a division
-    const int stride = gridDim.x * kWarps;
+    const int stride = gridDim.x * kW;
     const int step = stride * kTile;
     const int step_s = step / bps, step_j = step - step_s * bps;
-    int t = blockIdx.x * kWarps + warp;
+    int t = blockIdx.x * kW + warp;
     int b = t * kTile + lane;
     int s = b / bps, j = b - s * bps;
     for (; t < ntiles; t += stride) {
@@ -235,11 +250,12 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
             const int32_t* bs = bstart + (int64_t)s * (bps + 1) + j;
             const int cursor = __ldg(bs), bend = __ldg(bs + 1);
             const int nb = __ldg(nblocks + s);
-            const int dflag = __ldg(dc_luma + s), aflag = __ldg(ac_luma + s);
+            const int dsel = __ldg(dc_sel + s), asel = __ldg(ac_sel + s);
             if (j < nb) {
                 const int slot = bpm == 1 ? 0 : j % bpm;
-                const int dcls = dflag && ((dc_pat >> slot) & 1u) ? 0 : 1;
-                const int acls = aflag && ((ac_pat >> slot) & 1u) ? 2 : 3;
+                const int dcls = gj::set_of<kSets>(dsel, dc_pat, slot);
+                const int acls = kSets + gj::set_of<kSets>(asel, ac_pat,
+                                                           slot);
                 gj::BitWindow bw;
                 int jq;
                 bw.start_at(words + (int64_t)s * W, W, cursor, jq);
@@ -289,47 +305,56 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
     }
 }
 
-template <int kStage>
+template <int kStage, int kSets>
 int run(const void* words, int64_t nseg, int W, const void* bstart, int bps,
-        const void* nblocks, const void* dc_luma, const void* ac_luma,
+        const void* nblocks, const void* dc_sel, const void* ac_sel,
         int bpm, int dc_pat, int ac_pat, const void* tables, const void* lut,
         void* coefs, void* err, void* stream) {
+    constexpr int kW = kWarps<kSets>;
     const int64_t L = nseg * bps;
-    auto* kernel = huffdec_block_kernel<kStage>;
-    const int fit = gj::resident_ctas(kernel, kThreads, 0);
+    auto* kernel = huffdec_block_kernel<kStage, kSets>;
+    const int fit = gj::resident_ctas(kernel, kThreads<kSets>, 0);
     if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
-    const int64_t want = ((L + kTile - 1) / kTile + kWarps - 1) / kWarps;
+    const int64_t want = ((L + kTile - 1) / kTile + kW - 1) / kW;
     const int grid = want < fit ? (int)want : fit;
     const bool vec = L % 8 == 0 && ((uintptr_t)coefs & 15) == 0;
-    kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, kThreads<kSets>, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)words, W, (const int32_t*)bstart, bps, (int)L,
-        (const int32_t*)nblocks, (const int32_t*)dc_luma,
-        (const int32_t*)ac_luma, bpm, (uint32_t)dc_pat, (uint32_t)ac_pat,
+        (const int32_t*)nblocks, (const int32_t*)dc_sel,
+        (const int32_t*)ac_sel, bpm, (uint32_t)dc_pat, (uint32_t)ac_pat,
         (const int32_t*)tables, (const uint32_t*)lut, vec, (int16_t*)coefs,
         (int32_t*)err);
     return (int)cudaGetLastError();
 }
 
+// the instance of (stage, table sets), or nullptr
+template <int kSets>
+decltype(&run<gj::kFull, 2>) instance(int stage) {
+    return stage == gj::kFull ? run<gj::kFull, kSets>
+        : stage == gj::kLoadStore ? run<gj::kLoadStore, kSets>
+        : stage == gj::kNoStore ? run<gj::kNoStore, kSets> : nullptr;
+}
+
 int launch(int stage, const void* words, int64_t nseg, int W,
            const void* bstart, int bps, const void* nblocks,
-           const void* dc_luma, const void* ac_luma, int bpm, int dc_pat,
-           int ac_pat, const void* tables, const void* lut, void* coefs,
-           void* err, void* stream) {
-    // words: (nseg, W) host-order u32 rows, 4-byte aligned; bstart: (nseg,
-    // bps+1) i32 with entries in [0, 32 W]; nblocks, dc_luma, ac_luma:
-    // (nseg,) i32; bpm, dc_pat, ac_pat: the slot pattern (huffdec.cuh);
-    // tables: (4, 290) i32; lut: (4, 512) i32 (ops/huffdec_kernel.
-    // block_lut), 16-byte aligned; coefs: (64, nseg*bps) i16; err:
-    // (nseg*bps,) i32
+           const void* dc_sel, const void* ac_sel, int bpm, int dc_pat,
+           int ac_pat, int nsets, const void* tables, const void* lut,
+           void* coefs, void* err, void* stream) {
+    // words: (nseg, W) host-order u32 rows, 4-byte aligned, 32 W < 2^31;
+    // bstart: (nseg, bps+1) i32 with entries in [0, 32 W]; nblocks,
+    // dc_sel, ac_sel: (nseg,) i32; bpm, dc_pat, ac_pat: the slot pattern,
+    // nsets: 2 or 4 table sets (huffdec.cuh); tables: (2 nsets, 290) i32;
+    // lut: (2 nsets, 512) i32 (ops/huffdec_kernel.block_lut), 16-byte
+    // aligned; coefs: (64, nseg*bps) i16; err: (nseg*bps,) i32
     const int64_t L = nseg * bps;
-    if (L > INT_MAX / 2 || ((uintptr_t)lut & 15))
+    if (L > INT_MAX / 2 || ((uintptr_t)lut & 15)
+        || (int64_t)W * 32 > INT_MAX)
         return (int)cudaErrorInvalidValue;
     if (L <= 0) return (int)cudaGetLastError();
-    const auto fn = stage == gj::kFull ? run<gj::kFull>
-        : stage == gj::kLoadStore ? run<gj::kLoadStore>
-        : stage == gj::kNoStore ? run<gj::kNoStore> : nullptr;
+    const auto fn = nsets == 2 ? instance<2>(stage)
+        : nsets == 4 ? instance<4>(stage) : nullptr;
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    return fn(words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, bpm,
+    return fn(words, nseg, W, bstart, bps, nblocks, dc_sel, ac_sel, bpm,
               dc_pat, ac_pat, tables, lut, coefs, err, stream);
 }
 
@@ -337,14 +362,14 @@ int launch(int stage, const void* words, int64_t nseg, int W,
 
 extern "C" int gj_huffdec_block(const void* words, int64_t nseg, int W,
                                 const void* bstart, int bps,
-                                const void* nblocks, const void* dc_luma,
-                                const void* ac_luma, int bpm, int dc_pat,
-                                int ac_pat, const void* tables,
+                                const void* nblocks, const void* dc_sel,
+                                const void* ac_sel, int bpm, int dc_pat,
+                                int ac_pat, int nsets, const void* tables,
                                 const void* lut, void* coefs, void* err,
                                 void* stream) {
-    return launch(gj::kFull, words, nseg, W, bstart, bps, nblocks, dc_luma,
-                  ac_luma, bpm, dc_pat, ac_pat, tables, lut, coefs, err,
-                  stream);
+    return launch(gj::kFull, words, nseg, W, bstart, bps, nblocks, dc_sel,
+                  ac_sel, bpm, dc_pat, ac_pat, nsets, tables, lut, coefs,
+                  err, stream);
 }
 
 // the probe's cut kernels (gj::Stage), same arguments after the stage:
@@ -355,12 +380,12 @@ extern "C" int gj_huffdec_block_probe(int stage, const void* words,
                                       int64_t nseg, int W,
                                       const void* bstart, int bps,
                                       const void* nblocks,
-                                      const void* dc_luma,
-                                      const void* ac_luma, int bpm,
-                                      int dc_pat, int ac_pat,
+                                      const void* dc_sel,
+                                      const void* ac_sel, int bpm,
+                                      int dc_pat, int ac_pat, int nsets,
                                       const void* tables, const void* lut,
                                       void* coefs, void* err, void* stream) {
-    return launch(stage, words, nseg, W, bstart, bps, nblocks, dc_luma,
-                  ac_luma, bpm, dc_pat, ac_pat, tables, lut, coefs, err,
-                  stream);
+    return launch(stage, words, nseg, W, bstart, bps, nblocks, dc_sel,
+                  ac_sel, bpm, dc_pat, ac_pat, nsets, tables, lut, coefs,
+                  err, stream);
 }

@@ -7,8 +7,13 @@
 // its tokens in lockstep with 1,023 others, refilling its window through
 // a select chain over the row's words; here one thread walks one segment
 // row, as the reference decoder does (gpujpeg_huffman_gpu_decoder.cu:
-// 390-536).  A block's class comes from its segment's flags and, in an
-// interleaved scan, from the slot pattern of its MCU (huffdec.cuh).
+// 390-536).  A block's class comes from its segment's selectors and, in
+// an interleaved scan, from the slot pattern of its MCU (huffdec.cuh),
+// among two table sets or, in the kernel's second instance, four (T.81's
+// table ids 0-3; the JAX package decodes such streams on its legacy
+// path).  The tables are any baseline DHT tables: Annex K's, libjpeg's
+// optimised ones, the tuned family (the JAX kernel's "generic" mode,
+// _scan_kernel_body's generic branch).
 //
 // Semantics as _scan_kernel_body: bstart[s][0] = 0, bstart[s][b+1] is the
 // bit cursor after block b, entries past the last decoded block hold
@@ -51,10 +56,21 @@
 //     a warp's rows in shared memory to store them coalesced was slower
 //     on three of the four 8K paths (PERF.md, PR 8).  err is one byte a
 //     lane, contiguous.
+//   - the table sets a template argument: the two-set instance keeps
+//     4.6 KB of tables and 16 KB of lookahead table in shared memory; the
+//     four-set one 9.3 KB and 32 KB (41.3 KB static).
+//
+// At restart interval 0 a scan is one segment, so 1 to 3 threads walk
+// whole scans (about 5 M tokens each at 8K 4:4:4 Q75), one token after
+// another as the reference's CPU decoder does; nothing in the walk
+// assumes a short row, and a segment that ends short of bps blocks
+// stores its tail of bstart in the loop after the walk.  Bit cursors are
+// int32: the wrapper refuses rows of 2^26 words or more.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -81,22 +97,23 @@ __device__ __forceinline__ uint32_t ld_shared_u16(uint32_t addr) {
     return v;
 }
 
+template <int kSets>
 __global__ void __launch_bounds__(kThreads)
 huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                     const int32_t* __restrict__ nbits_a,
                     const int32_t* __restrict__ nblocks_a,
-                    const int32_t* __restrict__ dc_luma,
-                    const int32_t* __restrict__ ac_luma, int bpm,
+                    const int32_t* __restrict__ dc_sel,
+                    const int32_t* __restrict__ ac_sel, int bpm,
                     uint32_t dc_pat, uint32_t ac_pat,
                     const int32_t* __restrict__ tables,
                     const uint16_t* __restrict__ lut_g, int bps,
                     int32_t* __restrict__ bstart, bool* __restrict__ err) {
-    __shared__ int32_t tab[gj::kTablesWords];
-    __shared__ __align__(16) uint16_t lut[4 * kLutSize];
-    for (int i = threadIdx.x; i < 4 * kLutSize / 8; i += blockDim.x)
+    __shared__ int32_t tab[gj::kTablesWords<kSets>];
+    __shared__ __align__(16) uint16_t lut[2 * kSets * kLutSize];
+    for (int i = threadIdx.x; i < 2 * kSets * kLutSize / 8; i += blockDim.x)
         reinterpret_cast<uint4*>(lut)[i] =
             __ldg(reinterpret_cast<const uint4*>(lut_g) + i);
-    gj::load_tables(tables, tab);        // ends in __syncthreads()
+    gj::load_tables<kSets>(tables, tab);     // ends in __syncthreads()
     // the table's shared-window address, computed once
     const uint32_t lut_s = (uint32_t)__cvta_generic_to_shared(lut);
 
@@ -105,17 +122,20 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
         int32_t* out = bstart + s * (int64_t)(bps + 1);
         const int nbits = nbits_a[s];
         const int nb = nblocks_a[s];
-        const int sdc = dc_luma[s], sac = ac_luma[s];
+        const int sdc = dc_sel[s], sac = ac_sel[s];
         gj::BitWindow bw;
         int j;
         bw.init(words + s * (int64_t)W, W, j);
         out[0] = 0;
         int cursor = 0, blk = 0, pos = 0, slot = 0;   // slot = blk % bpm
         bool bad = false;
-        // a slot's class bits: its DC table is set 0 when bit slot of dm
-        // is set, its AC table when that of am is
-        const uint32_t dm = sdc ? dc_pat : 0u, am = sac ? ac_pat : 0u;
-        int dcls = (int)(~dm & 1u), acls = 3 - (int)(am & 1u);
+        // a slot's tables (gj::set_of): with two sets each segment flag
+        // folds into its mask once
+        const uint32_t dm = kSets == 2 ? (sdc ? dc_pat : 0u) : dc_pat;
+        const uint32_t am = kSets == 2 ? (sac ? ac_pat : 0u) : ac_pat;
+        const int dsel = kSets == 2 ? 1 : sdc, asel = kSets == 2 ? 1 : sac;
+        int dcls = gj::set_of<kSets>(dsel, dm, 0);
+        int acls = kSets + gj::set_of<kSets>(asel, am, 0);
         while (blk < nb) {
             if (bw.n < 32) bw.refill(j);
             const bool is_dc = pos == 0;
@@ -149,8 +169,8 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                 if (++slot == bpm) slot = 0;
                 out[blk] = after;
                 pos = 0;
-                dcls = (int)(~(dm >> slot) & 1u);
-                acls = 3 - (int)((am >> slot) & 1u);
+                dcls = gj::set_of<kSets>(dsel, dm, slot);
+                acls = kSets + gj::set_of<kSets>(asel, am, slot);
             } else {
                 pos = new_pos;
             }
@@ -160,28 +180,42 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
     }
 }
 
+template <int kSets>
+void run(const void* words, int64_t nseg, int W, const void* nbits,
+         const void* nblocks, const void* dc_sel, const void* ac_sel,
+         int bpm, int dc_pat, int ac_pat, const void* tables,
+         const void* lut, int bps, void* bstart, void* err, void* stream) {
+    const int64_t grid = (nseg + kThreads - 1) / kThreads;
+    huffdec_scan_kernel<kSets><<<(unsigned)grid, kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        (const uint32_t*)words, nseg, W, (const int32_t*)nbits,
+        (const int32_t*)nblocks, (const int32_t*)dc_sel,
+        (const int32_t*)ac_sel, bpm, (uint32_t)dc_pat, (uint32_t)ac_pat,
+        (const int32_t*)tables, (const uint16_t*)lut, bps, (int32_t*)bstart,
+        (bool*)err);
+}
+
 }  // namespace
 
 extern "C" int gj_huffdec_scan(const void* words, int64_t nseg, int W,
                                const void* nbits, const void* nblocks,
-                               const void* dc_luma, const void* ac_luma,
-                               int bpm, int dc_pat, int ac_pat,
+                               const void* dc_sel, const void* ac_sel,
+                               int bpm, int dc_pat, int ac_pat, int nsets,
                                const void* tables, const void* lut, int bps,
                                void* bstart, void* err, void* stream) {
-    // words: (nseg, W) host-order u32 rows, 4-byte aligned; nbits, nblocks,
-    // dc_luma, ac_luma: (nseg,) i32 with nblocks <= bps; bpm, dc_pat,
-    // ac_pat: the slot pattern (huffdec.cuh); tables: (4, 290) i32; lut:
-    // (4, 2048) u16 (ops/huffdec_kernel.scan_lut), 16-byte aligned;
-    // bstart: (nseg, bps+1) i32; err: (nseg,) bool
-    if (nseg > 0) {
-        const int64_t grid = (nseg + kThreads - 1) / kThreads;
-        huffdec_scan_kernel<<<(unsigned)grid, kThreads, 0,
-                              (cudaStream_t)stream>>>(
-            (const uint32_t*)words, nseg, W, (const int32_t*)nbits,
-            (const int32_t*)nblocks, (const int32_t*)dc_luma,
-            (const int32_t*)ac_luma, bpm, (uint32_t)dc_pat,
-            (uint32_t)ac_pat, (const int32_t*)tables, (const uint16_t*)lut,
-            bps, (int32_t*)bstart, (bool*)err);
-    }
+    // words: (nseg, W) host-order u32 rows, 4-byte aligned, 32 W < 2^31;
+    // nbits, nblocks, dc_sel, ac_sel: (nseg,) i32 with nblocks <= bps;
+    // bpm, dc_pat, ac_pat: the slot pattern, nsets: 2 or 4 table sets
+    // (huffdec.cuh); tables: (2 nsets, 290) i32; lut: (2 nsets, 2048) u16
+    // (ops/huffdec_kernel.scan_lut), 16-byte aligned; bstart: (nseg,
+    // bps+1) i32; err: (nseg,) bool
+    if ((nsets != 2 && nsets != 4) || (int64_t)W * 32 > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    if (nseg > 0 && nsets == 2)
+        run<2>(words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat,
+               ac_pat, tables, lut, bps, bstart, err, stream);
+    else if (nseg > 0)
+        run<4>(words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat,
+               ac_pat, tables, lut, bps, bstart, err, stream);
     return (int)cudaGetLastError();
 }

@@ -27,12 +27,18 @@ capacity protocol do not exist here.  In an interleaved scan a segment row
 holds whole MCUs; the two Huffman phases take each block's table class
 from the slot pattern of the MCU (Plan.pattern).
 
-This slice decodes baseline streams of 3 components with a restart
-interval > 0 and the tuned Huffman family (AC tables of a trained bucket,
-DC tables with identity values) to P444_U8_P012, with chroma at 1x1 and
-luma at 1x1, 2x1, 1x2 or 2x2, in non-interleaved scans or in one
-interleaved scan.  Everything else raises NotImplementedError naming the
-ROADMAP item (queue 1) that ports it.
+This slice decodes baseline streams of 3 components to P444_U8_P012,
+with chroma at 1x1 and luma at 1x1, 2x1, 1x2 or 2x2, in non-interleaved
+scans or in one interleaved scan: the streams libjpeg, PIL and cameras
+write as well as the JAX package's.  Any baseline Huffman tables (the
+tuned family, Annex K, optimised ones) go through the same kernels, fed
+the stream's canonical tables and their lookahead tables; up to two
+table sets a class take the kernels' two-set instances, three or four
+their four-set instances (huffdec_kernel's module docstring), which the
+JAX package decodes on its legacy path.  A restart interval of 0 makes
+each scan one segment: one thread of phase A walks it, phase C decodes
+its blocks in parallel from phase A's cursors.  Everything else raises
+NotImplementedError naming the ROADMAP item (queue 1) that ports it.
 """
 
 from __future__ import annotations
@@ -52,7 +58,6 @@ from ..stream import reader, segments as segprep
 from ..types import (ColorSpace, CorruptStreamError, ImageInfo,
                      ImageParameters, PixelFormat, PixelFormatRequest,
                      YCBCR_JPEG, from_reference, pixel_format_unit_size)
-from ..utils import tables
 from ..utils.geometry import Geometry, get_geometry
 from .encoder import not_ported
 
@@ -172,18 +177,12 @@ def _comp_tables(ps: reader.ParsedStream, ncomp: int):
     return comp_dc, comp_ac
 
 
-def _tuned_family(ps, dc_ids, ac_ids) -> bool:
-    """True when the stream's tables are the ones this slice decodes: AC
-    tables byte-equal to a trained tuned bucket, DC tables with identity
-    values (gpujpeg_tpu.models.decoder._plan_kernel_consts)."""
-    for i in (0, 1):
-        ab, av = ps.huff_ac[ac_ids[min(i, len(ac_ids) - 1)]]
-        if tables.match_affine_ac(ab, av) is None:
-            return False
-        _db, dv = ps.huff_dc[dc_ids[min(i, len(dc_ids) - 1)]]
-        if not tables.dc_values_identity(dv):
-            return False
-    return True
+def _table_ids(ps: reader.ParsedStream, ncomp: int):
+    """(comp_dc, comp_ac, dc_ids, ac_ids): each component's table ids and
+    the sorted ids the scans use, a class each."""
+    comp_dc, comp_ac = _comp_tables(ps, ncomp)
+    return (comp_dc, comp_ac, sorted(set(comp_dc.tolist())),
+            sorted(set(comp_ac.tolist())))
 
 
 def check_supported(ps: reader.ParsedStream, geo: Geometry,
@@ -208,16 +207,6 @@ def check_supported(ps: reader.ParsedStream, geo: Geometry,
             f"output {out_pi.pixel_format.name}"
             f"{' with width_padding' if out_pi.width_padding else ''} "
             "(only P444_U8_P012 is ported; item 6)")
-    if ps.restart_interval == 0:
-        missing.append("restart_interval == 0 (item 9)")
-    comp_dc, comp_ac = _comp_tables(ps, geo.comp_count)
-    dc_ids = sorted(set(comp_dc.tolist()))
-    ac_ids = sorted(set(comp_ac.tolist()))
-    if len(dc_ids) > 2 or len(ac_ids) > 2:
-        missing.append("more than 2 Huffman table sets (item 9)")
-    elif not _tuned_family(ps, dc_ids, ac_ids):
-        missing.append("Huffman tables outside the tuned family, such as "
-                       "Annex-K (item 7)")
     if missing:
         raise NotImplementedError(
             "not ported yet (ROADMAP queue 1): " + "; ".join(missing))
@@ -247,16 +236,20 @@ class Plan:
     geo: Geometry
     bps: int                  # block slots a segment row
     nblocks: torch.Tensor     # (nseg,) int32 real blocks a segment
-    dc_luma: torch.Tensor     # (nseg,) int32 1 = DC table set 0
-    ac_luma: torch.Tensor     # (nseg,) int32 1 = AC table set 0
-    tables: torch.Tensor      # (4, DECODE_TABLE_WORDS) int32
-    scan_lut: torch.Tensor    # (4, 1 << SCAN_LUT_BITS) int16, phase A's
-    #                           lookahead table (huffdec_kernel.scan_lut)
-    block_lut: torch.Tensor   # (4, 1 << BLOCK_LUT_BITS) int32, phase C's
-    #                           lookahead table (huffdec_kernel.block_lut)
+    # (nseg,) int32 DC and AC table selectors of each segment: with two
+    # table sets 1 = set 0 (luma), with four the set's index
+    dc_luma: torch.Tensor
+    ac_luma: torch.Tensor
+    tables: torch.Tensor      # (2 * sets, DECODE_TABLE_WORDS) int32, sets
+    #                           = 2 or 4 (huffdec_kernel.decode_tables)
+    scan_lut: torch.Tensor    # (2 * sets, 1 << SCAN_LUT_BITS) int16, phase
+    #                           A's lookahead table (huffdec_kernel.scan_lut)
+    block_lut: torch.Tensor   # (2 * sets, 1 << BLOCK_LUT_BITS) int32, phase
+    #                           C's lookahead table (huffdec_kernel.block_lut)
     qtabs: torch.Tensor       # (3, 64) float32 zig-zag quant tables
-    # slot pattern (bpm, dc mask, ac mask): block slot j of a segment takes
-    # table set 0 when its segment's flag and bit j % bpm are set
+    # slot pattern (bpm, dc mask, ac mask): with two sets, block slot j of
+    # a segment takes set 0 when its segment's flag and bit j % bpm are
+    # set; with four, the set of its selector plus field j % bpm (2 bits)
     pattern: Tuple[int, int, int] = huffdec_kernel.NO_PATTERN
     # each component's block slots in a segment row (int64 indices), for
     # the DC integration of an interleaved row; None when a row is one
@@ -265,16 +258,25 @@ class Plan:
 
 
 def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
-    comp_dc, comp_ac = _comp_tables(ps, geo.comp_count)
-    dc_ids = sorted(set(comp_dc.tolist()))
-    ac_ids = sorted(set(comp_ac.tolist()))
+    """The plan of a stream: any baseline DHT tables (the canonical decode
+    takes them all), two table sets where the scans use at most two ids a
+    class, four (T.81's ids 0-3) otherwise (huffdec_kernel's module
+    docstring)."""
+    comp_dc, comp_ac, dc_ids, ac_ids = _table_ids(ps, geo.comp_count)
+    nsets = 2 if len(dc_ids) <= 2 and len(ac_ids) <= 2 else 4
 
     def pick(tabs, ids, i):
         return tabs[ids[min(i, len(ids) - 1)]]
 
     tab = huffdec_kernel.decode_tables(
-        pick(ps.huff_dc, dc_ids, 0), pick(ps.huff_dc, dc_ids, 1),
-        pick(ps.huff_ac, ac_ids, 0), pick(ps.huff_ac, ac_ids, 1))
+        *[pick(ps.huff_dc, dc_ids, i) for i in range(nsets)],
+        *[pick(ps.huff_ac, ac_ids, i) for i in range(nsets)])
+
+    def sel(ids, tid):
+        """A component's selector of table id tid: its luma flag with two
+        sets, its set's index with four."""
+        return ids.index(tid) if nsets == 4 else int(tid == ids[0])
+
     lut = huffdec_kernel.scan_lut(tab)
     blut = huffdec_kernel.block_lut(tab)
     bps = geo.max_blocks_per_seg
@@ -294,17 +296,19 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
                        geo.blocks_per_mcu)
         ent = [c.index for c in geo.components
                for _ in range(c.samp_v * c.samp_h)]
-        dc_pat = sum(1 << j for j, e in enumerate(ent)
-                     if comp_dc[e] == dc_ids[0])
-        ac_pat = sum(1 << j for j, e in enumerate(ent)
-                     if comp_ac[e] == ac_ids[0])
+        width = 1 if nsets == 2 else 2            # bits of a slot's field
+        dc_pat = sum(sel(dc_ids, comp_dc[e]) << width * j
+                     for j, e in enumerate(ent))
+        ac_pat = sum(sel(ac_ids, comp_ac[e]) << width * j
+                     for j, e in enumerate(ent))
+        flags = np.full(S, 1 if nsets == 2 else 0)
         slot_comp = np.tile(np.asarray(ent), bps // bpm)
         comp_slots = tuple(dev(np.flatnonzero(slot_comp == c.index),
                                np.int64) for c in geo.components)
         return Plan(geo=geo, bps=bps,
                     nblocks=dev(np.clip(geo.mcu_count - rst * np.arange(S),
                                         0, rst) * bpm),
-                    dc_luma=dev(np.ones(S)), ac_luma=dev(np.ones(S)),
+                    dc_luma=dev(flags), ac_luma=dev(flags),
                     tables=dev(tab), scan_lut=dev(lut, np.int16),
                     block_lut=dev(blut), qtabs=dev(qtabs, np.float32),
                     pattern=(bpm, dc_pat, ac_pat),
@@ -313,12 +317,14 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
     for c in geo.components:
         S, rst = c.segment_count, c.segment_mcu_count
         nb.append(np.clip(c.mcu_count - rst * np.arange(S), 0, rst))
-        dcl.append(np.full(S, comp_dc[c.index] == dc_ids[0]))
-        acl.append(np.full(S, comp_ac[c.index] == ac_ids[0]))
+        dcl.append(np.full(S, sel(dc_ids, comp_dc[c.index])))
+        acl.append(np.full(S, sel(ac_ids, comp_ac[c.index])))
     return Plan(geo=geo, bps=bps, nblocks=dev(nb), dc_luma=dev(dcl),
                 ac_luma=dev(acl), tables=dev(tab),
                 scan_lut=dev(lut, np.int16), block_lut=dev(blut),
-                qtabs=dev(qtabs, np.float32))
+                qtabs=dev(qtabs, np.float32),
+                pattern=(huffdec_kernel.NO_PATTERN if nsets == 2
+                         else huffdec_kernel.NO_PATTERN_WIDE))
 
 
 @dataclasses.dataclass
@@ -341,7 +347,15 @@ def _dc_fixup_t(coefs_t: torch.Tensor, nseg: int, bps: int,
     non-interleaved scan; in an interleaved one each component integrates
     over its own slots (comp_slots, as gpujpeg_tpu.models.decoder.
     _dc_fixup_t does with its comp_pattern).  The sums run down the
-    transposed (slots, nseg) rows, a scan over a short outer dimension."""
+    transposed (slots, nseg) rows, a scan over a short outer dimension;
+    where rows are longer than they are many (restart interval 0: a scan
+    a row) a one-component row sums along its own contiguous slots (a
+    torch cumsum down 518,400 slots of a 3-column view took 37 ms at 8K
+    4:4:4 on an H100 80GB HBM3 at 700 W; PERF.md)."""
+    if comp_slots is None and bps > nseg:
+        dc = coefs_t[0].view(nseg, bps)
+        dc.copy_(torch.cumsum(dc, dim=1, dtype=torch.int32))
+        return coefs_t
     dc_t = coefs_t[0].view(nseg, bps).T
     for idx in comp_slots or (slice(None),):
         dc_t[idx] = torch.cumsum(dc_t[idx], dim=0,
@@ -587,8 +601,13 @@ class Decoder:
     def decode_coefficients(self, data: bytes) -> List[np.ndarray]:
         """Decoded QUANTIZED DCT coefficients, per component: a list of
         (nby, nbx, 64) int16 arrays in raster block order with zig-zag
-        coefficient order (gpujpeg_tpu Decoder.decode_coefficients)."""
+        coefficient order (gpujpeg_tpu Decoder.decode_coefficients).  A
+        stream with more than two Huffman table sets raises ValueError,
+        as the JAX method does (its legacy path has no coefficients)."""
         hf = self.prepare(data)
+        if huffdec_kernel.table_sets(hf.plan.tables) > 2:
+            raise ValueError("streams with more than 2 Huffman table sets "
+                             "are not supported by decode_coefficients")
         coefs_t, _ea, _ec = self.coefficients_t(hf)
         coefs = coefs_t.T.cpu()
         geo = hf.plan.geo

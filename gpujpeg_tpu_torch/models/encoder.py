@@ -21,18 +21,31 @@ layouts below:
     Huffman coding, slot patterns     ops/fusedpack.huffman_segments
 
 then host assembly: headers (stream/writer.py) and the rows of each scan,
-cut to their byte counts (native.assemble_rows).  On CUDA every stage is
-a hand-written kernel (the DCT kernel stores an interleaved scan's MCU
+cut to their byte counts (native.assemble_rows).  With Annex-K tables
+(huffman_tables="annexk") the Huffman step is the JAX package's
+non-megakernel route instead, in both layouts:
+
+    tokens of the segment rows        ops/fusedpack.rows_tokens (torch)
+    stuffed byte rows                 ops/fusedpack.pack_stuff_rows
+
+and a restart interval of 0 (each scan one segment) takes the JAX
+package's host-entropy route (_encode_host_entropy) with either table
+family: the preprocessor and the DCT on the device, the tokens of each
+scan there too (ops/fusedpack.scan_tokens), then the headers and each
+scan's tokens packed on the host (native.pack_tokens).  On CUDA every
+stage but the tokenizer (XLA in the JAX package, torch ops here) is a
+hand-written kernel (the DCT kernel stores an interleaved scan's MCU
 order itself); with device="cpu" every stage runs its plain PyTorch
-version.  The bytes are
-the same either way and equal the JAX package's.
+version.  The bytes are the same either way and equal the JAX
+package's.
 
 This slice covers 8-bit RGB P444_U8_P012 input, 3 components, the tuned
-Huffman family, a restart interval > 0 (auto picks 8 blocks a segment up
-to Q92), chroma at 1x1 and luma at 1x1, 2x1, 1x2 or 2x2 (4:4:4, 4:2:2,
-4:4:0, 4:2:0), in non-interleaved scans (the reference GPUJPEG's
-headline configuration at 4:4:4) or in one interleaved scan.  Everything
-else raises NotImplementedError naming the ROADMAP item that ports it.
+and the Annex-K Huffman tables, any restart interval (auto picks 8
+blocks a segment up to Q92), chroma at 1x1 and luma at 1x1, 2x1, 1x2 or
+2x2 (4:4:4, 4:2:2, 4:4:0, 4:2:0), in non-interleaved scans (the
+reference GPUJPEG's headline configuration at 4:4:4) or in one
+interleaved scan.  Everything else raises NotImplementedError naming
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -106,14 +119,9 @@ def check_supported(geo: Geometry) -> None:
             f"sampling {samp}: only chroma at 1x1 with luma at 1x1, 2x1, "
             "1x2 or 2x2 (4:4:4, 4:2:2, 4:4:0, 4:2:0) is ported (ROADMAP "
             "queue 1 item 6)")
-    if param.restart_interval == 0:
-        raise NotImplementedError(
-            "restart_interval == 0 (host entropy path) is not ported "
-            "(ROADMAP queue 1 item 9)")
-    if param.huffman_tables != "tuned":
-        raise NotImplementedError(
-            f"huffman_tables={param.huffman_tables!r}: only the tuned "
-            "family is ported (ROADMAP queue 1 item 7)")
+    if param.huffman_tables not in ("tuned", "annexk"):
+        raise ValueError(f"huffman_tables={param.huffman_tables!r}: the "
+                         "families are 'tuned' and 'annexk'")
 
 
 class Encoder:
@@ -124,7 +132,8 @@ class Encoder:
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
-        self._tables: Dict[Tuple[int, bool], fusedpack.ClassTables] = {}
+        self._tables: Dict[Tuple[int, bool, str],
+                           fusedpack.ClassTables] = {}
 
     def set_option(self, key: str, value: str) -> None:
         """Reference-compatible string options (gpujpeg_encoder.c:736-795)
@@ -170,21 +179,22 @@ class Encoder:
         """The session's DurationStats: not ported yet."""
         not_ported("Encoder.get_stats")
 
-    def class_tables(self, quality: int,
-                     luma: bool) -> fusedpack.ClassTables:
-        key = (quality, luma)
+    def class_tables(self, quality: int, luma: bool,
+                     family: str = "tuned") -> fusedpack.ClassTables:
+        key = (quality, luma, family)
         tabs = self._tables.get(key)
         if tabs is None:
-            tabs = fusedpack.class_tables(quality, luma, self.device)
+            tabs = fusedpack.class_tables(quality, luma, self.device,
+                                          family)
             self._tables[key] = tabs
         return tabs
 
-    def classes(self, quality: int) -> Tuple[fusedpack.ClassTables,
-                                             fusedpack.ClassTables]:
-        """The (luma, chroma) table classes at this quality: component c
-        takes classes[c.table_index]."""
-        return self.class_tables(quality, True), self.class_tables(quality,
-                                                                   False)
+    def classes(self, quality: int, family: str = "tuned"
+                ) -> Tuple[fusedpack.ClassTables, fusedpack.ClassTables]:
+        """The (luma, chroma) table classes at this quality and of this
+        AC code family: component c takes classes[c.table_index]."""
+        return (self.class_tables(quality, True, family),
+                self.class_tables(quality, False, family))
 
     def resolve(self, image, param: Optional[Parameters] = None,
                 param_image: Optional[ImageParameters] = None) -> Geometry:
@@ -209,28 +219,83 @@ class Encoder:
         scan) and res["row_bytes"] one (segments,) int32 tensor per scan,
         still on the device.  The rows have a worst-case stride, so there
         is no overflow readback for check=False to skip: check is taken
-        for the JAX package's signature and not read."""
+        for the JAX package's signature and not read.  Annex-K tables code
+        through tokens and the token-row packer (fusedpack.entropy_tokens).
+        A restart interval of 0 raises ValueError: encode packs such scans
+        on the host (_encode_host_entropy) and makes no device rows."""
         geo = self.resolve(image, param, param_image)
         check_supported(geo)
+        if geo.param.restart_interval == 0:
+            raise ValueError("restart_interval == 0: each scan is one "
+                             "segment, packed on the host by encode(); "
+                             "encode_to_device makes the rows of restart "
+                             "segments only")
+        planes, classes = self._front(image, geo)
+        tuned = geo.param.huffman_tables == "tuned"
+        if geo.interleaved:
+            if tuned:
+                rows, row_bytes, _needs = fusedpack.entropy_fused_u8_il(
+                    planes, geo, classes)
+            else:
+                rows, row_bytes, _needs = fusedpack.entropy_tokens(
+                    fusedpack.interleaved_rows(planes, geo, classes),
+                    geo.mcu_count * geo.blocks_per_mcu,
+                    fusedpack.interleaved_slots(geo, classes))
+            return geo, {"rows": [rows], "row_bytes": [row_bytes]}
+        rows, row_bytes = [], []
+        for c in geo.components:
+            tabs = classes[c.table_index]
+            if tuned:
+                r, rb, _needs = fusedpack.entropy_fused_u8(
+                    planes[c.index], tabs, c.segment_mcu_count)
+            else:
+                r, rb, _needs = fusedpack.entropy_tokens(
+                    fusedpack.fdct_quant(planes[c.index], tabs,
+                                         c.segment_mcu_count),
+                    c.mcu_count, tabs)
+            rows.append(r)
+            row_bytes.append(rb)
+        return geo, {"rows": rows, "row_bytes": row_bytes}
+
+    def _front(self, image, geo: Geometry):
+        """The image on the session's device, preprocessed: (planes, the
+        (luma, chroma) table classes of the geometry's quality and
+        family)."""
         if isinstance(image, torch.Tensor):
             x = image.to(self.device)
         else:
             x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
         planes = prepost_kernel.preprocess_packed(x.contiguous(), geo,
                                                   geo.param_image)
-        classes = self.classes(geo.param.quality)
+        return planes, self.classes(geo.param.quality,
+                                    geo.param.huffman_tables)
+
+    def _encode_host_entropy(self, image, geo: Geometry) -> bytes:
+        """Restart interval 0 (gpujpeg_tpu Encoder._encode_host_entropy):
+        the preprocessor, the DCT and each scan's tokens on the device
+        (one segment a scan, fusedpack.scan_tokens), the tokens copied to
+        the host, then the headers and each scan's tokens packed in
+        sequence (native.pack_tokens), as the reference does with its CPU
+        coder when restart markers are off (gpujpeg_encoder.c:512-534)."""
+        planes, classes = self._front(image, geo)
+        scans = []
         if geo.interleaved:
-            rows, row_bytes, _needs = fusedpack.entropy_fused_u8_il(
-                planes, geo, classes)
-            return geo, {"rows": [rows], "row_bytes": [row_bytes]}
-        rows, row_bytes = [], []
-        for c in geo.components:
-            r, rb, _needs = fusedpack.entropy_fused_u8(
-                planes[c.index], classes[c.table_index],
-                c.segment_mcu_count)
-            rows.append(r)
-            row_bytes.append(rb)
-        return geo, {"rows": rows, "row_bytes": row_bytes}
+            scans.append(fusedpack.scan_tokens(
+                fusedpack.interleaved_rows(planes, geo, classes),
+                geo.mcu_count * geo.blocks_per_mcu,
+                fusedpack.interleaved_slots(geo, classes)))
+        else:
+            for c in geo.components:
+                tabs = classes[c.table_index]
+                scans.append(fusedpack.scan_tokens(
+                    fusedpack.fdct_quant(planes[c.index], tabs,
+                                         c.mcu_count), c.mcu_count, tabs))
+        out = bytearray(jwriter.write_header(geo))
+        for k, (bits, lens) in enumerate(scans):
+            out += jwriter.write_scan_header(geo, k)
+            out += native.pack_tokens(bits.cpu().numpy(), lens.cpu().numpy())
+        out += b"\xff\xd9"
+        return bytes(out)
 
     def assemble(self, geo: Geometry, res, meta=None) -> bytes:
         """Host codestream assembly: headers, then each scan's rows cut to
@@ -260,5 +325,9 @@ class Encoder:
 
         image: (H, W, 3) uint8 numpy array or torch tensor (any device; it
         is moved to the session's device)."""
+        geo = self.resolve(image, param, param_image)
+        if geo.param.restart_interval == 0:
+            check_supported(geo)
+            return self._encode_host_entropy(image, geo)
         geo, res = self.encode_to_device(image, param, param_image)
         return self.assemble(geo, res)

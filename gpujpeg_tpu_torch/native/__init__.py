@@ -1,7 +1,8 @@
 """Native C++ host runtime (ctypes-bound; numpy fallback when unavailable).
 
 A copy of gpujpeg_tpu.native for the port, trimmed to what the encode and
-decode paths call: ``assemble_rows`` (encode), ``scan_split``,
+decode paths call: ``assemble_rows`` and ``pack_tokens`` (encode; the
+latter packs the scans of restart interval 0), ``scan_split``,
 ``parse_offsets`` (stream/reader.py) and ``unstuff_rows``
 (stream/segments.py).  ``stream.cpp`` is the JAX package's source as it
 is; it builds into the port's own directory under its own library name, so
@@ -83,6 +84,10 @@ def lib() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p]
+        L.gj_pack_tokens.restype = ctypes.c_int64
+        L.gj_pack_tokens.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64]
         _LIB = L
     except OSError:
         _LIB = None
@@ -201,3 +206,43 @@ def parse_offsets(data: np.ndarray, chunks, base: int):
     if n < 0:
         return None
     return out, int(bad.value)
+
+
+def pack_tokens(bits: np.ndarray, lens: np.ndarray) -> bytes:
+    """Sequentially pack (right-aligned codeword, bit length) token arrays
+    into a stuffed, F.1.2.3-padded byte string: the restart_interval == 0
+    entropy coder (counterpart of gpujpeg_huffman_cpu_encoder.c:72-107).
+    Zero-length slots are padding and are skipped."""
+    bits = np.ascontiguousarray(bits.reshape(-1), np.uint32)
+    lens = np.ascontiguousarray(lens.reshape(-1), np.int32)
+    L = lib()
+    if L is not None:
+        cap = int(lens[lens > 0].sum()) // 8 * 2 + 16
+        out = np.empty(cap, np.uint8)
+        n = L.gj_pack_tokens(_ptr(bits), _ptr(lens), len(bits),
+                             _ptr(out), cap)
+        if n < 0:
+            raise RuntimeError("pack_tokens capacity overflow")
+        return out[:n].tobytes()
+    # pure-Python fallback (correct, slow; small images only)
+    acc = 0
+    nb = 0
+    out = bytearray()
+    for b, l in zip(bits.tolist(), lens.tolist()):
+        if l <= 0:
+            continue
+        acc = (acc << l) | (b & ((1 << l) - 1))
+        nb += l
+        while nb >= 8:
+            byte = (acc >> (nb - 8)) & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+            nb -= 8
+        acc &= (1 << nb) - 1
+    if nb:
+        byte = ((acc << (8 - nb)) | ((1 << (8 - nb)) - 1)) & 0xFF
+        out.append(byte)
+        if byte == 0xFF:
+            out.append(0)
+    return bytes(out)

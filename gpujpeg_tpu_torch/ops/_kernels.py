@@ -62,14 +62,14 @@ _SIGNATURES: Dict[str, List] = {
                          _I64, _P, _I, _P, _P, _P, _P],
     # bits, lens, R, T, markers, stride, rows, row_bytes, needs, stream
     "pack_stuff_rows": [_P, _P, _I64, _I, _P, _I, _P, _P, _P, _P],
-    # words, nseg, W, nbits, nblocks, dc_luma, ac_luma, bpm, dc_pat,
-    # ac_pat, tables, lookahead table, bps, bstart, err, stream
-    "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
-                     _P, _P, _P],
-    # words, nseg, W, bstart, bps, nblocks, dc_luma, ac_luma, bpm, dc_pat,
-    # ac_pat, tables, lookahead table, coefs, err, stream
-    "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
-                      _P, _P, _P],
+    # words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat,
+    # table sets, tables, lookahead table, bps, bstart, err, stream
+    "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                     _I, _P, _P, _P],
+    # words, nseg, W, bstart, bps, nblocks, dc_sel, ac_sel, bpm, dc_pat,
+    # ac_pat, table sets, tables, lookahead table, coefs, err, stream
+    "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                      _P, _P, _P, _P],
     # coefs, L, offsets (host int64[3]), luma blocks, luma blocks per row,
     # dx, dy, H, W, qtabs, idct matrix, params (host int32[26]), out,
     # stream

@@ -16,17 +16,22 @@ component (for the DC predictor) per block slot of an MCU (``SlotTables``),
 a class flag per row, a valid mask per block and the RST marker after
 each row given by the caller.  ``entropy_fused_u8``, ``entropy_fused_u8_il``
 and ``entropy_fused`` are the counterparts of the JAX functions of those
-names.  Every interleaved scan codes through the slot-pattern mode, 4:2:0
-included: the coefficients are in device memory in MCU order
-(``interleaved_rows``), so the JAX package's non-megakernel route for
-subsampled interleaved scans (XLA tokens, then its deep-stuff kernel)
-has no counterpart on an encode path.  Its kernel is ported all the same:
+names.  With the tuned tables every interleaved scan codes through the
+slot-pattern mode, 4:2:0 included: the coefficients are in device memory
+in MCU order (``interleaved_rows``).  With Annex-K tables the encode takes
+the JAX package's non-megakernel route (its megakernel computes the tuned
+codes; gpujpeg_tpu.models.encoder.mega_supported): the torch tokenizer on
+the device (``rows_tokens``; the JAX package's is XLA too), then its
+deep-stuff kernel:
 
   pack_stuff_rows   csrc/pack_stuff_rows.cu   token rows -> byte rows
 
-for the token rows that Annex-K tables will produce (ROADMAP queue 1 item
-7).  Both kernels code a row a warp and share the warp's bit buffer and
-its stuffing (csrc/bitbuf.cuh).
+(``entropy_tokens``).  Both kernels code a row a warp and share the warp's
+bit buffer and its stuffing (csrc/bitbuf.cuh).  A scan coded as one
+segment (restart interval 0) is tokenized the same way, a piece of the
+scan a row with each component's DC predictor carried from piece to
+piece (``scan_tokens``), and packed on the host (native.pack_tokens), as
+the JAX package's _encode_host_entropy does.
 
 For CPU tensors each wrapper runs its plain version (ops/dct.py;
 ``segment_tokens`` plus ``pack_rows`` below); for CUDA tensors it launches
@@ -54,6 +59,13 @@ from . import _kernels, dct, tokens
 #: segment rows per chunk of the plain Huffman coder (bounds its memory)
 PLAIN_CHUNK_ROWS = 8192
 
+#: token slots per chunk of the tokenizer on the encode paths (bounds its
+#: memory: about 30 temporaries of 4 or 8 bytes a slot)
+TOKEN_CHUNK_SLOTS = 1 << 22
+
+#: MCUs a row when a scan of one segment is cut into rows (scan_tokens)
+SCAN_ROW_MCUS = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class ClassTables:
@@ -68,12 +80,15 @@ class ClassTables:
     max_block_bits: int     # longest possible coding of one block
 
 
-def class_tables(quality: int, luma: bool, device) -> ClassTables:
-    """Tables of one class with the tuned AC code family."""
+def class_tables(quality: int, luma: bool, device,
+                 family: str = "tuned") -> ClassTables:
+    """Tables of one class with the AC code family `family` ("tuned" or
+    "annexk", tables.ac_spec); the DC codes are Annex K's in both."""
     qtab = tables.quant_table_zz(luma, quality)
     mq, bias = tables.fdct_fused_matrix(qtab)
     dc = tables.huffman_encode_lut(*tables.huffman_spec_for("dc", luma), 16)
-    ac = tables.huffman_encode_lut(*tables.ac_spec(luma, quality), 256)
+    ac = tables.huffman_encode_lut(*tables.ac_spec(luma, quality, family),
+                                   256)
     luts = np.concatenate([dc, ac])        # entries < 2^21: exact in int32
     # DC: code + up to 11 value bits; each of 63 AC slots emits at most one
     # token of code + up to 10 value bits (ZRL and EOB carry none)
@@ -300,14 +315,15 @@ def _block_masks(R: int, B: int, st: SlotTables, nblocks, valid, row_luma,
 
 
 def segment_tokens(coefs: torch.Tensor, tabs, valid: torch.Tensor,
-                   cls: torch.Tensor):
+                   cls: torch.Tensor, dc_prev: Optional[torch.Tensor] = None):
     """Huffman tokens of rows in the slot layout of tabs (a SlotTables):
     each component's blocks of a row tokenized together (so its DC
     predictor runs over them, T.81 F.1.1.5.1), each block with its class
     cls (R, B) and valid mask valid (R, B), then put back in their slots
     -> (bits int64, lens int32), each (R, B*64): the XLA tokens of the
     JAX package's non-megakernel path (make_rows_tokens_impl, before
-    pack_stuff_fused)."""
+    pack_stuff_fused).  dc_prev (R, 4): the DC each component's first
+    block of a row predicts from (None = 0: a row is a segment)."""
     st = _as_slots(tabs)
     R, C = coefs.shape
     B = C // 64
@@ -319,8 +335,9 @@ def segment_tokens(coefs: torch.Tensor, tabs, valid: torch.Tensor,
     for comp in sorted(set(st.slot_comp)):
         cols = torch.from_numpy(np.flatnonzero(comp_of == comp)).to(
             coefs.device)
-        b, ln = tokens.tokenize_rows(x[:, cols], luts, valid[:, cols],
-                                     cls[:, cols])
+        b, ln = tokens.tokenize_rows(
+            x[:, cols], luts, valid[:, cols], cls[:, cols],
+            None if dc_prev is None else dc_prev[:, comp])
         bits[:, cols] = b.reshape(R, -1, 64)
         lens[:, cols] = ln.reshape(R, -1, 64)
     return bits.reshape(R, C), lens.reshape(R, C)
@@ -594,3 +611,83 @@ def pack_stuff_rows_probe(bits: torch.Tensor, lens: torch.Tensor,
     out, args = _pack_args(bits, lens, markers, stride)
     _kernels.probe("pack_stuff_rows", stage, *args)
     return out
+
+
+def _token_chunks(coefs: torch.Tensor, st: SlotTables, valid: torch.Tensor,
+                  cls: torch.Tensor, dc_prev: Optional[torch.Tensor] = None):
+    """segment_tokens of the rows a chunk of TOKEN_CHUNK_SLOTS slots at a
+    time: yields (row slice, bits int64, lens int32)."""
+    R, C = coefs.shape
+    step = max(1, TOKEN_CHUNK_SLOTS // max(C, 1))
+    for a in range(0, R, step):
+        sl = slice(a, min(R, a + step))
+        bits, lens = segment_tokens(coefs[sl], st, valid[sl], cls[sl],
+                                    None if dc_prev is None else dc_prev[sl])
+        yield sl, bits, lens
+
+
+def rows_tokens(coefs: torch.Tensor, tabs, valid: torch.Tensor,
+                cls: torch.Tensor):
+    """segment_tokens of coefficient rows in the slot layout of tabs, a
+    chunk at a time, as the token-row packer takes them: (bits, lens),
+    int32 (R, B*64) (a token has at most 27 bits)."""
+    st = _as_slots(tabs)
+    bits = torch.empty(coefs.shape, dtype=torch.int32, device=coefs.device)
+    lens = torch.empty_like(bits)
+    for sl, b, ln in _token_chunks(coefs, st, valid, cls):
+        bits[sl] = b.to(torch.int32)
+        lens[sl] = ln
+    return bits, lens
+
+
+def entropy_tokens(coefs: torch.Tensor, nblocks: int,
+                   tabs: Union[ClassTables, SlotTables],
+                   markers: Optional[torch.Tensor] = None):
+    """(R, B*64) int16 coefficient rows, the first nblocks blocks real ->
+    (rows, row_bytes, needs) as huffman_segments gives them, through the
+    JAX package's non-megakernel route (make_rows_tokens_impl, then
+    pack_stuff_fused): the tokenizer (rows_tokens), then the token-row
+    packer (pack_stuff_rows) at tabs' worst-case stride.  The route of
+    every table family; the encoder takes it for Annex-K tables, whose
+    codes the Huffman kernel's tuned contract does not compute."""
+    st = _as_slots(tabs)
+    R, B, markers = _row_args(coefs, nblocks, st, markers, None, None)
+    ok, cls = _block_masks(R, B, st, nblocks, None, None, coefs.device)
+    bits, lens = rows_tokens(coefs, st, ok, cls)
+    return pack_stuff_rows(bits, lens, markers, st.stride(B))
+
+
+def scan_tokens(coefs: torch.Tensor, nblocks: int,
+                tabs: Union[ClassTables, SlotTables]):
+    """The tokens of one scan coded as a single segment (restart interval
+    0): coefs holds the scan's blocks in stream order (any row shape,
+    nblocks real blocks of the slot layout of tabs) -> (bits, lens), int32
+    1-D on the coefficients' device, only the slots that hold a token, in
+    stream order (what native.pack_tokens packs; the JAX package's
+    make_rows_tokens_impl(as_list=True) gives the same tokens with the
+    empty slots).  The scan is cut into rows of SCAN_ROW_MCUS MCUs (the
+    last padded with blocks that emit nothing) and tokenized a chunk of
+    rows at a time; each component's first block of a row predicts its
+    DC from the component's last block of the row before."""
+    st = _as_slots(tabs)
+    dev = coefs.device
+    per = SCAN_ROW_MCUS * st.bpm             # blocks a row
+    flat = coefs.reshape(-1, 64)[:nblocks]
+    R = max(1, -(-nblocks // per))
+    rows = torch.zeros((R * per, 64), dtype=coefs.dtype, device=dev)
+    rows[:nblocks] = flat
+    rows = rows.reshape(R, per * 64)
+    ok, cls = _block_masks(R, per, st, nblocks, None, None, dev)
+    # each component's DC predictor at a row's start: the DC of its last
+    # slot in the row before
+    comp_of = np.tile(np.asarray(st.slot_comp), SCAN_ROW_MCUS)
+    dc_prev = torch.zeros((R, 4), dtype=torch.int32, device=dev)
+    for comp in sorted(set(st.slot_comp)):
+        last = int(np.flatnonzero(comp_of == comp)[-1])
+        dc_prev[1:, comp] = rows[:-1, 64 * last].to(torch.int32)
+    bits, lens = [], []
+    for _sl, b, ln in _token_chunks(rows, st, ok, cls, dc_prev):
+        keep = ln > 0
+        bits.append(b[keep].to(torch.int32))
+        lens.append(ln[keep])
+    return torch.cat(bits), torch.cat(lens)

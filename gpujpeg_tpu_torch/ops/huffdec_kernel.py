@@ -16,20 +16,34 @@ phase A's bit cursor to the next boundary, which costs nothing on the
 card (a thread indexes its segment's row).  Phase B and its capacities do
 not exist here; the coefficients are the same.
 
-Both kernels take canonical tables (tables.kernel_decode_table), four of
-them stacked as (4, DECODE_TABLE_WORDS) int32 in the order DC luma, DC
-chroma, AC luma, AC chroma.  A block's DC and AC table is set 0 ("luma")
-when its segment's dc_luma / ac_luma flag is set and so is bit j % bpm of
-the slot pattern (bpm, dc mask, ac mask) for its slot j in the segment.
-A non-interleaved scan passes the pattern (1, 1, 1), so the segment's
-flag decides; an interleaved scan passes flags 1 and the classes of one
-MCU's blocks, as the JAX kernels' luma_patterns (scan) and per-block
-class rows (segment-row block kernel).  For the tuned AC family with identity DC
-values, which is what the decoder gates on, the canonical decode gives
-the same (code length, symbol) as the JAX package's arithmetic decode
-(affine_ac_decode / dc_identity_decode) on every 16-bit peek, invalid
-codes included (code length 0); tests/test_torch_huffdec.py checks all
-65,536 peeks.  Each kernel also takes a lookahead table built here from
+Both kernels take canonical tables (tables.kernel_decode_table) of two
+or of four table sets, stacked as (2 * nsets, DECODE_TABLE_WORDS) int32:
+the nsets DC tables, then the nsets AC tables.  A block's DC and AC table
+comes from its segment's selectors (dc_sel, ac_sel) and field j % bpm of
+the slot pattern (bpm, dc mask, ac mask) for its slot j in the segment:
+
+  two sets (4 tables, DC luma, DC chroma, AC luma, AC chroma): a selector
+      is a luma flag and a mask holds a bit a slot; the block takes set
+      0 ("luma") when both are set, else set 1.  A non-interleaved scan
+      passes the pattern (1, 1, 1), so the segment's flag decides; an
+      interleaved scan passes flags 1 and the classes of one MCU's
+      blocks, as the JAX kernels' luma_patterns (scan) and per-block
+      class rows (segment-row block kernel);
+  four sets (8 tables; T.81 allows table ids 0-3 a class): a selector is
+      a table index and a mask holds 2 bits a slot (slot j at bits 2j and
+      2j + 1); the block takes set selector + field.  A non-interleaved
+      scan passes each segment's index with the pattern (1, 0, 0); an
+      interleaved scan passes selectors 0 and one MCU's indices.  Streams
+      with more than two sets take this mode (the JAX package decodes
+      them on its legacy path, gpujpeg_tpu.models.decoder._decode_legacy).
+
+The canonical decode takes any baseline DHT table (libjpeg's,
+Annex K, optimised ones: the JAX package's "generic" kernel mode,
+pack_decode_tables); for the tuned AC family with identity DC values it
+gives the same (code length, symbol) as the JAX package's arithmetic
+decode (affine_ac_decode / dc_identity_decode) on every 16-bit peek,
+invalid codes included (code length 0); tests/test_torch_huffdec.py
+checks all 65,536 peeks.  Each kernel also takes a lookahead table built here from
 the canonical tables: phase A's scan_lut (the tokens inside the next 11
 bits, summed) and phase C's block_lut (one token of the next 9 bits
 with its value where the value bits fit too); what a table cannot
@@ -68,6 +82,9 @@ _MONO, _VALOFF, _HUFFVAL = 0, 17, 34
 #: segment's flags alone decide a block's classes
 NO_PATTERN = (1, 1, 1)
 
+#: the same with four table sets: the segment's table indices alone
+NO_PATTERN_WIDE = (1, 0, 0)
+
 #: phase A's lookahead table is indexed by the next SCAN_LUT_BITS bits
 SCAN_LUT_BITS = 11
 
@@ -80,11 +97,19 @@ BLOCK_LUT_BITS = 9
 BLOCK_FIT = 1 << 15
 
 
-def decode_tables(dc_l, dc_c, ac_l, ac_c) -> np.ndarray:
-    """(4, DECODE_TABLE_WORDS) int32 from four (bits, values) DHT tables:
-    DC luma, DC chroma, AC luma, AC chroma."""
-    return np.stack([tables.kernel_decode_table(*t)
-                     for t in (dc_l, dc_c, ac_l, ac_c)])
+def decode_tables(*tabs) -> np.ndarray:
+    """(n, DECODE_TABLE_WORDS) int32 from n (bits, values) DHT tables: the
+    DC tables of the sets, then their AC tables, two or four of each (DC
+    luma, DC chroma, AC luma, AC chroma for two sets)."""
+    if len(tabs) not in (4, 8):
+        raise ValueError("decode_tables takes the DC and AC tables of two "
+                         "or four sets")
+    return np.stack([tables.kernel_decode_table(*t) for t in tabs])
+
+
+def table_sets(tab) -> int:
+    """Table sets of a stack of decode tables (2 or 4)."""
+    return tab.shape[0] // 2
 
 
 def scan_entry(clen, sym, is_dc):
@@ -99,10 +124,10 @@ def scan_entry(clen, sym, is_dc):
 
 
 def scan_lut(tab: np.ndarray) -> np.ndarray:
-    """Phase A's lookahead table of the four canonical tables `tab` (4,
-    DECODE_TABLE_WORDS): (4, 1 << SCAN_LUT_BITS) int16 of scan_entry
-    layout, indexed by class and by the next K = SCAN_LUT_BITS bits of the
-    row.
+    """Phase A's lookahead table of the canonical tables `tab` (n,
+    DECODE_TABLE_WORDS), n = 4 or 8 (decode_tables): (n, 1 <<
+    SCAN_LUT_BITS) int16 of scan_entry layout, indexed by table and by the
+    next K = SCAN_LUT_BITS bits of the row.
 
     A DC entry summarises the one token whose code lies within the K bits
     (_decode_token).  An AC entry sums the tokens that follow one another
@@ -122,9 +147,10 @@ def scan_lut(tab: np.ndarray) -> np.ndarray:
     K = SCAN_LUT_BITS
     t64 = torch.from_numpy(np.asarray(tab, np.int64))
     prefix = np.arange(1 << K, dtype=np.int64)
-    out = np.zeros((4, 1 << K), np.int16)
-    for t in range(4):
-        is_dc = t < 2
+    nt = t64.shape[0]
+    out = np.zeros((nt, 1 << K), np.int16)
+    for t in range(nt):
+        is_dc = t < nt // 2
         adv = np.zeros(1 << K, np.int64)
         step = np.zeros_like(adv)
         eob = np.zeros_like(adv)
@@ -161,11 +187,11 @@ def block_entry(clen, sym, is_dc, value=0, fits=False):
 
 
 def block_lut(tab: np.ndarray) -> np.ndarray:
-    """Phase C's lookahead table of the four canonical tables `tab` (4,
-    DECODE_TABLE_WORDS): (4, 1 << BLOCK_LUT_BITS) int32 of block_entry
-    layout, indexed by class and by the next K = BLOCK_LUT_BITS bits of
-    the row, one token an entry (libjpeg's "fast AC" lookahead,
-    jdhuff.c).
+    """Phase C's lookahead table of the canonical tables `tab` (n,
+    DECODE_TABLE_WORDS), n = 4 or 8 (decode_tables): (n, 1 <<
+    BLOCK_LUT_BITS) int32 of block_entry layout, indexed by table and by
+    the next K = BLOCK_LUT_BITS bits of the row, one token an entry
+    (libjpeg's "fast AC" lookahead, jdhuff.c).
 
     An entry holds the token whose code lies within the K bits
     (_decode_token), and its decoded value (T.81 F.2.2.1) where its value
@@ -180,9 +206,10 @@ def block_lut(tab: np.ndarray) -> np.ndarray:
     K = BLOCK_LUT_BITS
     t64 = torch.from_numpy(np.asarray(tab, np.int64))
     prefix = np.arange(1 << K, dtype=np.int64)
-    out = np.zeros((4, 1 << K), np.int32)
-    for t in range(4):
-        is_dc = t < 2
+    nt = t64.shape[0]
+    out = np.zeros((nt, 1 << K), np.int32)
+    for t in range(nt):
+        is_dc = t < nt // 2
         clen, sym = (x.numpy() for x in _decode_token(
             t64, torch.full((1 << K,), t, dtype=torch.int64),
             torch.from_numpy(prefix << (16 - K))))
@@ -225,7 +252,7 @@ def _peek32(words, seg, cursor):
 
 def _decode_token(tab: torch.Tensor, t: torch.Tensor, peek16: torch.Tensor):
     """(clen, sym) of one token per lane from table t (lane-wise index into
-    tab (4, DECODE_TABLE_WORDS) int64); clen == 0 marks an invalid code."""
+    tab (n, DECODE_TABLE_WORDS) int64); clen == 0 marks an invalid code."""
     clen = torch.ones_like(peek16)
     for l in range(1, 16):
         clen += peek16 > tab[t, _MONO + l]
@@ -246,12 +273,17 @@ def _value_bits(peek, clen, size):
     return torch.where((size > 0) & (vu < half), vu - (one << size) + 1, vu)
 
 
-def _slot_class(seg_luma, pattern_mask: int, slot, luma_table: int):
-    """Table index of each lane's block: luma_table when its segment flag
-    and its slot's pattern bit are set, else luma_table + 1."""
-    bit = (pattern_mask >> slot) & 1
-    return torch.where((seg_luma != 0) & (bit != 0), luma_table,
-                       luma_table + 1).to(torch.int64)
+def _slot_class(sel, pattern_mask: int, slot, first: int, nsets: int):
+    """Table index of each lane's block among tables first .. first + nsets
+    - 1 (the module docstring): with two sets, first when its segment flag
+    and its slot's pattern bit are set, else first + 1; with four, first
+    plus its segment's index plus its slot's 2-bit field, modulo 4."""
+    if nsets == 2:
+        bit = (pattern_mask >> slot) & 1
+        return torch.where((sel != 0) & (bit != 0), first,
+                           first + 1).to(torch.int64)
+    field = (pattern_mask >> (2 * slot)) & 3
+    return first + ((sel.to(torch.int64) + field) & 3)
 
 
 def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
@@ -265,6 +297,7 @@ def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
     nbits = nbits.to(torch.int64)
     nblk = nblocks.to(torch.int64)
     bpm, dc_pat, ac_pat = pattern
+    ns = table_sets(tab)
     seg = torch.arange(nseg, device=dev)
     cursor = torch.zeros(nseg, dtype=torch.int64, device=dev)
     blk = torch.zeros_like(cursor)
@@ -278,8 +311,8 @@ def scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
         is_dc = p == 0
         slot = blk[live] % bpm
         t = torch.where(is_dc,
-                        _slot_class(dc_luma[live], dc_pat, slot, 0),
-                        _slot_class(ac_luma[live], ac_pat, slot, 2))
+                        _slot_class(dc_luma[live], dc_pat, slot, 0, ns),
+                        _slot_class(ac_luma[live], ac_pat, slot, ns, ns))
         clen, sym = _decode_token(tab, t, peek16)
         run, size = sym >> 4, sym & 15
         after = c + clen + size
@@ -321,12 +354,13 @@ def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab,
     bend = bst[:, 1:].reshape(-1)
     valid = j < nblocks.to(torch.int64)[seg]
     bpm, dc_pat, ac_pat = pattern
+    ns = table_sets(tab)
     slot = j % bpm
     coefs = torch.zeros((64, L), dtype=torch.int64, device=dev)
     # DC token
     peek = _peek32(words, seg, cur)
     clen, sym = _decode_token(
-        tab, _slot_class(dc_luma[seg], dc_pat, slot, 0), peek >> 16)
+        tab, _slot_class(dc_luma[seg], dc_pat, slot, 0, ns), peek >> 16)
     size = sym & 15
     after = cur + clen + size
     err = valid & ((clen == 0) | (after > bend) | (sym > 15))
@@ -336,7 +370,7 @@ def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab,
     cur = torch.where(ok, after, cur)
     done = ~valid | err | (cur >= bend)
     pos = torch.ones(L, dtype=torch.int64, device=dev)
-    act = _slot_class(ac_luma[seg], ac_pat, slot, 2)
+    act = _slot_class(ac_luma[seg], ac_pat, slot, ns, ns)
     live = torch.nonzero(~done)[:, 0]
     for _ in range(MAX_AC_STEPS):
         if not live.numel():
@@ -372,9 +406,10 @@ def decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab,
 def _check(name: str, words, tab, *rows):
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"{name}: words must be a 2-D int32 tensor")
-    if tuple(tab.shape) != (4, tables.DECODE_TABLE_WORDS) or \
+    if tab.dim() != 2 or tab.shape[0] not in (4, 8) or \
+            tab.shape[1] != tables.DECODE_TABLE_WORDS or \
             tab.dtype != torch.int32:
-        raise ValueError(f"{name}: tables must be (4, "
+        raise ValueError(f"{name}: tables must be (4 or 8, "
                          f"{tables.DECODE_TABLE_WORDS}) int32")
     for r in rows:
         if r.dtype != torch.int32 or tuple(r.shape) != (words.shape[0],):
@@ -382,12 +417,25 @@ def _check(name: str, words, tab, *rows):
                              f"({words.shape[0]},) int32")
 
 
-def _check_pattern(pattern) -> None:
+def _check_pattern(pattern, tab) -> None:
     bpm, dc_pat, ac_pat = pattern
-    if not 1 <= bpm <= 32 or not (0 <= dc_pat < 1 << bpm
-                                  and 0 <= ac_pat < 1 << bpm):
+    if table_sets(tab) == 4:
+        if not 1 <= bpm <= 15 or not (0 <= dc_pat < 1 << 2 * bpm
+                                      and 0 <= ac_pat < 1 << 2 * bpm):
+            raise ValueError(f"slot pattern {pattern} of four sets: 1 <= "
+                             "bpm <= 15 and masks of 2 bpm bits")
+    elif not 1 <= bpm <= 32 or not (0 <= dc_pat < 1 << bpm
+                                    and 0 <= ac_pat < 1 << bpm):
         raise ValueError(f"slot pattern {pattern}: 1 <= bpm <= 32 and "
                          "masks of bpm bits")
+
+
+def _check_cursors(name: str, words) -> None:
+    """The kernels' bit cursors are int32 in [0, 32 W]: a row of 2^26
+    words (a scan of 256 MiB) or more raises instead of wrapping."""
+    if 32 * words.shape[1] >= 1 << 31:
+        raise ValueError(f"{name}: rows of {words.shape[1]} words hold more "
+                         "bits than the kernels' int32 cursors address")
 
 
 def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
@@ -397,8 +445,10 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
                   lut: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase A: (words (nseg, W) int32 host-order rows; nbits, nblocks,
-    dc_luma, ac_luma (nseg,) int32; tab (4, DECODE_TABLE_WORDS) int32) ->
-    (bstart (nseg, bps+1) int32, err (nseg,) bool).
+    dc_luma, ac_luma (nseg,) int32, the segments' table selectors: luma
+    flags with two sets, table indices with four; tab (4 or 8,
+    DECODE_TABLE_WORDS) int32, decode_tables) -> (bstart (nseg, bps+1)
+    int32, err (nseg,) bool).
 
     bstart[s, 0] = 0 and bstart[s, b+1] is the bit cursor after block b;
     entries past the last decoded block hold nbits[s].  err[s] is set
@@ -409,17 +459,21 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
 
     lut is scan_lut(tab) on the words' device, which the kernel reads its
     tokens through (the decoder passes the one cached on its plan); a
-    CUDA call raises without it.  The plain version does not use it."""
+    CUDA call raises without it, and for rows of 2^26 words or more (the
+    kernels' bit cursors are int32).  The plain version does not use
+    it."""
     _check("scan_segments", words, tab, nbits, nblocks, dc_luma, ac_luma)
-    _check_pattern(pattern)
+    _check_pattern(pattern, tab)
     if words.device.type == "cpu":
         return scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma,
                                    tab, bps, pattern)
     _kernels.require_cuda("huffdec_scan", words, nbits, nblocks, dc_luma,
                           ac_luma, tab)
-    if lut is None or tuple(lut.shape) != (4, 1 << SCAN_LUT_BITS) or \
+    _check_cursors("scan_segments", words)
+    nt = tab.shape[0]
+    if lut is None or tuple(lut.shape) != (nt, 1 << SCAN_LUT_BITS) or \
             lut.dtype != torch.int16 or lut.data_ptr() % 16:
-        raise ValueError(f"scan_segments: lut must be (4, "
+        raise ValueError(f"scan_segments: lut must be ({nt}, "
                          f"{1 << SCAN_LUT_BITS}) int16 (scan_lut), 16-byte "
                          "aligned")
     nseg, W = words.shape
@@ -428,7 +482,8 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
     err = torch.empty(nseg, dtype=torch.bool, device=words.device)
     _kernels.require_cuda("huffdec_scan", words, lut, bstart, err)
     _kernels.launch("huffdec_scan", words, nseg, W, nbits, nblocks,
-                    dc_luma, ac_luma, *pattern, tab, lut, bps, bstart, err)
+                    dc_luma, ac_luma, *pattern, table_sets(tab), tab, lut,
+                    bps, bstart, err)
     return bstart, err
 
 
@@ -443,13 +498,15 @@ def decode_blocks(words: torch.Tensor, bstart: torch.Tensor,
     0 to 32 W) -> (coefs_t (64, nseg*bps) int16 zig-zag with DIFFERENTIAL
     DC, err (nseg*bps,) int32).  Slots j >= nblocks[s] are all zero with
     err 0; every slot a block does not write is 0
-    (huffdec_kernel._block_kernel_body).  pattern as scan_segments.
+    (huffdec_kernel._block_kernel_body).  The selectors, tab and
+    pattern as scan_segments.
 
     lut is block_lut(tab) on the words' device, which the kernel reads its
     tokens through (the decoder passes the one cached on its plan); a
-    CUDA call raises without it.  The plain version does not use it."""
+    CUDA call raises without it, and for rows of 2^26 words or more.  The
+    plain version does not use it."""
     _check("decode_blocks", words, tab, nblocks, dc_luma, ac_luma)
-    _check_pattern(pattern)
+    _check_pattern(pattern, tab)
     nseg = words.shape[0]
     if bstart.dtype != torch.int32 or bstart.dim() != 2 or \
             bstart.shape[0] != nseg:
@@ -467,9 +524,11 @@ def _block_args(words, bstart, nblocks, dc_luma, ac_luma, tab, pattern, lut):
     """The outputs and the C arguments of csrc/huffdec_block.cu."""
     _kernels.require_cuda("huffdec_block", words, bstart, nblocks, dc_luma,
                           ac_luma, tab)
-    if lut is None or tuple(lut.shape) != (4, 1 << BLOCK_LUT_BITS) or \
+    _check_cursors("decode_blocks", words)
+    nt = tab.shape[0]
+    if lut is None or tuple(lut.shape) != (nt, 1 << BLOCK_LUT_BITS) or \
             lut.dtype != torch.int32 or lut.data_ptr() % 16:
-        raise ValueError(f"decode_blocks: lut must be (4, "
+        raise ValueError(f"decode_blocks: lut must be ({nt}, "
                          f"{1 << BLOCK_LUT_BITS}) int32 (block_lut), "
                          "16-byte aligned")
     nseg, bps = words.shape[0], bstart.shape[1] - 1
@@ -478,7 +537,8 @@ def _block_args(words, bstart, nblocks, dc_luma, ac_luma, tab, pattern, lut):
     err = torch.empty(L, dtype=torch.int32, device=words.device)
     _kernels.require_cuda("huffdec_block", words, lut, coefs, err)
     return coefs, err, (words, nseg, words.shape[1], bstart, bps, nblocks,
-                        dc_luma, ac_luma, *pattern, tab, lut, coefs, err)
+                        dc_luma, ac_luma, *pattern, table_sets(tab), tab,
+                        lut, coefs, err)
 
 
 def decode_blocks_probe(words: torch.Tensor, bstart: torch.Tensor,
@@ -492,7 +552,7 @@ def decode_blocks_probe(words: torch.Tensor, bstart: torch.Tensor,
     without the coefficient store) for chip_smoke.py's probe; no codec
     path calls it.  Only the "full" stage's output is the coefficients."""
     _check("decode_blocks", words, tab, nblocks, dc_luma, ac_luma)
-    _check_pattern(pattern)
+    _check_pattern(pattern, tab)
     coefs, err, args = _block_args(words, bstart, nblocks, dc_luma, ac_luma,
                                    tab, pattern, lut)
     _kernels.probe("huffdec_block", stage, *args)

@@ -38,7 +38,8 @@ LUT_WORDS = 272
 
 def tokenize_rows(rows: torch.Tensor, luts: Sequence[torch.Tensor],
                   valid: torch.Tensor,
-                  cls: Optional[torch.Tensor] = None):
+                  cls: Optional[torch.Tensor] = None,
+                  dc_prev: Optional[torch.Tensor] = None):
     """Tokenize restart-segment rows whose blocks all take one DC
     predictor (one component).
 
@@ -49,6 +50,9 @@ def tokenize_rows(rows: torch.Tensor, luts: Sequence[torch.Tensor],
     valid: (R, B) bool, the blocks that emit tokens
     cls:   (R, B) integer table class of each block (index into luts);
            None = class 0 everywhere
+    dc_prev: (R,) integer DC that each row's first block predicts from
+           (the row continues one before it, as the rows of a scan cut
+           into pieces do); None = 0, a row is a restart segment
 
     Returns (bits, lens): (R, B*64) int64 right-aligned code-then-value
     bits and int32 bit lengths (0 = no token in that slot).
@@ -58,6 +62,8 @@ def tokenize_rows(rows: torch.Tensor, luts: Sequence[torch.Tensor],
     v = rows.to(torch.int32)
     dc = v[:, :, 0]
     pred = F.pad(dc, (1, 0))[:, :-1]
+    if dc_prev is not None:
+        pred[:, 0] = dc_prev.to(dev, torch.int32)
     v = torch.cat([(dc - pred)[..., None], v[..., 1:]], dim=2)
 
     av = v.abs()

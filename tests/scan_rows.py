@@ -3,9 +3,10 @@ and tests/test_torch_block_lut.py on the CPU, tests/test_torch_kernels.py
 on the card): canonical tables with codes of up to 16 bits and seeded
 token streams coded with them, packed as the decoder's word matrix
 (stream/segments.pack_segments_matrix: byte k of a row is stream byte k,
-host-order int32 words, nbits = 8 x bytes), and hand-coded rows with
-block boundaries for each of phase C's error kinds.  Imports neither JAX
-nor the JAX package."""
+host-order int32 words, nbits = 8 x bytes), hand-coded rows with
+block boundaries for each of phase C's error kinds, and the rewrite of a
+stream into one of three Huffman table sets.  Imports neither JAX nor the
+JAX package."""
 
 import numpy as np
 import torch
@@ -82,28 +83,44 @@ def _block_tokens(rng, dc, ac, long_share, bad_run=False):
     return toks
 
 
+def block_sets(dc_sel, ac_sel, pattern, slot, nsets):
+    """(DC set, AC set) of a block in slot `slot` of a segment with
+    selectors dc_sel, ac_sel, as the kernels pick them (huffdec_kernel's
+    module docstring): with two sets, set 0 where flag and pattern bit
+    are set; with four, selector plus the slot's 2-bit field, mod 4."""
+    _bpm, dc_pat, ac_pat = pattern
+    if nsets == 2:
+        return (0 if dc_sel and (dc_pat >> slot) & 1 else 1,
+                0 if ac_sel and (ac_pat >> slot) & 1 else 1)
+    return ((int(dc_sel) + (dc_pat >> 2 * slot)) & 3,
+            (int(ac_sel) + (ac_pat >> 2 * slot)) & 3)
+
+
 def segment_rows(rng, nseg, bps, tabs, pattern=thd.NO_PATTERN, flags=None,
                  nblocks=None, long_share=0.3, bad_run=()):
-    """Seeded segments coded with two table sets.
+    """Seeded segments coded with two, three or four table sets.
 
-    tabs: ((dc, ac) set 0, (dc, ac) set 1) DHT pairs; pattern and flags
-    (dc_luma, ac_luma per segment; default all 1) pick each block's set as
-    the kernels do.  nblocks: blocks coded a segment (default bps).
+    tabs: a (dc, ac) DHT pair a set; pattern and flags (the selectors
+    dc_luma, ac_luma per segment: luma flags with two sets, set indices
+    with more; default all 1 with two sets, all 0 with more) pick each
+    block's set as the kernels do (block_sets; three sets decode as four,
+    decode_tables).  nblocks: blocks coded a segment (default bps).
     bad_run: segments whose last block runs past coefficient 63.  Returns
     (rows: list of bytes, nblocks (nseg,) int32, dc_luma, ac_luma)."""
-    bpm, dc_pat, ac_pat = pattern
-    coders = [(_Coder(d), _Coder(a)) for d, a in tabs]
+    bpm = pattern[0]
+    nsets = 2 if len(tabs) == 2 else 4
+    coders = [(_Coder(d), _Coder(a)) for d, a in _padded(tabs)]
     if flags is None:
-        flags = (np.ones(nseg, np.int32), np.ones(nseg, np.int32))
+        fill = 1 if nsets == 2 else 0
+        flags = (np.full(nseg, fill, np.int32), np.full(nseg, fill, np.int32))
     if nblocks is None:
         nblocks = np.full(nseg, bps, np.int32)
     rows = []
     for s in range(nseg):
         bits = []
         for j in range(int(nblocks[s])):
-            slot = j % bpm
-            dset = 0 if flags[0][s] and (dc_pat >> slot) & 1 else 1
-            aset = 0 if flags[1][s] and (ac_pat >> slot) & 1 else 1
+            dset, aset = block_sets(flags[0][s], flags[1][s], pattern,
+                                    j % bpm, nsets)
             bad = s in bad_run and j == int(nblocks[s]) - 1
             for sym, coder, size in _block_tokens(
                     rng, coders[dset][0], coders[aset][1], long_share, bad):
@@ -132,10 +149,18 @@ def word_matrix(rows, W=None):
     return buf.view("<u4").view(np.int32).copy(), nbits
 
 
+def _padded(tabs):
+    """Two sets as they are; three or four padded to four with the last."""
+    tabs = list(tabs)
+    return tabs if len(tabs) == 2 else tabs + tabs[-1:] * (4 - len(tabs))
+
+
 def decode_tables(tabs) -> torch.Tensor:
-    """(4, DECODE_TABLE_WORDS) int32 of ((dc, ac) set 0, (dc, ac) set 1)."""
-    (d0, a0), (d1, a1) = tabs
-    return torch.from_numpy(thd.decode_tables(d0, d1, a0, a1))
+    """(4, DECODE_TABLE_WORDS) int32 of two (dc, ac) sets, or (8, ...) of
+    three or four (padded to four with the last)."""
+    sets = _padded(tabs)
+    return torch.from_numpy(thd.decode_tables(*[d for d, _ in sets],
+                                              *[a for _, a in sets]))
 
 
 def annexk_tables():
@@ -204,3 +229,36 @@ def block_error_rows():
     nblocks = np.asarray([3, 2, 3, 2, 1], np.int32)
     want = [[0, 1, 0], [1, 0, 0], [1, 1, 1], [1, 1, 0], [1, 0, 0]]
     return words, bstart, nblocks, tab, want
+
+
+def three_sets(data: bytes) -> bytes:
+    """The stream with a copy of its chroma AC table (class 1, id 1) under
+    id 2 and component 3's AC selector pointed at it in every SOS
+    (tests/test_legacy_decode.py's rewrite): three AC table sets, the same
+    pixels."""
+    data = bytearray(data)
+    i = 2
+    while i < len(data) - 4:
+        if data[i] == 0xFF and data[i + 1] == 0xC4:
+            ln = (data[i + 2] << 8) | data[i + 3]
+            if data[i + 4] == 0x11:
+                seg = bytearray(data[i:i + 2 + ln])
+                seg[4] = 0x12
+                data[i + 2 + ln:i + 2 + ln] = bytes(seg)
+                break
+            i += 2 + ln
+        else:
+            i += 1
+    else:
+        raise ValueError("no AC table 1 in the stream")
+    j = 0
+    while j < len(data) - 2:
+        if data[j] == 0xFF and data[j + 1] == 0xDA:
+            ln = (data[j + 2] << 8) | data[j + 3]
+            for k in range(data[j + 4]):
+                if data[j + 5 + 2 * k] == 3:
+                    data[j + 6 + 2 * k] = (data[j + 6 + 2 * k] & 0xF0) | 2
+            j += 2 + ln
+        else:
+            j += 1
+    return bytes(data)

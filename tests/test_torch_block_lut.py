@@ -191,7 +191,8 @@ def _kernel_walk(words, bstart, nblocks, dcl, acl, tab, pattern):
     or at coefficient 63."""
     lut = thd.block_lut(tab.numpy()).astype(np.int64) & 0xFFFFFFFF
     t64 = tab.to(torch.int64)
-    bpm, dc_pat, ac_pat = pattern
+    bpm = pattern[0]
+    ns = thd.table_sets(tab)
     nseg, W = words.shape
     bps = bstart.shape[1] - 1
     total = 32 * W
@@ -224,9 +225,9 @@ def _kernel_walk(words, bstart, nblocks, dcl, acl, tab, pattern):
 
         for j in range(int(nblocks[s])):
             b = s * bps + j
-            slot = j % bpm
-            dc = 0 if dcl[s] and (dc_pat >> slot) & 1 else 1
-            ac = 2 if acl[s] and (ac_pat >> slot) & 1 else 3
+            dc, ac = scan_rows.block_sets(dcl[s], acl[s], pattern, j % bpm,
+                                          ns)
+            ac += ns
             cursor, bend = int(bstart[s, j]), int(bstart[s, j + 1])
             tok = token(dc, cursor, True)
             if tok is None or cursor + tok[1] > bend:

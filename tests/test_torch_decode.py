@@ -60,29 +60,36 @@ def test_port_round_trip_q90():
     assert 10 * np.log10(255 ** 2 / mse) > 30
 
 
-def _pil(subsampling, restart):
-    """A libjpeg stream: one interleaved scan, Annex-K tables."""
-    from PIL import Image
+def _refused(kind):
+    """A stream outside the slice: PIL's greyscale, the JAX package's
+    4:1:1 (non-interleaved and interleaved) and its four components."""
+    frame = _gradient(48, 64, 2)
+    p = gj.Parameters(quality=75, restart_interval=4)
+    s411 = ((4, 1), (1, 1), (1, 1))
+    if kind == "pil_grey":
+        from PIL import Image
 
-    buf = io.BytesIO()
-    kw = {"restart_marker_blocks": 8} if restart else {}
-    Image.fromarray(_gradient(48, 64, 1)).save(
-        buf, "JPEG", quality=75, subsampling=subsampling, **kw)
-    return buf.getvalue()
+        buf = io.BytesIO()
+        Image.fromarray(frame[..., 0]).save(buf, "JPEG", quality=75)
+        return buf.getvalue()
+    if kind == "planar_411":
+        p = p.chroma_subsampled(s411)
+    elif kind == "il_411":
+        p = p.with_(interleaved=True).chroma_subsampled(s411)
+    else:
+        frame = np.concatenate([frame, frame[..., :1]], axis=2)
+    return bytes(gj.Encoder().encode(frame, p))
 
 
 @pytest.mark.parametrize("kind,items", [
-    ("pil_420", (7,)), ("pil_444", (7,)),
-    ("pil_444_no_restart", (7, 9)), ("annexk", (7,))])
+    ("pil_grey", (6,)), ("planar_411", (6,)), ("il_411", (6,)),
+    ("four_components", (6,))])
 def test_outside_the_slice_raises(kind, items):
     """A stream outside the slice raises, naming every ROADMAP item it
-    needs and no other (libjpeg's interleaved 4:2:0 and 4:4:4 scans are
-    in the slice; its Annex-K tables are not)."""
-    if kind == "annexk":
-        data = bytes(gj.Encoder().encode(_gradient(48, 64, 2), gj.Parameters(
-            quality=75, restart_interval=4, huffman_tables="annexk")))
-    else:
-        data = _pil(2 if kind == "pil_420" else 0, "no_restart" not in kind)
+    needs and no other (the streams of other encoders, Annex-K and
+    optimised tables, restart interval 0 and more than two table sets
+    are in the slice: tests/test_torch_foreign_decode.py)."""
+    data = _refused(kind)
     with pytest.raises(NotImplementedError) as e:
         gt.Decoder(device="cpu").decode(data)
     named = {int(m) for m in re.findall(r"item (\d+)", str(e.value))}

@@ -130,8 +130,9 @@ def test_encoder_without_cuda_raises(monkeypatch):
     assert gt.Encoder(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("case", ["interleaved", "subsampled", "restart0",
-                                  "annexk", "grey", "rgba", "option"])
+@pytest.mark.parametrize("case", ["interleaved", "subsampled",
+                                  "planar_411", "exif_tag", "grey", "rgba",
+                                  "option"])
 def test_outside_main_path_raises(case):
     enc = gt.Encoder(device="cpu")
     frame = np.zeros((16, 16, 3), np.uint8)
@@ -143,10 +144,10 @@ def test_outside_main_path_raises(case):
     elif case == "subsampled":
         # subsampled chroma planes (chroma at 1x1 is ported)
         p = p.chroma_subsampled(((2, 2), (2, 1), (2, 1)))
-    elif case == "restart0":
-        p = p.with_(restart_interval=0)
-    elif case == "annexk":
-        p = p.with_(huffman_tables="annexk")
+    elif case == "planar_411":
+        # non-interleaved 4:1:1 (restart interval 0 and Annex-K tables are
+        # ported: tests/test_torch_foreign_encode.py)
+        p = p.chroma_subsampled(((4, 1), (1, 1), (1, 1)))
     elif case == "grey":
         frame = np.zeros((16, 16), np.uint8)
     elif case == "rgba":
@@ -154,6 +155,8 @@ def test_outside_main_path_raises(case):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         if case == "option":
             enc.set_option("enc_opt_flipped", "true")
+        if case == "exif_tag":
+            enc.set_option("enc_exif_tag", "0x010e:ASCII:port")
         enc.encode(frame, p)
 
 

@@ -34,10 +34,11 @@ def test_interleaved_444_decode_matches_jax(name):
 
 
 @pytest.mark.parametrize("case,items", [
-    ("planar_411", (6,)), ("il_411", (6,)), ("il_444_no_restart", (9,))])
+    ("planar_411", (6,)), ("il_411", (6,)), ("grey", (6,))])
 def test_outside_the_slice_raises(case, items):
-    """Non-interleaved and interleaved 4:1:1 and restart interval 0 raise,
-    naming their ROADMAP items."""
+    """Non-interleaved and interleaved 4:1:1 and a greyscale stream raise,
+    naming their ROADMAP items (restart interval 0 is ported:
+    tests/test_torch_foreign_decode_jax.py)."""
     frame = _gradient(32, 64, 7)
     if case == "planar_411":
         p = gj.Parameters(quality=75, restart_interval=4).chroma_subsampled(
@@ -46,7 +47,7 @@ def test_outside_the_slice_raises(case, items):
         p = gj.Parameters(quality=75, restart_interval=2, interleaved=True) \
             .chroma_subsampled(((4, 1), (1, 1), (1, 1)))
     else:
-        p = _params(gj, "444", rst=0)
+        frame, p = frame[..., 0], gj.Parameters(quality=75)
     data = bytes(gj.Encoder().encode(frame, p))
     with pytest.raises(NotImplementedError) as e:
         gt.Decoder(device="cpu").decode(data)

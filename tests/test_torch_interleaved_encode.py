@@ -85,18 +85,21 @@ def test_interleaved_420_token_layout():
             assert torch.equal(part.reshape(6, -1).long(), ref.long())
 
 
-@pytest.mark.parametrize("case", ["planar_411", "annexk", "il_411"])
+@pytest.mark.parametrize("case", ["planar_411", "il_subsampled_chroma",
+                                  "il_411"])
 def test_outside_the_slice_raises(case):
-    """Non-interleaved and interleaved 4:1:1 and Annex-K tables raise,
-    naming their ROADMAP items."""
+    """Non-interleaved and interleaved 4:1:1 and an interleaved scan with
+    subsampled chroma raise, naming their ROADMAP items (Annex-K tables
+    are ported: tests/test_torch_foreign_encode.py)."""
     frame = np.zeros((32, 48, 3), np.uint8)
     p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
     s411 = ((4, 1), (1, 1), (1, 1))
     if case == "planar_411":
         p, items = p.chroma_subsampled(s411), ("queue 1 item 6",)
-    elif case == "annexk":
-        p, items = (p.with_(interleaved=True, huffman_tables="annexk"),
-                    ("queue 1 item 7",))
+    elif case == "il_subsampled_chroma":
+        p = p.with_(interleaved=True).chroma_subsampled(
+            ((2, 2), (2, 1), (2, 1)))
+        items = ("queue 1 item 6",)
     else:
         p = p.with_(interleaved=True).chroma_subsampled(s411)
         items = ("queue 1 item 6",)

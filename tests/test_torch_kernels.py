@@ -1750,3 +1750,193 @@ def test_pinned_decode_over_two_stream_sizes(cuda):
     outs = [dec.decode_to_device(d) for d in (large, small, large)]
     for d, o in zip((large, small, large), outs):
         assert np.array_equal(o.cpu().numpy(), want[d])
+
+
+# -- the streams other encoders write: four table sets, restart interval 0,
+# Annex-K tables ---------------------------------------------------------------
+
+def _four_set_rows(seed, nsets, nseg, bps, bpm, how, long_share=0.4):
+    """Coded rows of nsets table sets (long codes and Annex K), each
+    block's set picked by its segment's index ("selector"), by the slot
+    pattern's 2-bit fields ("pattern") or by both: (words, nbits, nblocks,
+    dc_sel, ac_sel, tables (8, 290), pattern)."""
+    rng = np.random.default_rng(seed)
+    ak = scan_rows.annexk_tables()
+    tabs = [scan_rows.long_code_tables(seed), ak[1], ak[0],
+            scan_rows.long_code_tables(seed + 1)][:nsets]
+    fields = [rng.integers(0, nsets, bpm) for _ in range(2)]
+    pattern = (bpm,) + (tuple(int(sum(int(f) << 2 * j
+                                      for j, f in enumerate(fs)))
+                              for fs in fields)
+                        if how != "selector" else (0, 0))
+    sel = ((np.zeros(nseg, np.int32),) * 2 if how == "pattern" else
+           (rng.integers(0, 4, nseg), rng.integers(0, 4, nseg)))
+    rows, nb, dsel, asel = scan_rows.segment_rows(
+        rng, nseg, bps, tabs, pattern, sel, rng.integers(0, bps + 1, nseg),
+        long_share=long_share)
+    words, nbits = scan_rows.word_matrix(rows)
+    return (words, nbits, nb, dsel, asel, scan_rows.decode_tables(tabs),
+            pattern)
+
+
+FOUR_SET_CASES = [(3, 1, "selector"), (4, 1, "selector"), (3, 6, "pattern"),
+                  (4, 4, "both"), (4, 10, "pattern")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nsets,bpm,how", FOUR_SET_CASES)
+def test_scan_kernel_four_sets(cuda, nsets, bpm, how):
+    """The four-set instance of phase A on coded rows of three or four
+    sets with long codes, picked by selectors, 2-bit slot fields or both:
+    bit for bit the plain scan, no error."""
+    words, nbits, nb, dsel, asel, tab, pattern = _four_set_rows(
+        60 + 10 * nsets + bpm, nsets, 240, 3 * bpm, bpm, how)
+    _, err = _scan_both(cuda, (words, nbits, nb, dsel, asel), tab,
+                        3 * bpm, pattern, offset=1)
+    assert not bool(err.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nsets,bpm,how", FOUR_SET_CASES)
+def test_block_kernel_four_sets(cuda, nsets, bpm, how):
+    """The four-set instance of phase C (CTAs of 4 warps, the tables of
+    four sets in shared memory) on the same kind of rows, from the plain
+    scan's boundaries, and on shifted boundaries (garbage): bit for bit
+    the plain decode."""
+    words, nbits, nb, dsel, asel, tab, pattern = _four_set_rows(
+        70 + 10 * nsets + bpm, nsets, 150, 4 * bpm, bpm, how)
+    bstart, err = thd.scan_segments_plain(
+        *(torch.from_numpy(np.asarray(a, np.int32))
+          for a in (words, nbits, nb, dsel, asel)), tab, 4 * bpm, pattern)
+    assert not bool(err.any())
+    coefs, err = _block_both(cuda, words, bstart.numpy(), nb, dsel, asel,
+                             tab, pattern)
+    assert not bool(err.any()) and bool(coefs.any())
+    rng = np.random.default_rng(bpm)
+    shifted = bstart.numpy().copy()
+    shifted[:, :-1] += rng.integers(-3, 4, shifted[:, :-1].shape)
+    _block_both(cuda, words, np.clip(shifted, 0, 32 * words.shape[1]), nb,
+                dsel, asel, tab, pattern, offset=3)
+
+
+@pytest.mark.gpu
+def test_four_set_kernels_random_words(cuda):
+    """Random rows and boundaries (mostly bad tokens) with random set
+    indices and 2-bit fields, selector plus field wrapping past 3: bit
+    for bit the plain versions."""
+    rng = np.random.default_rng(5)
+    nseg, bps, bpm, W = 500, 6, 3, 7
+    tab = _four_set_rows(5, 4, 2, 3, 3, "both")[5]
+    pattern = (bpm, int(rng.integers(0, 1 << 2 * bpm)),
+               int(rng.integers(0, 1 << 2 * bpm)))
+    words = rng.integers(-(1 << 31), 1 << 31, (nseg, W))
+    sel = (rng.integers(0, 4, nseg), rng.integers(0, 4, nseg))
+    _scan_both(cuda, (words, rng.integers(0, 32 * W + 1, nseg),
+                      rng.integers(0, bps + 1, nseg), *sel), tab, bps,
+               pattern, offset=2)
+    bstart = np.sort(rng.integers(0, 32 * W + 1, (nseg, bps + 1)), axis=1)
+    _block_both(cuda, words, bstart, rng.integers(0, bps + 1, nseg), *sel,
+                tab, pattern, offset=1)
+
+
+FOREIGN_LAYOUTS = {"planar_444": (False, None),
+                   "planar_420": (False, SAMPLINGS["420"]),
+                   "il_444": (True, ((1, 1), (1, 1), (1, 1))),
+                   "il_420": (True, SAMPLINGS["420"])}
+
+
+def _foreign_params(layout, tables="annexk", rst=0, quality=75):
+    il, samp = FOREIGN_LAYOUTS[layout]
+    p = gt.Parameters(quality=quality, restart_interval=rst, interleaved=il,
+                      huffman_tables=tables)
+    return p.chroma_subsampled(samp) if samp else p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,tables", [
+    (layout, "annexk") for layout in FOREIGN_LAYOUTS] + [
+    ("il_420", "tuned")])
+def test_restart0_kernels_match_plain(cuda, layout, tables):
+    """A 128x96 stream at restart interval 0 (a scan one segment, a
+    thread walking it in phase A; rows of unequal block counts in planar
+    4:2:0): phases A and C bit for bit their plain versions (the plain
+    scan steps a token of the longest segment at a time), and the card's
+    decode the CPU's pixels."""
+    frame = _frame(96, 128, 4)
+    data = gt.Encoder(device="cpu").encode(frame,
+                                           _foreign_params(layout, tables))
+    hf, p, words, nbits = _device_frame(data, cuda)
+    assert words.shape[0] == p.geo.scan_count
+    args = (p.nblocks, p.dc_luma, p.ac_luma, p.tables)
+    bstart, err_a = thd.scan_segments(words, nbits, *args, p.bps, p.pattern,
+                                      p.scan_lut)
+    p_bstart, p_err_a = thd.scan_segments_plain(words, nbits, *args, p.bps,
+                                                p.pattern)
+    assert torch.equal(bstart, p_bstart) and torch.equal(err_a, p_err_a)
+    coefs, err_c = thd.decode_blocks(words, bstart, *args, p.pattern,
+                                     p.block_lut)
+    p_coefs, p_err_c = thd.decode_blocks_plain(words, bstart, *args,
+                                               p.pattern)
+    assert torch.equal(coefs, p_coefs) and torch.equal(err_c, p_err_c)
+    assert not bool(err_a.any()) and not bool(err_c.any())
+    assert np.array_equal(gt.Decoder(device=cuda).decode(data),
+                          gt.Decoder(device="cpu").decode(data))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(FOREIGN_LAYOUTS))
+@pytest.mark.parametrize("tables,rst", [("annexk", gt.RESTART_AUTO),
+                                        ("annexk", 0), ("tuned", 0)])
+def test_foreign_encode_on_card_matches_cpu(cuda, layout, tables, rst):
+    """Annex-K encodes (tokens, then pack_stuff_rows) and restart-0
+    encodes (scan tokens, host packer) on the card write the CPU's bytes,
+    and the card decodes them to the CPU's pixels; the Annex-K route with
+    restart markers launches the packer and not the Huffman kernel."""
+    frame = _frame(93, 121, 6)
+    params = _foreign_params(layout, tables, rst)
+    _kernels.reset_launches()
+    got = gt.Encoder(device=cuda).encode(frame, params)
+    torch.cuda.synchronize()
+    if rst != 0:
+        assert _kernels.LAUNCHES["pack_stuff_rows"] >= 1
+        assert _kernels.LAUNCHES["huffman_segments"] == 0
+    assert got == gt.Encoder(device="cpu").encode(frame, params)
+    assert np.array_equal(gt.Decoder(device=cuda).decode(got),
+                          gt.Decoder(device="cpu").decode(got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["planar_444", "il_420"])
+@pytest.mark.parametrize("rst", [gt.RESTART_AUTO, 0])
+def test_three_table_sets_on_card(cuda, layout, rst):
+    """A stream of three AC table sets decodes on the card through the
+    four-set kernel instances to the CPU's pixels and to the unmodified
+    stream's."""
+    frame = _frame(96, 128, 8)
+    base = gt.Encoder(device="cpu").encode(
+        frame, _foreign_params(layout, "tuned", rst, 85))
+    data = scan_rows.three_sets(base)
+    dec = gt.Decoder(device=cuda)
+    assert tuple(dec.prepare(data).plan.tables.shape) == (8, 290)
+    _kernels.reset_launches()
+    got = dec.decode(data)
+    assert _kernels.LAUNCHES["huffdec_scan"] == 1
+    assert _kernels.LAUNCHES["huffdec_block"] == 1
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
+    assert np.array_equal(got, dec.decode(base))
+
+
+@pytest.mark.gpu
+def test_decode_kernels_refuse_int32_cursor_overflow(cuda):
+    """Rows of 2^26 words hold 2^31 bits, past the kernels' int32 bit
+    cursors: both wrappers raise instead of wrapping."""
+    words = torch.empty((1, 1 << 26), dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    tab = scan_rows.decode_tables(scan_rows.annexk_tables()).to(cuda)
+    lut = torch.from_numpy(thd.scan_lut(tab.cpu().numpy())).to(cuda)
+    with pytest.raises(ValueError, match="int32"):
+        thd.scan_segments(words, one, one, one, one, tab, 1, lut=lut)
+    blut = torch.from_numpy(thd.block_lut(tab.cpu().numpy())).to(cuda)
+    bstart = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        thd.decode_blocks(words, bstart, one, one, one, tab, lut=blut)

@@ -210,7 +210,8 @@ def _kernel_walk(words, nbits, nblocks, dcl, acl, tab, bps, pattern):
     block ends at an entry's EOB or at position 64."""
     lut = thd.scan_lut(tab.numpy()).astype(np.int64)
     t64 = tab.to(torch.int64)
-    bpm, dc_pat, ac_pat = pattern
+    bpm = pattern[0]
+    ns = thd.table_sets(tab)
     nseg, W = words.shape
     total = 32 * W
     bstart = np.zeros((nseg, bps + 1), np.int64)
@@ -226,10 +227,9 @@ def _kernel_walk(words, nbits, nblocks, dcl, acl, tab, bps, pattern):
         bad = False
         while blk < int(nblocks[s]):
             is_dc = pos == 0
-            if is_dc:
-                cls = 0 if dcl[s] and (dc_pat >> slot) & 1 else 1
-            else:
-                cls = 2 if acl[s] and (ac_pat >> slot) & 1 else 3
+            dset, aset = scan_rows.block_sets(dcl[s], acl[s], pattern, slot,
+                                              ns)
+            cls = dset if is_dc else ns + aset
             e = int(lut[cls, peek(cursor, K)])
             new_pos = pos + ((e >> 5) & 63)
             if e == 0 or new_pos > 64:
