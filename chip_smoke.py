@@ -98,7 +98,22 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      then three 8K frames encoded and decoded on each path (launches
      counted; the packer must run on the Annex-K encodes), their wall ms
      and stages, and the packer's and both phases' ms on these streams;
- 11. [relayout]: the four relayout and primitive kernels of
+ 11. [session]: the session surface at 8K (session_phases): the DC
+     fix-up kernel (csrc/dc_fixup.cu, which every decode path launches
+     and every decode window checks) against its plain version
+     _dc_fixup_t on the coefficients of the four tuned layouts and of
+     restart-0 streams in planar 4:4:4 and interleaved 4:2:0, error 0,
+     timed beside its bound and the torch cumsum chain; then, in planar
+     4:4:4 and interleaved 4:2:0: Encoder.allocate and Decoder.warmup
+     beside a fresh session's first frame; encode_pipelined and
+     decode_pipelined over 12 frames in main-path windows, every stream
+     byte for byte sequential encode()'s and every yielded array, all
+     kept until the run has ended, sequential decode()'s; ms between
+     yields beside the sequential ms a frame; compile_stream_pipeline's
+     device-only decode (pixels and ms); get_stats() with perf_stats
+     on; and estimate_memory against the measured peak of one encode in
+     six layouts;
+ 12. [relayout]: the four relayout and primitive kernels of
      csrc/relayout.cu (the H100 counterparts of the JAX package's TPU
      probes tools/proto_xbdkernel.py, tools/profile_transpose.py and
      tools/profile_prims.py; on no codec path) at those tools' 8K shapes
@@ -110,7 +125,7 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      200 launches, the same of an empty kernel launched as each is (its
      grid and block, through the same path) and of a
      device-to-device copy_ that moves the same bytes, read and written;
- 12. prints the decomposition line of the tiled kernels (fdct_quant,
+ 13. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
      coefficient 0), of phase C (planar 4:4:4, interleaved 4:2:0:
@@ -127,13 +142,13 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      counterpart of the JAX package's TPU probes tools/proto_xq.py and
      tools/profile_dpost5.py; the full stage is held against the plain
      version (error 0);
- 13. prints one JSON line of per-kernel records, every kernel and mode
+ 14. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists; the tokens and ns a token of phases A
      and C on each of the four paths; the preprocessor in ms a frame,
      one launch a frame; a note where a record is on no path);
- 14. prints {"ok": true, "device": {...}} as its last line.
+ 15. prints {"ok": true, "device": {...}} as its last line.
 
 Launches are counted in windows around each path's three 8K frames
 (end_window); a record's launches are its kernel's sum over those
@@ -248,6 +263,23 @@ def once_ms(torch, fn):
     e.record()
     torch.cuda.synchronize()
     return out, s.elapsed_time(e)
+
+
+def pinned_frame(torch, frame):
+    """(a host frame copied into pinned memory, the host ms of the copy):
+    the sessions' staging (models/staging.py), ahead of a stage
+    breakdown's upload."""
+    t0 = time.perf_counter()
+    pinned = torch.empty(frame.shape, dtype=torch.uint8, pin_memory=True)
+    pinned.copy_(torch.from_numpy(frame))
+    return pinned, (time.perf_counter() - t0) * 1e3
+
+
+def pinned_image(torch, pi):
+    """A pinned (H, W, 3) uint8 block for a stage breakdown's download, as
+    Decoder.decode copies its image into."""
+    return torch.empty((pi.height, pi.width, 3), dtype=torch.uint8,
+                       pin_memory=True)
 
 
 def stream_word_bytes(nbits) -> int:
@@ -503,10 +535,11 @@ def planar_encode_stages(torch, enc, frame, params, stream, tag):
     geo = enc.resolve(frame, params)
     classes = enc.classes(geo.param.quality)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    pinned, pin_ms = pinned_frame(torch, frame)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ev[0].record()
-    x = torch.from_numpy(frame).to(dev)
+    x = pinned.to(dev, non_blocking=True)
     ev[1].record()
     planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
     ev[2].record()
@@ -528,7 +561,8 @@ def planar_encode_stages(torch, enc, frame, params, stream, tag):
     if out != stream:
         raise AssertionError(f"stage-by-stage {tag} encode differs from "
                              "encode()")
-    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+    stages = dict(pin_copy_host_ms=pin_ms,
+                  h2d_ms=ev[0].elapsed_time(ev[1]),
                   pre_ms=ev[1].elapsed_time(ev[2]),
                   fdct_3_planes_ms=ev[2].elapsed_time(ev[3]),
                   huffman_3_planes_ms=ev[3].elapsed_time(ev[4]),
@@ -552,6 +586,7 @@ def dpost_decode_stages(torch, np, dec, data, tag):
     t1 = time.perf_counter()
     p = hf.plan
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    host = pinned_image(torch, hf.out_pi)
     ev[0].record()
     words, nbits = dec.upload(hf)
     ev[1].record()
@@ -559,11 +594,11 @@ def dpost_decode_stages(torch, np, dec, data, tag):
     ev[2].record()
     coefs, _ec = block_call(words, bstart, p)
     ev[3].record()
-    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
+    coefs = tdec.dc_fixup(coefs, p)
     ev[4].record()
     img = prepost_kernel.decode_post(coefs, p.qtabs, p.geo, hf.out_pi)
     ev[5].record()
-    host = img.cpu()
+    host.copy_(img)
     ev[6].record()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -628,7 +663,7 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         record_err("huffdec_block", err, what)
         if bool(err_a.any()) or bool(err_c.any()):
             raise AssertionError(f"8K {what} stream decodes with errors")
-        coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps)
+        coefs = tdec.dc_fixup(coefs, p)
         geo, pi = p.geo, hf.out_pi
         img = prepost_kernel.decode_post(coefs, p.qtabs, geo, pi)
         p_img, ms_d = once_ms(
@@ -669,7 +704,8 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
         psnrs.append(psnr(np, out, f))
     end_window()
     launches = {n: _kernels.LAUNCHES[n] for n in kernels}
-    for name, n in launches.items():
+    for name, n in {**launches, "dc_fixup": _kernels.LAUNCHES["dc_fixup"]
+                    }.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "decode main path")
@@ -929,8 +965,7 @@ def interleaved_phases(torch, np, gt, dev, flush):
             raise AssertionError(f"8K 4:2:0 {fkind} stream decodes with "
                                  "errors")
         del words
-        coefs = tdec._dc_fixup_t(coefs, p.geo.segment_count, p.bps,
-                                 p.comp_slots)
+        coefs = tdec.dc_fixup(coefs, p)
         dplanes = prepost_kernel.idct_planes(coefs, p.qtabs, p.geo)
         ms_i = idct_planes_check(torch, coefs, p, dplanes,
                                  lambda e: record_err("idct_planes", e,
@@ -996,10 +1031,11 @@ def interleaved_phases(torch, np, gt, dev, flush):
 
     f = frames[0]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    pinned, pin_ms = pinned_frame(torch, f)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ev[0].record()
-    x = torch.from_numpy(f).to(dev)
+    x = pinned.to(dev, non_blocking=True)
     ev[1].record()
     planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
     ev[2].record()
@@ -1017,7 +1053,8 @@ def interleaved_phases(torch, np, gt, dev, flush):
     if out != streams[0]:
         raise AssertionError("stage-by-stage 4:2:0 encode differs from "
                              "encode()")
-    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+    stages = dict(pin_copy_host_ms=pin_ms,
+                  h2d_ms=ev[0].elapsed_time(ev[1]),
                   pre_ms=ev[1].elapsed_time(ev[2]),
                   fdct_reorder_3_planes_ms=ev[2].elapsed_time(ev[3]),
                   huffman_pattern_ms=ev[3].elapsed_time(ev[4]),
@@ -1071,7 +1108,8 @@ def interleaved_phases(torch, np, gt, dev, flush):
         psnrs.append(psnr(np, out, f))
     end_window()
     launches.update({n: _kernels.LAUNCHES[n] for n in (
-        "huffdec_scan", "huffdec_block", "idct_planes", "post_rgb")})
+        "huffdec_scan", "huffdec_block", "dc_fixup", "idct_planes",
+        "post_rgb")})
     if _kernels.LAUNCHES["dpost_rgb"]:
         raise AssertionError("the 4:2:0 decode went through dpost_rgb")
     for name, n in launches.items():
@@ -1339,15 +1377,17 @@ def il444_phases(torch, np, gt, dev, flush):
     launches, frames, streams = main_path_8k(
         torch, np, gt, dev, enc, dec, params, 300, "il444",
         ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"),
-        ("huffdec_scan", "huffdec_block", "idct_planes", "post_rgb"),
+        ("huffdec_scan", "huffdec_block", "dc_fixup", "idct_planes",
+         "post_rgb"),
         ("pack_stuff_rows", "dpost_rgb"))
     MCU_ORDER["launches"] += launches["fdct_quant"]
     geo = enc.resolve(frames[0], params)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    pinned, pin_ms = pinned_frame(torch, frames[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ev[0].record()
-    x = torch.from_numpy(frames[0]).to(dev)
+    x = pinned.to(dev, non_blocking=True)
     ev[1].record()
     planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
     ev[2].record()
@@ -1365,7 +1405,8 @@ def il444_phases(torch, np, gt, dev, flush):
     if out != streams[0]:
         raise AssertionError("stage-by-stage 4:4:4 interleaved encode "
                              "differs from encode()")
-    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+    stages = dict(pin_copy_host_ms=pin_ms,
+                  h2d_ms=ev[0].elapsed_time(ev[1]),
                   pre_ms=ev[1].elapsed_time(ev[2]),
                   fdct_reorder_3_planes_ms=ev[2].elapsed_time(ev[3]),
                   huffman_pattern_ms=ev[3].elapsed_time(ev[4]),
@@ -1507,7 +1548,7 @@ def planar_phases(torch, np, gt, dev, flush):
     launches, frames, streams = main_path_8k(
         torch, np, gt, dev, enc, dec, params, 400, "planar 4:2:0",
         ("pre_rgb_to_planes", "fdct_quant", "huffman_segments"),
-        ("huffdec_scan", "huffdec_block", "dpost_rgb"),
+        ("huffdec_scan", "huffdec_block", "dc_fixup", "dpost_rgb"),
         ("pack_stuff_rows", "idct_planes", "post_rgb"))
     x, planes, _, _, _ = planar_encode_stages(
         torch, enc, frames[0], params, streams[0], "planar 4:2:0 8k enc")
@@ -1548,6 +1589,7 @@ def decode_stages(torch, np, dec, data, what):
     t1 = time.perf_counter()
     p = hf.plan
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    host = pinned_image(torch, hf.out_pi)
     ev[0].record()
     words, nbits = dec.upload(hf)
     ev[1].record()
@@ -1555,13 +1597,13 @@ def decode_stages(torch, np, dec, data, what):
     ev[2].record()
     coefs, _ec = block_call(words, bstart, p)
     ev[3].record()
-    coefs = tdec._dc_fixup_t(coefs, words.shape[0], p.bps, p.comp_slots)
+    coefs = tdec.dc_fixup(coefs, p)
     ev[4].record()
     dplanes = prepost_kernel.idct_planes(coefs, p.qtabs, p.geo)
     ev[5].record()
     img = prepost_kernel.postprocess_packed(dplanes, p.geo, hf.out_pi)
     ev[6].record()
-    host = img.cpu()
+    host.copy_(img)
     ev[7].record()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -1639,10 +1681,11 @@ def token_encode_stages(torch, enc, frame, params, stream, tag):
     geo = enc.resolve(frame, params)
     rst0 = geo.param.restart_interval == 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    pinned, pin_ms = pinned_frame(torch, frame)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ev[0].record()
-    x = torch.from_numpy(frame).to(dev)
+    x = pinned.to(dev, non_blocking=True)
     ev[1].record()
     planes = prepost_kernel.preprocess_packed(x, geo, geo.param_image)
     ev[2].record()
@@ -1673,7 +1716,8 @@ def token_encode_stages(torch, enc, frame, params, stream, tag):
     if out != stream:
         raise AssertionError(f"stage-by-stage {tag} encode differs from "
                              "encode()")
-    stages = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+    stages = dict(pin_copy_host_ms=pin_ms,
+                  h2d_ms=ev[0].elapsed_time(ev[1]),
                   pre_ms=ev[1].elapsed_time(ev[2]),
                   fdct_ms=ev[2].elapsed_time(ev[3]),
                   tokens_ms=ev[3].elapsed_time(ev[4]),
@@ -1881,7 +1925,8 @@ def foreign_phases(torch, np, gt, dev, flush):
             "card == cpu, restart-0 pixels == Annex-K's")
 
         # -- e. main-path windows, stages and times -------------------------
-        tail = ("idct_planes", "post_rgb") if il else ("dpost_rgb",)
+        tail = ("dc_fixup",) + (("idct_planes", "post_rgb") if il
+                                else ("dpost_rgb",))
         la, frames, streams_a = main_path_8k(
             torch, np, gt, dev, enc, dec, pa, 630 + 10 * li,
             f"annexk {tag}", ("pre_rgb_to_planes", "fdct_quant",
@@ -1950,6 +1995,315 @@ def foreign_phases(torch, np, gt, dev, flush):
                   {k: v for k, v in kernels.items() if k.endswith(tag)})
         log(f"[foreign {tag}] {time.perf_counter() - t_layout:.1f} s")
     return kernels, launches
+
+
+#: the [session] step's layouts: (tag, interleaved, sampling, restart)
+SESSION_LAYOUTS = (("planar_444", False, None, -1),
+                   ("il_420", True, ((2, 2), (1, 1), (1, 1)), -1),
+                   ("il_444", True, None, -1),
+                   ("planar_420", False, ((2, 2), (1, 1), (1, 1)), -1),
+                   ("restart0_444", False, None, 0),
+                   ("restart0_420", True, ((2, 2), (1, 1), (1, 1)), 0))
+#: frames of each pipelined run (three distinct frames in turn)
+SESSION_FRAMES = 12
+
+
+def session_params(gt, tag):
+    _t, il, samp, rst = next(x for x in SESSION_LAYOUTS if x[0] == tag)
+    return foreign_params(gt, il, samp, "tuned",
+                          gt.RESTART_AUTO if rst < 0 else rst)
+
+
+def fixup_times(torch, np, gt, dev, enc, dec, frame, flush) -> dict:
+    """[session] a: the DC fix-up kernel against _dc_fixup_t on each
+    layout's differential coefficients (phases A and C of an 8K stream of
+    the frame), error 0, and its ms beside its bound, the plain version
+    once and the torch cumsum chain; -> the dc_fixup record."""
+    from gpujpeg_tpu_torch.models import decoder as tdec
+
+    rec = dict(source="gpujpeg_tpu_torch/csrc/dc_fixup.cu",
+               replaces="gpujpeg_tpu/models/decoder.py:390",
+               bound_by="bytes", err=0, paths={},
+               note="port-only (the JAX package integrates DC in XLA, no "
+                    "pallas_call); ms, bound, plain and library of the "
+                    "planar 4:4:4 tuned frame, every layout's in paths; "
+                    "library_ms is the torch cumsum chain it replaces "
+                    "(_dc_fixup_t, timed here, never used); launches over "
+                    "every decode window")
+    for tag, *_ in SESSION_LAYOUTS:
+        data = enc.encode(frame, session_params(gt, tag))
+        hf = dec.prepare(data)
+        p = hf.plan
+        words, nbits = dec.upload(hf)
+        bstart, _ea = scan_call(words, nbits, p)
+        coefs, _ec = block_call(words, bstart, p)
+        del words, bstart
+        nseg = coefs.shape[1] // p.bps
+        got, ref = coefs.clone(), coefs.clone()
+        tdec.dc_fixup(got, p)
+        _, plain_ms = once_ms(torch, lambda: tdec._dc_fixup_t(
+            ref, nseg, p.bps, p.comp_slots))
+        err = diff(got, ref)
+        rec["err"] = max(rec["err"], err)
+        if err:
+            raise AssertionError(f"dc_fixup differs from _dc_fixup_t "
+                                 f"({tag})")
+        ms = event_ms(torch, lambda: tdec.dc_fixup(coefs, p), 20, flush)
+        lib = event_ms(torch, lambda: tdec._dc_fixup_t(
+            coefs, nseg, p.bps, p.comp_slots), 10, flush)
+        tiles = -(-p.bps // tdec.DC_TILE) if p.bps > tdec.DC_SHORT_SLOTS \
+            else 0
+        # the DC row read and written once, and the tiles' totals written
+        # once and read once
+        nbytes = 4 * coefs.shape[1] + 2 * 16 * nseg * tiles
+        rec["paths"][tag] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib,
+            bound_ms=nbytes / PEAK_BYTES_S * 1e3, rows=nseg,
+            slots_a_row=p.bps)
+        log(f"[session] dc_fixup {tag}: {nseg} rows x {p.bps} slots "
+            f"({'tiles of ' + str(tdec.DC_TILE) if tiles else 'a thread a row and component'}); "
+            f"equal to _dc_fixup_t; {ms:.4f} ms (bound "
+            f"{rec['paths'][tag]['bound_ms']:.4f}), torch cumsum chain "
+            f"{lib:.4f} ms, plain once {plain_ms:.3f} ms")
+        del coefs, got, ref
+    rec.update({k: rec["paths"]["planar_444"][k]
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    return rec
+
+
+def steady(np, walls) -> str:
+    """quartiles() of the ms between yields after the first (which holds
+    the pipeline's fill)."""
+    return quartiles(np, walls[1:])
+
+
+def yield_ms(gen, keep=True):
+    """(the outputs of a pipelined generator, kept or dropped; the host ms
+    from the start to its first yield and between its yields)."""
+    outs, walls = [], []
+    t0 = time.perf_counter()
+    for out in gen:
+        t1 = time.perf_counter()
+        walls.append((t1 - t0) * 1e3)
+        t0 = t1
+        if keep:
+            outs.append(out)
+        del out
+    return outs, walls
+
+
+def sequential_ms(fn, inputs) -> list:
+    """Host ms of fn(x) for each input, one after the other."""
+    walls = []
+    for x in inputs:
+        t0 = time.perf_counter()
+        fn(x)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def encode_split(torch, np, enc, order, params, tag) -> None:
+    """The host's share of an encode, frame by frame: the copy into pinned
+    memory (Staging.pinned), the queueing of the upload and the kernels
+    (Encoder._device_rows), and the copy back with the assembly
+    (Encoder.assemble, waiting for the frame's kernels)."""
+    geo = enc.resolve(order[0], params)
+    pin, launch, finish = [], [], []
+    for f in order:
+        t0 = time.perf_counter()
+        x = enc._staging.pinned(torch.from_numpy(f))
+        t1 = time.perf_counter()
+        res = enc._device_rows(x, geo)
+        t2 = time.perf_counter()
+        enc.assemble(geo, res)
+        t3 = time.perf_counter()
+        pin.append((t1 - t0) * 1e3)
+        launch.append((t2 - t1) * 1e3)
+        finish.append((t3 - t2) * 1e3)
+    log(f"[session {tag}] host split of sequential encodes (median ms): "
+        f"pinned copy {np.median(pin):.3f}, queue upload and kernels "
+        f"{np.median(launch):.3f}, rows back and assembly "
+        f"{np.median(finish):.3f}")
+
+
+def session_phases(torch, np, gt, dev, flush):
+    """Step 11, [session]: the session surface at 8K Q75, restart auto, in
+    planar 4:4:4 and interleaved 4:2:0; returns the dc_fixup record.
+
+      a. the DC fix-up kernel against _dc_fixup_t on the four tuned
+         layouts' coefficients and on restart-0 streams' (fixup_times);
+      b. warm-up: Encoder.allocate, then a first encode, and
+         Decoder.warmup, then a first decode, each in a fresh session,
+         beside a fresh session's first frame without them (the kernel
+         libraries are loaded in the process by then, and PyTorch's
+         caching host allocator keeps the pinned blocks of earlier
+         sessions);
+      c. encode_pipelined over SESSION_FRAMES frames (three distinct ones
+         in turn) in a main-path window: every stream byte for byte
+         sequential encode()'s; ms between yields beside sequential
+         encode()'s ms a frame, in the order sequential, pipelined
+         (streams kept), pipelined (each dropped), sequential (each
+         dropped); the host split of an encode (encode_split);
+      d. decode_pipelined over those streams in a main-path window, every
+         yielded array kept and compared with sequential decode() after
+         the run (a later frame writing an earlier frame's array would
+         show); then a run that drops each array and another sequential
+         one; ms as in c;
+      e. the device-only decode: compile_stream_pipeline's fn gives
+         decode()'s pixels; its CUDA-event ms;
+      f. get_stats() with perf_stats on, one frame of each session;
+      g. estimate_memory of one 8K frame in the four tuned layouts, with
+         Annex-K tables and at restart interval 0, against the peak of
+         torch.cuda.max_memory_allocated over one encode of it (less what
+         was allocated before): the estimate must not be below."""
+    import io
+
+    from gpujpeg_tpu_torch.ops import _kernels
+
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    frame = make_frame(torch, "gradient", 700, H8K, W8K, dev).cpu().numpy()
+    rec = fixup_times(torch, np, gt, dev, enc, dec, frame, flush)
+    pi = gt.ImageParameters(width=W8K, height=H8K,
+                            color_space=gt.ColorSpace.RGB,
+                            pixel_format=gt.PixelFormat.P444_U8_P012)
+    for li, tag in enumerate(("planar_444", "il_420")):
+        params = session_params(gt, tag)
+        il = tag.startswith("il")
+
+        # -- b. warm-up ------------------------------------------------------
+        def wall(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        data, cold_enc = wall(lambda: gt.Encoder(device=dev).encode(
+            frame, params))
+        warm = gt.Encoder(device=dev)
+        _, alloc = wall(lambda: warm.allocate(params, pi))
+        _, first_enc = wall(lambda: warm.encode(frame, params))
+        _, cold_dec = wall(lambda: gt.Decoder(device=dev).decode(data))
+        wdec = gt.Decoder(device=dev)
+        _, warmup = wall(lambda: wdec.warmup(data))
+        _, first_dec = wall(lambda: wdec.decode(data))
+        log(f"[session {tag}] warm-up ms (fresh sessions): encode cold "
+            f"first frame {cold_enc:.3f}; allocate {alloc:.3f} then first "
+            f"frame {first_enc:.3f}; decode cold first frame "
+            f"{cold_dec:.3f}; warmup {warmup:.3f} then first frame "
+            f"{first_dec:.3f}")
+
+        # -- c. pipelined encode ---------------------------------------------
+        frames = [make_frame(torch, "gradient", 710 + 10 * li + i, H8K, W8K,
+                             dev).cpu().numpy() for i in range(3)]
+        order = [frames[i % 3] for i in range(SESSION_FRAMES)]
+        seq = [enc.encode(f, params) for f in frames]
+        seq_walls = sequential_ms(lambda f: enc.encode(f, params), order)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        outs, pwalls = yield_ms(enc.encode_pipelined(order, params))
+        end_window()
+        names = ("pre_rgb_to_planes", "fdct_quant", "huffman_segments")
+        ln = {n: _kernels.LAUNCHES[n] for n in names}
+        if min(ln.values()) <= 0 or _kernels.LAUNCHES["pack_stuff_rows"]:
+            raise AssertionError(f"encode_pipelined {tag}: launches {ln}")
+        bad = [i for i, o in enumerate(outs) if o != seq[i % 3]]
+        if len(outs) != SESSION_FRAMES or bad:
+            raise AssertionError(f"encode_pipelined {tag}: streams {bad} "
+                                 "differ from sequential encode()")
+        del outs
+        p2 = yield_ms(enc.encode_pipelined(order, params), keep=False)[1]
+        s2 = sequential_ms(lambda f: enc.encode(f, params), order)
+        log(f"[session {tag}] encode_pipelined: {SESSION_FRAMES} streams "
+            f"== sequential encode(), launches {ln}; ms between yields "
+            f"after the first, streams kept (new memory for each): "
+            f"{steady(np, pwalls)}; first {pwalls[0]:.3f}")
+        log(f"[session {tag}] encode_pipelined, each stream dropped (as "
+            f"the sequential runs drop theirs): ms between yields after "
+            f"the first, {steady(np, p2)}; first {p2[0]:.3f}")
+        log(f"[session {tag}] sequential encode() ms a frame (runs 1 and 2 "
+            f"before and after the pipelined), run 1: "
+            f"{quartiles(np, seq_walls)}; run 2: {quartiles(np, s2)}")
+        encode_split(torch, np, enc, order, params, tag)
+
+        # -- d. pipelined decode ---------------------------------------------
+        streams = [seq[i % 3] for i in range(SESSION_FRAMES)]
+        refs = [dec.decode(s) for s in seq]
+        seq_walls = sequential_ms(dec.decode, streams)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        kept, pwalls = yield_ms(dec.decode_pipelined(streams))
+        end_window()
+        names = ("huffdec_scan", "huffdec_block", "dc_fixup") + (
+            ("idct_planes", "post_rgb") if il else ("dpost_rgb",))
+        ln = {n: _kernels.LAUNCHES[n] for n in names}
+        if min(ln.values()) <= 0:
+            raise AssertionError(f"decode_pipelined {tag}: launches {ln}")
+        bad = [i for i, o in enumerate(kept)
+               if not np.array_equal(o, refs[i % 3])]
+        if len(kept) != SESSION_FRAMES or bad:
+            raise AssertionError(f"decode_pipelined {tag}: arrays {bad} "
+                                 "differ from sequential decode()")
+        del kept
+        d2 = yield_ms(dec.decode_pipelined(streams), keep=False)[1]
+        s2 = sequential_ms(dec.decode, streams)
+        log(f"[session {tag}] decode_pipelined: {SESSION_FRAMES} arrays "
+            f"kept, each == sequential decode() after the run, launches "
+            f"{ln}; ms between yields after the first, arrays kept (each a "
+            f"new pinned block): {steady(np, pwalls)}; first "
+            f"{pwalls[0]:.3f}")
+        log(f"[session {tag}] decode_pipelined, each array dropped: ms "
+            f"between yields after the first, {steady(np, d2)}")
+        log(f"[session {tag}] sequential decode() ms a frame (runs 1 and 2 "
+            f"before and after the pipelined), run 1: "
+            f"{quartiles(np, seq_walls)}; run 2: {quartiles(np, s2)}")
+
+        # -- e. device-only decode -------------------------------------------
+        fn, words, nbits = dec.compile_stream_pipeline(seq[0])
+        if not np.array_equal(fn(words, nbits).cpu().numpy(), refs[0]):
+            raise AssertionError(f"compile_stream_pipeline {tag}: pixels "
+                                 "differ from decode()")
+        ms = event_ms(torch, lambda: fn(words, nbits), 10, flush)
+        log(f"[session {tag}] compile_stream_pipeline fn == decode(); "
+            f"device ms {ms:.4f} ({words.numel() * 4} B of words)")
+        del fn, words, nbits, refs
+
+        # -- f. stats ----------------------------------------------------------
+        enc.perf_stats = dec.perf_stats = True
+        enc.encode(frames[0], params)
+        dec.decode(seq[0])
+        enc.perf_stats = dec.perf_stats = False
+        for name, st in (("encoder", enc.get_stats()),
+                         ("decoder", dec.get_stats())):
+            buf = io.StringIO()
+            st.print(file=buf)
+            log(f"[session {tag}] {name} get_stats(), perf_stats on: "
+                + "; ".join(x.strip() for x in buf.getvalue().splitlines())
+                + (f"; duration_memory_to {st.duration_memory_to:.4f} ms"
+                   if name == "encoder" else ""))
+        log(f"[session {tag}] aggregate {enc.aggregate.summary()}; decoder "
+            f"{dec.get_stats().summary()}")
+
+    # -- g. memory -------------------------------------------------------------
+    cases = [(tag, session_params(gt, tag)) for tag in (
+        "planar_444", "il_420", "il_444", "planar_420")]
+    cases += [("annexk_444", foreign_params(gt, False, None, "annexk",
+                                            gt.RESTART_AUTO)),
+              ("restart0_444", session_params(gt, "restart0_444"))]
+    for tag, params in cases:
+        enc.encode(frame, params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        enc.encode(frame, params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        est = gt.Encoder.estimate_memory(params, pi)
+        log(f"[session memory] {tag}: estimate_memory {est} B, peak of one "
+            f"encode {peak} B ({est / max(peak, 1):.3f}x)")
+        if est < peak:
+            raise AssertionError(f"estimate_memory {tag} below the peak")
+    return rec
 
 
 def relayout_phase(torch, dev, flush):
@@ -2358,21 +2712,26 @@ def main() -> int:
         + ", ".join(f"{v:.4f}" for v in mo["ms"]) + "; planar store of the "
         "same planes: " + ", ".join(f"{v:.4f}" for v in mo["planar_ms"]))
 
-    # -- 11. relayout and primitive kernels ----------------------------------
+    # -- 11. the session surface ---------------------------------------------
+    t_step = time.perf_counter()
+    kernels["dc_fixup"] = session_phases(torch, np, gt, dev, flush)
+    log(f"[session_phases] {time.perf_counter() - t_step:.1f} s")
+
+    # -- 12. relayout and primitive kernels ----------------------------------
     t_step = time.perf_counter()
     kernels.update(relayout_phase(torch, dev, flush))
     for name in ("xbd_relayout", "transpose_u32", "pair_sum_rows",
-                 "pack_u8_quads"):
+                 "pack_u8_quads", "dc_fixup"):
         launches[name] = PATH_LAUNCHES.get(name, 0)
     log(f"[relayout_phase] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 12. decomposition line -----------------------------------------------
+    # -- 13. decomposition line -----------------------------------------------
     log("[probe] decomposition ms at 8K (full | loads and stores only | "
         "full without the output store; the full stage's error against "
         "the plain version): " + json.dumps(
             {name: k["probe"] for name, k in kernels.items()
              if "probe" in k}))
-    # -- 13. kernels line ----------------------------------------------------
+    # -- 14. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -2380,11 +2739,11 @@ def main() -> int:
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"],
          **{key: k[key] for key in ROW_FLOOR_KEYS + (
-             "tokens", "ns_per_token", "note") if key in k}}
+             "tokens", "ns_per_token", "paths", "note") if key in k}}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 14. result ----------------------------------------------------------
+    # -- 15. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,7 @@ The decode of one codestream:
     device:
       phase A, block boundaries of each segment   huffdec_kernel.scan_segments
       phase C, coefficients of each block         huffdec_kernel.decode_blocks
-      differential DC -> absolute, per component  _dc_fixup_t (torch cumsum)
+      differential DC -> absolute, per component  dc_fixup
     then, for non-interleaved scans whose chroma planes tile the luma plane
     at dx, dy in {1, 2} (prepost_kernel.decode_post_supported):
       dequantization + IDCT + upsampling + colour
@@ -18,8 +18,9 @@ The decode of one codestream:
       upsampling + colour + store                 prepost_kernel.
                                                   postprocess_packed
 
-On CUDA every stage but the DC integration is a hand-written kernel; with
-device="cpu" every stage runs its plain PyTorch version.  The pixels are
+On CUDA every stage is a hand-written kernel (the DC integration's is
+csrc/dc_fixup.cu); with device="cpu" every stage runs its plain PyTorch
+version (_dc_fixup_t, a torch cumsum, for the DC).  The pixels are
 the same either way and equal the JAX package's.  Phase C decodes each
 block straight out of its segment's row (the segment-row contract), so
 the JAX package's phase B (the split into per-block buffers) and its
@@ -37,8 +38,23 @@ table sets a class take the kernels' two-set instances, three or four
 their four-set instances (huffdec_kernel's module docstring), which the
 JAX package decodes on its legacy path.  A restart interval of 0 makes
 each scan one segment: one thread of phase A walks it, phase C decodes
-its blocks in parallel from phase A's cursors.  Everything else raises
-NotImplementedError naming the ROADMAP item (queue 1) that ports it.
+its blocks in parallel from phase A's cursors.  Everything else, and
+every string option, raises NotImplementedError naming the ROADMAP item
+(queue 1) that ports it.
+
+The session surface is the JAX package's.  The words go up on an upload
+stream from a reused pinned buffer and the image comes back into a
+fresh pinned block on a download stream (models/staging.py), with the
+corrupt-segment flag, so decode() synchronises once, on the image.
+decode_pipelined parses and unstuffs stream i+1 (into the other of two
+pinned buffers) while stream i's kernels and download run, with the
+pixels of sequential decode(); pack_stream is its host prep against a
+fixed geometry, row width and tables (CapacityError for a wider
+stream); compile_stream_pipeline returns the device-only decode of
+streams shaped like an example, and warmup decodes one to make the
+plan, tables, kernels and buffers ready.  get_stats() gives the last
+frame's DecoderStats from CUDA events read with the image (the phase
+splits under perf_stats).
 """
 
 from __future__ import annotations
@@ -47,24 +63,41 @@ import dataclasses
 import functools
 import logging
 import math
+import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import huffdec_kernel, prepost_kernel
+from ..ops import _kernels, huffdec_kernel, prepost_kernel
 from ..stream import reader, segments as segprep
 from ..types import (ColorSpace, CorruptStreamError, ImageInfo,
                      ImageParameters, PixelFormat, PixelFormatRequest,
                      YCBCR_JPEG, from_reference, pixel_format_unit_size)
 from ..utils.geometry import Geometry, get_geometry
-from .encoder import not_ported
+from .staging import Clock, Fetch, Staging
 
 log = logging.getLogger("gpujpeg_tpu_torch")
 
 #: the reused segment-matrix buffer grows in steps of this many bytes
 SCRATCH_STEP = 1 << 20
+
+#: rows of the DC fix-up's kernel up to this many block slots take a
+#: thread a (row, component), longer ones are cut into tiles of DC_TILE
+#: slots (csrc/dc_fixup.cu kShortSlots, kTile)
+DC_SHORT_SLOTS = 64
+DC_TILE = 8192
+
+
+def _bucket(n: int, lo: int = 16) -> int:
+    """The pipeline's row width in words for n words: the next power of
+    two from lo (gpujpeg_tpu.models.decoder._bucket)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
 
 
 def pinned_empty(nbytes: int) -> np.ndarray:
@@ -227,6 +260,92 @@ def _table_key(ps: reader.ParsedStream) -> tuple:
             comp_ac.tobytes())
 
 
+def _table_signature(ps: reader.ParsedStream) -> tuple:
+    """Each component's (quant table, DC bits and values, AC bits and
+    values) as bytes: the tables a stream pipeline decodes with, beyond
+    the layout its Geometry records (gpujpeg_tpu.models.decoder.
+    _table_signature)."""
+    comp_dc: Dict[int, int] = {}
+    comp_ac: Dict[int, int] = {}
+    for scan in ps.scans:
+        for ci, d, a in zip(scan.comp_indices, scan.dc_table,
+                            scan.ac_table):
+            comp_dc[ci], comp_ac[ci] = d, a
+    sig = []
+    for ci in sorted(comp_dc):
+        db, dv = ps.huff_dc[comp_dc[ci]]
+        ab, av = ps.huff_ac[comp_ac[ci]]
+        sig.append((np.asarray(ps.quant_tables[ps.quant_map[ci]])
+                    .tobytes(),
+                    np.asarray(db).tobytes(), np.asarray(dv).tobytes(),
+                    np.asarray(ab).tobytes(), np.asarray(av).tobytes()))
+    return tuple(sig)
+
+
+class CapacityError(ValueError):
+    """A stream of the pipeline's format needs wider segment rows than
+    the pipeline was made for: decodable, just not by this pipeline."""
+
+
+class DecoderStats:
+    """Per-phase decode timings of the last frame, the decoder's
+    counterpart of the encoder's DurationStats (gpujpeg_duration_stats,
+    gpujpeg_common.h:365-375), with the fields and labels of the JAX
+    package's.  duration_stream is the host's parse and unstuff;
+    duration_in_gpu the kernels from phase A to the last pixel store and
+    duration_memory_from the copy of the image to the host, from CUDA
+    events read when the image is fetched (the host's clock on the CPU).
+    Under Decoder.perf_stats the Huffman phases (A, C and the DC fix-up)
+    and the IDCT with the colour stages (dpost, or the IDCT planes and
+    the postprocessor) are split; postprocessing is counted in the
+    second, as the label says."""
+
+    def __init__(self) -> None:
+        self.duration_stream = 0.0
+        self.duration_in_gpu = 0.0
+        self.duration_memory_from = 0.0
+        self.duration_huffman_coder = 0.0
+        self.duration_dct_quantization = 0.0
+        self.duration_preprocessor = 0.0
+        self.frames = 0
+        self.total_ms = 0.0
+        self.total_ms_wo_first = 0.0
+
+    def add_frame(self, total: float) -> None:
+        self.frames += 1
+        self.total_ms += total
+        if self.frames > 1:
+            self.total_ms_wo_first += total
+
+    def print(self, file=None) -> None:
+        f = file or sys.stderr
+        print(f" -Stream Reader:     {self.duration_stream:10.4f} ms",
+              file=f)
+        if self.duration_huffman_coder or self.duration_dct_quantization:
+            print(f" -Huffman Decoder:   "
+                  f"{self.duration_huffman_coder:10.4f} ms", file=f)
+            print(f" -DCT & Quantization:"
+                  f"{self.duration_dct_quantization:10.4f} ms", file=f)
+            print(f" -Postprocessing:    "
+                  f"{self.duration_preprocessor:10.4f} ms (fused into "
+                  "DCT kernel)", file=f)
+        print(f" -Device pipeline:   {self.duration_in_gpu:10.4f} ms",
+              file=f)
+        if self.duration_memory_from:
+            print(f" -Copy From Device:  "
+                  f"{self.duration_memory_from:10.4f} ms", file=f)
+
+    def summary(self) -> str:
+        if not self.frames:
+            return "no frames"
+        s = (f"avg {self.total_ms / self.frames:.2f} ms / frame "
+             f"({self.frames} frames)")
+        if self.frames > 1:
+            s += (f"; {self.total_ms_wo_first / (self.frames - 1):.2f} ms"
+                  " without first")
+        return s
+
+
 @dataclasses.dataclass
 class Plan:
     """The per-segment constants of one (geometry, tables) combination,
@@ -255,6 +374,9 @@ class Plan:
     # the DC integration of an interleaved row; None when a row is one
     # component
     comp_slots: Optional[Tuple[torch.Tensor, ...]] = None
+    # the same for the DC fix-up's kernel: (bpm, the component of slot
+    # j % bpm in 2 bits a slot, components)
+    comp_pattern: Tuple[int, int, int] = (1, 0, 1)
 
 
 def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
@@ -312,7 +434,10 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
                     tables=dev(tab), scan_lut=dev(lut, np.int16),
                     block_lut=dev(blut), qtabs=dev(qtabs, np.float32),
                     pattern=(bpm, dc_pat, ac_pat),
-                    comp_slots=comp_slots)
+                    comp_slots=comp_slots,
+                    comp_pattern=(bpm, sum(e << 2 * j
+                                           for j, e in enumerate(ent)),
+                                  geo.comp_count))
     nb, dcl, acl = [], [], []
     for c in geo.components:
         S, rst = c.segment_count, c.segment_mcu_count
@@ -363,6 +488,41 @@ def _dc_fixup_t(coefs_t: torch.Tensor, nseg: int, bps: int,
     return coefs_t
 
 
+def dc_fixup(coefs_t: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """Differential DC -> absolute in place, along each segment row of the
+    (64, nseg * plan.bps) int16 coefficients, each component of an
+    interleaved row over its own slots: csrc/dc_fixup.cu on CUDA (a
+    thread a row and component for rows of up to DC_SHORT_SLOTS slots,
+    a CTA a tile of DC_TILE slots for longer ones, with the tiles'
+    per-component totals in a scratch array), _dc_fixup_t on the CPU."""
+    bps = plan.bps
+    if coefs_t.dim() != 2 or coefs_t.shape[0] != 64 or \
+            coefs_t.dtype != torch.int16 or coefs_t.shape[1] % bps:
+        raise ValueError(f"dc_fixup takes (64, nseg * {bps}) int16 "
+                         "coefficients")
+    nseg = coefs_t.shape[1] // bps
+    if coefs_t.device.type == "cpu":
+        return _dc_fixup_t(coefs_t, nseg, bps, plan.comp_slots)
+    _kernels.require_cuda("dc_fixup", coefs_t)
+    bpm, pat, ncomp = plan.comp_pattern
+    tiles = -(-bps // DC_TILE) if bps > DC_SHORT_SLOTS else 0
+    sums = (torch.empty((nseg * tiles, 4), dtype=torch.int32,
+                        device=coefs_t.device) if tiles else None)
+    _kernels.launch("dc_fixup", coefs_t, nseg, bps, bpm, pat, ncomp, sums,
+                    tiles)
+    return coefs_t
+
+
+@dataclasses.dataclass
+class _Decoding:
+    """One frame on the card: its image and error flag on their way to
+    the host, and its clock."""
+
+    image: Fetch
+    bad: Fetch
+    clock: Clock
+
+
 class Decoder:
     """Persistent decoder session (create once, decode many streams).
 
@@ -372,17 +532,26 @@ class Decoder:
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
         self._plans: Dict[tuple, Plan] = {}
+        self._staging = Staging(self.device)
         # grow-only pinned buffer of the segment matrix, reused by every
         # frame of a CUDA session (gpujpeg_tpu Decoder._words_scratch),
-        # and the event recorded after the last upload from it
+        # and the event recorded after the last upload from it;
+        # decode_pipelined alternates it with the spare pair
         self._reuse_scratch = self.device.type == "cuda"
         self._prep_buf: Optional[np.ndarray] = None
         self._prep_event = None
+        self._spare_buf: Optional[np.ndarray] = None
+        self._spare_event = None
         self._output_request: Optional[ImageParameters] = None
+        self.stats = DecoderStats()
+        #: fill the Huffman / IDCT splits of the stats (the reference's
+        #: param.perf_stats); their events are recorded either way, so the
+        #: flag costs nothing
+        self.perf_stats = False
 
-    def get_stats(self):
-        """The session's DecoderStats: not ported yet."""
-        not_ported("Decoder.get_stats")
+    def get_stats(self) -> DecoderStats:
+        """gpujpeg_decoder_get_stats (gpujpeg_common.h:365-375)."""
+        return self.stats
 
     def set_output_format(self, color_space, pixel_format) -> None:
         """Request the output color space and pixel format for the
@@ -395,48 +564,35 @@ class Decoder:
             width=0, height=0, color_space=color_space,
             pixel_format=pixel_format)
 
+    # -- options (gpujpeg_decoder_set_option, gpujpeg_decoder.c:485-524) ----
+    def set_option(self, key: str, value: str) -> None:
+        """String options, the reference's keys
+        (libgpujpeg/gpujpeg_decoder.h:293-304): none is ported yet.  Flip,
+        channel remap and row alignment are ROADMAP queue 1 item 6, RLE
+        TGA output item 11 (file I/O); any other key raises ValueError."""
+        items = {"dec_opt_flipped": 6, "dec_opt_channel_remap": 6,
+                 "dec_opt_alignment_bytes": 6, "dec_opt_tga_rle": 11}
+        if key not in items:
+            raise ValueError(f"invalid decoder option {key!r}")
+        raise NotImplementedError(f"decoder option {key!r} is not ported "
+                                  f"(ROADMAP queue 1 item {items[key]})")
+
     @staticmethod
     def print_options() -> str:
-        """gpujpeg_decoder_print_options: not ported yet."""
-        not_ported("Decoder.print_options")
-
-    def compile_stream_pipeline(self, data: bytes):
-        """One device function for streams shaped like data: not ported
-        yet."""
-        not_ported("Decoder.compile_stream_pipeline")
-
-    def warmup(self, example: bytes) -> None:
-        """Pre-build for streams shaped like example: not ported yet."""
-        not_ported("Decoder.warmup")
-
-    def decode_pipelined(self, streams):
-        """Double-buffered decode of a stream sequence: not ported yet."""
-        not_ported("Decoder.decode_pipelined")
-
-    def pack_stream(self, data: bytes, geo: Geometry, max_words: int,
-                    comp_widths=None, table_sig=None):
-        """Host prep of one stream against a fixed geometry: not ported
-        yet."""
-        not_ported("Decoder.pack_stream")
-
-    def set_option(self, key: str, value: str) -> None:
-        """Reference-compatible string options (gpujpeg_decoder.c:485-524)
-        are not ported yet."""
-        item = 6 if key in ("dec_opt_flipped", "dec_opt_channel_remap",
-                            "dec_opt_alignment_bytes") else 10
-        raise NotImplementedError(f"decoder option {key!r} is not ported "
-                                  f"(ROADMAP queue 1 item {item})")
+        """gpujpeg_decoder_print_options equivalent."""
+        return (
+            "\tdec_opt_tga_rle=[false|true] - RLE TGA output\n"
+            "\tdec_opt_flipped=[false|true] - vertically flip output\n"
+            "\tdec_opt_channel_remap=XYZ[W] - output channel mapping\n"
+            "\tdec_opt_alignment_bytes=<num> - output row alignment\n")
 
     def get_image_info(self, data: bytes) -> ImageInfo:
         return reader.get_image_info(data)
 
     # -- host ------------------------------------------------------------------
-    def prepare(self, data: bytes,
-                param_image: Optional[ImageParameters] = None) -> HostFrame:
-        """Host half of a decode: parse, check the slice's limits, look up
-        the plan, unstuff the segments into the word matrix.  On a CUDA
-        session the matrix lies in the session's reused buffer, so a
-        HostFrame's words hold until the next prepare."""
+    def _parse(self, data: bytes, param_image: Optional[ImageParameters]):
+        """(parsed stream, output, geometry) of a stream, checked against
+        the slice's limits."""
         if param_image is not None and not isinstance(param_image,
                                                       ImageParameters):
             param_image = from_reference(param_image)
@@ -447,11 +603,24 @@ class Decoder:
         out_pi = resolve_output(ps, param_image)
         geo = get_geometry(param, out_pi.with_(width_padding=0))
         check_supported(ps, geo, out_pi)
+        return ps, out_pi, geo
+
+    def _plan(self, ps: reader.ParsedStream, geo: Geometry) -> Plan:
         key = (geo, _table_key(ps))
         plan = self._plans.get(key)
         if plan is None:
             plan = _make_plan(ps, geo, self.device)
             self._plans[key] = plan
+        return plan
+
+    def prepare(self, data: bytes,
+                param_image: Optional[ImageParameters] = None) -> HostFrame:
+        """Host half of a decode: parse, check the slice's limits, look up
+        the plan, unstuff the segments into the word matrix.  On a CUDA
+        session the matrix lies in the session's reused buffer, so a
+        HostFrame's words hold until the next prepare."""
+        ps, out_pi, geo = self._parse(data, param_image)
+        plan = self._plan(ps, geo)
         bounds = self._segment_bounds(ps, geo)
         max_words = (int((bounds[1] - bounds[0]).max()) + 3) // 4
         words, nbits = segprep.pack_segments_matrix(
@@ -481,23 +650,31 @@ class Decoder:
                                           * SCRATCH_STEP)
         return self._prep_buf[:need].reshape(nseg, row_words * 4)
 
-    def upload(self, hf: HostFrame):
-        """(words, nbits) of a prepared frame on the session's device.  On
-        CUDA the copies do not block the host; an event after them guards
-        the reused buffer (_words_scratch)."""
-        nb = self.device.type == "cuda"
-        words = torch.from_numpy(hf.words).to(self.device, non_blocking=nb)
-        nbits = torch.from_numpy(hf.nbits).to(self.device, non_blocking=nb)
-        if nb and self._prep_buf is not None:
-            self._prep_event = torch.cuda.Event()
-            self._prep_event.record(torch.cuda.current_stream(self.device))
+    def _swap_scratch(self) -> None:
+        """Make the spare buffer the one the next frame is unstuffed into
+        (decode_pipelined: stream i+1 is unstuffed while stream i's words
+        may still be on their way to the card)."""
+        self._prep_buf, self._spare_buf = self._spare_buf, self._prep_buf
+        self._prep_event, self._spare_event = (self._spare_event,
+                                               self._prep_event)
+
+    def upload(self, hf: HostFrame, clock: Optional[Clock] = None):
+        """(words, nbits) of a prepared frame on the session's device,
+        usable on the current stream.  On CUDA the copies run on the
+        session's upload stream and do not block the host; the event after
+        them guards the reused buffer (_words_scratch)."""
+        (words, nbits), done = self._staging.upload(
+            torch.from_numpy(hf.words), torch.from_numpy(hf.nbits),
+            clock=clock)
+        if done is not None and self._prep_buf is not None:
+            self._prep_event = done
         return words, nbits
 
     def _drop_scratch(self) -> None:
-        """Forget the reused buffer after a failure: an upload from it may
-        still be in flight, so the next frame takes a new one."""
-        self._prep_buf = None
-        self._prep_event = None
+        """Forget the reused buffers after a failure: an upload from them
+        may still be in flight, so the next frame takes a new one."""
+        self._prep_buf = self._spare_buf = None
+        self._prep_event = self._spare_event = None
 
     @staticmethod
     def _segment_bounds(ps, geo):
@@ -542,20 +719,25 @@ class Decoder:
             else np.zeros((0, 2), np.int64)
 
     # -- device ----------------------------------------------------------------
-    def coefficients_t(self, hf: HostFrame):
-        """Phases A and C and the DC integration on the session's device:
-        -> (coefs_t (64, nseg*bps) int16, errA (nseg,) bool, errC
-        (nseg*bps,) int32)."""
-        p = hf.plan
-        words, nbits = self.upload(hf)
+    @staticmethod
+    def _coefficients(plan: Plan, words: torch.Tensor, nbits: torch.Tensor):
+        """Phases A and C and the DC fix-up -> (coefs_t (64, nseg*bps)
+        int16, errA (nseg,) bool, errC (nseg*bps,) int32)."""
+        p = plan
         bstart, err_a = huffdec_kernel.scan_segments(
             words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps,
             p.pattern, p.scan_lut)
         coefs_t, err_c = huffdec_kernel.decode_blocks(
             words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
             p.pattern, p.block_lut)
-        return (_dc_fixup_t(coefs_t, words.shape[0], p.bps, p.comp_slots),
-                err_a, err_c)
+        return dc_fixup(coefs_t, p), err_a, err_c
+
+    def coefficients_t(self, hf: HostFrame):
+        """Phases A and C and the DC integration on the session's device:
+        -> (coefs_t (64, nseg*bps) int16, errA (nseg,) bool, errC
+        (nseg*bps,) int32)."""
+        words, nbits = self.upload(hf)
+        return self._coefficients(hf.plan, words, nbits)
 
     @staticmethod
     def back_half(coefs_t: torch.Tensor, plan: Plan,
@@ -570,6 +752,49 @@ class Decoder:
         planes = prepost_kernel.idct_planes(coefs_t, plan.qtabs, geo)
         return prepost_kernel.postprocess_packed(planes, geo, out_pi)
 
+    def _pixels(self, plan: Plan, out_pi: ImageParameters,
+                words: torch.Tensor, nbits: torch.Tensor,
+                clock: Optional[Clock] = None):
+        """The device decode of uploaded words -> (image (H, W, 3) uint8,
+        0-d bool: a segment was corrupt), queued on the current stream; the
+        clock's phases "huffman" (A, C, fix-up) and "dct" (the rest)."""
+        if clock is not None:
+            clock.mark("huffman")
+        coefs_t, err_a, err_c = self._coefficients(plan, words, nbits)
+        if clock is not None:
+            clock.mark("dct")
+        img = self.back_half(coefs_t, plan, out_pi)
+        if clock is not None:
+            clock.mark("end")
+        return img, err_a.any() | err_c.any()
+
+    def _launch(self, hf: HostFrame) -> _Decoding:
+        """Queue one prepared frame: the upload of its words and bit
+        counts, its kernels, and the copy of its image and error flag to
+        pinned host memory after them."""
+        clock = Clock(self.device)
+        words, nbits = self.upload(hf, clock)
+        img, bad = self._pixels(hf.plan, hf.out_pi, words, nbits, clock)
+        done = self._staging.event()
+        return _Decoding(self._staging.download(img, done, clock),
+                         self._staging.download(bad, done), clock)
+
+    def _fetch(self, job: _Decoding) -> np.ndarray:
+        """Wait for a launched frame's image, warn about corrupt segments
+        and fill the stats."""
+        img = job.image.get().numpy()
+        if bool(job.bad.get()):
+            log.warning("corrupt segment(s) during Huffman decode")
+        st, clock = self.stats, job.clock
+        st.duration_in_gpu = clock.span()
+        st.duration_memory_from = clock.ms("d0", "d1")
+        if self.perf_stats:
+            ph = clock.phases()
+            st.duration_huffman_coder = ph.get("huffman", 0.0)
+            st.duration_dct_quantization = ph.get("dct", 0.0)
+            st.duration_preprocessor = 0.0
+        return img
+
     def decode_to_device(self, data: bytes,
                          param_image: Optional[ImageParameters] = None
                          ) -> torch.Tensor:
@@ -580,9 +805,9 @@ class Decoder:
         the reused segment buffer before it propagates."""
         try:
             hf = self.prepare(data, param_image or self._output_request)
-            coefs_t, err_a, err_c = self.coefficients_t(hf)
-            out = self.back_half(coefs_t, hf.plan, hf.out_pi)
-            if bool(err_a.any()) or bool(err_c.any()):
+            words, nbits = self.upload(hf)
+            out, bad = self._pixels(hf.plan, hf.out_pi, words, nbits)
+            if bool(bad):
                 log.warning("corrupt segment(s) during Huffman decode")
             return out
         except BaseException:
@@ -591,12 +816,19 @@ class Decoder:
 
     def decode(self, data: bytes,
                param_image: Optional[ImageParameters] = None) -> np.ndarray:
-        """Decode to an (H, W, 3) uint8 numpy array."""
+        """Decode to an (H, W, 3) uint8 numpy array (on CUDA it lies in a
+        pinned block of PyTorch's caching host allocator, recycled once
+        the array is dropped)."""
+        t0 = time.perf_counter()
         try:
-            return self.decode_to_device(data, param_image).cpu().numpy()
+            hf = self.prepare(data, param_image or self._output_request)
+            self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
+            out = self._fetch(self._launch(hf))
         except BaseException:
             self._drop_scratch()
             raise
+        self.stats.add_frame((time.perf_counter() - t0) * 1e3)
+        return out
 
     def decode_coefficients(self, data: bytes) -> List[np.ndarray]:
         """Decoded QUANTIZED DCT coefficients, per component: a list of
@@ -614,3 +846,153 @@ class Decoder:
         return [coefs[prepost_kernel.block_columns(geo, c)].numpy().reshape(
                     c.data_height // 8, c.data_width // 8, 64)
                 for c in geo.components]
+
+    # -- pipelines (gpujpeg_tpu Decoder.compile_stream_pipeline,
+    # decode_pipelined) -------------------------------------------------------
+    def pack_stream(self, data: bytes, geo: Geometry, max_words: int,
+                    comp_widths=None, table_sig=None):
+        """Host prep of one stream against a fixed geometry and row width:
+        returns (words, nbits) numpy arrays shaped like the pipeline's
+        example stream, (nseg, max_words + 1) uint32 host-order words and
+        (nseg,) int32 bit counts (stream.segments.pack_segments_matrix;
+        row bytes past a segment's payload are not zeroed).
+
+        A stream of another geometry, or whose tables differ from
+        table_sig (_table_signature of the example: a pipeline decodes
+        with the example's tables), raises ValueError.  A segment of more
+        than max_words words raises CapacityError, as does one of
+        segments lo:hi of more than wc - 1 words for an entry (lo, hi, wc)
+        of comp_widths (the JAX package's per-component scan widths; the
+        port's kernels take any width, and checking them refuses the
+        streams the JAX method refuses)."""
+        return self._pack(data, geo, max_words, comp_widths, table_sig)
+
+    def _pack(self, data: bytes, geo: Geometry, max_words: int,
+              comp_widths=None, table_sig=None, scratch: bool = False):
+        """pack_stream; scratch=True unstuffs into the session's reused
+        buffer (_words_scratch)."""
+        ps = reader.parse(data)
+        param = reader.parsed_to_parameters(ps)
+        out_pi = resolve_output(ps, self._output_request)
+        if get_geometry(param, out_pi.with_(width_padding=0)) != geo:
+            raise ValueError("stream geometry differs from the pipeline's")
+        if table_sig is not None and _table_signature(ps) != table_sig:
+            raise ValueError(
+                "stream quantization/Huffman tables differ from the "
+                "pipeline's example stream; rebuild the pipeline from a "
+                "representative stream (it decodes with the example's "
+                "tables)")
+        bounds = self._segment_bounds(ps, geo)
+        seg_lens = bounds[1] - bounds[0]
+        need = (int(seg_lens.max()) + 3) // 4
+        if need > max_words:
+            raise CapacityError(f"segment needs {need} words > pipeline "
+                                f"row width {max_words}")
+        for lo, hi, wc in comp_widths or ():
+            nc = (int(seg_lens[lo:hi].max()) + 3) // 4
+            if nc > wc - 1:
+                raise CapacityError(
+                    f"segments {lo}:{hi} need {nc} words > the pipeline's "
+                    f"per-component width {wc - 1}; rebuild the pipeline "
+                    "from a representative stream")
+        return segprep.pack_segments_matrix(
+            ps.data, bounds, max_words,
+            out=self._words_scratch(len(seg_lens), max_words + 1)
+            if scratch else None)
+
+    def _stream_pipeline_parts(self, data: bytes):
+        """(fn, words, nbits, geo, max_words, comp_widths, table_sig, plan,
+        out_pi) of streams shaped like data (the JAX method's tuple without
+        its split capacities, with the plan and the output that fn decodes
+        with): fn(words, nbits) decodes uploaded words on the session's
+        device; words and nbits are data's, unstuffed at max_words =
+        _bucket(its longest segment's words), the row width the pipeline
+        admits.  comp_widths is None: the port's kernels are not
+        specialised to widths."""
+        ps, out_pi, geo = self._parse(data, self._output_request)
+        plan = self._plan(ps, geo)
+        bounds = self._segment_bounds(ps, geo)
+        max_words = _bucket((int((bounds[1] - bounds[0]).max()) + 3) // 4)
+        words, nbits = segprep.pack_segments_matrix(ps.data, bounds,
+                                                    max_words)
+
+        def fn(words: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
+            """(nseg, max_words + 1) int32 words and (nseg,) int32 bit
+            counts on the device -> the (H, W, 3) uint8 image there:
+            phases A and C, the DC fix-up, dpost or the IDCT planes and
+            the postprocessor, queued on the current stream."""
+            return self._pixels(plan, out_pi, words, nbits)[0]
+
+        return (fn, words, np.ascontiguousarray(nbits, np.int32), geo,
+                max_words, None, _table_signature(ps), plan, out_pi)
+
+    def compile_stream_pipeline(self, data: bytes):
+        """One device function for streams shaped like data: returns (fn,
+        words, nbits) with fn(words, nbits) -> the decoded (H, W, 3) uint8
+        image on the session's device, and data's words (int32) and bit
+        counts already there.  fn runs the device decode alone (phases A
+        and C, the DC fix-up, dpost or IDCT + postprocessor), with no host
+        work and no synchronisation; the port has no compile step, so
+        fn's plan and lookahead tables are built here."""
+        fn, words, nbits = self._stream_pipeline_parts(data)[:3]
+        return (fn, torch.from_numpy(words.view(np.int32)).to(self.device),
+                torch.from_numpy(nbits).to(self.device))
+
+    def warmup(self, example: bytes) -> None:
+        """Make everything streams shaped like example need before the
+        first one (the pre-init role of gpujpeg_decoder_init): the plan
+        and its lookahead tables, the kernels' libraries (built from csrc/
+        when missing, then loaded), the reused pinned segment buffer and a
+        pinned image block, by decoding example once.  The stats are left
+        as they were."""
+        stats, self.stats = self.stats, DecoderStats()
+        try:
+            self.decode(example)
+        finally:
+            self.stats = stats
+
+    def decode_pipelined(self, streams):
+        """Double-buffered decode of a stream sequence: yields one decoded
+        (H, W, 3) uint8 numpy image per stream, each equal to sequential
+        decode()'s (gpujpeg_tpu Decoder.decode_pipelined).
+
+        While stream i's kernels run, the host parses and unstuffs stream
+        i+1 into the other of two reused pinned word buffers, and stream
+        i's image goes to a fresh pinned block on the download stream.
+        The first stream fixes the geometry, the row width (_bucket of its
+        longest segment) and the tables; a later stream of another
+        geometry or other tables raises ValueError (pack_stream), one with
+        a wider segment (CapacityError) is decoded by decode() in its
+        turn.  Each yielded array is the caller's own: no later frame
+        writes it."""
+        it = iter(streams)
+        first = next(it, None)
+        if first is None:
+            return
+        (_fn, words, nbits, geo, max_words, comp_widths, table_sig, plan,
+         out_pi) = self._stream_pipeline_parts(first)
+        prev = self._launch(HostFrame(plan, out_pi, words.view(np.int32),
+                                      nbits))
+        try:
+            for s in it:
+                self._swap_scratch()
+                try:
+                    w, n = self._pack(s, geo, max_words, comp_widths,
+                                      table_sig, scratch=True)
+                except CapacityError:
+                    if prev is not None:
+                        yield self._fetch(prev)
+                        prev = None
+                    yield self.decode(s)
+                    continue
+                job = self._launch(HostFrame(
+                    plan, out_pi, w.view(np.int32),
+                    np.ascontiguousarray(n, np.int32)))
+                if prev is not None:
+                    yield self._fetch(prev)
+                prev = job
+            if prev is not None:
+                yield self._fetch(prev)
+        except BaseException:
+            self._drop_scratch()
+            raise

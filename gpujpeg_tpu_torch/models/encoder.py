@@ -39,18 +39,36 @@ order itself); with device="cpu" every stage runs its plain PyTorch
 version.  The bytes are the same either way and equal the JAX
 package's.
 
+The session surface is the JAX package's: a host frame reaches the card
+through pinned staging on an upload stream, the rows come back on a
+download stream (models/staging.py), and encode_pipelined queues frame
+i+1's upload and kernels before frame i's rows are copied back and
+assembled, with the bytes of sequential encode().  get_stats() gives the
+last frame's DurationStats from CUDA events read when its rows are
+fetched (the phase splits under perf_stats), aggregate the running
+averages of encode(); set_option takes the header, orientation, EXIF
+and output-buffer keys; allocate encodes a zero frame to make the
+tables, kernels and staging ready; estimate_memory, max_pixels and
+max_memory reckon the port's own device buffers (frame_bytes).
+
 This slice covers 8-bit RGB P444_U8_P012 input, 3 components, the tuned
 and the Annex-K Huffman tables, any restart interval (auto picks 8
 blocks a segment up to Q92), chroma at 1x1 and luma at 1x1, 2x1, 1x2 or
 2x2 (4:4:4, 4:2:2, 4:4:0, 4:2:0), in non-interleaved scans (the
 reference GPUJPEG's headline configuration at 4:4:4) or in one
-interleaved scan.  Everything else raises NotImplementedError naming
-the ROADMAP item that ports it.
+interleaved scan.  Everything else, and the flip and channel-remap
+options, raises NotImplementedError naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+import math
+import sys
+import time
+from fractions import Fraction
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,10 +77,11 @@ from .. import native
 from ..device import resolve_device
 from ..ops import fusedpack, prepost_kernel
 from ..stream import writer as jwriter
-from ..types import (ColorSpace, ImageParameters, Parameters, PixelFormat,
-                     RESTART_AUTO, pixel_format_comp_count,
-                     pixel_format_sampling)
+from ..types import (ColorSpace, HeaderType, ImageParameters, Orientation,
+                     Parameters, PixelFormat, RESTART_AUTO, image_size_bytes,
+                     pixel_format_comp_count, pixel_format_sampling)
 from ..utils.geometry import Geometry, get_geometry, suggest_restart_interval
+from .staging import Clock, Staging
 
 
 def adjust_params(param: Parameters, pi: ImageParameters) -> Parameters:
@@ -85,14 +104,6 @@ def adjust_params(param: Parameters, pi: ImageParameters) -> Parameters:
         # grayscale always luminance; internal color space irrelevant
         param = param.with_(interleaved=False)
     return param
-
-
-def not_ported(what: str):
-    """Raise for a public method of the JAX package's sessions that the
-    port does not have yet (the session surface, ROADMAP queue 1 item
-    10)."""
-    raise NotImplementedError(
-        f"{what} is not ported (ROADMAP queue 1 item 10)")
 
 
 #: luma sampling factors of the ported layouts, chroma at 1x1
@@ -124,6 +135,162 @@ def check_supported(geo: Geometry) -> None:
                          "families are 'tuned' and 'annexk'")
 
 
+
+
+@dataclasses.dataclass
+class DurationStats:
+    """Per-phase timings of the last frame (gpujpeg_duration_stats,
+    gpujpeg_common.h:365-375), the fields and labels of the JAX package's.
+
+    On CUDA the device phases come from CUDA events recorded around the
+    stages and read when the frame's rows are fetched, so they add no
+    synchronisation: duration_memory_to is the upload of the frame,
+    duration_in_gpu the kernels from the preprocessor to the end of the
+    Huffman coder, duration_memory_from the copy of the rows back.  The
+    splits preprocessor / DCT / Huffman are filled under
+    Encoder.perf_stats.  duration_stream is the host assembly.  On the CPU
+    the host's clock times the same stages.  retries stays 0: the rows
+    have worst-case strides, so no frame is coded twice."""
+
+    duration_memory_to: float = 0.0
+    duration_memory_from: float = 0.0
+    duration_preprocessor: float = 0.0
+    duration_dct_quantization: float = 0.0
+    duration_huffman_coder: float = 0.0
+    duration_stream: float = 0.0
+    duration_in_gpu: float = 0.0
+    retries: int = 0
+
+    def print(self, file=None) -> None:
+        f = file or sys.stderr
+        if self.duration_preprocessor or self.duration_dct_quantization \
+                or self.duration_huffman_coder:
+            print(f" -Preprocessing:     "
+                  f"{self.duration_preprocessor:10.4f} ms", file=f)
+            print(f" -DCT & Quantization:"
+                  f"{self.duration_dct_quantization:10.4f} ms", file=f)
+            print(f" -Huffman Encoder:   "
+                  f"{self.duration_huffman_coder:10.4f} ms", file=f)
+        print(f" -Device pipeline:   {self.duration_in_gpu:10.4f} ms",
+              file=f)
+        print(f" -Stream Formatter:  {self.duration_stream:10.4f} ms",
+              file=f)
+        if self.duration_memory_from:
+            print(f" -Copy From Device:  "
+                  f"{self.duration_memory_from:10.4f} ms", file=f)
+        if self.retries:
+            print(f" -Capacity regrows:  {self.retries:10d}", file=f)
+
+
+@dataclasses.dataclass
+class AggregateStats:
+    """Running averages of Encoder.encode's frames
+    (gpujpeg_common.c:2238-2254)."""
+
+    frames: int = 0
+    total_ms: float = 0.0
+    total_ms_wo_first: float = 0.0
+
+    def add(self, ms: float) -> None:
+        self.frames += 1
+        self.total_ms += ms
+        if self.frames > 1:
+            self.total_ms_wo_first += ms
+
+    def summary(self) -> str:
+        if not self.frames:
+            return "no frames"
+        avg = self.total_ms / self.frames
+        s = f"avg {avg:.2f} ms / frame ({self.frames} frames)"
+        if self.frames > 1:
+            s += (f"; {self.total_ms_wo_first / (self.frames - 1):.2f} ms"
+                  " without first")
+        return s
+
+
+#: device bytes of a frame's encode that do not scale with the image: the
+#: table classes, the row markers and counts, and the caching allocator's
+#: rounding (a large block is handed out whole when less than 1 MiB of it
+#: would be left)
+FIXED_BYTES = 32 << 20
+
+#: device bytes a slot of a tokenizer chunk takes for its temporaries
+#: (fusedpack.TOKEN_CHUNK_SLOTS): about 90 at the peak of an 8K Annex-K
+#: encode (chip_smoke.py's [session] step, H100 80GB HBM3 at 700 W),
+#: with room
+TOKEN_SLOT_BYTES = 128
+
+#: the image the planners take their bytes a pixel from: 8K, whole MCUs of
+#: every layout and whole segments of 8 blocks
+PLAN_WIDTH, PLAN_HEIGHT = 7680, 4320
+
+
+def frame_bytes(geo: Geometry) -> int:
+    """Device bytes at the peak of one frame's encode of this geometry,
+    from the port's own buffers, the largest of three moments: the raw
+    frame and the planes (the preprocessor); the planes, the largest
+    coefficient array alive at once (one component's in non-interleaved
+    scans, the whole scan's when interleaved) and every scan's rows at
+    their worst-case stride (fusedpack.bits_stride), with Annex-K tables
+    also the int32 tokens of those coefficients and a tokenizer chunk's
+    temporaries (the coders); every scan's rows and one more scan's, the
+    contiguous copy assembly slices them into (the copy back).  At
+    restart interval 0: the planes, the coefficients twice (scan_tokens'
+    rows), the tokens kept twice (the pieces and their concatenation) and
+    a chunk.  Pinned staging lies in host memory and counts nothing
+    here."""
+    p = geo.param
+    bits = [fusedpack.block_bits(p.quality, luma, p.huffman_tables)
+            for luma in (True, False)]
+    raw = image_size_bytes(geo.param_image.width, geo.param_image.height,
+                           geo.param_image.pixel_format)
+    planes = sum(c.data_width * c.data_height for c in geo.components)
+    if geo.interleaved:
+        slots = [geo.segment_count * geo.segment_mcu_count
+                 * geo.blocks_per_mcu]
+        mcu_bits = sum(bits[c.table_index] * c.samp_h * c.samp_v
+                       for c in geo.components)
+        rows = [geo.segment_count * fusedpack.bits_stride(
+            geo.segment_mcu_count * mcu_bits)]
+        nseg = geo.segment_count
+    else:
+        slots = [c.segment_count * c.segment_mcu_count
+                 for c in geo.components]
+        rows = [c.segment_count * fusedpack.bits_stride(
+            c.segment_mcu_count * bits[c.table_index])
+            for c in geo.components]
+        nseg = sum(c.segment_count for c in geo.components)
+    coefs = 128 * max(slots)
+    chunk = fusedpack.TOKEN_CHUNK_SLOTS * TOKEN_SLOT_BYTES
+    if p.restart_interval == 0:
+        coders = planes + 2 * coefs + 2 * 8 * 64 * max(slots) + chunk
+        return max(raw + planes, coders) + FIXED_BYTES
+    tokens = 8 * 64 * max(slots) + chunk \
+        if p.huffman_tables == "annexk" else 0
+    return (max(raw + planes, planes + coefs + tokens + sum(rows),
+                sum(rows) + max(rows)) + 16 * nseg + FIXED_BYTES)
+
+
+def _plan_rate(param: Parameters) -> Fraction:
+    """Device bytes a pixel of the planners (frame_bytes of PLAN_WIDTH x
+    PLAN_HEIGHT less FIXED_BYTES, a pixel)."""
+    pi = ImageParameters(width=PLAN_WIDTH, height=PLAN_HEIGHT,
+                         color_space=ColorSpace.RGB,
+                         pixel_format=PixelFormat.P444_U8_P012)
+    return Fraction(Encoder.estimate_memory(param, pi) - FIXED_BYTES,
+                    PLAN_WIDTH * PLAN_HEIGHT)
+
+
+def _as_tensor(image) -> torch.Tensor:
+    return image if isinstance(image, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(image))
+
+
+def _frame_shape(image) -> Tuple[Tuple[int, ...], str]:
+    """(shape, dtype name) of a numpy array or a tensor."""
+    return tuple(image.shape), str(image.dtype).replace("torch.", "")
+
+
 class Encoder:
     """Persistent encoder session (create once, encode many frames).
 
@@ -134,51 +301,123 @@ class Encoder:
         self.device = resolve_device(device)
         self._tables: Dict[Tuple[int, bool, str],
                            fusedpack.ClassTables] = {}
+        self._staging = Staging(self.device)
+        self.stats = DurationStats()
+        self.aggregate = AggregateStats()
+        #: fill the preprocessor / DCT / Huffman splits of the stats (the
+        #: reference's param.perf_stats); their events are recorded either
+        #: way, so the flag costs nothing
+        self.perf_stats = False
+        self.header_type_override: Optional[HeaderType] = None
+        self.exif_tags: List[str] = []
+        self.orientation: Optional[Orientation] = None
 
+    # -- options (gpujpeg_encoder_set_option, gpujpeg_encoder.c:736-795) -----
     def set_option(self, key: str, value: str) -> None:
-        """Reference-compatible string options (gpujpeg_encoder.c:736-795)
-        are not ported yet."""
-        item = {"enc_opt_flipped": 6, "enc_opt_channel_remap": 6,
-                "enc_exif_tag": 11, "enc_hdr": 10, "enc_metadata": 10}
-        raise NotImplementedError(
-            f"encoder option {key!r} is not ported (ROADMAP queue 1 item "
-            f"{item.get(key, 10)})")
+        """String options, the reference's keys
+        (libgpujpeg/gpujpeg_encoder.h:211-242).  Flip and channel remap are
+        not ported (ROADMAP queue 1 item 6)."""
+        if key in ("enc_opt_out", "enc_out_pinned"):
+            # the rows always come back through pinned staging
+            return
+        if key == "enc_hdr":
+            m = {"JFIF": HeaderType.JFIF, "Exif": HeaderType.EXIF,
+                 "Adobe": HeaderType.ADOBE, "SPIFF": HeaderType.SPIFF}
+            if value not in m:
+                raise ValueError(f"unknown header type {value!r}")
+            self.header_type_override = m[value]
+            return
+        if key in ("enc_opt_flipped", "enc_opt_channel_remap"):
+            raise NotImplementedError(
+                f"encoder option {key!r} is not ported (ROADMAP queue 1 "
+                "item 6)")
+        if key == "enc_exif_tag":
+            self.header_type_override = HeaderType.EXIF
+            self.exif_tags.append(value)
+            return
+        if key == "enc_metadata":
+            if value.startswith("orientation="):
+                # "orientation=<rot>[,flip]"
+                parts = value.split("=", 1)[1].split(",")
+                self.orientation = Orientation(
+                    rotation=int(parts[0]) & 3,
+                    flip=len(parts) > 1 and parts[1] == "flip")
+                return
+            raise ValueError(f"unknown metadata {value!r}")
+        raise ValueError(f"invalid encoder option {key!r}")
 
     @staticmethod
     def print_options() -> str:
-        """gpujpeg_encoder_print_options: not ported yet."""
-        not_ported("Encoder.print_options")
+        """gpujpeg_encoder_print_options equivalent."""
+        return (
+            "\tenc_opt_out=[enc_out_val_pageable|enc_out_val_pinned] - "
+            "accepted for compatibility (the rows always come back through "
+            "pinned host buffers)\n"
+            "\tenc_hdr=[JFIF|Adobe|Exif|SPIFF] - output JPEG header\n"
+            "\tenc_opt_flipped=[false|true] - vertically flip input\n"
+            "\tenc_opt_channel_remap=XYZ[W] - input channel mapping, eg. "
+            "'210F' for GBRX; 'F'/'Z' = all-ones/all-zeros\n"
+            "\tenc_exif_tag=<key>:TYPE=<value> - custom EXIF tag\n"
+            "\tenc_metadata=orientation=<rot>[,flip] - image metadata\n")
 
+    def _header(self, geo: Geometry) -> bytes:
+        return jwriter.write_header(
+            geo, orientation=self.orientation,
+            exif_tags=self.exif_tags or None,
+            header_type=self.header_type_override)
+
+    # -- pre-allocation and planners (gpujpeg_encoder_allocate,
+    # gpujpeg_encoder.c:258-288; gpujpeg_encoder.h:132-146) ------------------
     def allocate(self, param: Parameters,
                  param_image: ImageParameters) -> None:
-        """gpujpeg_encoder_allocate: not ported yet."""
-        not_ported("Encoder.allocate")
+        """Make everything a frame of (param, param_image) needs before the
+        first one: the table classes, the kernels' libraries (built from
+        csrc/ when missing, then loaded) and the staging buffers, by
+        encoding one zero frame, whose bytes are dropped.  Each kernel's
+        launch configuration follows from the shapes, so the first real
+        frame runs as every later one."""
+        param = adjust_params(param or Parameters(), param_image)
+        geo = get_geometry(param, param_image)
+        check_supported(geo)
+        zeros = np.zeros((param_image.height, param_image.width, 3),
+                         np.uint8)
+        if param.restart_interval == 0:
+            self._encode_host_entropy(zeros, geo)
+        else:
+            self.assemble(geo, self._device_rows(zeros, geo))
 
     @staticmethod
     def estimate_memory(param: Parameters,
                         param_image: ImageParameters) -> int:
-        """Device bytes of one frame's encode: not ported yet."""
-        not_ported("Encoder.estimate_memory")
+        """Device bytes at the peak of one frame's encode (frame_bytes: the
+        port's own buffers, rows at their worst-case stride).
+        encode_pipelined holds one more frame's rows while the next frame
+        runs."""
+        param = adjust_params(param or Parameters(), param_image)
+        geo = get_geometry(param, param_image)
+        check_supported(geo)
+        return frame_bytes(geo)
 
     @staticmethod
     def max_pixels(param: Parameters, memory_bytes: int) -> int:
-        """gpujpeg_encoder_max_pixels: not ported yet."""
-        not_ported("Encoder.max_pixels")
+        """Largest pixel count whose encode fits in memory_bytes
+        (gpujpeg_encoder_max_pixels, gpujpeg_encoder.h:132-138), at the
+        bytes a pixel of an 8K frame (_plan_rate); max_memory's
+        inverse."""
+        rate = _plan_rate(param)
+        return max(0, math.floor((memory_bytes - FIXED_BYTES) / rate))
 
     @staticmethod
     def max_memory(param: Parameters, pixels: int) -> int:
-        """gpujpeg_encoder_max_memory: not ported yet."""
-        not_ported("Encoder.max_memory")
+        """Device bytes needed to encode `pixels` pixels
+        (gpujpeg_encoder_max_memory, gpujpeg_encoder.h:140-146), at the
+        bytes a pixel of an 8K frame (_plan_rate)."""
+        return FIXED_BYTES + math.ceil(pixels * _plan_rate(param))
 
-    def encode_pipelined(self, frames, param: Optional[Parameters] = None,
-                         param_image: Optional[ImageParameters] = None):
-        """Double-buffered encode of a frame sequence: not ported yet."""
-        not_ported("Encoder.encode_pipelined")
+    def get_stats(self) -> DurationStats:
+        return self.stats
 
-    def get_stats(self):
-        """The session's DurationStats: not ported yet."""
-        not_ported("Encoder.get_stats")
-
+    # -- tables --------------------------------------------------------------
     def class_tables(self, quality: int, luma: bool,
                      family: str = "tuned") -> fusedpack.ClassTables:
         key = (quality, luma, family)
@@ -211,18 +450,22 @@ class Encoder:
         param = adjust_params(param or Parameters(), param_image)
         return get_geometry(param, param_image)
 
+    # -- device ----------------------------------------------------------------
     def encode_to_device(self, image, param: Optional[Parameters] = None,
                          param_image: Optional[ImageParameters] = None,
                          check: bool = True):
         """Device-side encode.  Returns (geo, res): res["rows"] holds one
         (segments, stride) uint8 tensor per scan (one for an interleaved
         scan) and res["row_bytes"] one (segments,) int32 tensor per scan,
-        still on the device.  The rows have a worst-case stride, so there
-        is no overflow readback for check=False to skip: check is taken
-        for the JAX package's signature and not read.  Annex-K tables code
-        through tokens and the token-row packer (fusedpack.entropy_tokens).
-        A restart interval of 0 raises ValueError: encode packs such scans
-        on the host (_encode_host_entropy) and makes no device rows."""
+        still on the device; the rest of res is the frame's clock, its row
+        counts in one tensor and the event after its kernels, which
+        assemble reads.  The work is queued, not waited for.  The rows have a worst-case stride,
+        so there is no overflow readback for check=False to skip: check is
+        taken for the JAX package's signature and not read.  Annex-K
+        tables code through tokens and the token-row packer
+        (fusedpack.entropy_tokens).  A restart interval of 0 raises
+        ValueError: encode packs such scans on the host
+        (_encode_host_entropy) and makes no device rows."""
         geo = self.resolve(image, param, param_image)
         check_supported(geo)
         if geo.param.restart_interval == 0:
@@ -230,41 +473,57 @@ class Encoder:
                              "segment, packed on the host by encode(); "
                              "encode_to_device makes the rows of restart "
                              "segments only")
-        planes, classes = self._front(image, geo)
+        return geo, self._device_rows(image, geo)
+
+    def _device_rows(self, image, geo: Geometry) -> dict:
+        """Queue a frame's upload and kernels; the clock's phases "pre",
+        "dct" and "huffman" mark the stages, the event "done" their end.
+        Nothing goes on the download stream yet: a copy queued there now
+        would hold up the previous frame's copies behind this frame's
+        kernels."""
+        clock = Clock(self.device)
+        planes, classes = self._front(image, geo, clock)
         tuned = geo.param.huffman_tables == "tuned"
         if geo.interleaved:
+            clock.mark("dct")
+            coefs = fusedpack.interleaved_rows(planes, geo, classes)
+            clock.mark("huffman")
+            nblocks = geo.mcu_count * geo.blocks_per_mcu
+            slots = fusedpack.interleaved_slots(geo, classes)
             if tuned:
-                rows, row_bytes, _needs = fusedpack.entropy_fused_u8_il(
-                    planes, geo, classes)
+                rows, rb, _needs = fusedpack.huffman_segments(
+                    coefs, nblocks, slots, fusedpack.segment_markers(
+                        geo.segment_count, coefs.device))
             else:
-                rows, row_bytes, _needs = fusedpack.entropy_tokens(
-                    fusedpack.interleaved_rows(planes, geo, classes),
-                    geo.mcu_count * geo.blocks_per_mcu,
-                    fusedpack.interleaved_slots(geo, classes))
-            return geo, {"rows": [rows], "row_bytes": [row_bytes]}
-        rows, row_bytes = [], []
-        for c in geo.components:
-            tabs = classes[c.table_index]
-            if tuned:
-                r, rb, _needs = fusedpack.entropy_fused_u8(
-                    planes[c.index], tabs, c.segment_mcu_count)
-            else:
-                r, rb, _needs = fusedpack.entropy_tokens(
-                    fusedpack.fdct_quant(planes[c.index], tabs,
-                                         c.segment_mcu_count),
-                    c.mcu_count, tabs)
-            rows.append(r)
-            row_bytes.append(rb)
-        return geo, {"rows": rows, "row_bytes": row_bytes}
-
-    def _front(self, image, geo: Geometry):
-        """The image on the session's device, preprocessed: (planes, the
-        (luma, chroma) table classes of the geometry's quality and
-        family)."""
-        if isinstance(image, torch.Tensor):
-            x = image.to(self.device)
+                rows, rb, _needs = fusedpack.entropy_tokens(coefs, nblocks,
+                                                            slots)
+            rows, row_bytes = [rows], [rb]
         else:
-            x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+            rows, row_bytes = [], []
+            for c in geo.components:
+                tabs = classes[c.table_index]
+                clock.mark("dct")
+                coefs = fusedpack.fdct_quant(planes[c.index], tabs,
+                                             c.segment_mcu_count)
+                clock.mark("huffman")
+                code = (fusedpack.huffman_segments if tuned
+                        else fusedpack.entropy_tokens)
+                r, rb, _needs = code(coefs, c.mcu_count, tabs)
+                rows.append(r)
+                row_bytes.append(rb)
+        del coefs, planes
+        clock.mark("end")
+        rb = torch.cat(row_bytes)
+        return {"rows": rows, "row_bytes": row_bytes, "clock": clock,
+                "rb": rb, "done": self._staging.event()}
+
+    def _front(self, image, geo: Geometry, clock: Optional[Clock] = None):
+        """The image on the session's device (through pinned staging from
+        the host), preprocessed: (planes, the (luma, chroma) table classes
+        of the geometry's quality and family)."""
+        (x,), _ = self._staging.upload(_as_tensor(image), clock=clock)
+        if clock is not None:
+            clock.mark("pre")
         planes = prepost_kernel.preprocess_packed(x.contiguous(), geo,
                                                   geo.param_image)
         return planes, self.classes(geo.param.quality,
@@ -276,7 +535,10 @@ class Encoder:
         (one segment a scan, fusedpack.scan_tokens), the tokens copied to
         the host, then the headers and each scan's tokens packed in
         sequence (native.pack_tokens), as the reference does with its CPU
-        coder when restart markers are off (gpujpeg_encoder.c:512-534)."""
+        coder when restart markers are off (gpujpeg_encoder.c:512-534).
+        The stats: duration_in_gpu from the start to the tokens on the
+        host, duration_stream the packing (host clock)."""
+        t0 = time.perf_counter()
         planes, classes = self._front(image, geo)
         scans = []
         if geo.interleaved:
@@ -290,44 +552,123 @@ class Encoder:
                 scans.append(fusedpack.scan_tokens(
                     fusedpack.fdct_quant(planes[c.index], tabs,
                                          c.mcu_count), c.mcu_count, tabs))
-        out = bytearray(jwriter.write_header(geo))
+        scans = [(b.cpu().numpy(), n.cpu().numpy()) for b, n in scans]
+        t1 = time.perf_counter()
+        out = bytearray(self._header(geo))
         for k, (bits, lens) in enumerate(scans):
             out += jwriter.write_scan_header(geo, k)
-            out += native.pack_tokens(bits.cpu().numpy(), lens.cpu().numpy())
+            out += native.pack_tokens(bits, lens)
         out += b"\xff\xd9"
+        self.stats.duration_in_gpu = (t1 - t0) * 1e3
+        self.stats.duration_stream = (time.perf_counter() - t1) * 1e3
         return bytes(out)
 
     def assemble(self, geo: Geometry, res, meta=None) -> bytes:
         """Host codestream assembly: headers, then each scan's rows cut to
         their byte counts (RST markers and stuffing come from the
         device).  Each scan's rows are sliced to the longest row on the
-        device before the copy to the host.  meta is taken for the JAX
-        package's signature and not read, as there."""
-        rb_all = torch.cat(res["row_bytes"]).cpu().numpy()
-        out = bytearray(jwriter.write_header(geo))
+        device and copied to pinned host memory once the frame's kernels
+        are done, all scans before the first wait.  Fills the session's
+        stats from the frame's clock where res has one (encode_to_device).
+        meta is taken for the JAX package's signature and not read, as
+        there."""
+        t0 = time.perf_counter()
+        if "rb" in res:
+            rb_all = self._staging.download(res["rb"], res["done"]).get()
+        else:
+            rb_all = self._staging.download(torch.cat(res["row_bytes"])
+                                            ).get()
+        rb_all = rb_all.numpy()
+        clock = res.get("clock")
+        bounds = geo.scan_seg_bounds
+        fetches = []
         for k in range(geo.scan_count):
-            b0, b1 = (int(geo.scan_seg_bounds[k]),
-                      int(geo.scan_seg_bounds[k + 1]))
-            rb = rb_all[b0:b1]
+            rb = rb_all[int(bounds[k]):int(bounds[k + 1])]
             width = int(rb.max()) if len(rb) else 0
-            by = res["rows"][k][:, :width].contiguous().cpu().numpy()
+            fetches.append(self._staging.download(
+                res["rows"][k][:, :width], res.get("done"), clock,
+                (f"rows{k}", f"rows{k}_end")))
+        parts = [self._header(geo)]
+        for k, f in enumerate(fetches):
+            rb = rb_all[int(bounds[k]):int(bounds[k + 1])]
             if geo.param.segment_info:
                 offs = np.concatenate([[0], np.cumsum(rb)]).astype(np.int64)
-                out += jwriter.write_segment_info_headers(k, offs)
-            out += jwriter.write_scan_header(geo, k)
-            out += native.assemble_rows(by, rb)
-        out += b"\xff\xd9"
-        return bytes(out)
+                parts.append(jwriter.write_segment_info_headers(k, offs))
+            parts.append(jwriter.write_scan_header(geo, k))
+            parts.append(native.assemble_rows(f.get().contiguous().numpy(),
+                                              rb))
+        parts.append(b"\xff\xd9")
+        if clock is not None:
+            self._read_clock(clock, geo.scan_count)
+        out = b"".join(parts)   # one copy of the stream, not a growing one
+        self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def _read_clock(self, clock: Clock, nscans: int) -> None:
+        """The stats of a frame whose rows have reached the host."""
+        st = self.stats
+        st.retries = 0
+        st.duration_memory_to = clock.ms("up0", "up1")
+        st.duration_in_gpu = clock.span()
+        st.duration_memory_from = sum(
+            clock.ms(f"rows{k}", f"rows{k}_end") for k in range(nscans))
+        if self.perf_stats:
+            ph = clock.phases()
+            st.duration_preprocessor = ph.get("pre", 0.0)
+            st.duration_dct_quantization = ph.get("dct", 0.0)
+            st.duration_huffman_coder = ph.get("huffman", 0.0)
 
     def encode(self, image, param: Optional[Parameters] = None,
                param_image: Optional[ImageParameters] = None) -> bytes:
         """Encode one raw image to a JPEG codestream.
 
-        image: (H, W, 3) uint8 numpy array or torch tensor (any device; it
-        is moved to the session's device)."""
+        image: (H, W, 3) uint8 numpy array or torch tensor (any device; a
+        host array goes to the session's device through pinned staging)."""
+        t0 = time.perf_counter()
         geo = self.resolve(image, param, param_image)
+        check_supported(geo)
         if geo.param.restart_interval == 0:
-            check_supported(geo)
-            return self._encode_host_entropy(image, geo)
-        geo, res = self.encode_to_device(image, param, param_image)
-        return self.assemble(geo, res)
+            out = self._encode_host_entropy(image, geo)
+        else:
+            out = self.assemble(geo, self._device_rows(image, geo))
+        self.aggregate.add((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def encode_pipelined(self, frames, param: Optional[Parameters] = None,
+                         param_image: Optional[ImageParameters] = None):
+        """Double-buffered encode of a frame sequence: yields one JPEG
+        codestream per frame, each byte for byte sequential encode()'s
+        (gpujpeg_tpu Encoder.encode_pipelined).
+
+        Frame i+1 is staged, uploaded (upload stream) and its kernels
+        queued (compute stream) before frame i's rows are copied back
+        (download stream, after frame i's kernels only) and assembled, so
+        the host's staging and assembly overlap the card's copies and
+        kernels, as the reference overlaps them on CUDA streams
+        (gpujpeg_encoder.c:423-424,550-563).  All frames must share the
+        first frame's shape and dtype; a mismatch raises ValueError.  At
+        restart interval 0 each frame goes through encode()."""
+        it = iter(frames)
+        first = next(it, None)
+        if first is None:
+            return
+        geo = self.resolve(first, param, param_image)
+        check_supported(geo)
+        if geo.param.restart_interval == 0:
+            # host-entropy path: no device pipeline to overlap
+            yield self.encode(first, param, param_image)
+            for f in it:
+                yield self.encode(f, param, param_image)
+            return
+        shape = _frame_shape(first)
+        prev = self._device_rows(first, geo)
+        for f in it:
+            if _frame_shape(f) != shape:
+                raise ValueError(
+                    f"encode_pipelined frames must all match the first "
+                    f"frame's shape/dtype {shape}; got {_frame_shape(f)} "
+                    "(use separate calls for mixed geometries)")
+            nxt = self._device_rows(f, geo)
+            yield self.assemble(geo, prev)
+            prev = nxt
+        yield self.assemble(geo, prev)

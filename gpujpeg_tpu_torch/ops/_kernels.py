@@ -12,8 +12,9 @@ are loaded with ctypes: every pointer and the stream pass as
 ``cudaGetLastError()`` after its launch, and ``launch`` raises when that
 is not 0.  Nothing here runs when the module is imported, and nothing runs
 on the CPU: the wrappers in prepost_kernel.py, fusedpack.py,
-huffdec_kernel.py and relayout.py take their plain versions for CPU
-tensors and call ``launch`` for CUDA tensors.  ``csrc/*.cuh`` are headers
+huffdec_kernel.py, relayout.py and models/decoder.py (the DC fix-up)
+take their plain versions for CPU tensors and call ``launch`` for CUDA
+tensors.  ``csrc/*.cuh`` are headers
 shared between kernels (colour transform, DCT tiles, the Huffman coders'
 warp bit buffer, the Huffman decoders' bit window).
 
@@ -88,6 +89,9 @@ _SIGNATURES: Dict[str, List] = {
     # in, R, C, out, stream
     "pair_sum_rows": [_P, _I64, _I, _P, _P],
     "pack_u8_quads": [_P, _I64, _I, _P, _P],
+    # DC row, nseg, bps, bpm, component pattern, components, tile sums
+    # (null for short rows), tiles, stream
+    "dc_fixup": [_P, _I64, _I64, _I, _I64, _I, _P, _I, _P],
 }
 
 #: kernels whose source is not csrc/<name>.cu: kernel name -> source name

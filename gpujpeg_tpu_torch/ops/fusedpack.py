@@ -80,27 +80,39 @@ class ClassTables:
     max_block_bits: int     # longest possible coding of one block
 
 
+def _code_luts(quality: int, luma: bool, family: str):
+    """(DC, AC) code tables of a class, (len << 16 | code) an entry."""
+    return (tables.huffman_encode_lut(*tables.huffman_spec_for("dc", luma),
+                                      16),
+            tables.huffman_encode_lut(*tables.ac_spec(luma, quality, family),
+                                      256))
+
+
+def block_bits(quality: int, luma: bool, family: str = "tuned") -> int:
+    """The longest possible coding of one block in a class's tables
+    (ClassTables.max_block_bits): the DC code and up to 11 value bits,
+    and for each of the 63 AC slots at most one token of code and up to
+    10 value bits (ZRL and EOB carry none)."""
+    dc, ac = _code_luts(quality, luma, family)
+    return (int((dc[:12] >> 16).max()) + 11
+            + 63 * (int((ac >> 16).max()) + 10))
+
+
 def class_tables(quality: int, luma: bool, device,
                  family: str = "tuned") -> ClassTables:
     """Tables of one class with the AC code family `family` ("tuned" or
     "annexk", tables.ac_spec); the DC codes are Annex K's in both."""
     qtab = tables.quant_table_zz(luma, quality)
     mq, bias = tables.fdct_fused_matrix(qtab)
-    dc = tables.huffman_encode_lut(*tables.huffman_spec_for("dc", luma), 16)
-    ac = tables.huffman_encode_lut(*tables.ac_spec(luma, quality, family),
-                                   256)
+    dc, ac = _code_luts(quality, luma, family)
     luts = np.concatenate([dc, ac])        # entries < 2^21: exact in int32
-    # DC: code + up to 11 value bits; each of 63 AC slots emits at most one
-    # token of code + up to 10 value bits (ZRL and EOB carry none)
-    max_dc = int((dc[:12] >> 16).max()) + 11
-    max_ac = int((ac >> 16).max()) + 10
     return ClassTables(
         qtab=qtab,
         # row-major: fdct_fused_matrix may hand back a column-major array
         mq=torch.from_numpy(np.ascontiguousarray(mq)).to(device),
         bias=torch.from_numpy(bias).to(device),
         luts=torch.from_numpy(luts.astype(np.int32)).to(device),
-        max_block_bits=max_dc + 63 * max_ac)
+        max_block_bits=block_bits(quality, luma, family))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,10 +147,15 @@ def one_slot(tabs: ClassTables) -> SlotTables:
 
 def pack_stride(slots: Sequence[ClassTables]) -> int:
     """Worst-case bytes of one segment row whose block slots take these
-    classes: every block at its class's longest coding, doubled for
-    stuffing, plus the 2-byte marker, rounded up to 16."""
-    raw = -(-sum(t.max_block_bits for t in slots) // 8)
-    return -(-(2 * raw + 2) // 16) * 16
+    classes: every block at its class's longest coding (bits_stride)."""
+    return bits_stride(sum(t.max_block_bits for t in slots))
+
+
+def bits_stride(bits: int) -> int:
+    """Worst-case bytes of a segment row that codes in at most `bits`
+    bits: doubled for stuffing, plus the 2-byte marker, rounded up to
+    16."""
+    return -(-(2 * -(-bits // 8) + 2) // 16) * 16
 
 
 def row_stride(rst: int, tabs: ClassTables) -> int:

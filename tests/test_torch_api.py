@@ -1,8 +1,8 @@
 """PyTorch port, public surface: every public name of gpujpeg_tpu and every
 public method of its Encoder and Decoder exists in gpujpeg_tpu_torch, with
-the same static-ness and parameter names; the methods the port does not
-have yet raise NotImplementedError naming their ROADMAP item.  No frames:
-cheap."""
+the same static-ness and parameter names, and none is a stub any more
+(STUBS, the methods the port did not have yet, is empty since the session
+surface was ported).  No frames: cheap."""
 
 import inspect
 import re
@@ -24,20 +24,15 @@ METHODS = [(cls, n) for cls in ("Encoder", "Decoder")
            and callable(getattr(getattr(gj, cls), n))]
 
 #: (session, method) -> the ROADMAP queue 1 item of an unported method
-STUBS = {("Encoder", n): 10 for n in (
-    "allocate", "estimate_memory", "max_pixels", "max_memory",
-    "encode_pipelined", "get_stats", "print_options")}
-STUBS.update({("Decoder", n): 10 for n in (
-    "get_stats", "print_options", "compile_stream_pipeline", "warmup",
-    "decode_pipelined", "pack_stream")})
+STUBS = {}
 
 
 def test_names_and_methods_listed():
     """The cases below cover the JAX package's whole public surface: 13
-    names, 12 methods a session, 13 of them not ported yet."""
+    names, 12 methods a session, none of them a stub."""
     assert len(NAMES) == 13 and "default_parameters" in NAMES
     assert len(METHODS) == 24
-    assert set(STUBS) <= set(METHODS)
+    assert STUBS == {}
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -60,8 +55,9 @@ def _params(fn):
                          ids=[f"{c}.{n}" for c, n in METHODS])
 def test_port_session_method(cls, name):
     """F2: the port's session has the method, static on both sides or on
-    neither, with the same parameter names; an unported one raises
-    NotImplementedError naming its item, never AttributeError."""
+    neither, with the same parameter names; an unported one (in STUBS)
+    would raise NotImplementedError naming its item, never
+    AttributeError."""
     ref_cls, got_cls = getattr(gj, cls), getattr(gt, cls)
     assert hasattr(got_cls, name), f"{cls}.{name}"
     static = isinstance(inspect.getattr_static(ref_cls, name), staticmethod)

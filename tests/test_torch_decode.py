@@ -102,7 +102,7 @@ def test_unported_output_raises():
     with pytest.raises(NotImplementedError, match="item 6"):
         dec.decode(data, gt.ImageParameters(
             pixel_format=gt.PixelFormat.P444_U8_P0P1P2))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         dec.set_option("dec_opt_tga_rle", "true")
     # a JAX ImageParameters is accepted as param_image
     got = dec.decode(data, gj.ImageParameters(

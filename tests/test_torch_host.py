@@ -131,8 +131,8 @@ def test_encoder_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["interleaved", "subsampled",
-                                  "planar_411", "exif_tag", "grey", "rgba",
-                                  "option"])
+                                  "planar_411", "channel_remap", "grey",
+                                  "rgba", "option"])
 def test_outside_main_path_raises(case):
     enc = gt.Encoder(device="cpu")
     frame = np.zeros((16, 16, 3), np.uint8)
@@ -155,8 +155,9 @@ def test_outside_main_path_raises(case):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         if case == "option":
             enc.set_option("enc_opt_flipped", "true")
-        if case == "exif_tag":
-            enc.set_option("enc_exif_tag", "0x010e:ASCII:port")
+        if case == "channel_remap":
+            # enc_exif_tag is ported: tests/test_torch_options.py
+            enc.set_option("enc_opt_channel_remap", "210")
         enc.encode(frame, p)
 
 

@@ -10,6 +10,8 @@ machine with a card and no JAX:
 the others check, on any machine, that a wrapper never falls back quietly.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -1940,3 +1942,119 @@ def test_decode_kernels_refuse_int32_cursor_overflow(cuda):
     bstart = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         thd.decode_blocks(words, bstart, one, one, one, tab, lut=blut)
+
+
+# -- the DC fix-up (csrc/dc_fixup.cu) -----------------------------------------
+
+#: (rows, slots a row, the component of each slot of an MCU): the tuned
+#: paths' short rows (planar, interleaved 4:2:0, interleaved 4:4:4 of two
+#: MCUs), rows at and just past the short path's limit, and restart 0's
+#: long rows of one tile and more (planar, interleaved with a pattern)
+FIXUP_CASES = [(5000, 8, (0,)), (3000, 6, (0, 0, 0, 0, 1, 2)),
+               (3000, 6, (0, 1, 2)), (9, 64, (0, 1)), (7, 65, (0,)),
+               (3, 20000, (0,)), (1, 8193, (0,)),
+               (1, 30000, (0, 0, 0, 0, 1, 2)), (2, 24576, (0, 1, 2))]
+
+
+def fixup_plan(bps, ent, device="cpu"):
+    """The fields of a decoder Plan that dc_fixup reads, for rows of bps
+    slots whose MCU's slots belong to components ent, as _make_plan sets
+    them."""
+    bpm = len(ent)
+    slot_comp = np.tile(np.asarray(ent), bps // bpm)
+    slots = None if bpm == 1 else tuple(
+        torch.from_numpy(np.flatnonzero(slot_comp == c)).to(device)
+        for c in sorted(set(ent)))
+    return types.SimpleNamespace(
+        bps=bps, comp_slots=slots,
+        comp_pattern=(bpm, sum(e << 2 * j for j, e in enumerate(ent)),
+                      len(set(ent))))
+
+
+def dc_coefs(seed, nseg, bps, amp=2047):
+    """(64, nseg * bps) int16 coefficients, seeded, in [-amp, amp]: row 0
+    the differential DCs."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-amp, amp + 1, (64, nseg * bps))
+                            .astype(np.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nseg,bps,ent", FIXUP_CASES)
+def test_dc_fixup_kernel_matches_plain(cuda, nseg, bps, ent):
+    """The fix-up kernel equals its plain version _dc_fixup_t bit for bit
+    in place, sums past int16 wrapping as the torch cumsum's do, rows 1-63
+    untouched, in one counted launch."""
+    want = tdec._dc_fixup_t(dc_coefs(nseg + bps, nseg, bps), nseg, bps,
+                            fixup_plan(bps, ent).comp_slots)
+    x = dc_coefs(nseg + bps, nseg, bps).to(cuda)
+    _kernels.reset_launches()
+    out = tdec.dc_fixup(x, fixup_plan(bps, ent, cuda))
+    assert out is x and _kernels.LAUNCHES["dc_fixup"] == 1
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_dc_fixup_kernel_refuses(cuda):
+    """The wrapper raises on what the kernel does not take, and never
+    takes the plain version for a CUDA tensor."""
+    plan = fixup_plan(8, (0,), cuda)
+    with pytest.raises(ValueError, match="int16"):
+        tdec.dc_fixup(torch.zeros((64, 16), dtype=torch.int32,
+                                  device=cuda), plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdec.dc_fixup(torch.zeros((16, 64), dtype=torch.int16,
+                                  device=cuda).T, plan)
+
+
+# -- the session surface on the card ------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["planar_444", "il_420"])
+def test_pipelined_sessions_on_card(cuda, layout):
+    """encode_pipelined and decode_pipelined on the card: every stream the
+    CPU's bytes, every yielded array (all kept to the end) the CPU's
+    pixels; the device-only decode and a warmed session agree; the stats
+    of a frame are filled from its events."""
+    p = _foreign_params(layout, "tuned", gt.RESTART_AUTO, 75)
+    frames = [_frame(96, 128, 40 + i) for i in range(3)] \
+        + [_frame(96, 128, 43, amp=127)]
+    cpu_enc, cpu_dec = gt.Encoder(device="cpu"), gt.Decoder(device="cpu")
+    want = [cpu_enc.encode(f, p) for f in frames]
+    enc = gt.Encoder(device=cuda)
+    enc.perf_stats = True
+    assert list(enc.encode_pipelined(frames, p)) == want
+    st = enc.get_stats()
+    assert st.duration_in_gpu > 0 and st.duration_memory_to > 0
+    assert st.duration_huffman_coder > 0 and st.duration_memory_from > 0
+    dec = gt.Decoder(device=cuda)
+    dec.perf_stats = True
+    kept = list(dec.decode_pipelined(want + want[:2]))
+    for data, got in zip(want + want[:2], kept):
+        assert np.array_equal(got, cpu_dec.decode(data))
+    assert len({g.ctypes.data for g in kept}) == len(kept)
+    fn, words, nbits = dec.compile_stream_pipeline(want[1])
+    assert np.array_equal(fn(words, nbits).cpu().numpy(), kept[1])
+    warm = gt.Decoder(device=cuda)
+    warm.warmup(want[0])
+    assert np.array_equal(warm.decode(want[2]), kept[2])
+    assert dec.get_stats().duration_in_gpu > 0
+
+
+@pytest.mark.gpu
+def test_encoder_memory_estimate_on_card(cuda):
+    """estimate_memory is not below the peak device bytes of one encode
+    at HD in planar 4:4:4 and interleaved 4:2:0."""
+    frame = _frame(1080, 1920, 50)
+    enc = gt.Encoder(device=cuda)
+    for layout in ("planar_444", "il_420"):
+        p = _foreign_params(layout, "tuned", gt.RESTART_AUTO, 75)
+        enc.encode(frame, p)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        enc.encode(frame, p)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert gt.Encoder.estimate_memory(
+            p, enc.resolve(frame, p).param_image) >= peak
