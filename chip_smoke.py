@@ -113,7 +113,29 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      device-only decode (pixels and ms); get_stats() with perf_stats
      on; and estimate_memory against the measured peak of one encode in
      six layouts;
- 12. [relayout]: the four relayout and primitive kernels of
+ 12. [formats]: every pixel format, component count and sampling
+     (formats_phases):
+     a. the pre, post and dpost instances of the other formats at 8K
+        against their plain versions, error 0, each timed beside its
+        bound, its plain version and, where one PyTorch call computes the
+        same (the U8 preprocessor: F.pad; the U8 postprocessor: a slice
+        copy; dpost: three torch.matmul), that call: U8, UYVY, planar
+        4:2:0 and 4:4:4 and RGBA inputs; RGBA outputs from 3 planes at
+        4:4:4 and 4:2:0 and from 4 planes, U8, planar 4:2:0 and UYVY
+        outputs; dpost's RGBA store at dx = dy = 1 and 2;
+     b. HD (1920x1080) card bytes and arrays against the CPU's for every
+        input and output format, 4:1:1, 4 components and the flip, remap
+        and alignment options;
+     c. three 8K frames of each FORMAT_LAYOUTS layout (greyscale U8 in
+        and out; UYVY in, 4:2:2, UYVY out; RGBA with 4 components in and
+        out; planar 4:2:0 in, interleaved 4:2:0, planar out via STD;
+        interleaved 4:1:1 from planar 4:4:4; RGB in, RGBA out through
+        dpost) through Encoder.encode and Decoder.decode in main-path
+        windows: launch counts (the pre and post kernels ran, no plain
+        pre- or postprocessor did), PSNR of the raw output against the
+        input, wall ms (median and quartiles) and a stage split
+        (get_stats under perf_stats);
+ 13. [relayout]: the four relayout and primitive kernels of
      csrc/relayout.cu (the H100 counterparts of the JAX package's TPU
      probes tools/proto_xbdkernel.py, tools/profile_transpose.py and
      tools/profile_prims.py; on no codec path) at those tools' 8K shapes
@@ -125,7 +147,7 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      200 launches, the same of an empty kernel launched as each is (its
      grid and block, through the same path) and of a
      device-to-device copy_ that moves the same bytes, read and written;
- 13. prints the decomposition line of the tiled kernels (fdct_quant,
+ 14. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
      coefficient 0), of phase C (planar 4:4:4, interleaved 4:2:0:
@@ -142,13 +164,13 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      counterpart of the JAX package's TPU probes tools/proto_xq.py and
      tools/profile_dpost5.py; the full stage is held against the plain
      version (error 0);
- 14. prints one JSON line of per-kernel records, every kernel and mode
+ 15. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists; the tokens and ns a token of phases A
      and C on each of the four paths; the preprocessor in ms a frame,
      one launch a frame; a note where a record is on no path);
- 15. prints {"ok": true, "device": {...}} as its last line.
+ 16. prints {"ok": true, "device": {...}} as its last line.
 
 Launches are counted in windows around each path's three 8K frames
 (end_window); a record's launches are its kernel's sum over those
@@ -733,18 +755,20 @@ def decode_phases(torch, np, gt, dev, streams, frames, noise_stream,
     return kernels, launches
 
 
-def dpost_times(torch, k, coefs, img, p, hf, flush) -> None:
+def dpost_times(torch, k, coefs, img, p, hf, flush, probe=True) -> None:
     """dpost_rgb's time, bound and library yardstick at the path's shapes,
-    into record k."""
+    into record k, and its decomposition stages unless probe is False
+    (the probe's stages store RGB only)."""
     from gpujpeg_tpu_torch.ops import prepost_kernel
 
     k["ms"] = event_ms(torch, lambda: prepost_kernel.decode_post(
         coefs, p.qtabs, p.geo, hf.out_pi), 20, flush)
-    k["probe"] = probe_ms(
-        torch, lambda st: prepost_kernel.decode_post_probe(
-            coefs, p.qtabs, p.geo, hf.out_pi, st),
-        lambda: prepost_kernel.decode_post_plain(coefs, p.qtabs, p.geo,
-                                                 hf.out_pi), flush)
+    if probe:
+        k["probe"] = probe_ms(
+            torch, lambda st: prepost_kernel.decode_post_probe(
+                coefs, p.qtabs, p.geo, hf.out_pi, st),
+            lambda: prepost_kernel.decode_post_plain(coefs, p.qtabs, p.geo,
+                                                     hf.out_pi), flush)
     cols = prepost_kernel.component_columns(p.geo)
     nblk = sum(n for _, n in cols)        # each chroma sample counted once
     k["bound_ms"] = max(
@@ -2306,6 +2330,449 @@ def session_phases(torch, np, gt, dev, flush):
     return rec
 
 
+#: the [formats] step's main-path layouts: tag -> (input kind, sampling
+#: or None for the input format's own, interleaved, output request (a
+#: PixelFormat or a PixelFormatRequest), the colour space of the input
+#: and the output: YUV data (UYVY, planar) is the JPEG's YCbCr, so the
+#: decoded raw output compares with the input)
+FORMAT_LAYOUTS = {
+    "grey": ("u8", None, False, "U8", "RGB"),
+    "uyvy_422": ("uyvy", None, False, "P422_U8_P1020",
+                 "YCBCR_BT601_256LVLS"),
+    "rgba_four": ("rgba", None, False, "P4444_U8_P0123", "RGB"),
+    "p420_il_420": ("p420", ((2, 2), (1, 1), (1, 1)), True, "STD",
+                    "YCBCR_BT601_256LVLS"),
+    "il_411": ("p444", ((4, 1), (1, 1), (1, 1)), True, "P444_U8_P0P1P2",
+               "YCBCR_BT601_256LVLS"),
+    "rgb_to_rgba": ("rgb", None, False, "P4444_U8_P0123", "RGB"),
+}
+#: 8K frames of each [formats] layout timed after the three counted
+FORMAT_EXTRA = 3
+
+#: the [formats] step's kernel instances: record -> (kernel, the layout
+#: whose windows count its launches or None, the 8K case: for the
+#: preprocessor an input kind and a sampling, for the postprocessor an
+#: output format and a sampling, for dpost a sampling)
+FORMAT_RECORDS = {
+    "pre_rgb_to_planes:u8": ("pre_rgb_to_planes", "grey", ("u8", None)),
+    "pre_rgb_to_planes:uyvy": ("pre_rgb_to_planes", "uyvy_422",
+                               ("uyvy", None)),
+    "pre_rgb_to_planes:p420": ("pre_rgb_to_planes", "p420_il_420",
+                               ("p420", None)),
+    "pre_rgb_to_planes:p444": ("pre_rgb_to_planes", "il_411",
+                               ("p444", None)),
+    "pre_rgb_to_planes:rgba": ("pre_rgb_to_planes", "rgba_four",
+                               ("rgba", None)),
+    "post_rgb:rgba_444": ("post_rgb", None,
+                          ("P4444_U8_P0123", ((1, 1),) * 3)),
+    "post_rgb:rgba_420": ("post_rgb", None,
+                          ("P4444_U8_P0123", ((2, 2), (1, 1), (1, 1)))),
+    "post_rgb:four": ("post_rgb", "rgba_four",
+                      ("P4444_U8_P0123", ((1, 1),) * 4)),
+    "post_rgb:u8": ("post_rgb", "grey", ("U8", ((1, 1),))),
+    "post_rgb:p420": ("post_rgb", "p420_il_420",
+                      ("P420_U8_P0P1P2", ((2, 2), (1, 1), (1, 1)))),
+    "post_rgb:uyvy": ("post_rgb", "uyvy_422",
+                      ("P422_U8_P1020", ((2, 1), (1, 1), (1, 1)))),
+    "dpost_rgb:rgba_444": ("dpost_rgb", "rgb_to_rgba", ((1, 1),) * 3),
+    "dpost_rgb:rgba_420": ("dpost_rgb", None,
+                           ((2, 2), (1, 1), (1, 1))),
+}
+#: the JAX kernels the instances replace (or, where the JAX package runs
+#: XLA for a format, the Pallas kernel of the same stage)
+FORMAT_REPLACES = {"pre_rgb_to_planes": "gpujpeg_tpu/ops/prepost_kernel.py:88",
+                   "post_rgb": "gpujpeg_tpu/ops/prepost_kernel.py:231",
+                   "dpost_rgb": "gpujpeg_tpu/ops/prepost_kernel.py:379"}
+
+
+def format_frame(torch, kind, seed, h, w, dev, pad=0):
+    """A seeded raw frame of an input kind, made on the device and
+    returned on the host: (H, W) greyscale, (H, W, 3) RGB, (H, W, 4) RGBA
+    (alpha a ramp), flat UYVY or planar 4:2:0 / 4:4:4 buffers; flat
+    packed rows padded by pad bytes."""
+    rgb = make_frame(torch, "gradient", seed, h, w, dev)
+    if kind == "u8":
+        out = rgb[..., 0]
+    elif kind == "rgb":
+        out = rgb
+    elif kind == "rgba":
+        yy = torch.arange(h, device=dev)[:, None]
+        xx = torch.arange(w, device=dev)[None, :]
+        alpha = ((xx * 3 + yy * 5) % 256).to(torch.uint8)
+        out = torch.cat([rgb, alpha[..., None]], -1)
+    elif kind == "uyvy":
+        out = torch.stack([rgb[:, ::2, 1], rgb[:, ::2, 0], rgb[:, ::2, 2],
+                           rgb[:, 1::2, 0]], -1).reshape(h, 2 * w)
+    elif kind in ("p420", "p444"):
+        s = 2 if kind == "p420" else 1
+        out = torch.cat([rgb[..., 0].reshape(-1),
+                         rgb[::s, ::s, 1].reshape(-1),
+                         rgb[::s, ::s, 2].reshape(-1)])
+    else:
+        raise ValueError(kind)
+    if pad:
+        rows = out.reshape(h, -1)
+        out = torch.cat([rows, torch.full((h, pad), 7, dtype=torch.uint8,
+                                          device=dev)], 1).reshape(-1)
+    elif kind == "uyvy":
+        out = out.reshape(-1)
+    return out.contiguous().cpu().numpy()
+
+
+#: input kind -> its pixel format
+FORMAT_OF = {"u8": "U8", "rgb": "P444_U8_P012", "rgba": "P4444_U8_P0123",
+             "uyvy": "P422_U8_P1020", "p420": "P420_U8_P0P1P2",
+             "p444": "P444_U8_P0P1P2"}
+
+
+def format_params(gt, kind, samp, il, h, w, pad=0, cs="RGB"):
+    """(Parameters, ImageParameters) of a [formats] input."""
+    p = gt.Parameters(quality=QUALITY, restart_interval=gt.RESTART_AUTO,
+                      interleaved=il)
+    if samp:
+        p = p.chroma_subsampled(samp)
+    pi = gt.ImageParameters(width=w, height=h,
+                            color_space=gt.ColorSpace[cs],
+                            pixel_format=gt.PixelFormat[FORMAT_OF[kind]],
+                            width_padding=pad)
+    return p, pi
+
+
+def format_request(gt, name, cs="RGB"):
+    """ImageParameters asking a decoder for a format or a pseudo format."""
+    from gpujpeg_tpu_torch.types import PixelFormatRequest
+
+    pf = (gt.PixelFormat[name] if name in gt.PixelFormat.__members__
+          else PixelFormatRequest[name])
+    return gt.ImageParameters(color_space=gt.ColorSpace[cs],
+                              pixel_format=pf)
+
+
+class PlainCalls:
+    """Counts the calls of the plain pre- and postprocessor inside a
+    window (sample.preprocess and sample.postprocess, which every plain
+    version of the pixel stages reaches): a card path must make none."""
+
+    def __init__(self):
+        from gpujpeg_tpu_torch.ops import sample
+
+        self.sample = sample
+        self.calls = 0
+        self.real = (sample.preprocess, sample.postprocess)
+
+    def __enter__(self):
+        def count(fn):
+            def wrapped(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return wrapped
+
+        self.sample.preprocess = count(self.real[0])
+        self.sample.postprocess = count(self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.sample.preprocess, self.sample.postprocess = self.real
+        return False
+
+
+def format_instances(torch, np, gt, dev, flush, kernels):
+    """[formats] a: each new pre, post and dpost instance at 8K against its
+    plain version (error 0), its CUDA-event ms beside its bound, the plain
+    version's ms and, where one PyTorch call computes the same, that
+    call's ms."""
+    import torch.nn.functional as F
+
+    from gpujpeg_tpu_torch.ops import prepost_kernel
+    from gpujpeg_tpu_torch.utils.geometry import get_geometry
+
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    for name, (key, _lay, case) in FORMAT_RECORDS.items():
+        k = kernels[name]
+        if key == "pre_rgb_to_planes":
+            kind, samp = case
+            raw = torch.from_numpy(format_frame(torch, kind, 900, H8K, W8K,
+                                                dev)).to(dev)
+            p, pi = format_params(gt, kind, samp, False, H8K, W8K)
+            geo = enc.resolve(raw, p, pi)
+            fn = lambda: prepost_kernel.preprocess_packed(raw, geo, pi)
+            got = fn()
+            ref, k["plain_ms"] = once_ms(
+                torch, lambda: prepost_kernel.preprocess_packed_plain(
+                    raw, geo, pi))
+            k["err"] = max(diff(a, b) for a, b in zip(got, ref))
+            out_bytes = sum(g_.numel() for g_ in got)
+            k["bound_ms"] = (raw.numel() + out_bytes) / PEAK_BYTES_S * 1e3
+            if kind == "u8":    # one plane: the frame zero-padded
+                c0 = geo.components[0]
+                k["library_ms"] = event_ms(torch, lambda: F.pad(
+                    raw, (0, c0.data_width - W8K, 0, c0.data_height - H8K)),
+                    20, flush)
+            del got, ref
+        elif key == "post_rgb":
+            pf, samp = case
+            pi = format_request(gt, pf).with_(width=W8K, height=H8K)
+            geo = get_geometry(gt.Parameters(
+                quality=QUALITY, restart_interval=8).chroma_subsampled(samp),
+                pi)
+            g = torch.Generator(device=dev)
+            g.manual_seed(901)
+            planes = [torch.randint(0, 256, (c.data_height, c.data_width),
+                                    generator=g, device=dev,
+                                    dtype=torch.uint8)
+                      for c in geo.components]
+            fn = lambda: prepost_kernel.postprocess_packed(planes, geo, pi)
+            got = fn()
+            ref, k["plain_ms"] = once_ms(
+                torch, lambda: prepost_kernel.postprocess_packed_plain(
+                    planes, geo, pi))
+            k["err"] = diff(got, ref) if got.shape == ref.shape else 255
+            k["bound_ms"] = (sum(p_.numel() for p_ in planes)
+                             + got.numel()) / PEAK_BYTES_S * 1e3
+            if pf == "U8":      # one plane: its image part, copied
+                k["library_ms"] = event_ms(
+                    torch, lambda: planes[0][:H8K, :W8K].clone(), 20, flush)
+            del got, ref
+        else:
+            frame = make_frame(torch, "gradient", 902, H8K, W8K,
+                               dev).cpu().numpy()
+            data = enc.encode(frame, gt.Parameters(
+                quality=QUALITY, restart_interval=gt.RESTART_AUTO)
+                .chroma_subsampled(case))
+            hf = dec.prepare(data, format_request(gt, "P4444_U8_P0123"))
+            coefs, _ea, _ec = dec.coefficients_t(hf)
+            p = hf.plan
+            if not prepost_kernel.decode_post_supported(p.geo, hf.out_pi):
+                raise AssertionError(f"{name}: the 8K stream does not take "
+                                     "dpost")
+            fn = lambda: prepost_kernel.decode_post(coefs, p.qtabs, p.geo,
+                                                    hf.out_pi)
+            got = fn()
+            ref, k["plain_ms"] = once_ms(
+                torch, lambda: prepost_kernel.decode_post_plain(
+                    coefs, p.qtabs, p.geo, hf.out_pi))
+            k["err"] = diff(got, ref)
+            if got.shape != (H8K, W8K, 4) or not bool(
+                    (got[..., 3] == 255).all()):
+                raise AssertionError(f"{name}: not RGBA with alpha 255")
+            dpost_times(torch, k, coefs, got, p, hf, flush, probe=False)
+            del got, ref, coefs
+        torch.cuda.synchronize()
+        if k["err"]:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 "8K")
+        if key != "dpost_rgb":
+            k["ms"] = event_ms(torch, fn, 20, flush)
+        log(f"[formats a] {name}: error 0 at 8K; {k['ms']:.4f} ms (bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
+            f"{k['plain_ms']:.3f} ms, library "
+            + ("-" if k["library_ms"] is None
+               else f"{k['library_ms']:.4f}") + " ms")
+
+
+#: [formats] b: input kinds and (sampling, interleaved, options) encoded
+#: at HD on the card and on the CPU
+FORMAT_HD_ENCODES = (
+    ("u8", 0, None, False, ()), ("u8", 0, ((1, 1),) * 3, False, ()),
+    ("rgb", 5, None, False, ()), ("rgb", 0, ((1, 1),), False, ()),
+    ("rgba", 0, None, False, ()), ("rgba", 0, None, True, ()),
+    ("rgba", 3, None, False, ()), ("uyvy", 4, None, False, ()),
+    ("uyvy", 0, None, True, ()), ("p444", 0, None, False, ()),
+    ("p420", 0, None, False, ()),
+    ("rgb", 0, ((4, 1), (1, 1), (1, 1)), False, ()),
+    ("p444", 0, ((4, 1), (1, 1), (1, 1)), True, ()),
+    ("rgb", 0, ((2, 2), (2, 1), (2, 1)), True, ()),
+    ("rgb", 0, None, False, (("enc_opt_flipped", "true"),
+                             ("enc_opt_channel_remap", "2F0Z"))))
+
+
+def format_hd(torch, np, gt, dev):
+    """[formats] b: 1920x1080 card bytes and arrays against the CPU's for
+    every input and output format, 4:1:1, 4 components and the
+    options."""
+    h, w = 1080, 1920
+    streams = {}
+    for i, (kind, pad, samp, il, opts) in enumerate(FORMAT_HD_ENCODES):
+        raw = format_frame(torch, kind, 60 + i, h, w, dev, pad)
+        p, pi = format_params(gt, kind, samp, il, h, w, pad)
+        card, cpu = gt.Encoder(device=dev), gt.Encoder(device="cpu")
+        for key, value in opts:
+            card.set_option(key, value)
+            cpu.set_option(key, value)
+        data = card.encode(raw, p, pi)
+        if data != cpu.encode(raw, p, pi):
+            raise AssertionError(f"HD {kind} {samp} il={il} pad={pad} "
+                                 f"{opts}: card bytes differ from the CPU's")
+        streams[(kind, samp, il)] = data
+    log(f"[formats b] HD encodes card == cpu: {len(FORMAT_HD_ENCODES)} "
+        "input kinds and layouts (U8 2-D, RGB and RGBA flat with padded "
+        "rows, RGBA at 4 components planar and interleaved, UYVY padded "
+        "and interleaved, P444 and P420 planar, RGB at 1 component, U8 at "
+        "3, 4:1:1 planar and interleaved, interleaved (2,2),(2,1),(2,1), "
+        "flip and remap)")
+    s420 = ((2, 2), (1, 1), (1, 1))
+    rgb420 = gt.Encoder(device=dev).encode(
+        format_frame(torch, "rgb", 90, h, w, dev),
+        format_params(gt, "rgb", s420, False, h, w)[0])
+    cases = [(rgb420, name, ()) for name in (
+        "U8", "P444_U8_P012", "P4444_U8_P0123", "P422_U8_P1020",
+        "P444_U8_P0P1P2", "P422_U8_P0P1P2", "P420_U8_P0P1P2", "NATIVE",
+        "NO_ALPHA")]
+    cases += [(streams[("u8", None, False)], "U8", ()),
+              (streams[("u8", None, False)], "P420_U8_P0P1P2", ()),
+              (streams[("rgba", None, False)], "P4444_U8_P0123", ()),
+              (streams[("rgba", None, True)], "AUTODETECT", ()),
+              (streams[("p444", ((4, 1), (1, 1), (1, 1)), True)],
+               "P444_U8_P012", ()),
+              (rgb420, "P444_U8_P012", (("dec_opt_flipped", "true"),
+                                        ("dec_opt_channel_remap", "2F0"),
+                                        ("dec_opt_alignment_bytes",
+                                         "256")))]
+    for data, name, opts in cases:
+        card, cpu = gt.Decoder(device=dev), gt.Decoder(device="cpu")
+        for key, value in opts:
+            card.set_option(key, value)
+            cpu.set_option(key, value)
+        pi = format_request(gt, name)
+        got, want = card.decode(data, pi), cpu.decode(data, pi)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"HD decode to {name} {opts}: card array "
+                                 "differs from the CPU's")
+    log(f"[formats b] HD decodes card == cpu: {len(cases)} (every output "
+        "format and pseudo request of a 4:2:0 stream, greyscale, 4 "
+        "components, 4:1:1, flip + remap + alignment)")
+
+
+def format_main_path(torch, np, gt, dev):
+    """[formats] c: three 8K frames of each FORMAT_LAYOUTS layout through
+    Encoder.encode and their streams through Decoder.decode in main-path
+    windows: launches (the pre and post kernels ran, no plain version
+    did), the PSNR of the decoded raw output against the input, wall ms
+    (median and quartiles, FORMAT_EXTRA more frames) and a stage split
+    (get_stats with perf_stats on).  Returns the launches by layout."""
+    from gpujpeg_tpu_torch.ops import _kernels
+
+    by_layout = {}
+    for tag, (kind, samp, il, out, cs) in FORMAT_LAYOUTS.items():
+        frames = [format_frame(torch, kind, 910 + i, H8K, W8K, dev)
+                  for i in range(3)]
+        p, pi = format_params(gt, kind, samp, il, H8K, W8K, cs=cs)
+        req = format_request(gt, out, cs)
+        enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+        launches = {}
+        for stage in ("enc", "dec"):
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            walls, outs = [], []
+            with PlainCalls() as plain:
+                for i in range(3):
+                    t0 = time.perf_counter()
+                    outs.append(enc.encode(frames[i], p, pi)
+                                if stage == "enc"
+                                else dec.decode(streams[i], req))
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            end_window()
+            ln = {n: v for n, v in _kernels.LAUNCHES.items() if v}
+            launches[stage] = ln
+            if plain.calls:
+                raise AssertionError(f"[formats] {tag} {stage}: a plain "
+                                     "pre/postprocessor ran on the card")
+            need = (("pre_rgb_to_planes",) if stage == "enc" else
+                    ("dpost_rgb",) if tag == "rgb_to_rgba" else
+                    ("idct_planes", "post_rgb"))
+            if any(ln.get(n, 0) != 3 for n in need):
+                raise AssertionError(f"[formats] {tag} {stage}: launches "
+                                     f"{ln}")
+            if stage == "enc":
+                streams = outs
+                geo = enc.resolve(frames[0], p, pi)
+                for s_ in streams:
+                    check_stream(np, s_, geo.segment_count - geo.scan_count,
+                                 f"8K {tag}")
+                desc = (f"bytes {[len(s_) for s_ in streams]}, "
+                        f"{geo.comp_count} components, sampling "
+                        f"{[(c.samp_h, c.samp_v) for c in geo.components]}"
+                        f", {'interleaved' if geo.interleaved else 'planar'}"
+                        f" scans, rst {geo.param.restart_interval}")
+            else:
+                ref = frames
+                if tag == "rgb_to_rgba":
+                    ref = [np.concatenate([f, np.full(f.shape[:2] + (1,),
+                                                      255, np.uint8)], -1)
+                           for f in frames]
+                if any(o.shape != r.shape for o, r in zip(outs, ref)):
+                    raise AssertionError(f"[formats] {tag}: decoded shape "
+                                         f"{outs[0].shape}, input "
+                                         f"{ref[0].shape}")
+                psnrs = [psnr(np, o, r) for o, r in zip(outs, ref)]
+                if min(psnrs) < 20:
+                    raise AssertionError(f"[formats] {tag}: PSNR {psnrs}")
+                desc = (f"output {out} {outs[0].shape}, PSNR against the "
+                        "input " + ", ".join(f"{v:.2f}" for v in psnrs)
+                        + " dB")
+            for i in range(FORMAT_EXTRA):
+                t0 = time.perf_counter()
+                if stage == "enc":
+                    enc.encode(frames[i % 3], p, pi)
+                else:
+                    dec.decode(streams[i % 3], req)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            log(f"[formats {tag} 8k {stage}] {desc}; launches {ln}; wall "
+                "ms per frame (" + ("host frame in, bytes out" if stage ==
+                                    "enc" else "bytes in, host array out")
+                + "), " + quartiles(np, walls))
+        enc.perf_stats = dec.perf_stats = True
+        enc.encode(frames[0], p, pi)
+        dec.decode(streams[0], req)
+        es, ds = enc.get_stats(), dec.get_stats()
+        log(f"[formats {tag} 8k stages] encode (CUDA events): upload "
+            f"{es.duration_memory_to:.3f}, preprocessor "
+            f"{es.duration_preprocessor:.3f}, DCT "
+            f"{es.duration_dct_quantization:.3f}, Huffman "
+            f"{es.duration_huffman_coder:.3f}, rows back "
+            f"{es.duration_memory_from:.3f}, assembly (host) "
+            f"{es.duration_stream:.3f} ms; decode: parse + unstuff (host) "
+            f"{ds.duration_stream:.3f}, Huffman phases "
+            f"{ds.duration_huffman_coder:.3f}, IDCT + pixels "
+            f"{ds.duration_dct_quantization:.3f}, image back "
+            f"{ds.duration_memory_from:.3f} ms")
+        by_layout[tag] = launches
+    return by_layout
+
+
+def formats_phases(torch, np, gt, dev, flush):
+    """Step 12, [formats]: every pixel format, component count and
+    sampling; returns (kernel records, launches over its main-path
+    windows).  a. the new instances at 8K (format_instances); b. HD card
+    against CPU (format_hd); c. the FORMAT_LAYOUTS main paths
+    (format_main_path)."""
+    kernels = {}
+    for name, (key, _lay, _c) in FORMAT_RECORDS.items():
+        kernels[name] = dict(
+            key=key, source=f"gpujpeg_tpu_torch/csrc/{key}.cu",
+            replaces=FORMAT_REPLACES[key],
+            bound_by="operations" if key == "dpost_rgb" else "bytes",
+            library_ms=None, err=0)
+    format_instances(torch, np, gt, dev, flush, kernels)
+    format_hd(torch, np, gt, dev)
+    by_layout = format_main_path(torch, np, gt, dev)
+    launches = {}
+    for name, (key, lay, _c) in FORMAT_RECORDS.items():
+        if lay is None:
+            launches[name] = 0
+            kernels[name]["note"] = (
+                "on no [formats] main-path layout; the instance is held "
+                "against its plain version at 8K here and in "
+                "tests/test_torch_kernels.py")
+        else:
+            stage = "enc" if key == "pre_rgb_to_planes" else "dec"
+            launches[name] = by_layout[lay][stage].get(key, 0)
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{lay} path")
+    return kernels, launches
+
+
 def relayout_phase(torch, dev, flush):
     """Step 11: the relayout and primitive kernels of csrc/relayout.cu at
     the 8K shapes of the TPU probes they replace, on seeded u32 words;
@@ -2717,7 +3184,14 @@ def main() -> int:
     kernels["dc_fixup"] = session_phases(torch, np, gt, dev, flush)
     log(f"[session_phases] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 12. relayout and primitive kernels ----------------------------------
+    # -- 12. every pixel format, component count and sampling ----------------
+    t_step = time.perf_counter()
+    step_kernels, step_launches = formats_phases(torch, np, gt, dev, flush)
+    kernels.update(step_kernels)
+    launches.update(step_launches)
+    log(f"[formats_phases] {time.perf_counter() - t_step:.1f} s")
+
+    # -- 13. relayout and primitive kernels ----------------------------------
     t_step = time.perf_counter()
     kernels.update(relayout_phase(torch, dev, flush))
     for name in ("xbd_relayout", "transpose_u32", "pair_sum_rows",
@@ -2725,13 +3199,13 @@ def main() -> int:
         launches[name] = PATH_LAUNCHES.get(name, 0)
     log(f"[relayout_phase] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 13. decomposition line -----------------------------------------------
+    # -- 14. decomposition line -----------------------------------------------
     log("[probe] decomposition ms at 8K (full | loads and stores only | "
         "full without the output store; the full stage's error against "
         "the plain version): " + json.dumps(
             {name: k["probe"] for name, k in kernels.items()
              if "probe" in k}))
-    # -- 14. kernels line ----------------------------------------------------
+    # -- 15. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -2743,7 +3217,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 15. result ----------------------------------------------------------
+    # -- 16. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

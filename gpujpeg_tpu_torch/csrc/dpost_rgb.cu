@@ -1,6 +1,6 @@
 // Fused decode back half for Hopper (sm_90a): quantized zig-zag
 // coefficients of 3 components, chroma decimated by dx, dy in {1, 2} ->
-// interleaved 8-bit pixels.  Dequantization, inverse DCT, nearest chroma
+// interleaved 8-bit RGB or RGBA pixels.  Dequantization, inverse DCT, nearest chroma
 // upsampling, the colour transform and the store in one pass.
 //
 // Replaces the JAX package's Pallas decode tail
@@ -54,12 +54,18 @@
 //     ops/prepost_kernel.decode_post's docstring (tile pixel (py, px)
 //     takes chroma sample (py / dy, px / dx)); for a YCbCr -> RGB
 //     transform the chroma part of each output's sum is formed once per
-//     chroma sample (colour_from).  The 12 RGB bytes of 4 pixels are
-//     staged in shared memory (in ys, which the IDCT no longer reads);
-//   - store: the strip's rows (1536 bytes each) go out as 16-byte stores
-//     when W % 16 == 0, else byte by byte; pixels past H or W are not
-//     stored (blocks past a row's end compute garbage that no pixel
-//     takes).
+//     chroma sample (colour_from).  The 12 RGB bytes of 4 pixels (16
+//     with alpha 255 for a P4444_U8_P0123 output, the OB = 4 instances)
+//     are staged in shared memory (in ys, which the IDCT no longer reads:
+//     even the 2048-byte RGBA rows of a 16-row strip fit there, so RGBA
+//     costs no shared memory and no CTA an SM);
+//   - store: the strip's rows (1536 bytes each, 2048 for RGBA) go out as
+//     16-byte stores when W * OB % 16 == 0, else byte by byte; pixels
+//     past H or W are not stored (blocks past a row's end compute
+//     garbage that no pixel takes).
+// The RGBA bytes of an 8K frame (132.7 MB out, 199.1 MB in at 4:4:4;
+// 99.5 MB in at 4:2:0) take 0.099 / 0.069 ms at 3.35 TB/s, below the
+// operations' 0.19 / 0.095 ms, so RGBA stays bound by its operations.
 // PERF.md (Findings) keeps what chip_smoke.py and its probe measured of
 // this design on an H100: the IDCT's FMA issue takes most of the time,
 // then the colour phase; the bytes take the least.
@@ -83,7 +89,9 @@ namespace {
 constexpr int kLumaCols = 64;     // luma blocks a tile row
 constexpr int kPx = 8 * kLumaCols;  // pixels a tile row
 constexpr int kQuads = kPx / 4;     // 4-pixel groups a tile row
-constexpr int kRgbRow = 3 * kPx;    // RGB bytes a tile row
+// bytes a tile row of pixels of OB bytes (3: RGB, 4: RGBA)
+template <int OB>
+constexpr int kRow = OB * kPx;
 
 template <int DX, int DY>
 struct Tile {
@@ -108,7 +116,7 @@ struct Tile {
     static constexpr int kSmem =
         kRaw + kYs + kYpl + kCpl + 64 * 64 * 4 + 3 * 64 * 4;
     static_assert(NB % 32 == 0 && TC % 8 == 0, "whole warps");
-    static_assert(kYs >= ROWS * kRgbRow, "RGB rows fit in ys");
+    static_assert(kYs >= ROWS * kRow<4>, "RGBA rows fit in ys");
 };
 
 struct Args {
@@ -143,28 +151,41 @@ __device__ __forceinline__ bool tile_column(const Args& a, int i, int cby,
     return cbx < a.cbpr;
 }
 
+template <int OB>
 __device__ __forceinline__ void put_quad(uint8_t* rgb,
-                                         const uint32_t (&b)[3]) {
+                                         const uint32_t (&b)[OB]) {
     uint32_t* const d = reinterpret_cast<uint32_t*>(rgb);
-    d[0] = b[0];
-    d[1] = b[1];
-    d[2] = b[2];
+#pragma unroll
+    for (int k = 0; k < OB; ++k) d[k] = b[k];
 }
 
-// The 12 bytes R0 G0 B0 R1 | G1 B1 R2 G2 | B2 R3 G3 B3 of 4 pixels
+// The 12 bytes R0 G0 B0 R1 | G1 B1 R2 G2 | B2 R3 G3 B3 of 4 pixels (OB =
+// 3), or their 16 bytes R G B 255 a pixel (OB = 4: P4444_U8_P0123 from 3
+// components, alpha 255 as sample.pack_channels fills it)
+template <int OB>
 __device__ __forceinline__ void pack_quad(const int (&c)[4][3],
-                                          uint32_t (&b)[3]) {
+                                          uint32_t (&b)[OB]) {
     const auto two = [](int lo, int hi) {
         return __byte_perm(lo, hi, 0x0040);    // bytes lo.0, hi.0
     };
-    b[0] = __byte_perm(two(c[0][0], c[0][1]), two(c[0][2], c[1][0]), 0x5410);
-    b[1] = __byte_perm(two(c[1][1], c[1][2]), two(c[2][0], c[2][1]), 0x5410);
-    b[2] = __byte_perm(two(c[2][2], c[3][0]), two(c[3][1], c[3][2]), 0x5410);
+    if constexpr (OB == 3) {
+        b[0] = __byte_perm(two(c[0][0], c[0][1]), two(c[0][2], c[1][0]),
+                           0x5410);
+        b[1] = __byte_perm(two(c[1][1], c[1][2]), two(c[2][0], c[2][1]),
+                           0x5410);
+        b[2] = __byte_perm(two(c[2][2], c[3][0]), two(c[3][1], c[3][2]),
+                           0x5410);
+    } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            b[u] = __byte_perm(two(c[u][0], c[u][1]), two(c[u][2], 255),
+                               0x5410);
+    }
 }
 
 // Colour of a tile through colorspace.cuh's convert, 4 pixels of a row at
-// a time -> 12 bytes of rgb (the tile's rows, kRgbRow bytes each).
-template <int DX, int DY>
+// a time -> 4 OB bytes of rgb (the tile's rows, kRow<OB> bytes each).
+template <int DX, int DY, int OB>
 __device__ __forceinline__ void colour_any(const gj::ColorParams& p,
                                            const uint8_t* ypl,
                                            const uint8_t* cpl, uint8_t* rgb,
@@ -185,9 +206,9 @@ __device__ __forceinline__ void colour_any(const gj::ColorParams& p,
             c[u][2] = cr[(px + u) / DX];
             gj::convert(p, c[u][0], c[u][1], c[u][2]);
         }
-        uint32_t b[3];
-        pack_quad(c, b);
-        put_quad(rgb + py * kRgbRow + px * 3, b);
+        uint32_t b[OB];
+        pack_quad<OB>(c, b);
+        put_quad<OB>(rgb + py * kRow<OB> + px * OB, b);
     }
 }
 
@@ -198,7 +219,7 @@ __device__ __forceinline__ void colour_any(const gj::ColorParams& p,
 // 128 is formed once per chroma sample and added to each pixel's luma
 // part; the dx dy pixels that take a chroma sample share that work.  A
 // thread takes 4 columns of the dy rows under one chroma row.
-template <int DX, int DY>
+template <int DX, int DY, int OB>
 __device__ __forceinline__ void colour_from(const gj::ColorParams& p,
                                             const uint8_t* ypl,
                                             const uint8_t* cpl,
@@ -242,14 +263,14 @@ __device__ __forceinline__ void colour_from(const gj::ColorParams& p,
                     c[u][i] = __vimin_s32_relu(
                         (r0 * p.from_m[3 * i] + pre[u / DX][i]) >> 8, 255);
             }
-            uint32_t b[3];
-            pack_quad(c, b);
-            put_quad(rgb + py * kRgbRow + px * 3, b);
+            uint32_t b[OB];
+            pack_quad<OB>(c, b);
+            put_quad<OB>(rgb + py * kRow<OB> + px * OB, b);
         }
     }
 }
 
-template <int DX, int DY, int kStage>
+template <int DX, int DY, int kStage, int OB>
 __global__ void __launch_bounds__(Tile<DX, DY>::NT)
 dpost_rgb_kernel(const Args a) {
     using T = Tile<DX, DY>;
@@ -348,42 +369,42 @@ dpost_rgb_kernel(const Args a) {
         __syncthreads();
         if (kStage != gj::kLoadStore) {
             if (a.p.use_from && !a.p.use_to)
-                colour_from<DX, DY>(a.p, ypl, cpl, rgb, t);
+                colour_from<DX, DY, OB>(a.p, ypl, cpl, rgb, t);
             else
-                colour_any<DX, DY>(a.p, ypl, cpl, rgb, t);
+                colour_any<DX, DY, OB>(a.p, ypl, cpl, rgb, t);
         }
         __syncthreads();
         if (kStage != gj::kNoStore) {
             const int cby = tile / a.tiles_x, tx = tile - cby * a.tiles_x;
             const int y0 = cby * T::ROWS, x0 = tx * kPx;
             const int npx = a.W - x0 < kPx ? a.W - x0 : kPx;
-            const int nbytes = 3 * npx;
-            uint8_t* const row0 = a.out + ((int64_t)y0 * a.W + x0) * 3;
+            const int nbytes = OB * npx;
+            constexpr int kR = kRow<OB>;
+            uint8_t* const row0 = a.out + ((int64_t)y0 * a.W + x0) * OB;
             if (a.vec_store) {
-                constexpr int kV = kRgbRow / 16;      // 16-byte stores a row
+                constexpr int kV = kR / 16;           // 16-byte stores a row
                 for (int e = t; e < T::ROWS * kV; e += T::NT) {
                     const int r = e / kV, c = (e - r * kV) * 16;
                     if (y0 + r < a.H && c < nbytes)
                         *reinterpret_cast<uint4*>(
-                            row0 + (int64_t)r * a.W * 3 + c) =
-                            *reinterpret_cast<const uint4*>(
-                                rgb + r * kRgbRow + c);
+                            row0 + (int64_t)r * a.W * OB + c) =
+                            *reinterpret_cast<const uint4*>(rgb + r * kR + c);
                 }
             } else {
-                for (int e = t; e < T::ROWS * kRgbRow; e += T::NT) {
-                    const int r = e / kRgbRow, c = e - r * kRgbRow;
+                for (int e = t; e < T::ROWS * kR; e += T::NT) {
+                    const int r = e / kR, c = e - r * kR;
                     if (y0 + r < a.H && c < nbytes)
-                        row0[(int64_t)r * a.W * 3 + c] = rgb[r * kRgbRow + c];
+                        row0[(int64_t)r * a.W * OB + c] = rgb[r * kR + c];
                 }
             }
         }
     }
 }
 
-template <int DX, int DY, int kStage>
+template <int DX, int DY, int kStage, int OB>
 int run(const Args& a, cudaStream_t stream) {
     using T = Tile<DX, DY>;
-    auto* kernel = dpost_rgb_kernel<DX, DY, kStage>;
+    auto* kernel = dpost_rgb_kernel<DX, DY, kStage, OB>;
     const int fit = gj::resident_ctas(kernel, T::NT, T::kSmem);
     if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
     const int grid = a.ntiles < fit ? a.ntiles : fit;
@@ -391,28 +412,29 @@ int run(const Args& a, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-template <int kStage>
+template <int kStage, int OB>
 int dispatch(int dx, int dy, const Args& a, cudaStream_t stream) {
-    if (dx == 1 && dy == 1) return run<1, 1, kStage>(a, stream);
-    if (dx == 2 && dy == 2) return run<2, 2, kStage>(a, stream);
+    if (dx == 1 && dy == 1) return run<1, 1, kStage, OB>(a, stream);
+    if (dx == 2 && dy == 2) return run<2, 2, kStage, OB>(a, stream);
     if constexpr (kStage == gj::kFull) {    // the probe takes 1x1 and 2x2
-        if (dx == 2 && dy == 1) return run<2, 1, kStage>(a, stream);
-        if (dx == 1 && dy == 2) return run<1, 2, kStage>(a, stream);
+        if (dx == 2 && dy == 1) return run<2, 1, kStage, OB>(a, stream);
+        if (dx == 1 && dy == 2) return run<1, 2, kStage, OB>(a, stream);
     }
     return (int)cudaErrorInvalidValue;
 }
 
 int launch(int stage, const void* coefs, int64_t L, const int64_t* offsets,
-           int64_t nblk, int bpr, int dx, int dy, int H, int W,
+           int64_t nblk, int bpr, int dx, int dy, int H, int W, int ob,
            const void* qtabs, const void* nmat, const int* params, void* out,
            void* stream) {
     // coefs: (64, L) i16 with DC integrated; offsets: host int64[3], the
     // column of each component's first block; nblk: luma blocks, bpr of
     // them a block row (chroma: nblk / (dx dy) blocks, bpr / dx a row);
     // dx, dy in {1, 2}; qtabs: (3, 64) f32 zig-zag; nmat: (64, 64) f32,
-    // N[k][s]; params: host int32[26] (ops/color.kernel_params); out:
-    // (H, W, 3) u8
-    if (dx < 1 || dx > 2 || dy < 1 || dy > 2 || bpr <= 0 || bpr % dx
+    // N[k][s]; params: host int32[26] (ops/color.kernel_params); ob:
+    // bytes a pixel, 3 (RGB) or 4 (RGBA, alpha 255; full stage only);
+    // out: (H, W, ob) u8
+    if ((ob != 3 && (ob != 4 || stage != gj::kFull)) || dx < 1 || dx > 2 || dy < 1 || dy > 2 || bpr <= 0 || bpr % dx
             || nblk % bpr || (nblk / bpr) % dy || nblk / bpr > (1 << 24))
         return (int)cudaErrorInvalidValue;
     Args a;
@@ -426,7 +448,7 @@ int launch(int stage, const void* coefs, int64_t L, const int64_t* offsets,
     a.bpr = bpr;
     a.cbpr = bpr / dx;
     a.vec_load = aligned && a.bpr % 8 == 0 && a.cbpr % 8 == 0;
-    a.vec_store = W % 16 == 0 && (uintptr_t)out % 16 == 0;
+    a.vec_store = (int64_t)W * ob % 16 == 0 && (uintptr_t)out % 16 == 0;
     const int tc = kLumaCols / dx;
     a.tiles_x = (a.cbpr + tc - 1) / tc;
     const int64_t ntiles = (nblk / bpr / dy) * a.tiles_x;
@@ -441,10 +463,11 @@ int launch(int stage, const void* coefs, int64_t L, const int64_t* offsets,
     a.out = (uint8_t*)out;
     if (a.ntiles == 0) return (int)cudaGetLastError();
     const cudaStream_t st = (cudaStream_t)stream;
+    if (ob == 4) return dispatch<gj::kFull, 4>(dx, dy, a, st);
     switch (stage) {
-    case gj::kFull: return dispatch<gj::kFull>(dx, dy, a, st);
-    case gj::kLoadStore: return dispatch<gj::kLoadStore>(dx, dy, a, st);
-    case gj::kNoStore: return dispatch<gj::kNoStore>(dx, dy, a, st);
+    case gj::kFull: return dispatch<gj::kFull, 3>(dx, dy, a, st);
+    case gj::kLoadStore: return dispatch<gj::kLoadStore, 3>(dx, dy, a, st);
+    case gj::kNoStore: return dispatch<gj::kNoStore, 3>(dx, dy, a, st);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -453,10 +476,10 @@ int launch(int stage, const void* coefs, int64_t L, const int64_t* offsets,
 
 extern "C" int gj_dpost_rgb(const void* coefs, int64_t L,
                             const int64_t* offsets, int64_t nblk, int bpr,
-                            int dx, int dy, int H, int W, const void* qtabs,
-                            const void* nmat, const int* params, void* out,
-                            void* stream) {
-    return launch(gj::kFull, coefs, L, offsets, nblk, bpr, dx, dy, H, W,
+                            int dx, int dy, int H, int W, int ob,
+                            const void* qtabs, const void* nmat,
+                            const int* params, void* out, void* stream) {
+    return launch(gj::kFull, coefs, L, offsets, nblk, bpr, dx, dy, H, W, ob,
                   qtabs, nmat, params, out, stream);
 }
 
@@ -464,9 +487,9 @@ extern "C" int gj_dpost_rgb(const void* coefs, int64_t L,
 extern "C" int gj_dpost_rgb_probe(int stage, const void* coefs, int64_t L,
                                   const int64_t* offsets, int64_t nblk,
                                   int bpr, int dx, int dy, int H, int W,
-                                  const void* qtabs, const void* nmat,
-                                  const int* params, void* out,
-                                  void* stream) {
-    return launch(stage, coefs, L, offsets, nblk, bpr, dx, dy, H, W, qtabs,
-                  nmat, params, out, stream);
+                                  int ob, const void* qtabs,
+                                  const void* nmat, const int* params,
+                                  void* out, void* stream) {
+    return launch(stage, coefs, L, offsets, nblk, bpr, dx, dy, H, W, ob,
+                  qtabs, nmat, params, out, stream);
 }

@@ -1,6 +1,7 @@
-// Encode preprocessor for Hopper (sm_90a): interleaved 8-bit RGB pixels ->
-// the three zero-padded uint8 component planes, colour-transformed, each
-// at its own decimation (dx, dy), in one launch a frame.
+// Encode preprocessor for Hopper (sm_90a): a raw 8-bit image in any of the
+// seven pixel formats -> the 1 to 4 zero-padded uint8 component planes,
+// colour-transformed, each at its own decimation (dx, dy), in one launch a
+// frame.
 //
 // Replaces the JAX package's Pallas preprocessor
 // (gpujpeg_tpu/ops/prepost_kernel.py: _pre_kernel_body, launched by
@@ -31,7 +32,21 @@
 //     (dx = 1) chroma stores.  It needs W % 16 == 0, a 16-byte aligned
 //     image, and planes whose width and address hold whole vectors;
 //   - a generic instance (any decimation, any W, any alignment; byte loads
-//     and stores, 16 pixels of a row a thread) takes the rest.
+//     and stores, a pixel a thread with a row's pixels on consecutive
+//     threads, divisions as shifts for power-of-two factors) takes the
+//     rest, for each
+//     input kind: sample-interleaved channels at any row pitch (U8, RGB,
+//     RGBA, rows padded by width_padding bytes, or any (H, W, C) tensor),
+//     UYVY (both pixels of a pair take its u and v), and three planes at
+//     libyuv sizes (each upsampled nearest-neighbour to the image before
+//     decimation, as sample.unpack_to_channels does).  Channels past the
+//     input's are 128 (greyscale encoded as more components); components
+//     0-2 of an image of 3 or 4 components are converted, a 4th and the
+//     components of a 1- or 2-component image are the raw channels
+//     (sample.preprocess).  Its bound at 8K: a U8 frame reads and writes
+//     33.2 MB (0.0198 ms at 3.35 TB/s), UYVY 66.4 + 66.4 MB at 4:2:2
+//     (0.0396 ms), P420 planar 49.8 + 49.8 MB (0.0297 ms), RGBA to four
+//     planes 132.7 + 132.7 MB (0.0792 ms).
 // The wrapper (ops/prepost_kernel.preprocess_packed) picks the instance;
 // this entry checks the vector instance's conditions and refuses a launch
 // that breaks them.
@@ -55,9 +70,9 @@ constexpr int kGroup = 16;           // source pixels a thread, along a row
 constexpr int kThreads = 256;
 
 struct Planes {
-    uint8_t* p[3];
-    int dx[3], dy[3];
-    int h[3], w[3];      // data height and width
+    uint8_t* p[4];
+    int dx[4], dy[4];
+    int h[4], w[4];      // data height and width
 };
 
 __device__ __forceinline__ int byte_at(const uint32_t (&v)[12], int i) {
@@ -130,55 +145,108 @@ pre_vector(const uint8_t* __restrict__ raw, int H, int W, Planes pl,
     }
 }
 
-// any decimation per plane, any W, any alignment: one source row y and
-// kGroup pixels of it a thread
-__global__ void __launch_bounds__(kThreads)
-pre_generic(const uint8_t* __restrict__ raw, int H, int W, Planes pl,
-            ColorParams p) {
-    const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * kGroup;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    uint8_t* rowp[3];
-    int col[3], rem[3];
-    bool keep_row[3];
-    bool any = false;
+// A divisor of the generic instances: a shift when it is a power of two
+// (every decimation and repeat factor of the JPEG layouts), else a
+// division
+struct Div {
+    int d, s;            // s >= 0: d == 1 << s
+};
+
+__device__ __forceinline__ int divide(int x, Div q) {
+    return q.s >= 0 ? x >> q.s : x / q.d;
+}
+
+// The input's kinds (the wrapper's pre_source): sample-interleaved
+// channels (U8, P444_U8_P012, P4444_U8_P0123, or any (H, W, C) tensor),
+// UYVY, three planes at libyuv sizes.
+enum Kind { kInterleaved = 0, kUyvy = 1, kPlanar = 2 };
+
+struct Source {
+    int nin;             // channels of an interleaved input
+    int64_t pitch;       // bytes a row (packed kinds)
+    int64_t off[3];      // planar: first byte of each plane
+    int pw[3];           // planar: plane widths
+    Div fy[3], fx[3];    // planar: repeat factors up to the image
+};
+
+// the planes' decimations as divisors
+struct Steps {
+    Div dx[4], dy[4];
+};
+
+// the channels of source pixel (y, x): v[k] = 128 past the input's
+// channels (sample.preprocess's fill for greyscale encoded as more
+// components)
+template <int KIND>
+__device__ __forceinline__ void fetch(const uint8_t* __restrict__ raw,
+                                      const Source& s, int y, int x,
+                                      int (&v)[4]) {
+    if (KIND == kInterleaved) {
+        const uint8_t* q = raw + y * s.pitch + (int64_t)x * s.nin;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        const int yc = y / pl.dy[c];
-        keep_row[c] = yc * pl.dy[c] == y && yc < pl.h[c];
-        any = any || keep_row[c];
-        rowp[c] = pl.p[c] + (int64_t)yc * pl.w[c];
-        col[c] = x0 / pl.dx[c];
-        rem[c] = x0 - col[c] * pl.dx[c];
+        for (int k = 0; k < 4; ++k) v[k] = k < s.nin ? q[k] : 128;
+    } else if (KIND == kUyvy) {
+        // u y0 v y1 for each pixel pair; both pixels take its u and v
+        const uint8_t* q = raw + y * s.pitch + (int64_t)(x >> 1) * 4;
+        v[0] = q[1 + 2 * (x & 1)];
+        v[1] = q[0];
+        v[2] = q[2];
+        v[3] = 128;
+    } else {
+        // nearest-neighbour upsampling of each plane (sample._upsample_to)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+            v[k] = raw[s.off[k] + (int64_t)divide(y, s.fy[k]) * s.pw[k]
+                       + divide(x, s.fx[k])];
+        v[3] = 128;
     }
-    if (!any) return;
-    const uint8_t* src = raw + ((int64_t)y * W + x0) * 3;
-    for (int i = 0; i < kGroup; ++i) {
-        bool keep[3];
+}
+
+// any input kind, 1 to 4 components, any decimation per plane, any W, any
+// alignment: a source pixel a thread, the pixels of a row on consecutive
+// threads (so a warp's loads and stores are consecutive bytes), a grid
+// row a source row; the pixel is fetched and converted once when some
+// plane keeps it (components 0-2 of an image of 3 or more components;
+// otherwise the channels go through raw)
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+pre_generic(const uint8_t* __restrict__ raw, int H, int W, Source s,
+            int ncomp, int rows, Planes pl, Steps st, ColorParams p) {
+    const int x = blockIdx.x * kThreads + threadIdx.x;
+    for (int y = blockIdx.y; y < rows; y += gridDim.y) {
+        bool keep[4];
+        int64_t off[4];
         bool need = false;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            keep[c] = keep_row[c] && rem[c] == 0 && col[c] < pl.w[c];
-            need = need || keep[c];
-        }
-        if (need) {
-            int v[3] = {0, 0, 0};
-            if (y < H && x0 + i < W) {
-                v[0] = src[3 * i];
-                v[1] = src[3 * i + 1];
-                v[2] = src[3 * i + 2];
-                convert(p, v[0], v[1], v[2]);
+        for (int c = 0; c < 4; ++c) {
+            keep[c] = false;
+            off[c] = 0;
+            if (c < ncomp) {
+                const int yc = divide(y, st.dy[c]);
+                const int xc = divide(x, st.dx[c]);
+                keep[c] = yc * st.dy[c].d == y && xc * st.dx[c].d == x
+                          && yc < pl.h[c] && xc < pl.w[c];
+                off[c] = (int64_t)yc * pl.w[c] + xc;
+                need = need || keep[c];
             }
-#pragma unroll
-            for (int c = 0; c < 3; ++c)
-                if (keep[c]) rowp[c][col[c]] = (uint8_t)v[c];
+        }
+        if (!need) continue;
+        int v[4] = {0, 0, 0, 0};
+        if (y < H && x < W) {
+            fetch<KIND>(raw, s, y, x, v);
+            if (ncomp >= 3) convert(p, v[0], v[1], v[2]);
         }
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-            if (++rem[c] == pl.dx[c]) {
-                rem[c] = 0;
-                ++col[c];
-            }
+        for (int c = 0; c < 4; ++c)
+            if (keep[c]) pl.p[c][off[c]] = (uint8_t)v[c];
     }
+}
+
+Div divisor(int d) {
+    Div q{d, -1};
+    if (d > 0 && (d & (d - 1)) == 0)
+        for (q.s = 0; (1 << q.s) < d; ++q.s) {}
+    return q;
 }
 
 bool aligned(const void* ptr, int bytes) {
@@ -188,45 +256,90 @@ bool aligned(const void* ptr, int bytes) {
 }  // namespace
 
 extern "C" int gj_pre_rgb_to_planes(const void* raw, int H, int W,
-                                    const int* geo, const int* params,
-                                    void* out0, void* out1, void* out2,
+                                    const int* geo, const int64_t* src,
+                                    const int* params, void* out0,
+                                    void* out1, void* out2, void* out3,
                                     int vec, void* stream) {
-    // raw: (H, W, 3) u8; geo: host int32[12] = (dx, dy, data_h, data_w)
-    // of each plane; out_k: (data_h_k, data_w_k) u8 plane of component k;
-    // params: int32[26] = from-matrix[9], from-base[3], to-matrix[9],
-    // to-base[3], use_from, use_to (ops/color.kernel_params), host memory;
-    // vec: 1 for the vector instance (its conditions are checked here)
+    // raw: the image on the card; geo: host int32[16] = (dx, dy, data_h,
+    // data_w) of each plane (rows past the last component unused); src:
+    // host int64[16] = kind, channels of an interleaved input, row pitch
+    // in bytes, components, then for planar input each plane's first
+    // byte, width, row factor and column factor (ops/prepost_kernel.
+    // pre_source); out_k: (data_h_k, data_w_k) u8 plane of component k
+    // (null past the last); params: int32[26] = from-matrix[9],
+    // from-base[3], to-matrix[9], to-base[3], use_from, use_to
+    // (ops/color.kernel_params), host memory; vec: 1 for the vector
+    // instance (its conditions are checked here)
     ColorParams p;
     static_assert(sizeof(ColorParams) == 26 * sizeof(int), "layout");
     std::memcpy(&p, params, sizeof(p));
+    const int kind = (int)src[0];
+    const int ncomp = (int)src[3];
+    if (kind < kInterleaved || kind > kPlanar || ncomp < 1 || ncomp > 4)
+        return (int)cudaErrorInvalidValue;
+    Source s;
+    s.nin = (int)src[1];
+    s.pitch = src[2];
+    for (int k = 0; k < 3; ++k) {
+        s.off[k] = src[4 + k];
+        s.pw[k] = (int)src[7 + k];
+        s.fy[k] = divisor((int)src[10 + k]);
+        s.fx[k] = divisor((int)src[13 + k]);
+        if (kind == kPlanar && (src[10 + k] < 1 || src[13 + k] < 1))
+            return (int)cudaErrorInvalidValue;
+    }
+    if (kind == kInterleaved && s.nin < 1) return (int)cudaErrorInvalidValue;
     Planes pl;
-    pl.p[0] = (uint8_t*)out0;
-    pl.p[1] = (uint8_t*)out1;
-    pl.p[2] = (uint8_t*)out2;
+    void* outs[4] = {out0, out1, out2, out3};
     int64_t xe = 0, ye = 0;          // the planes' extent in source pixels
-    for (int c = 0; c < 3; ++c) {
+    for (int c = 0; c < 4; ++c) {
+        pl.p[c] = (uint8_t*)outs[c];
         pl.dx[c] = geo[4 * c];
         pl.dy[c] = geo[4 * c + 1];
         pl.h[c] = geo[4 * c + 2];
         pl.w[c] = geo[4 * c + 3];
-        if (pl.dx[c] < 1 || pl.dy[c] < 1) return (int)cudaErrorInvalidValue;
+        if (c >= ncomp) {
+            pl.dx[c] = pl.dy[c] = 1;
+            pl.h[c] = pl.w[c] = 0;
+            continue;
+        }
+        if (pl.dx[c] < 1 || pl.dy[c] < 1 || !pl.p[c])
+            return (int)cudaErrorInvalidValue;
         xe = std::max(xe, (int64_t)pl.w[c] * pl.dx[c]);
         ye = std::max(ye, (int64_t)pl.h[c] * pl.dy[c]);
     }
     if (xe <= 0 || ye <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    const uint8_t* src = (const uint8_t*)raw;
+    const uint8_t* in = (const uint8_t*)raw;
+    if (!vec) {
+        if (xe > (1 << 30) || ye > (1 << 30))
+            return (int)cudaErrorInvalidValue;
+        Steps steps;
+        for (int c = 0; c < 4; ++c) {
+            steps.dx[c] = divisor(pl.dx[c]);
+            steps.dy[c] = divisor(pl.dy[c]);
+        }
+        const int rows = (int)ye;
+        const dim3 grid((unsigned)((xe + kThreads - 1) / kThreads),
+                        (unsigned)std::min(rows, 65535));
+        if (kind == kInterleaved)
+            pre_generic<kInterleaved><<<grid, kThreads, 0, st>>>(
+                in, H, W, s, ncomp, rows, pl, steps, p);
+        else if (kind == kUyvy)
+            pre_generic<kUyvy><<<grid, kThreads, 0, st>>>(
+                in, H, W, s, ncomp, rows, pl, steps, p);
+        else
+            pre_generic<kPlanar><<<grid, kThreads, 0, st>>>(
+                in, H, W, s, ncomp, rows, pl, steps, p);
+        return (int)cudaGetLastError();
+    }
     const int groups = (int)((xe + kGroup - 1) / kGroup);
     const int bx = std::min(kThreads, (groups + 31) / 32 * 32);
     const dim3 block(bx, kThreads / bx);
-    if (!vec) {
-        const dim3 grid((groups + bx - 1) / bx,
-                        (unsigned)((ye + block.y - 1) / block.y));
-        pre_generic<<<grid, block, 0, st>>>(src, H, W, pl, p);
-        return (int)cudaGetLastError();
-    }
     const int sx = pl.dx[1], sy = pl.dy[1];
-    bool ok = pl.dx[0] == 1 && pl.dy[0] == 1 && pl.dx[2] == sx
+    bool ok = kind == kInterleaved && s.nin == 3 && s.pitch == 3LL * W
+              && ncomp == 3
+              && pl.dx[0] == 1 && pl.dy[0] == 1 && pl.dx[2] == sx
               && pl.dy[2] == sy && pl.h[2] == pl.h[1] && pl.w[2] == pl.w[1]
               && (sx == 1 || sx == 2) && (sy == 1 || sy == 2)
               && W % kGroup == 0 && xe % kGroup == 0 && ye % sy == 0
@@ -239,12 +352,12 @@ extern "C" int gj_pre_rgb_to_planes(const void* raw, int H, int W,
     const dim3 grid((groups + bx - 1) / bx,
                     (unsigned)((ye / sy + block.y - 1) / block.y));
     if (sx == 1 && sy == 1)
-        pre_vector<0, 0><<<grid, block, 0, st>>>(src, H, W, pl, p);
+        pre_vector<0, 0><<<grid, block, 0, st>>>(in, H, W, pl, p);
     else if (sy == 1)
-        pre_vector<1, 0><<<grid, block, 0, st>>>(src, H, W, pl, p);
+        pre_vector<1, 0><<<grid, block, 0, st>>>(in, H, W, pl, p);
     else if (sx == 1)
-        pre_vector<0, 1><<<grid, block, 0, st>>>(src, H, W, pl, p);
+        pre_vector<0, 1><<<grid, block, 0, st>>>(in, H, W, pl, p);
     else
-        pre_vector<1, 1><<<grid, block, 0, st>>>(src, H, W, pl, p);
+        pre_vector<1, 1><<<grid, block, 0, st>>>(in, H, W, pl, p);
     return (int)cudaGetLastError();
 }

@@ -49,9 +49,11 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 #: kernel name -> argtypes of its C entry point gj_<name>
 _SIGNATURES: Dict[str, List] = {
-    # raw, H, W, geo (host int32[12]: dx, dy, data_h, data_w a plane),
-    # params (host int32[26]), out0, out1, out2, vector instance, stream
-    "pre_rgb_to_planes": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # raw, H, W, geo (host int32[16]: dx, dy, data_h, data_w a plane),
+    # source (host int64[16]: the input's kind and layout), params (host
+    # int32[26]), out0..3 (null past the last component), vector
+    # instance, stream
+    "pre_rgb_to_planes": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # plane, data_h, data_w, nblocks_out, then the output map (bpm, off,
     # sh, sv, mcux; 1, 0, 1, 1, blocks a row = raster order), mq, bias,
     # out, stream
@@ -72,16 +74,17 @@ _SIGNATURES: Dict[str, List] = {
     "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P],
     # coefs, L, offsets (host int64[3]), luma blocks, luma blocks per row,
-    # dx, dy, H, W, qtabs, idct matrix, params (host int32[26]), out,
-    # stream
-    "dpost_rgb": [_P, _I64, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                  _P],
+    # dx, dy, H, W, bytes a pixel (3 or 4), qtabs, idct matrix, params
+    # (host int32[26]), out, stream
+    "dpost_rgb": [_P, _I64, _P, _I64, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                  _P, _P],
     # coefs, L, geo (host int64[2 + 6 * 4]), qtabs, idct matrix, out0..3
     # (null past the last component), stream
     "idct_planes": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
-    # y, cb, cr, geo (host int32[9]), H, W, params (host int32[26]), out,
-    # stream
-    "post_rgb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # planes 0..3 (null past the last component), geo (host int32[16]),
+    # H, W, target (host int64[16]: a planar output's planes), params
+    # (host int32[26]), out, stream
+    "post_rgb": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # in, H, W/4, rst, out, stream
     "xbd_relayout": [_P, _I, _I, _I, _P, _P],
     # in, R, C, out, stream

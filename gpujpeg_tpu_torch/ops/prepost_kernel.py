@@ -1,32 +1,38 @@
 """The codec's pixel ends: the encode preprocessor and the decode back
-halves.
+halves, for every pixel format, 1 to 4 components and any sampling.
 
-``preprocess_packed`` (interleaved RGB pixels -> component planes, chroma
-decimated) wraps csrc/pre_rgb_to_planes.cu, the counterpart of the JAX
-package's Pallas preprocessor (gpujpeg_tpu.ops.prepost_kernel:
-_pre_kernel_body / preprocess_packed).  The JAX kernel emits planes of 4
-samples packed per little-endian u32 word, one launch a decimation group;
-the port emits the same bytes as uint8 planes, which are that memory read
-byte by byte, all three in one launch (``pre_vector`` picks the kernel's
-vector or generic instance).
+``preprocess_packed`` (a raw image -> component planes, chroma decimated)
+wraps csrc/pre_rgb_to_planes.cu, the counterpart of the JAX package's
+Pallas preprocessor (gpujpeg_tpu.ops.prepost_kernel: _pre_kernel_body /
+preprocess_packed), which takes 3-component P444_U8_P012 and leaves every
+other input to XLA (sample.preprocess); the port's kernel takes them all
+(``check_raw``: interleaved channels at any row pitch, UYVY, the three
+planar formats; ``pre_source`` describes the input to the kernel).  The
+JAX kernel emits planes of 4 samples packed per little-endian u32 word,
+one launch a decimation group; the port emits the same bytes as uint8
+planes, which are that memory read byte by byte, all of them in one
+launch (``pre_vector`` picks the kernel's RGB vector instance or its
+generic one).
 
-``decode_post`` (coefficients -> RGB pixels: dequantization, inverse DCT,
-colour and the interleaved store in one pass) wraps csrc/dpost_rgb.cu, the
-counterpart of the JAX package's fused decode tail
+``decode_post`` (coefficients -> RGB or RGBA pixels: dequantization,
+inverse DCT, colour and the interleaved store in one pass) wraps
+csrc/dpost_rgb.cu, the counterpart of the JAX package's fused decode tail
 (gpujpeg_tpu.ops.prepost_kernel: _dpost_kernel_body / decode_post_fused)
 for 3 components with chroma decimated by dx, dy in {1, 2}.  It stores 3
-bytes a pixel where the TPU kernel stores RGBX words and slices them, and
-it takes any block count where the TPU kernel needs 128-lane-aligned
-planes.
+bytes a pixel (4 for P4444_U8_P0123) where the TPU kernel stores RGBX
+words and slices them, and it takes any block count where the TPU kernel
+needs 128-lane-aligned planes.
 
-Interleaved scans (and any other stream dpost does not take) decode in two
-steps: ``idct_planes`` (coefficients of every component -> a uint8 sample
-plane each, one launch) wraps csrc/idct_planes.cu, whose JAX counterpart
-is XLA (gpujpeg_tpu.models.decoder._make_idct_post_fn_t_il);
-``postprocess_packed`` (planes -> RGB pixels: chroma upsampling, colour,
-the interleaved store) wraps csrc/post_rgb.cu, the counterpart of the JAX package's Pallas
-postprocessor (_post_kernel_body / postprocess_packed), with no RGBX words
-and no width alignment.
+Interleaved scans (and any other stream or output dpost does not take)
+decode in two steps: ``idct_planes`` (coefficients of every component ->
+a uint8 sample plane each, one launch) wraps csrc/idct_planes.cu, whose
+JAX counterpart is XLA (gpujpeg_tpu.models.decoder.
+_make_idct_post_fn_t_il); ``postprocess_packed`` (planes -> the raw image
+of any output format: chroma upsampling, colour, the store) wraps
+csrc/post_rgb.cu, the counterpart of the JAX package's Pallas
+postprocessor (_post_kernel_body / postprocess_packed, RGB and RGBA from
+3 components; XLA's sample.postprocess for the rest), with no RGBX words
+and no width alignment (``post_target`` describes the output).
 
 For a CPU tensor each wrapper runs its plain version
 (``preprocess_packed_plain``, which is ops/sample.preprocess;
@@ -45,18 +51,74 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..types import ImageParameters, PixelFormat
+from ..types import (ImageParameters, PixelFormat, image_size_bytes,
+                     pixel_format_sampling, pixel_format_unit_size)
 from ..utils import tables
 from ..utils.geometry import Geometry
 from . import _kernels, color, dct, sample
 
 
-def pre_supported(geo: Geometry, pi: ImageParameters) -> bool:
-    """True when the kernel covers this configuration: 8-bit interleaved
-    RGB-order input, 3 components at any sampling, no row padding."""
-    return (pi.pixel_format == PixelFormat.P444_U8_P012
-            and geo.comp_count == 3 and not pi.width_padding)
+def check_raw(raw: torch.Tensor, pi: ImageParameters) -> None:
+    """Raise unless raw is an image the preprocessor takes for pi, by the
+    JAX package's unpack_to_channels: a uint8 (H, W, C) tensor of any C
+    or an (H, W) one, whatever the pixel format; or a flat buffer of the
+    format, rows padded by pi.width_padding bytes for the packed formats
+    (ValueError for a planar one, as there), UYVY at an even width only;
+    a flat buffer of another size or UYVY at an odd width raise
+    TypeError, the JAX package's reshape error."""
+    H, W = pi.height, pi.width
+    if raw.dtype != torch.uint8:
+        raise ValueError(f"expected a uint8 image, got {raw.dtype}")
+    if raw.dim() in (2, 3):
+        if tuple(raw.shape[:2]) != (H, W) or 0 in raw.shape:
+            raise ValueError(f"expected an ({H}, {W}[, C]) image, got "
+                             f"{tuple(raw.shape)}")
+        return
+    if raw.dim() != 1:
+        raise ValueError(f"expected an image or a flat buffer, got "
+                         f"{tuple(raw.shape)}")
+    pf = pi.pixel_format
+    unit = pixel_format_unit_size(pf)
+    if pi.width_padding and unit == 0:
+        raise ValueError(
+            "width_padding is only supported for packed pixel formats")
+    if pf == PixelFormat.P422_U8_P1020 and W % 2:
+        raise TypeError(f"cannot unpack UYVY rows of odd width {W}")
+    n = H * (W * unit + pi.width_padding) if unit else \
+        image_size_bytes(W, H, pf)
+    if raw.numel() != n:      # TypeError: the JAX package's reshape error
+        raise TypeError(f"a {pf.name} buffer of {W}x{H} holds {n} bytes, "
+                        f"got {raw.numel()}")
 
+
+def pre_source(raw: torch.Tensor, geo: Geometry,
+               pi: ImageParameters) -> np.ndarray:
+    """The preprocessor kernel's description of its input (int64[16]):
+    kind (0 sample-interleaved channels, 1 UYVY, 2 three planes),
+    channels of an interleaved input, row pitch in bytes, components,
+    then for planar input each plane's first byte, width, row repeat
+    factor and column repeat factor (sample.repeat_factors).  raw passed
+    check_raw."""
+    src = np.zeros(16, np.int64)
+    H, W, pf = pi.height, pi.width, pi.pixel_format
+    src[3] = geo.comp_count
+    if raw.dim() > 1:
+        nin = raw.shape[2] if raw.dim() == 3 else 1
+        src[:3] = 0, nin, W * nin
+    elif pf == PixelFormat.P422_U8_P1020:
+        src[:3] = 1, 3, 2 * W + pi.width_padding
+    elif pf in sample.PLANAR:
+        src[:2] = 2, 3
+        off = 0
+        for k, (ch, cw) in enumerate(sample.plane_sizes(pf, W, H)):
+            fy, fx = sample.repeat_factors(ch, cw, W, H)
+            src[4 + k], src[7 + k], src[10 + k], src[13 + k] = (off, cw,
+                                                                fy, fx)
+            off += ch * cw
+    else:
+        unit = pixel_format_unit_size(pf)
+        src[:3] = 0, unit, W * unit + pi.width_padding
+    return src
 
 
 def preprocess_packed_plain(raw: torch.Tensor, geo: Geometry,
@@ -67,19 +129,13 @@ def preprocess_packed_plain(raw: torch.Tensor, geo: Geometry,
 
 def preprocess_packed(raw: torch.Tensor, geo: Geometry,
                       pi: ImageParameters) -> List[torch.Tensor]:
-    """raw (H, W, 3) uint8 -> [(data_h, data_w) uint8 plane per component],
-    colour-transformed from pi.color_space to
+    """A raw image in any pixel format (check_raw) -> [(data_h, data_w)
+    uint8 plane per component], components 0-2 of a 3- or 4-component
+    image colour-transformed from pi.color_space to
     geo.param.color_space_internal, component c sampled at (y * dy, x *
-    dx) with (dx, dy) its decimation, and zero-padded.  On CUDA one launch
-    writes every plane."""
-    if not pre_supported(geo, pi):
-        raise NotImplementedError(
-            "the preprocessor kernel takes 3-component P444_U8_P012 input "
-            "(other formats: ROADMAP queue 1 item 6)")
-    H, W = pi.height, pi.width
-    if tuple(raw.shape) != (H, W, 3) or raw.dtype != torch.uint8:
-        raise ValueError(f"expected a ({H}, {W}, 3) uint8 tensor, got "
-                         f"{tuple(raw.shape)} {raw.dtype}")
+    dx) with (dx, dy) its decimation, and zero-padded (sample.preprocess).
+    On CUDA one launch writes every plane."""
+    check_raw(raw, pi)
     if raw.device.type == "cpu":
         return preprocess_packed_plain(raw, geo, pi)
     params = color.kernel_params(pi.color_space,
@@ -92,28 +148,35 @@ def preprocess_packed(raw: torch.Tensor, geo: Geometry,
               zip(geo.components, torch.split(buf, sizes))]
     _kernels.require_cuda("pre_rgb_to_planes", raw, buf)
     g = pre_geometry(geo)
-    _kernels.launch("pre_rgb_to_planes", raw, H, W, g, params, *planes,
+    _kernels.launch("pre_rgb_to_planes", raw, pi.height, pi.width, g,
+                    pre_source(raw, geo, pi), params, *planes,
+                    *[None] * (4 - len(planes)),
                     int(pre_vector(raw, planes, g)))
     return planes
 
 
 def pre_geometry(geo: Geometry) -> np.ndarray:
-    """(dx, dy, data_h, data_w) of each component's plane, flattened
-    (int32[12]): the preprocessor kernel's geometry argument."""
-    return np.asarray([(geo.max_h // c.samp_h, geo.max_v // c.samp_v,
-                        c.data_height, c.data_width)
-                       for c in geo.components], np.int32).reshape(-1)
+    """(dx, dy, data_h, data_w) of each component's plane, flattened and
+    zero past the last component (int32[16]): the preprocessor kernel's
+    geometry argument."""
+    g = np.zeros((4, 4), np.int32)
+    for c in geo.components:
+        g[c.index] = (geo.max_h // c.samp_h, geo.max_v // c.samp_v,
+                      c.data_height, c.data_width)
+    return g.reshape(-1)
 
 
 def pre_vector(raw: torch.Tensor, planes: List[torch.Tensor],
                geo_i: np.ndarray) -> bool:
     """True when the preprocessor's vector instance takes these tensors
-    (csrc/pre_rgb_to_planes.cu): plane 0 at (dx, dy) = (1, 1), planes 1
-    and 2 of one shape at one (dx, dy) in {1, 2}^2, the image 16-byte
-    aligned with W % 16 == 0, and every plane's width and address a
-    multiple of its 16 / dx bytes; else the generic instance runs.
-    geo_i: pre_geometry's array."""
-    g = np.asarray(geo_i).reshape(3, 4)
+    (csrc/pre_rgb_to_planes.cu): an (H, W, 3) image to 3 planes, plane 0
+    at (dx, dy) = (1, 1), planes 1 and 2 of one shape at one (dx, dy) in
+    {1, 2}^2, the image 16-byte aligned with W % 16 == 0, and every
+    plane's width and address a multiple of its 16 / dx bytes; else the
+    generic instance runs.  geo_i: pre_geometry's array."""
+    if raw.dim() != 3 or raw.shape[2] != 3 or len(planes) != 3:
+        return False
+    g = np.asarray(geo_i).reshape(-1, 4)[:3]
     dx, dy = g[1, 0], g[1, 1]
     if (tuple(g[0, :2]) != (1, 1) or tuple(g[2]) != tuple(g[1])
             or dx not in (1, 2) or dy not in (1, 2)
@@ -135,12 +198,14 @@ def decode_post_supported(geo: Geometry, pi: ImageParameters) -> bool:
     package's gate, gpujpeg_tpu.ops.prepost_kernel.decode_post_supported):
     a non-interleaved scan of 3 components, luma at the largest sampling,
     both chroma planes decimated by one (dx, dy) in {1, 2}^2 and covering
-    exactly 1/dx by 1/dy of luma's block grid; P444_U8_P012 output
-    without row padding.  Blocks must be contiguous in phase C's layout
-    (restart segments fill their rows, or one segment a component); the
-    kernel takes any block count, so a ragged last segment, which the JAX
-    gate refuses, is allowed."""
-    if (pi.pixel_format != PixelFormat.P444_U8_P012 or pi.width_padding
+    exactly 1/dx by 1/dy of luma's block grid; P444_U8_P012 or
+    P4444_U8_P0123 (alpha 255) output.  Blocks must be contiguous in
+    phase C's layout (restart segments fill their rows, or one segment a
+    component); the kernel takes any block count, so a ragged last
+    segment, which the JAX gate refuses, is allowed.  Row padding is the
+    decoder's, after this stage, as in the JAX package."""
+    if (pi.pixel_format not in (PixelFormat.P444_U8_P012,
+                                PixelFormat.P4444_U8_P0123)
             or geo.comp_count != 3 or geo.interleaved):
         return False
     if not all(c.segment_mcu_count == geo.max_blocks_per_seg
@@ -218,7 +283,8 @@ def decode_post(coefs_t: torch.Tensor, qtabs: torch.Tensor, geo: Geometry,
                 pi: ImageParameters) -> torch.Tensor:
     """coefs_t (64, L) int16 zig-zag coefficients with DC integrated (phase
     C's layout), qtabs (3, 64) float32 zig-zag quant tables ->
-    (H, W, 3) uint8 pixels in pi.color_space, chroma upsampled
+    (H, W, 3) uint8 pixels in pi.color_space ((H, W, 4) with alpha 255
+    for P4444_U8_P0123), chroma upsampled
     nearest-neighbour (the pixel of luma block (by, bx), sample (r, c)
     takes chroma block (by / dy, bx / dx), sample ((by % dy) 8 + r) / dy,
     ((bx % dx) 8 + c) / dx: sample.postprocess's rule for these
@@ -237,8 +303,8 @@ def _dpost_check(coefs_t, qtabs, geo, pi) -> None:
         raise NotImplementedError(
             "the fused decode back half takes non-interleaved 3-component "
             "scans whose chroma planes tile luma's at dx, dy in {1, 2}, to "
-            "P444_U8_P012 (other layouts: idct_planes + postprocess_packed;"
-            " other outputs: ROADMAP queue 1 item 6)")
+            "P444_U8_P012 or P4444_U8_P0123 (every other stream and "
+            "output: idct_planes + postprocess_packed)")
     cols = component_columns(geo)
     L = cols[-1][0] + geo.components[-1].segment_count * \
         geo.max_blocks_per_seg
@@ -251,7 +317,8 @@ def _dpost_check(coefs_t, qtabs, geo, pi) -> None:
 
 def _dpost_args(coefs_t, qtabs, geo, pi):
     """The output and the C arguments of csrc/dpost_rgb.cu."""
-    out = torch.empty((pi.height, pi.width, 3), dtype=torch.uint8,
+    ob = 4 if pi.pixel_format == PixelFormat.P4444_U8_P0123 else 3
+    out = torch.empty((pi.height, pi.width, ob), dtype=torch.uint8,
                       device=coefs_t.device)
     nmat = idct_matrix(coefs_t.device)
     _kernels.require_cuda("dpost_rgb", coefs_t, qtabs, nmat, out)
@@ -261,7 +328,7 @@ def _dpost_args(coefs_t, qtabs, geo, pi):
                                  pi.color_space)
     dx, dy = dpost_decimation(geo)
     return out, (coefs_t, coefs_t.shape[1], offs, c0.mcu_count,
-                 c0.data_width // 8, dx, dy, pi.height, pi.width, qtabs,
+                 c0.data_width // 8, dx, dy, pi.height, pi.width, ob, qtabs,
                  nmat, params, out)
 
 
@@ -336,17 +403,68 @@ def postprocess_packed_plain(planes: List[torch.Tensor], geo: Geometry,
     return sample.postprocess(planes, geo, pi)
 
 
+def post_target(geo: Geometry, pi: ImageParameters):
+    """(output shape, geo int32[16], target int64[16]) of the
+    postprocessor kernel for this geometry and output (the shapes of
+    sample.pack_channels): geo = components, store kind (0 interleaved,
+    1 UYVY, 2 planar), bytes a pixel of an interleaved output, channels
+    before packing (sample.output_channels), then each plane's data_w,
+    row and column repeat factors (sample.upsample_factors); target = a
+    planar output's planes: first byte, width, row step, column step.
+    UYVY at an odd width raises ValueError, as the JAX package's stack
+    of unequal halves does."""
+    H, W, pf = pi.height, pi.width, pi.pixel_format
+    n = geo.comp_count
+    nch = sample.output_channels(pf, n)
+    g = np.zeros(16, np.int32)
+    dst = np.zeros(16, np.int64)
+    if pf == PixelFormat.U8:
+        shape, kind, unit = (H, W), 0, 1
+    elif pf == PixelFormat.P444_U8_P012:
+        unit = min(nch, 3)
+        shape, kind = (H, W, unit), 0
+    elif pf == PixelFormat.P4444_U8_P0123:
+        unit = nch if nch >= 4 else nch + 1
+        shape, kind = (H, W, unit), 0
+    elif pf == PixelFormat.P422_U8_P1020:
+        if W % 2:
+            raise ValueError(f"UYVY output needs an even width, got {W}")
+        shape, kind, unit = (2 * H * W,), 1, 2
+    elif pf in sample.PLANAR:
+        shape, kind, unit = (image_size_bytes(W, H, pf),), 2, 1
+        sampling = pixel_format_sampling(pf)
+        max_h = max(sh for sh, _ in sampling)
+        max_v = max(sv for _, sv in sampling)
+        off = 0
+        for k, ((ch, cw), (sh, sv)) in enumerate(
+                zip(sample.plane_sizes(pf, W, H), sampling)):
+            dh, dw = max_v // sv, max_h // sh
+            if (ch, cw) != (-(-H // dh), -(-W // dw)):
+                raise ValueError(f"plane {k} of {pf.name} is not the "
+                                 "image sampled at its steps")
+            dst[[k, 3 + k, 6 + k, 9 + k]] = off, cw, dh, dw
+            off += ch * cw
+    else:
+        raise ValueError(f"unsupported pixel format {pf}")
+    fac = sample.upsample_factors(geo, pi)
+    g[:4] = n, kind, unit, nch
+    for c, (fy, fx) in zip(geo.components, fac):
+        g[4 + c.index], g[8 + c.index], g[12 + c.index] = (c.data_width,
+                                                           fy, fx)
+    return shape, g, dst
+
+
 def postprocess_packed(planes: List[torch.Tensor], geo: Geometry,
                        pi: ImageParameters) -> torch.Tensor:
     """[(data_h, data_w) uint8 plane per component] in
-    geo.param.color_space_internal -> (H, W, 3) uint8 pixels in
-    pi.color_space, chroma upsampled nearest-neighbour
-    (sample.upsample_factors)."""
-    if (pi.pixel_format != PixelFormat.P444_U8_P012 or pi.width_padding
-            or geo.comp_count != 3):
-        raise NotImplementedError(
-            "the postprocessor takes 3 components to P444_U8_P012 (other "
-            "formats: ROADMAP queue 1 item 6)")
+    geo.param.color_space_internal -> the raw image of pi.pixel_format in
+    pi.color_space (sample.postprocess: chroma upsampled
+    nearest-neighbour by sample.upsample_factors, one component filled to
+    three with 128 unless the output is U8, a 4th component raw; the
+    shapes of post_target).  On CUDA one launch of csrc/post_rgb.cu."""
+    if len(planes) != geo.comp_count:
+        raise ValueError(f"expected {geo.comp_count} planes, got "
+                         f"{len(planes)}")
     for c, p in zip(geo.components, planes):
         if p.dtype != torch.uint8 or tuple(p.shape) != (c.data_height,
                                                         c.data_width):
@@ -355,14 +473,11 @@ def postprocess_packed(planes: List[torch.Tensor], geo: Geometry,
                              f"plane, got {tuple(p.shape)} {p.dtype}")
     if planes[0].device.type == "cpu":
         return postprocess_packed_plain(planes, geo, pi)
-    out = torch.empty((pi.height, pi.width, 3), dtype=torch.uint8,
-                      device=planes[0].device)
+    shape, g, dst = post_target(geo, pi)
+    out = torch.empty(shape, dtype=torch.uint8, device=planes[0].device)
     _kernels.require_cuda("post_rgb", *planes, out)
-    fac = sample.upsample_factors(geo, pi)
-    geo_i = np.asarray([c.data_width for c in geo.components]
-                       + [f[0] for f in fac] + [f[1] for f in fac], np.int32)
     params = color.kernel_params(geo.param.color_space_internal,
                                  pi.color_space)
-    _kernels.launch("post_rgb", *planes, geo_i, pi.height, pi.width, params,
-                    out)
+    _kernels.launch("post_rgb", *planes, *[None] * (4 - len(planes)), g,
+                    pi.height, pi.width, dst, params, out)
     return out

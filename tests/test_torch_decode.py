@@ -1,11 +1,10 @@
 """PyTorch port, whole decode: Decoder(device="cpu") returns the JAX
-package's pixels and coefficients on the slice's streams, refuses what
-the slice does not cover, and contains a corrupt segment (on the card:
-test_torch_kernels.py)."""
+package's pixels and coefficients on the slice's streams and on the
+layouts and outputs it once refused, and contains a corrupt segment (on
+the card: test_torch_kernels.py)."""
 
 import io
 import logging
-import re
 
 import numpy as np
 import pytest
@@ -61,8 +60,9 @@ def test_port_round_trip_q90():
 
 
 def _refused(kind):
-    """A stream outside the slice: PIL's greyscale, the JAX package's
-    4:1:1 (non-interleaved and interleaved) and its four components."""
+    """A stream the port refused before it took every layout: PIL's
+    greyscale, the JAX package's 4:1:1 (non-interleaved and
+    interleaved) and its four components."""
     frame = _gradient(48, 64, 2)
     p = gj.Parameters(quality=75, restart_interval=4)
     s411 = ((4, 1), (1, 1), (1, 1))
@@ -85,30 +85,36 @@ def _refused(kind):
     ("pil_grey", (6,)), ("planar_411", (6,)), ("il_411", (6,)),
     ("four_components", (6,))])
 def test_outside_the_slice_raises(kind, items):
-    """A stream outside the slice raises, naming every ROADMAP item it
-    needs and no other (the streams of other encoders, Annex-K and
-    optimised tables, restart interval 0 and more than two table sets
-    are in the slice: tests/test_torch_foreign_decode.py)."""
+    """Streams once outside the slice (they named ROADMAP item 6, now
+    done): each decodes to the JAX package's array, shape and pixels
+    (greyscale to (H, W), four components to (H, W, 4))."""
     data = _refused(kind)
-    with pytest.raises(NotImplementedError) as e:
-        gt.Decoder(device="cpu").decode(data)
-    named = {int(m) for m in re.findall(r"item (\d+)", str(e.value))}
-    assert named == set(items), str(e.value)
+    ref = np.asarray(_JDEC.decode(data))
+    got = gt.Decoder(device="cpu").decode(data)
+    assert got.shape == ref.shape and np.array_equal(got, ref), items
 
 
 def test_unported_output_raises():
+    """A planar output of a greyscale stream gives the JAX package's flat
+    buffer; RLE TGA output still raises, naming item 11; a JAX
+    ImageParameters is accepted as param_image."""
     data = STREAMS["grey"]()
     dec = gt.Decoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dec.decode(data, gt.ImageParameters(
-            pixel_format=gt.PixelFormat.P444_U8_P0P1P2))
+    got = dec.decode(data, gt.ImageParameters(
+        pixel_format=gt.PixelFormat.P444_U8_P0P1P2))
+    ref = np.asarray(_JDEC.decode(data, gj.ImageParameters(
+        pixel_format=gj.PixelFormat.P444_U8_P0P1P2)))
+    assert got.shape == ref.shape and np.array_equal(got, ref)
     with pytest.raises(NotImplementedError, match="item 11"):
         dec.set_option("dec_opt_tga_rle", "true")
     # a JAX ImageParameters is accepted as param_image
     got = dec.decode(data, gj.ImageParameters(
         color_space=gj.ColorSpace.RGB,
         pixel_format=gj.PixelFormat.P444_U8_P012))
-    assert np.array_equal(got, dec.decode(data))
+    ref = np.asarray(_JDEC.decode(data, gj.ImageParameters(
+        color_space=gj.ColorSpace.RGB,
+        pixel_format=gj.PixelFormat.P444_U8_P012)))
+    assert np.array_equal(got, ref)
 
 
 @pytest.mark.parametrize("request_kind", ["none_autodetect", "rgb_p444"])
@@ -134,17 +140,20 @@ def test_set_output_format_matches_jax(request_kind):
 
 @pytest.mark.parametrize("fmt", ["P444_U8_P0P1P2", "P4444_U8_P0123"])
 def test_set_output_format_other_format_raises(fmt):
-    """A request for another pixel format reaches the decode's item-6
-    gate; a param_image passed to decode still takes precedence."""
+    """A request for another pixel format (once refused as item 6) gives
+    the JAX decoder's array after the same set_output_format call; a
+    param_image passed to decode still takes precedence."""
     data = STREAMS["grey"]()
-    dec = gt.Decoder(device="cpu")
+    jdec, dec = gj.Decoder(), gt.Decoder(device="cpu")
+    jdec.set_output_format(gj.ColorSpace.RGB, gj.PixelFormat[fmt])
     dec.set_output_format(gt.ColorSpace.RGB, gt.PixelFormat[fmt])
-    with pytest.raises(NotImplementedError) as e:
-        dec.decode(data)
-    assert {int(m) for m in re.findall(r"item (\d+)", str(e.value))} == {6}
+    ref = np.asarray(jdec.decode(data))
+    got = dec.decode(data)
+    assert got.shape == ref.shape and np.array_equal(got, ref)
     got = dec.decode(data, gt.ImageParameters(
         pixel_format=gt.PixelFormat.P444_U8_P012))
-    assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(
+        data, gt.ImageParameters(pixel_format=gt.PixelFormat.P444_U8_P012)))
 
 
 def test_corrupt_stream_is_contained(caplog):

@@ -134,31 +134,37 @@ def test_encoder_without_cuda_raises(monkeypatch):
                                   "planar_411", "channel_remap", "grey",
                                   "rgba", "option"])
 def test_outside_main_path_raises(case):
-    enc = gt.Encoder(device="cpu")
-    frame = np.zeros((16, 16, 3), np.uint8)
-    p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
+    """Layouts and options beyond the first slices' RGB path, which the
+    port refused until it took every format: each now gives the JAX
+    package's bytes (interleaved 4:1:1, subsampled chroma planes, planar
+    4:1:1, a channel remap, greyscale, RGBA with 4 components, a vertical
+    flip)."""
+    rng = np.random.default_rng(17)
+    frame = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+    samp, interleaved, opts = None, False, []
     if case == "interleaved":
-        # interleaved 4:1:1 (4:4:4 to 4:2:0 are ported)
-        p = p.with_(interleaved=True).chroma_subsampled(
-            ((4, 1), (1, 1), (1, 1)))
+        samp, interleaved = ((4, 1), (1, 1), (1, 1)), True
     elif case == "subsampled":
-        # subsampled chroma planes (chroma at 1x1 is ported)
-        p = p.chroma_subsampled(((2, 2), (2, 1), (2, 1)))
+        samp = ((2, 2), (2, 1), (2, 1))
     elif case == "planar_411":
-        # non-interleaved 4:1:1 (restart interval 0 and Annex-K tables are
-        # ported: tests/test_torch_foreign_encode.py)
-        p = p.chroma_subsampled(((4, 1), (1, 1), (1, 1)))
+        samp = ((4, 1), (1, 1), (1, 1))
     elif case == "grey":
-        frame = np.zeros((16, 16), np.uint8)
+        frame = frame[..., 0].copy()
     elif case == "rgba":
-        frame = np.zeros((16, 16, 4), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        if case == "option":
-            enc.set_option("enc_opt_flipped", "true")
-        if case == "channel_remap":
-            # enc_exif_tag is ported: tests/test_torch_options.py
-            enc.set_option("enc_opt_channel_remap", "210")
-        enc.encode(frame, p)
+        frame = rng.integers(0, 256, (16, 16, 4), dtype=np.uint8)
+    elif case == "option":
+        opts = [("enc_opt_flipped", "true")]
+    elif case == "channel_remap":
+        opts = [("enc_opt_channel_remap", "210")]
+    out = []
+    for mod, enc in ((gj, gj.Encoder()), (gt, gt.Encoder(device="cpu"))):
+        for key, value in opts:
+            enc.set_option(key, value)
+        p = mod.Parameters(quality=75, restart_interval=mod.RESTART_AUTO,
+                           interleaved=interleaved)
+        out.append(bytes(enc.encode(frame, p.chroma_subsampled(samp)
+                                    if samp else p)))
+    assert out[1] == out[0]
 
 
 def test_encode_options_match_jax():

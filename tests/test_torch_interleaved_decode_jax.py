@@ -1,9 +1,7 @@
 """PyTorch port, decode of interleaved streams the JAX encoder writes:
-interleaved 4:4:4 decodes to the JAX package's pixels and coefficients;
-what the slice does not decode raises, naming its ROADMAP items (4:2:0,
-4:2:2, 4:4:0 and the Huffman phases: test_torch_interleaved_decode.py)."""
-
-import re
+interleaved 4:4:4, 4:1:1 (both layouts) and greyscale decode to the JAX
+package's pixels and coefficients (4:2:0, 4:2:2, 4:4:0 and the Huffman
+phases: test_torch_interleaved_decode.py)."""
 
 import numpy as np
 import pytest
@@ -13,7 +11,7 @@ import gpujpeg_tpu as gj
 import gpujpeg_tpu_torch as gt
 
 from .test_torch_encode import _gradient
-from .test_torch_interleaved_decode import _params, check_decode
+from .test_torch_interleaved_decode import _JDEC, _params, check_decode
 
 
 def _jax(frame, samp, quality=75, rst=-1):
@@ -36,8 +34,9 @@ def test_interleaved_444_decode_matches_jax(name):
 @pytest.mark.parametrize("case,items", [
     ("planar_411", (6,)), ("il_411", (6,)), ("grey", (6,))])
 def test_outside_the_slice_raises(case, items):
-    """Non-interleaved and interleaved 4:1:1 and a greyscale stream raise,
-    naming their ROADMAP items (restart interval 0 is ported:
+    """Non-interleaved and interleaved 4:1:1 and a greyscale stream, once
+    refused as ROADMAP item 6 (done): each decodes to the JAX package's
+    array and quantized coefficients (restart interval 0 is in
     tests/test_torch_foreign_decode_jax.py)."""
     frame = _gradient(32, 64, 7)
     if case == "planar_411":
@@ -49,7 +48,12 @@ def test_outside_the_slice_raises(case, items):
     else:
         frame, p = frame[..., 0], gj.Parameters(quality=75)
     data = bytes(gj.Encoder().encode(frame, p))
-    with pytest.raises(NotImplementedError) as e:
-        gt.Decoder(device="cpu").decode(data)
-    named = {int(m) for m in re.findall(r"item (\d+)", str(e.value))}
-    assert named == set(items), str(e.value)
+    ref = np.asarray(_JDEC.decode(data))
+    dec = gt.Decoder(device="cpu")
+    got = dec.decode(data)
+    assert got.shape == ref.shape and np.array_equal(got, ref), items
+    ref_c = _JDEC.decode_coefficients(data)
+    got_c = dec.decode_coefficients(data)
+    assert len(got_c) == len(ref_c)
+    for a, b in zip(got_c, ref_c):
+        assert a.shape == b.shape and np.array_equal(a, b)

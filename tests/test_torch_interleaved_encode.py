@@ -1,8 +1,8 @@
 """PyTorch port, interleaved encode with subsampled chroma: the bytes equal
 the JAX package's encoder (its non-megakernel path: XLA tokens, then the
 token-row packer) on the CPU, through the port's slot-pattern Huffman
-coder; other layouts still raise.  4:2:2 and 4:4:0 are in
-test_torch_interleaved_encode_sampling.py, interleaved 4:4:4 in
+coder, at 4:2:0, at 4:1:1 and with subsampled chroma.  4:2:2 and 4:4:0
+are in test_torch_interleaved_encode_sampling.py, interleaved 4:4:4 in
 test_torch_interleaved444.py (on the card: test_torch_kernels.py)."""
 
 import numpy as np
@@ -89,21 +89,18 @@ def test_interleaved_420_token_layout():
                                   "il_411"])
 def test_outside_the_slice_raises(case):
     """Non-interleaved and interleaved 4:1:1 and an interleaved scan with
-    subsampled chroma raise, naming their ROADMAP items (Annex-K tables
-    are ported: tests/test_torch_foreign_encode.py)."""
-    frame = np.zeros((32, 48, 3), np.uint8)
-    p = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
+    subsampled chroma, which the port refused before it took every
+    sampling: each now gives the JAX package's bytes (its non-megakernel
+    path), the interleaved ones through the slot-pattern Huffman coder
+    (6 and 8 blocks an MCU)."""
+    frame = _gradient(32, 48, 5)
     s411 = ((4, 1), (1, 1), (1, 1))
     if case == "planar_411":
-        p, items = p.chroma_subsampled(s411), ("queue 1 item 6",)
+        p = {m: m.Parameters(quality=75, restart_interval=m.RESTART_AUTO)
+             .chroma_subsampled(s411) for m in (gj, gt)}
+        ref = bytes(gj.Encoder().encode(frame, p[gj]))
+        assert gt.Encoder(device="cpu").encode(frame, p[gt]) == ref
     elif case == "il_subsampled_chroma":
-        p = p.with_(interleaved=True).chroma_subsampled(
-            ((2, 2), (2, 1), (2, 1)))
-        items = ("queue 1 item 6",)
+        check_bytes(((2, 2), (2, 1), (2, 1)), "noise_64x64", 75, -1)
     else:
-        p = p.with_(interleaved=True).chroma_subsampled(s411)
-        items = ("queue 1 item 6",)
-    with pytest.raises(NotImplementedError) as e:
-        gt.Encoder(device="cpu").encode(frame, p)
-    for item in items:
-        assert item in str(e.value)
+        check_bytes(s411, "noise_64x64", 75, 2)

@@ -2058,3 +2058,185 @@ def test_encoder_memory_estimate_on_card(cuda):
         peak = torch.cuda.max_memory_allocated() - base
         assert gt.Encoder.estimate_memory(
             p, enc.resolve(frame, p).param_image) >= peak
+
+
+# -- every pixel format, component count and sampling -----------------------
+
+from gpujpeg_tpu_torch.utils.geometry import get_geometry  # noqa: E402
+
+from tests import format_cases as fc  # noqa: E402
+
+S411 = ((4, 1), (1, 1), (1, 1))
+
+#: (input kind, sampling or None for the format's own, interleaved)
+PRE_FORMAT_CASES = [
+    ("u8", None, False), ("u8_flat", None, False),
+    ("u8", ((1, 1),) * 3, False), ("rgb", ((1, 1),), False),
+    ("rgb_pad", None, False), ("rgba", None, False),
+    ("rgba", None, True), ("rgba", SAMPLINGS["420"], False),
+    ("rgba_pad", None, False), ("uyvy", None, False),
+    ("uyvy_pad", None, True), ("p444", None, False), ("p422", None, True),
+    ("p420", None, False), ("p420", ((1, 1),) * 3, False),
+    ("rgb", S411, True), ("rgb", ((2, 2), (2, 1), (2, 1)), True),
+    ("rgb_pad", ((2, 2), (1, 1), (1, 1)), False)]
+
+
+def _format_geo(raw, pf, pad, hw, samp=None, il=False):
+    pi = fc.image_params(gt, pf, *hw, pad)
+    return gt.Encoder(device="cpu").resolve(raw, fc.params(gt, samp, il),
+                                            pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,samp,il", PRE_FORMAT_CASES)
+@pytest.mark.parametrize("hw", [(233, 310), (1080, 1920)])
+def test_pre_kernel_every_format(cuda, kind, samp, il, hw):
+    """The preprocessor's generic instance on every input kind (2-D, 3-D
+    and flat, padded rows, UYVY, the planar formats) at 1 to 4
+    components and 4:1:1 and subsampled-chroma layouts: one launch, bit
+    for bit the plain version."""
+    raw, pf, pad = fc.raw_input(kind, *hw, seed=len(kind) + hw[0])
+    geo = _format_geo(raw, pf, pad, hw, samp, il)
+    x = torch.from_numpy(raw).to(cuda)
+    _kernels.reset_launches()
+    got = tpre.preprocess_packed(x, geo, geo.param_image)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pre_rgb_to_planes"] == 1
+    ref = tpre.preprocess_packed_plain(x, geo, geo.param_image)
+    assert len(got) == len(ref) == geo.comp_count
+    for c, a, b in zip(geo.components, got, ref):
+        assert a.shape == (c.data_height, c.data_width)
+        assert torch.equal(a, b), c.index
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nin", [1, 2, 4, 5])
+def test_pre_kernel_any_channel_count(cuda, nin):
+    """An (H, W, C) image of any channel count (a channel remap's result)
+    encoded as 3 components: missing channels are 128, extra ones are
+    not read."""
+    hw = (61, 83)
+    raw = fc.gradient(*hw, nin, seed=nin)
+    geo = _format_geo(raw, "P444_U8_P012", 0, hw)
+    x = torch.from_numpy(raw).to(cuda)
+    got = tpre.preprocess_packed(x, geo, geo.param_image)
+    ref = tpre.preprocess_packed_plain(x, geo, geo.param_image)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+#: (components' sampling) of the postprocessor's format cases
+POST_SAMPLINGS = {"grey": ((1, 1),), "444": ((1, 1),) * 3,
+                  "420": SAMPLINGS["420"], "422": SAMPLINGS["422"],
+                  "411": S411, "four": ((1, 1),) * 4,
+                  "four_420": ((2, 2), (1, 1), (1, 1), (2, 2))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pf", fc.OUTPUTS)
+@pytest.mark.parametrize("samp", list(POST_SAMPLINGS))
+@pytest.mark.parametrize("hw", [(233, 310), (1080, 1920)])
+def test_post_kernel_every_format(cuda, pf, samp, hw):
+    """The postprocessor to every output format from 1, 3 and 4 planes at
+    several samplings (RGBA alpha 255 or the raw 4th plane, UYVY, the
+    planar formats): one launch, the plain version's shape and bytes."""
+    pi = fc.image_params(gt, pf, *hw)
+    geo = get_geometry(fc.params(gt, POST_SAMPLINGS[samp], rst=8), pi)
+    g = torch.Generator().manual_seed(hw[0] + len(samp))
+    planes = [torch.randint(0, 256, (c.data_height, c.data_width),
+                            dtype=torch.uint8, generator=g).to(cuda)
+              for c in geo.components]
+    _kernels.reset_launches()
+    got = tpre.postprocess_packed(planes, geo, pi)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["post_rgb"] == 1
+    ref = tpre.postprocess_packed_plain(planes, geo, pi)
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samp", ["444", "420"])
+@pytest.mark.parametrize("hw", [(1088, 1920), (240, 320), (64, 80)])
+def test_dpost_kernel_rgba(cuda, samp, hw):
+    """dpost's 4-byte store (P4444_U8_P0123, alpha 255) at dx = dy = 1 and
+    2: one launch, bit for bit the plain version, on the stream's
+    coefficients and on dense random ones."""
+    frame = _frame(*hw, 12)
+    data = gt.Encoder(device="cpu").encode(frame, gt.Parameters(
+        quality=75, restart_interval=gt.RESTART_AUTO).chroma_subsampled(
+        SAMPLINGS.get(samp, ((1, 1),) * 3)))
+    dec = gt.Decoder(device=cuda)
+    hf = dec.prepare(data, gt.ImageParameters(
+        color_space=gt.ColorSpace.RGB,
+        pixel_format=gt.PixelFormat.P4444_U8_P0123))
+    coefs_t, _ea, _ec = dec.coefficients_t(hf)
+    geo, pi = hf.plan.geo, hf.out_pi
+    assert tpre.decode_post_supported(geo, pi)
+    _kernels.reset_launches()
+    got = tpre.decode_post(coefs_t, hf.plan.qtabs, geo, pi)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["dpost_rgb"] == 1
+    assert got.shape == (*hw, 4)
+    assert torch.equal(got, tpre.decode_post_plain(coefs_t, hf.plan.qtabs,
+                                                   geo, pi))
+    assert bool((got[..., 3] == 255).all())
+    rnd = torch.randint(-600, 600, coefs_t.shape, dtype=torch.int16,
+                        generator=torch.Generator().manual_seed(5)).to(cuda)
+    assert torch.equal(tpre.decode_post(rnd, hf.plan.qtabs, geo, pi),
+                       tpre.decode_post_plain(rnd, hf.plan.qtabs, geo, pi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,samp,il", PRE_FORMAT_CASES[::2])
+def test_formats_encode_on_card_matches_cpu(cuda, kind, samp, il):
+    """Whole encodes of the input kinds on the card give the CPU session's
+    bytes, through the preprocessor kernel and no plain version."""
+    hw = (240, 320)
+    raw, pf, pad = fc.raw_input(kind, *hw, seed=3)
+    p = fc.params(gt, samp, il)
+    pi = fc.image_params(gt, pf, *hw, pad)
+    _kernels.reset_launches()
+    got = gt.Encoder(device=cuda).encode(raw, p, pi)
+    assert _kernels.LAUNCHES["pre_rgb_to_planes"] == 1
+    assert got == gt.Encoder(device="cpu").encode(raw, p, pi)
+
+
+#: (input kind, sampling, interleaved) of the streams the decode format
+#: tests decode to every output
+DECODE_FORMAT_STREAMS = [("u8", None, False), ("rgb", None, False),
+                         ("rgb", SAMPLINGS["420"], False),
+                         ("rgb", SAMPLINGS["422"], True),
+                         ("rgba", None, False), ("rgb", S411, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", range(len(DECODE_FORMAT_STREAMS)))
+def test_formats_decode_on_card_matches_cpu(cuda, stream):
+    """Every output format and pseudo request of greyscale, 3- and
+    4-component streams on the card gives the CPU session's array, with
+    and without the output options, through dpost or the postprocessor
+    kernel."""
+    kind, samp, il = DECODE_FORMAT_STREAMS[stream]
+    hw = (120, 176)
+    raw, pf, pad = fc.raw_input(kind, *hw, seed=stream)
+    data = gt.Encoder(device="cpu").encode(raw, fc.params(gt, samp, il))
+    reqs = [gt.PixelFormat[pf] for pf in fc.OUTPUTS] + list(
+        gt.types.PixelFormatRequest)
+    for opts in ((), (("dec_opt_flipped", "true"),
+                      ("dec_opt_channel_remap", "2F0Z"),
+                      ("dec_opt_alignment_bytes", "64"))):
+        card, cpu = gt.Decoder(device=cuda), gt.Decoder(device="cpu")
+        for k, v in opts:
+            card.set_option(k, v)
+            cpu.set_option(k, v)
+        for req in reqs:
+            pi = gt.ImageParameters(color_space=gt.ColorSpace.RGB,
+                                    pixel_format=req)
+            _kernels.reset_launches()
+            got = card.decode(data, pi)
+            assert (_kernels.LAUNCHES["post_rgb"]
+                    + _kernels.LAUNCHES["dpost_rgb"]) == 1, req
+            want = cpu.decode(data, pi)
+            assert got.shape == want.shape and np.array_equal(got, want), \
+                (req, opts)

@@ -1,6 +1,7 @@
 """PyTorch port, the sessions' options and stats against the JAX package:
 header, orientation and EXIF options give the JAX package's bytes (its
-tests/test_options.py), the unported keys name their ROADMAP item, and
+tests/test_options.py), the flip, remap and alignment keys give its
+bytes and arrays, the unported key names its ROADMAP item, and
 the stats classes have the JAX fields, labels and summary, with the
 phases filled under perf_stats (its tests/test_stats.py).  CPU, 64x80
 frames."""
@@ -88,13 +89,33 @@ def test_invalid_options():
     ("Decoder", "dec_opt_alignment_bytes", 6),
     ("Decoder", "dec_opt_tga_rle", 11),
 ])
-def test_unported_options_name_their_item(session, key, item):
-    s = getattr(gt, session)(device="cpu")
-    with pytest.raises(NotImplementedError) as e:
-        s.set_option(key, "true")
-    assert key in str(e.value)
-    assert {int(m) for m in re.findall(r"item (\d+)", str(e.value))} == {
-        item}
+def test_unported_options_name_their_item(frame, session, key, item):
+    """The keys of ROADMAP queue 1 item 6 (done) give the JAX package's
+    bytes (encoder) or array (decoder) with the option set on both
+    sessions; the key of item 11 (RLE TGA file output) still raises,
+    naming its item."""
+    value = {"enc_opt_flipped": "true", "enc_opt_channel_remap": "2F0Z",
+             "dec_opt_flipped": "true", "dec_opt_channel_remap": "1Z2F",
+             "dec_opt_alignment_bytes": "64", "dec_opt_tga_rle": "true"}[key]
+    if item != 6:
+        s = getattr(gt, session)(device="cpu")
+        with pytest.raises(NotImplementedError) as e:
+            s.set_option(key, value)
+        assert key in str(e.value)
+        assert {int(m) for m in re.findall(r"item (\d+)",
+                                           str(e.value))} == {item}
+        return
+    if session == "Encoder":
+        want, got = _both([(key, value)], frame)
+        assert got == want
+        return
+    data = bytes(gj.Encoder().encode(frame, gj.Parameters(
+        quality=80, restart_interval=4)))
+    out = []
+    for dec in (gj.Decoder(), gt.Decoder(device="cpu")):
+        dec.set_option(key, value)
+        out.append(np.asarray(dec.decode(data)))
+    assert out[1].shape == out[0].shape and np.array_equal(out[1], out[0])
 
 
 def test_print_options():
