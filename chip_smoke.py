@@ -147,7 +147,22 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      200 launches, the same of an empty kernel launched as each is (its
      grid and block, through the same path) and of a
      device-to-device copy_ that moves the same bytes, read and written;
- 14. prints the decomposition line of the tiled kernels (fdct_quant,
+ 14. [tool]: the direct route and the command-line tool (tool_phases):
+     a. 8K Q100 at restart auto (one block a segment: 1,555,200 segments
+        in planar 4:4:4 RGB) and greyscale U8: phase C's direct instance
+        (huffdec_block:direct) against its plain version on a gradient
+        and a noise stream, error 0; pixels equal to the same session's
+        phases A and C with the fix-up through the same back half; three
+        frames of each layout through Decoder.decode in main-path windows
+        with 0 phase-A and 0 fix-up launches; the direct phase C's ms
+        beside its bound and phases A + C + fix-up's ms on the same
+        stream; wall ms a frame (median and quartiles);
+     b. tpujpegtool_torch in processes of its own on the card: an 8K PPM,
+        an 8K PGM and 7680x4320.random_7.tst encoded at Q75 and the
+        streams decoded back, a 4K 4:2:0 Y4M of 8 frames through -B 4,
+        -I and -C; every file equal to the in-process sessions' bytes and
+        arrays (the conversion to the CPU's), each call's wall seconds;
+ 15. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
      coefficient 0), of phase C (planar 4:4:4, interleaved 4:2:0:
@@ -164,13 +179,13 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      counterpart of the JAX package's TPU probes tools/proto_xq.py and
      tools/profile_dpost5.py; the full stage is held against the plain
      version (error 0);
- 15. prints one JSON line of per-kernel records, every kernel and mode
+ 16. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists; the tokens and ns a token of phases A
      and C on each of the four paths; the preprocessor in ms a frame,
      one launch a frame; a note where a record is on no path);
- 16. prints {"ok": true, "device": {...}} as its last line.
+ 17. prints {"ok": true, "device": {...}} as its last line.
 
 Launches are counted in windows around each path's three 8K frames
 (end_window); a record's launches are its kernel's sum over those
@@ -2873,6 +2888,270 @@ def relayout_phase(torch, dev, flush):
 
 
 #: the keys of row_floor's records (ms of 200 launches each)
+DIRECT_FRAMES = 3
+
+
+def direct_streams(torch, np, gt, dev, enc, kind, params):
+    """Three 8K frames of a layout of the direct route ("rgb": planar
+    4:4:4, or "grey": U8) and their Q100 streams; the first stream's
+    noise twin for the kernel check."""
+    frames, streams = [], []
+    for i in range(DIRECT_FRAMES + 1):
+        f = make_frame(torch, "noise" if i == DIRECT_FRAMES else "gradient",
+                       300 + i, H8K, W8K, dev)
+        f = (f[..., 0].contiguous() if kind == "grey" else f).cpu().numpy()
+        frames.append(f)
+        streams.append(enc.encode(f, params))
+    return frames, streams
+
+
+def direct_phases(torch, np, gt, dev, flush):
+    """Step 14 a, [tool]: the direct route of one block a segment at 8K
+    Q100, restart auto (bps 1), in planar 4:4:4 RGB and greyscale U8;
+    returns (the huffdec_block:direct record, its launches)."""
+    from gpujpeg_tpu_torch.ops import _kernels, huffdec_kernel as thd
+
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    params = gt.Parameters(quality=100, restart_interval=gt.RESTART_AUTO)
+    rec = dict(source="gpujpeg_tpu_torch/csrc/huffdec_block.cu",
+               replaces="gpujpeg_tpu/ops/huffdec_kernel.py:283",
+               bound_by="bytes", library_ms=None, err=0, paths={},
+               note="the direct instance (the JAX kernel's buffer mode, "
+                    "with_cursor=False, sites :543/:552), phase C of one "
+                    "block a segment from bit 0 to the segment's bit "
+                    "count; ms, bound, plain and tokens of the planar "
+                    "4:4:4 frame, greyscale's in paths; launches over both "
+                    "layouts' windows of three frames")
+    launches = 0
+
+    def direct_call(words, nbits, p):
+        return thd.decode_blocks_direct(words, nbits, p.nblocks, p.dc_luma,
+                                        p.ac_luma, p.tables, p.pattern,
+                                        p.block_lut)
+
+    for kind in ("rgb", "grey"):
+        frames, streams = direct_streams(torch, np, gt, dev, enc, kind,
+                                         params)
+        # -- the kernel against its plain version, gradient and noise -----
+        for what, data in (("gradient", streams[0]), ("noise", streams[-1])):
+            hf = dec.prepare(data)
+            p = hf.plan
+            if not p.direct or p.bps != 1:
+                raise AssertionError(f"8K Q100 {kind}: bps {p.bps}, not the "
+                                     "direct route")
+            words, nbits = dec.upload(hf)
+            coefs, err_c = direct_call(words, nbits, p)
+            (p_coefs, p_err), ms = once_ms(
+                torch, lambda: thd.decode_blocks_direct_plain(
+                    words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
+                    p.pattern))
+            err = max(diff(coefs, p_coefs), diff(err_c, p_err))
+            rec["err"] = max(rec["err"], err)
+            if err or bool(err_c.any()):
+                raise AssertionError(f"huffdec_block:direct differs from "
+                                     f"its plain version or finds errors "
+                                     f"({kind} {what})")
+            # pixels: the same session's phases A and C and the fix-up,
+            # through the same back half
+            c_ac, e_a, e_c = dec._coefficients(p, words, nbits)
+            via_ac = dec.back_half(c_ac, p, hf.out_pi).cpu().numpy()
+            got = dec.decode(data)
+            if not np.array_equal(got, via_ac) or bool(e_a.any()):
+                raise AssertionError(f"8K Q100 {kind} {what}: the direct "
+                                     "route's pixels differ from phases "
+                                     "A+C's")
+            log(f"[tool direct] 8K Q100 {kind} {what}: {len(data)} bytes, "
+                f"{words.shape[0]} segments x {words.shape[1]} words; "
+                "direct instance equal to plain (plain once "
+                f"{ms:.1f} ms), pixels equal to phases A+C's")
+            if what == "gradient":
+                plain_ms = ms
+            del coefs, p_coefs, c_ac, via_ac, words
+        # -- main-path window: three frames through Decoder.decode ---------
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        walls = []
+        for data, f in zip(streams[:DIRECT_FRAMES], frames):
+            t0 = time.perf_counter()
+            out = dec.decode(data)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if out.shape != f.shape or psnr(np, out, f) < 45:
+                raise AssertionError(f"8K Q100 {kind} decode: {out.shape}, "
+                                     f"PSNR {psnr(np, out, f):.2f} dB")
+        end_window()
+        counts = dict(_kernels.LAUNCHES)
+        if counts["huffdec_block_direct"] != DIRECT_FRAMES or \
+                counts["huffdec_scan"] or counts["dc_fixup"] or \
+                counts["huffdec_block"]:
+            raise AssertionError(f"8K Q100 {kind} window: launches {counts}")
+        launches += counts["huffdec_block_direct"]
+        for i in range(EXTRA_FRAMES):
+            t0 = time.perf_counter()
+            dec.decode(streams[i % DIRECT_FRAMES])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"[tool direct] 8K Q100 {kind} window: launches "
+            + str({n: c for n, c in counts.items() if c})
+            + "; wall ms per frame (bytes in, host array out), "
+            + quartiles(np, walls))
+        # one more frame's stages, from the session's stats
+        dec.perf_stats = True
+        dec.decode(streams[0])
+        dec.perf_stats = False
+        st = dec.get_stats()
+        stages = dict(parse_unstuff_ms=st.duration_stream,
+                      phase_c_ms=st.duration_huffman_coder,
+                      idct_pixels_ms=st.duration_dct_quantization,
+                      image_back_ms=st.duration_memory_from,
+                      device_ms=st.duration_in_gpu)
+        log(f"[tool direct] 8K Q100 {kind} stages (get_stats under "
+            "perf_stats: the parse on the host clock, the rest CUDA "
+            "events): " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in stages.items()))
+        # -- times at the main path's shapes (the gradient stream) ---------
+        hf = dec.prepare(streams[0])
+        p = hf.plan
+        words, nbits = dec.upload(hf)
+        coefs, _e = direct_call(words, nbits, p)
+        ms = event_ms(torch, lambda: direct_call(words, nbits, p), 20, flush)
+        ac_ms = event_ms(torch, lambda: dec._coefficients(p, words, nbits),
+                         10, flush)
+        L = words.shape[0]
+        read = (stream_word_bytes(nbits) + 4 * L * 4 + p.tables.numel() * 4
+                + p.block_lut.numel() * 4)
+        tokens = scan_tokens(torch, coefs, p)
+        path = dict(ms=ms, plain_ms=plain_ms,
+                    bound_ms=(read + L * 64 * 2 + L * 4) / PEAK_BYTES_S * 1e3,
+                    a_c_fixup_ms=ac_ms, segments=L, tokens=tokens,
+                    ns_per_token=ms * 1e6 / tokens,
+                    wall_ms_median=float(np.median(walls)), stages=stages)
+        rec["paths"][kind] = path
+        log(f"[tool direct] 8K Q100 {kind}: direct phase C {ms:.4f} ms "
+            f"(bound {path['bound_ms']:.4f} ms by bytes, "
+            f"{stream_word_bytes(nbits) / 1e6:.1f} MB of words, "
+            f"{L * 128 / 1e6:.1f} MB of coefficients), phases A + C + "
+            f"fix-up on the same stream {ac_ms:.4f} ms; {tokens} tokens, "
+            f"{path['ns_per_token']:.4f} ns a token")
+        del words, coefs, frames, streams
+    rec.update({k: rec["paths"]["rgb"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "tokens",
+                          "ns_per_token")})
+    return rec, launches
+
+
+def tool_call(args, cwd) -> tuple:
+    """Run tpujpegtool_torch with args in cwd: (stdout, wall seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(here,
+                                                       "tpujpegtool_torch"),
+                          *args], cwd=cwd, capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"tpujpegtool_torch {' '.join(args)} exited "
+                             f"{out.returncode}:\n{out.stderr[-4000:]}")
+    log(f"[tool cli] tpujpegtool_torch {' '.join(args)}: {wall:.2f} s")
+    return out.stdout, wall
+
+
+def cli_phase(torch, np, gt, dev) -> None:
+    """Step 14 b, [tool]: the tool as a user runs it, a process of its own
+    on the card, on PNM, PAM, Y4M, raw and .tst files (no PIL there): its
+    files against in-process sessions' bytes and arrays."""
+    import shutil
+
+    from gpujpeg_tpu_torch.io import image as iio, pnm, tst, y4m
+    from gpujpeg_tpu_torch.ops import color, sample
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "gpujpeg_tpu_torch", "_build", "tool")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        frame = make_frame(torch, "gradient", 400, H8K, W8K,
+                           dev).cpu().numpy()
+        with open(os.path.join(work, "in.ppm"), "wb") as f:
+            f.write(pnm.save_pnm(gt.ImageParameters(width=W8K, height=H8K),
+                                 frame))
+        with open(os.path.join(work, "in.pgm"), "wb") as f:
+            f.write(pnm.save_pnm(gt.ImageParameters(width=W8K, height=H8K),
+                                 frame[..., 1]))
+        h4, w4 = H8K // 2, W8K // 2
+        pi4 = gt.ImageParameters(width=w4, height=h4,
+                                 color_space=gt.ColorSpace.YCBCR_BT601,
+                                 pixel_format=gt.PixelFormat.P420_U8_P0P1P2)
+        seq = [torch.randint(0, 256, (w4 * h4 * 3 // 2,), device=dev,
+                             dtype=torch.uint8,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(500 + i)).cpu().numpy()
+               for i in range(8)]
+        with open(os.path.join(work, "seq.y4m"), "wb") as f:
+            f.write(y4m.save_y4m_frames(pi4, seq))
+        tst_name = f"{W8K}x{H8K}.random_7.tst"
+        walls = {}
+        _, walls["encode"] = tool_call(
+            ["-e", "-q", "75", "in.ppm", "out.jpg", tst_name, "tst.jpg",
+             "in.pgm", "g.jpg"], work)
+        _, walls["decode"] = tool_call(["-d", "out.jpg", "out.ppm", "g.jpg",
+                                        "g.pgm"], work)
+        _, walls["batch"] = tool_call(["-e", "-B", "4", "-q", "75",
+                                       "seq.y4m", "f_%03d.jpg"], work)
+        info, walls["info"] = tool_call(["-I", "out.jpg"], work)
+        _, walls["convert"] = tool_call(["-C", "in.ppm", "c.yuv"], work)
+
+        def read(name):
+            with open(os.path.join(work, name), "rb") as f:
+                return f.read()
+
+        enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+        params = gt.Parameters(quality=75, restart_interval=gt.RESTART_AUTO)
+        for src, jpg in (("in.ppm", "out.jpg"), (tst_name, "tst.jpg"),
+                         ("in.pgm", "g.jpg")):
+            arr, pi = iio.load(src if src.endswith(".tst")
+                               else os.path.join(work, src))
+            if read(jpg) != enc.encode(arr, params, pi):
+                raise AssertionError(f"tool {src} -> {jpg} differs from "
+                                     "Encoder.encode")
+        want_tst, _ = tst.generate(tst_name)
+        for jpg, out in (("out.jpg", "out.ppm"), ("g.jpg", "g.pgm")):
+            arr, _pi = iio.load(os.path.join(work, out))
+            if not np.array_equal(arr, dec.decode(read(jpg))):
+                raise AssertionError(f"tool {jpg} -> {out} differs from "
+                                     "Decoder.decode")
+        for i, fr in enumerate(seq):
+            if read("f_%03d.jpg" % i) != enc.encode(fr, params, pi4):
+                raise AssertionError(f"tool -B frame {i} differs from "
+                                     "Encoder.encode")
+        if f"width: {W8K}\n" not in info or f"height: {H8K}\n" not in info:
+            raise AssertionError(f"tool -I printed {info!r}")
+        pi_yuv = iio.probe("c.yuv", file_exists=False)
+        chans = sample.unpack_to_channels(torch.from_numpy(frame),
+                                          gt.ImageParameters(
+                                              width=W8K, height=H8K))
+        want = sample.pack_channels(color.convert(
+            chans, gt.ColorSpace.RGB, pi_yuv.color_space),
+            pi_yuv.with_(width=W8K, height=H8K)).numpy()
+        if read("c.yuv") != want.tobytes():
+            raise AssertionError("tool -C differs from the CPU's convert")
+        log(f"[tool cli] 8K PPM, PGM and .tst encode and decode, 4K Y4M x 8 "
+            f"through -B 4, -I and -C: files equal to the in-process "
+            f"sessions' bytes and arrays (random pattern {want_tst.nbytes} "
+            f"bytes); wall s " + json.dumps(
+                {k: round(v, 2) for k, v in walls.items()}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def tool_phases(torch, np, gt, dev, flush):
+    """Step 14, [tool]: a. the direct route at 8K Q100 (direct_phases);
+    b. the command-line tool in processes of its own (cli_phase).
+    Returns (kernel records, launches)."""
+    rec, launches = direct_phases(torch, np, gt, dev, flush)
+    cli_phase(torch, np, gt, dev)
+    return ({"huffdec_block:direct": rec},
+            {"huffdec_block:direct": launches})
+
+
 ROW_FLOOR_KEYS = ("ms_median", "ms_min", "empty_ms_median", "empty_ms_min",
                   "copy_ms_median", "copy_ms_min")
 
@@ -3199,13 +3478,20 @@ def main() -> int:
         launches[name] = PATH_LAUNCHES.get(name, 0)
     log(f"[relayout_phase] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 14. decomposition line -----------------------------------------------
+    # -- 14. the direct route at Q100 and the command-line tool --------------
+    t_step = time.perf_counter()
+    step_kernels, step_launches = tool_phases(torch, np, gt, dev, flush)
+    kernels.update(step_kernels)
+    launches.update(step_launches)
+    log(f"[tool_phases] {time.perf_counter() - t_step:.1f} s")
+
+    # -- 15. decomposition line -----------------------------------------------
     log("[probe] decomposition ms at 8K (full | loads and stores only | "
         "full without the output store; the full stage's error against "
         "the plain version): " + json.dumps(
             {name: k["probe"] for name, k in kernels.items()
              if "probe" in k}))
-    # -- 15. kernels line ----------------------------------------------------
+    # -- 16. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -3217,7 +3503,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 16. result ----------------------------------------------------------
+    # -- 17. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -71,9 +71,19 @@
 // cursors, a tile of 32 a warp, and the grid's slot stepping carries
 // (s, j) across the row without a division.
 //
+// The direct instance (kDirect, entry point gj_huffdec_block_direct) is
+// the JAX kernel's buffer mode (_block_kernel_body with with_cursor=False,
+// which the JAX decoder's _decode_direct takes for non-interleaved scans
+// of one block a restart segment): every segment row is one block's
+// buffer, slot s decodes from bit 0 of row s up to nbits[s], the
+// segment's byte-aligned bit count, and no bstart is read (phase A does
+// not run).  That bound lets a corrupt block take up to 7 padding bits
+// without an error, as in the JAX kernel.  DC is then absolute (the
+// predictor resets at every restart marker).
+//
 // The stage template argument cuts the kernel for chip_smoke.py's probe
-// (gj::Stage; gj_huffdec_block_probe); the codec's entry point,
-// gj_huffdec_block, runs the full kernel.
+// (gj::Stage; gj_huffdec_block_probe); the codec's entry points,
+// gj_huffdec_block and gj_huffdec_block_direct, run the full kernel.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -203,10 +213,11 @@ __device__ __forceinline__ bool decode_block(gj::BitWindow& bw, int& jq,
     }
 }
 
-template <int kStage, int kSets>
+// bounds: bstart (nseg, bps + 1), or with kDirect nbits (nseg,) and bps 1
+template <int kStage, int kSets, bool kDirect>
 __global__ void __launch_bounds__(kThreads<kSets>)
 huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
-                     const int32_t* __restrict__ bstart, int bps, int L,
+                     const int32_t* __restrict__ bounds, int bps, int L,
                      const int32_t* __restrict__ nblocks,
                      const int32_t* __restrict__ dc_sel,
                      const int32_t* __restrict__ ac_sel, int bpm,
@@ -247,8 +258,10 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
         bool bad = false;
         if (b < L) {
             // the slot's loads, issued together
-            const int32_t* bs = bstart + (int64_t)s * (bps + 1) + j;
-            const int cursor = __ldg(bs), bend = __ldg(bs + 1);
+            const int32_t* bs = kDirect ? bounds + s
+                                        : bounds + (int64_t)s * (bps + 1) + j;
+            const int cursor = kDirect ? 0 : __ldg(bs);
+            const int bend = __ldg(bs + (kDirect ? 0 : 1));
             const int nb = __ldg(nblocks + s);
             const int dsel = __ldg(dc_sel + s), asel = __ldg(ac_sel + s);
             if (j < nb) {
@@ -305,21 +318,21 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
     }
 }
 
-template <int kStage, int kSets>
-int run(const void* words, int64_t nseg, int W, const void* bstart, int bps,
+template <int kStage, int kSets, bool kDirect>
+int run(const void* words, int64_t nseg, int W, const void* bounds, int bps,
         const void* nblocks, const void* dc_sel, const void* ac_sel,
         int bpm, int dc_pat, int ac_pat, const void* tables, const void* lut,
         void* coefs, void* err, void* stream) {
     constexpr int kW = kWarps<kSets>;
     const int64_t L = nseg * bps;
-    auto* kernel = huffdec_block_kernel<kStage, kSets>;
+    auto* kernel = huffdec_block_kernel<kStage, kSets, kDirect>;
     const int fit = gj::resident_ctas(kernel, kThreads<kSets>, 0);
     if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
     const int64_t want = ((L + kTile - 1) / kTile + kW - 1) / kW;
     const int grid = want < fit ? (int)want : fit;
     const bool vec = L % 8 == 0 && ((uintptr_t)coefs & 15) == 0;
     kernel<<<grid, kThreads<kSets>, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, W, (const int32_t*)bstart, bps, (int)L,
+        (const uint32_t*)words, W, (const int32_t*)bounds, bps, (int)L,
         (const int32_t*)nblocks, (const int32_t*)dc_sel,
         (const int32_t*)ac_sel, bpm, (uint32_t)dc_pat, (uint32_t)ac_pat,
         (const int32_t*)tables, (const uint32_t*)lut, vec, (int16_t*)coefs,
@@ -327,34 +340,38 @@ int run(const void* words, int64_t nseg, int W, const void* bstart, int bps,
     return (int)cudaGetLastError();
 }
 
-// the instance of (stage, table sets), or nullptr
+// the instance of (stage, table sets), or nullptr; the direct instance
+// has the full stage only
 template <int kSets>
-decltype(&run<gj::kFull, 2>) instance(int stage) {
-    return stage == gj::kFull ? run<gj::kFull, kSets>
-        : stage == gj::kLoadStore ? run<gj::kLoadStore, kSets>
-        : stage == gj::kNoStore ? run<gj::kNoStore, kSets> : nullptr;
+decltype(&run<gj::kFull, 2, false>) instance(int stage, bool direct) {
+    if (direct)
+        return stage == gj::kFull ? run<gj::kFull, kSets, true> : nullptr;
+    return stage == gj::kFull ? run<gj::kFull, kSets, false>
+        : stage == gj::kLoadStore ? run<gj::kLoadStore, kSets, false>
+        : stage == gj::kNoStore ? run<gj::kNoStore, kSets, false> : nullptr;
 }
 
-int launch(int stage, const void* words, int64_t nseg, int W,
-           const void* bstart, int bps, const void* nblocks,
+int launch(int stage, bool direct, const void* words, int64_t nseg, int W,
+           const void* bounds, int bps, const void* nblocks,
            const void* dc_sel, const void* ac_sel, int bpm, int dc_pat,
            int ac_pat, int nsets, const void* tables, const void* lut,
            void* coefs, void* err, void* stream) {
     // words: (nseg, W) host-order u32 rows, 4-byte aligned, 32 W < 2^31;
-    // bstart: (nseg, bps+1) i32 with entries in [0, 32 W]; nblocks,
-    // dc_sel, ac_sel: (nseg,) i32; bpm, dc_pat, ac_pat: the slot pattern,
-    // nsets: 2 or 4 table sets (huffdec.cuh); tables: (2 nsets, 290) i32;
-    // lut: (2 nsets, 512) i32 (ops/huffdec_kernel.block_lut), 16-byte
-    // aligned; coefs: (64, nseg*bps) i16; err: (nseg*bps,) i32
+    // bounds: bstart (nseg, bps+1) i32 with entries in [0, 32 W], or when
+    // direct nbits (nseg,) i32 in [0, 32 W] with bps 1; nblocks, dc_sel,
+    // ac_sel: (nseg,) i32; bpm, dc_pat, ac_pat: the slot pattern, nsets:
+    // 2 or 4 table sets (huffdec.cuh); tables: (2 nsets, 290) i32; lut:
+    // (2 nsets, 512) i32 (ops/huffdec_kernel.block_lut), 16-byte aligned;
+    // coefs: (64, nseg*bps) i16; err: (nseg*bps,) i32
     const int64_t L = nseg * bps;
     if (L > INT_MAX / 2 || ((uintptr_t)lut & 15)
-        || (int64_t)W * 32 > INT_MAX)
+        || (int64_t)W * 32 > INT_MAX || (direct && bps != 1))
         return (int)cudaErrorInvalidValue;
     if (L <= 0) return (int)cudaGetLastError();
-    const auto fn = nsets == 2 ? instance<2>(stage)
-        : nsets == 4 ? instance<4>(stage) : nullptr;
+    const auto fn = nsets == 2 ? instance<2>(stage, direct)
+        : nsets == 4 ? instance<4>(stage, direct) : nullptr;
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    return fn(words, nseg, W, bstart, bps, nblocks, dc_sel, ac_sel, bpm,
+    return fn(words, nseg, W, bounds, bps, nblocks, dc_sel, ac_sel, bpm,
               dc_pat, ac_pat, tables, lut, coefs, err, stream);
 }
 
@@ -367,9 +384,24 @@ extern "C" int gj_huffdec_block(const void* words, int64_t nseg, int W,
                                 int ac_pat, int nsets, const void* tables,
                                 const void* lut, void* coefs, void* err,
                                 void* stream) {
-    return launch(gj::kFull, words, nseg, W, bstart, bps, nblocks, dc_sel,
-                  ac_sel, bpm, dc_pat, ac_pat, nsets, tables, lut, coefs,
-                  err, stream);
+    return launch(gj::kFull, false, words, nseg, W, bstart, bps, nblocks,
+                  dc_sel, ac_sel, bpm, dc_pat, ac_pat, nsets, tables, lut,
+                  coefs, err, stream);
+}
+
+// the direct instance: slot s of row s from bit 0 to nbits[s] (bps 1)
+extern "C" int gj_huffdec_block_direct(const void* words, int64_t nseg,
+                                       int W, const void* nbits,
+                                       const void* nblocks,
+                                       const void* dc_sel,
+                                       const void* ac_sel, int bpm,
+                                       int dc_pat, int ac_pat, int nsets,
+                                       const void* tables, const void* lut,
+                                       void* coefs, void* err,
+                                       void* stream) {
+    return launch(gj::kFull, true, words, nseg, W, nbits, 1, nblocks,
+                  dc_sel, ac_sel, bpm, dc_pat, ac_pat, nsets, tables, lut,
+                  coefs, err, stream);
 }
 
 // the probe's cut kernels (gj::Stage), same arguments after the stage:
@@ -385,7 +417,7 @@ extern "C" int gj_huffdec_block_probe(int stage, const void* words,
                                       int dc_pat, int ac_pat, int nsets,
                                       const void* tables, const void* lut,
                                       void* coefs, void* err, void* stream) {
-    return launch(stage, words, nseg, W, bstart, bps, nblocks, dc_sel,
-                  ac_sel, bpm, dc_pat, ac_pat, nsets, tables, lut, coefs,
-                  err, stream);
+    return launch(stage, false, words, nseg, W, bstart, bps, nblocks,
+                  dc_sel, ac_sel, bpm, dc_pat, ac_pat, nsets, tables, lut,
+                  coefs, err, stream);
 }

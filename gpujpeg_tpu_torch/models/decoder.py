@@ -8,6 +8,11 @@ The decode of one codestream:
       phase A, block boundaries of each segment   huffdec_kernel.scan_segments
       phase C, coefficients of each block         huffdec_kernel.decode_blocks
       differential DC -> absolute, per component  dc_fixup
+    or, for non-interleaved scans of one block a restart segment (the
+    direct route, the JAX decoder's _decode_direct):
+      phase C, a segment row a block, from bit 0
+      to the segment's bit count                  huffdec_kernel.
+                                                  decode_blocks_direct
     then, for non-interleaved scans of 3 components whose chroma planes
     tile the luma plane at dx, dy in {1, 2}, to RGB or RGBA
     (prepost_kernel.decode_post_supported):
@@ -49,8 +54,22 @@ table sets a class take the kernels' two-set instances, three or four
 their four-set instances (huffdec_kernel's module docstring), which the
 JAX package decodes on its legacy path.  A restart interval of 0 makes
 each scan one segment: one thread of phase A walks it, phase C decodes
-its blocks in parallel from phase A's cursors.  The RLE TGA option
-(file output) raises NotImplementedError naming its ROADMAP item.
+its blocks in parallel from phase A's cursors.
+
+The direct route (Plan.direct) is taken for every non-interleaved stream
+of one block a restart segment, which is what the auto restart interval
+picks at quality 97 and above (utils/geometry.suggest_restart_interval):
+the segment rows are the block buffers, so phase A does not run, and DC
+is absolute (the predictor resets at every restart marker), so the DC
+fix-up does not run either.  Phase C is bounded by each segment's
+byte-aligned bit count, so a corrupt block may take up to 7 padding bits
+without an error, as in the JAX route.  The JAX gate also asks for rows
+of at most 40 words and at most two table sets (Plan.kernel_block_fn
+there); those limits size its TPU kernel, and the port's kernel has
+neither, so every such stream goes direct.  decode_coefficients keeps
+phases A and C, as the JAX method does.  The RLE TGA option sets
+io.image.TGA_RLE, the module global the file writer reads (a process-wide
+setting, as in the JAX package).
 
 The session surface is the JAX package's.  The words go up on an upload
 stream from a reused pinned buffer and the image comes back into a
@@ -278,10 +297,10 @@ class DecoderStats:
     duration_in_gpu the kernels from phase A to the last pixel store and
     duration_memory_from the copy of the image to the host, from CUDA
     events read when the image is fetched (the host's clock on the CPU).
-    Under Decoder.perf_stats the Huffman phases (A, C and the DC fix-up)
-    and the IDCT with the colour stages (dpost, or the IDCT planes and
-    the postprocessor) are split; postprocessing is counted in the
-    second, as the label says."""
+    Under Decoder.perf_stats the Huffman phases (A, C and the DC fix-up;
+    phase C alone on the direct route) and the IDCT with the colour
+    stages (dpost, or the IDCT planes and the postprocessor) are split;
+    postprocessing is counted in the second, as the label says."""
 
     def __init__(self) -> None:
         self.duration_stream = 0.0
@@ -360,6 +379,12 @@ class Plan:
     # the same for the DC fix-up's kernel: (bpm, the component of slot
     # j % bpm in 2 bits a slot, components)
     comp_pattern: Tuple[int, int, int] = (1, 0, 1)
+
+    @property
+    def direct(self) -> bool:
+        """One block a segment in non-interleaved scans: the direct route
+        (phase C alone, from bit 0 of each segment row)."""
+        return self.bps == 1 and not self.geo.interleaved
 
 
 def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
@@ -526,6 +551,9 @@ class Decoder:
         self._spare_buf: Optional[np.ndarray] = None
         self._spare_event = None
         self._output_request: Optional[ImageParameters] = None
+        #: the resolved output (pseudo formats resolved against the
+        #: stream) of the last stream decoded
+        self.last_output: Optional[ImageParameters] = None
         #: the output options (set_option): vertical flip, channel remap,
         #: row alignment in bytes
         self.flipped = False
@@ -556,8 +584,14 @@ class Decoder:
         """String options, the reference's keys
         (libgpujpeg/gpujpeg_decoder.h:293-304): vertical flip, channel
         remap and row alignment of the output (_apply_output_options);
-        RLE TGA output is not ported (ROADMAP queue 1 item 11, file I/O);
-        any other key raises ValueError."""
+        RLE TGA output sets io.image.TGA_RLE, the writer's module global
+        (process-wide, as in the JAX package); any other key raises
+        ValueError."""
+        if key == "dec_opt_tga_rle":
+            from ..io import image as iio
+
+            iio.TGA_RLE = value == "true"
+            return
         if key == "dec_opt_flipped":
             self.flipped = value == "true"
             return
@@ -569,9 +603,6 @@ class Decoder:
         if key == "dec_opt_alignment_bytes":
             self.alignment_bytes = int(value)
             return
-        if key == "dec_opt_tga_rle":
-            raise NotImplementedError(f"decoder option {key!r} is not "
-                                      "ported (ROADMAP queue 1 item 11)")
         raise ValueError(f"invalid decoder option {key!r}")
 
     @staticmethod
@@ -618,6 +649,7 @@ class Decoder:
         session the matrix lies in the session's reused buffer, so a
         HostFrame's words hold until the next prepare."""
         ps, out_pi, geo = self._parse(data, param_image)
+        self.last_output = out_pi
         plan = self._plan(ps, geo)
         bounds = self._segment_bounds(ps, geo)
         max_words = (int((bounds[1] - bounds[0]).max()) + 3) // 4
@@ -774,11 +806,18 @@ class Decoder:
         """The device decode of uploaded words -> (the uint8 image,
         0-d bool: a segment was corrupt), queued on the current stream,
         with the session's output options applied unless options is
-        False; the clock's phases "huffman" (A, C, fix-up) and "dct" (the
-        rest)."""
+        False; the clock's phases "huffman" (A, C, fix-up; phase C alone
+        on the direct route) and "dct" (the rest)."""
         if clock is not None:
             clock.mark("huffman")
-        coefs_t, err_a, err_c = self._coefficients(plan, words, nbits)
+        if plan.direct:
+            coefs_t, err_c = huffdec_kernel.decode_blocks_direct(
+                words, nbits, plan.nblocks, plan.dc_luma, plan.ac_luma,
+                plan.tables, plan.pattern, plan.block_lut)
+            bad = err_c.any()
+        else:
+            coefs_t, err_a, err_c = self._coefficients(plan, words, nbits)
+            bad = err_a.any() | err_c.any()
         if clock is not None:
             clock.mark("dct")
         img = self.back_half(coefs_t, plan, out_pi)
@@ -786,7 +825,7 @@ class Decoder:
             img = self._apply_output_options(img, out_pi)
         if clock is not None:
             clock.mark("end")
-        return img, err_a.any() | err_c.any()
+        return img, bad
 
     def _launch(self, hf: HostFrame) -> _Decoding:
         """Queue one prepared frame: the upload of its words and bit
@@ -935,6 +974,7 @@ class Decoder:
         admits.  comp_widths is None: the port's kernels are not
         specialised to widths."""
         ps, out_pi, geo = self._parse(data, self._output_request)
+        self.last_output = out_pi
         plan = self._plan(ps, geo)
         bounds = self._segment_bounds(ps, geo)
         max_words = _bucket((int((bounds[1] - bounds[0]).max()) + 3) // 4)
@@ -944,9 +984,10 @@ class Decoder:
         def fn(words: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
             """(nseg, max_words + 1) int32 words and (nseg,) int32 bit
             counts on the device -> the uint8 image there, without the
-            output options (as the JAX method's): phases A and C, the DC
-            fix-up, dpost or the IDCT planes and the postprocessor,
-            queued on the current stream."""
+            output options (as the JAX method's): phases A and C and the
+            DC fix-up (phase C alone on the direct route), dpost or the
+            IDCT planes and the postprocessor, queued on the current
+            stream."""
             return self._pixels(plan, out_pi, words, nbits,
                                 options=False)[0]
 
@@ -959,7 +1000,8 @@ class Decoder:
         the session's device (no flip, remap or row padding, as the JAX
         method's), and data's words (int32) and bit
         counts already there.  fn runs the device decode alone (phases A
-        and C, the DC fix-up, dpost or IDCT + postprocessor), with no host
+        and C and the DC fix-up, or phase C alone on the direct route;
+        dpost or IDCT + postprocessor), with no host
         work and no synchronisation; the port has no compile step, so
         fn's plan and lookahead tables are built here."""
         fn, words, nbits = self._stream_pipeline_parts(data)[:3]

@@ -3,8 +3,8 @@
 A copy of gpujpeg_tpu.native for the port, trimmed to what the encode and
 decode paths call: ``assemble_rows`` and ``pack_tokens`` (encode; the
 latter packs the scans of restart interval 0), ``scan_split``,
-``parse_offsets`` (stream/reader.py) and ``unstuff_rows``
-(stream/segments.py).  ``stream.cpp`` is the JAX package's source as it
+``parse_offsets`` (stream/reader.py), ``unstuff_rows``
+(stream/segments.py) and ``lcg_fill`` (io/tst.py's random pattern).  ``stream.cpp`` is the JAX package's source as it
 is; it builds into the port's own directory under its own library name, so
 the two packages never load each other's shared object.
 """
@@ -88,6 +88,9 @@ def lib() -> Optional[ctypes.CDLL]:
         L.gj_pack_tokens.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int64]
+        L.gj_lcg_fill.restype = None
+        L.gj_lcg_fill.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                  ctypes.c_uint32]
         _LIB = L
     except OSError:
         _LIB = None
@@ -246,3 +249,17 @@ def pack_tokens(bits: np.ndarray, lens: np.ndarray) -> bytes:
         if byte == 0xFF:
             out.append(0)
     return bytes(out)
+
+
+def lcg_fill(n: int, seed: int) -> np.ndarray:
+    """n bytes of the reference's deterministic LCG test pattern
+    (image_delegate.c:560-582), the .tst "random" pattern; io.tst.lcg_bytes
+    (numpy) when the library is unavailable, as in gpujpeg_tpu.native."""
+    L = lib()
+    out = np.empty(n, np.uint8)
+    if L is None:
+        from ..io.tst import lcg_bytes
+
+        return lcg_bytes(n, seed)
+    L.gj_lcg_fill(_ptr(out), n, seed & 0xFFFFFFFF)
+    return out

@@ -4,7 +4,8 @@ Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, at first use, into a build
 directory that ``.gitignore`` lists (``native.build_dir("kernels")``); all
 sources compile in parallel.  A kernel's source is ``csrc/<name>.cu``
-unless ``SOURCES`` names another (``relayout.cu`` holds four kernels).  A
+unless ``SOURCES`` names another (``relayout.cu`` holds four kernels,
+``huffdec_block.cu`` two: phase C and its direct instance).  A
 library's file name carries a hash of its source and of the shared
 headers (``csrc/*.cuh``), so an edited kernel is rebuilt.  The libraries
 are loaded with ctypes: every pointer and the stream pass as
@@ -73,6 +74,11 @@ _SIGNATURES: Dict[str, List] = {
     # ac_pat, table sets, tables, lookahead table, coefs, err, stream
     "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P],
+    # phase C's direct instance (one block a segment): words, nseg, W,
+    # nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat, table sets,
+    # tables, lookahead table, coefs, err, stream
+    "huffdec_block_direct": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _P],
     # coefs, L, offsets (host int64[3]), luma blocks, luma blocks per row,
     # dx, dy, H, W, bytes a pixel (3 or 4), qtabs, idct matrix, params
     # (host int32[26]), out, stream
@@ -100,6 +106,7 @@ _SIGNATURES: Dict[str, List] = {
 #: kernels whose source is not csrc/<name>.cu: kernel name -> source name
 SOURCES: Dict[str, str] = {name: "relayout" for name in (
     "xbd_relayout", "transpose_u32", "pair_sum_rows", "pack_u8_quads")}
+SOURCES["huffdec_block_direct"] = "huffdec_block"
 
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)

@@ -86,6 +86,19 @@ def convert_channels(c0, c1, c2, src: ColorSpace, dst: ColorSpace):
     return ch
 
 
+def convert(c: torch.Tensor, src: ColorSpace, dst: ColorSpace) -> torch.Tensor:
+    """Transform (..., 3) integer channels from `src` to `dst` on c's
+    device (gpujpeg_tpu.ops.color.convert): int32 in [0, 255] through
+    convert_channels.  Channels past 3 are the caller's (alpha passes
+    through untouched, as in the reference, where the matrix only
+    touches .xyz of the uchar4)."""
+    c = c.to(torch.int32)
+    if not transform_steps(src, dst):
+        return c
+    return torch.stack(convert_channels(c[..., 0], c[..., 1], c[..., 2],
+                                        src, dst), dim=-1)
+
+
 def kernel_params(src: ColorSpace, dst: ColorSpace) -> np.ndarray:
     """The transform as the CUDA preprocessor takes it: int32[26] =
     from-matrix[9], from-base[3], to-matrix[9], to-base[3], use_from,

@@ -7,6 +7,13 @@ gpujpeg_tpu.ops.huffdec_kernel:
   scan_segments   csrc/huffdec_scan.cu   _scan_kernel_body (phase A)
   decode_blocks   csrc/huffdec_block.cu  _block_kernel_body, segment-row
                                          mode (with_cursor=True)
+  decode_blocks_  csrc/huffdec_block.cu  _block_kernel_body, buffer mode
+    direct        (direct instance)      (with_cursor=False), the JAX
+                                         decoder's _decode_direct
+
+decode_blocks_direct is phase C for scans of one block a restart segment:
+the segment row is the block's buffer, decoded from bit 0 up to the
+segment's byte-aligned bit count, with no phase A before it.
 
 The JAX package's default path splits every segment row into per-block
 buffers between the two phases (phase B, huffdec2.make_split_fn) with a
@@ -514,31 +521,77 @@ def decode_blocks(words: torch.Tensor, bstart: torch.Tensor,
     if words.device.type == "cpu":
         return decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma,
                                    tab, pattern)
-    coefs, err, args = _block_args(words, bstart, nblocks, dc_luma, ac_luma,
-                                   tab, pattern, lut)
+    coefs, err, args = _block_args(words, bstart, bstart.shape[1] - 1,
+                                   nblocks, dc_luma, ac_luma, tab, pattern,
+                                   lut)
     _kernels.launch("huffdec_block", *args)
     return coefs, err
 
 
-def _block_args(words, bstart, nblocks, dc_luma, ac_luma, tab, pattern, lut):
-    """The outputs and the C arguments of csrc/huffdec_block.cu."""
-    _kernels.require_cuda("huffdec_block", words, bstart, nblocks, dc_luma,
-                          ac_luma, tab)
-    _check_cursors("decode_blocks", words)
+def decode_blocks_direct_plain(words, nbits, nblocks, dc_luma, ac_luma, tab,
+                               pattern=NO_PATTERN):
+    """Plain version of decode_blocks_direct, on any device:
+    decode_blocks_plain with bstart[s] = (0, nbits[s])."""
+    bstart = torch.stack([torch.zeros_like(nbits), nbits], dim=1)
+    return decode_blocks_plain(words, bstart, nblocks, dc_luma, ac_luma, tab,
+                               pattern)
+
+
+def decode_blocks_direct(words: torch.Tensor, nbits: torch.Tensor,
+                         nblocks: torch.Tensor, dc_luma: torch.Tensor,
+                         ac_luma: torch.Tensor, tab: torch.Tensor,
+                         pattern: Tuple[int, int, int] = NO_PATTERN,
+                         lut: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase C of one block a segment (the JAX kernel's buffer mode,
+    with_cursor=False): block slot s decodes from bit 0 to bit nbits[s] of
+    segment row s -> (coefs_t (64, nseg) int16 zig-zag, err (nseg,)
+    int32).  nbits is the segment's byte-aligned bit count, so a corrupt
+    block may consume up to 7 padding bits without an error, as in the
+    JAX decoder's _decode_direct.  DC is as coded, which is absolute at
+    one block a segment.  Slots with nblocks[s] == 0 are zero with err 0.
+    The selectors, tab, pattern and lut as decode_blocks; the CUDA call
+    launches csrc/huffdec_block.cu's direct instance, which reads no
+    bstart."""
+    _check("decode_blocks_direct", words, tab, nbits, nblocks, dc_luma,
+           ac_luma)
+    _check_pattern(pattern, tab)
+    if words.device.type == "cpu":
+        return decode_blocks_direct_plain(words, nbits, nblocks, dc_luma,
+                                          ac_luma, tab, pattern)
+    coefs, err, args = _block_args(words, nbits, 1, nblocks, dc_luma,
+                                   ac_luma, tab, pattern, lut,
+                                   "huffdec_block_direct")
+    _kernels.launch("huffdec_block_direct", *args)
+    return coefs, err
+
+
+def _block_args(words, bounds, bps, nblocks, dc_luma, ac_luma, tab, pattern,
+                lut, kernel="huffdec_block"):
+    """The outputs and the C arguments of csrc/huffdec_block.cu's entry
+    point gj_<kernel>: bounds is bstart (nseg, bps + 1), or nbits (nseg,)
+    for the direct instance, whose arguments have no bps."""
+    _kernels.require_cuda(kernel, words, bounds, nblocks, dc_luma, ac_luma,
+                          tab)
+    name = ("decode_blocks_direct" if kernel == "huffdec_block_direct"
+            else "decode_blocks")
+    _check_cursors(name, words)
     nt = tab.shape[0]
     if lut is None or tuple(lut.shape) != (nt, 1 << BLOCK_LUT_BITS) or \
             lut.dtype != torch.int32 or lut.data_ptr() % 16:
-        raise ValueError(f"decode_blocks: lut must be ({nt}, "
+        raise ValueError(f"{name}: lut must be ({nt}, "
                          f"{1 << BLOCK_LUT_BITS}) int32 (block_lut), "
                          "16-byte aligned")
-    nseg, bps = words.shape[0], bstart.shape[1] - 1
+    nseg = words.shape[0]
     L = nseg * bps
     coefs = torch.empty((64, L), dtype=torch.int16, device=words.device)
     err = torch.empty(L, dtype=torch.int32, device=words.device)
-    _kernels.require_cuda("huffdec_block", words, lut, coefs, err)
-    return coefs, err, (words, nseg, words.shape[1], bstart, bps, nblocks,
-                        dc_luma, ac_luma, *pattern, table_sets(tab), tab,
-                        lut, coefs, err)
+    _kernels.require_cuda(kernel, words, lut, coefs, err)
+    lead = ((words, nseg, words.shape[1], bounds)
+            if kernel == "huffdec_block_direct"
+            else (words, nseg, words.shape[1], bounds, bps))
+    return coefs, err, (*lead, nblocks, dc_luma, ac_luma, *pattern,
+                        table_sets(tab), tab, lut, coefs, err)
 
 
 def decode_blocks_probe(words: torch.Tensor, bstart: torch.Tensor,
@@ -553,7 +606,8 @@ def decode_blocks_probe(words: torch.Tensor, bstart: torch.Tensor,
     path calls it.  Only the "full" stage's output is the coefficients."""
     _check("decode_blocks", words, tab, nblocks, dc_luma, ac_luma)
     _check_pattern(pattern, tab)
-    coefs, err, args = _block_args(words, bstart, nblocks, dc_luma, ac_luma,
-                                   tab, pattern, lut)
+    coefs, err, args = _block_args(words, bstart, bstart.shape[1] - 1,
+                                   nblocks, dc_luma, ac_luma, tab, pattern,
+                                   lut)
     _kernels.probe("huffdec_block", stage, *args)
     return coefs, err

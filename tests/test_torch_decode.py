@@ -94,10 +94,11 @@ def test_outside_the_slice_raises(kind, items):
     assert got.shape == ref.shape and np.array_equal(got, ref), items
 
 
-def test_unported_output_raises():
+def test_unported_output_raises(monkeypatch):
     """A planar output of a greyscale stream gives the JAX package's flat
-    buffer; RLE TGA output still raises, naming item 11; a JAX
-    ImageParameters is accepted as param_image."""
+    buffer; the RLE TGA option (item 11, ported) sets the file writer's
+    flag as the JAX option does; a JAX ImageParameters is accepted as
+    param_image."""
     data = STREAMS["grey"]()
     dec = gt.Decoder(device="cpu")
     got = dec.decode(data, gt.ImageParameters(
@@ -105,8 +106,14 @@ def test_unported_output_raises():
     ref = np.asarray(_JDEC.decode(data, gj.ImageParameters(
         pixel_format=gj.PixelFormat.P444_U8_P0P1P2)))
     assert got.shape == ref.shape and np.array_equal(got, ref)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dec.set_option("dec_opt_tga_rle", "true")
+    from gpujpeg_tpu.io import image as jio
+    from gpujpeg_tpu_torch.io import image as tio
+
+    monkeypatch.setattr(jio, "TGA_RLE", True)
+    monkeypatch.setattr(tio, "TGA_RLE", True)
+    dec.set_option("dec_opt_tga_rle", "false")
+    _JDEC.set_option("dec_opt_tga_rle", "false")
+    assert tio.TGA_RLE is jio.TGA_RLE is False
     # a JAX ImageParameters is accepted as param_image
     got = dec.decode(data, gj.ImageParameters(
         color_space=gj.ColorSpace.RGB,

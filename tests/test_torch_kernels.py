@@ -206,7 +206,7 @@ class _FailingLib:
 
 
 @pytest.mark.parametrize("name", ["huffdec_scan", "huffdec_block",
-                                  "dpost_rgb", "pack_stuff_rows",
+                                  "huffdec_block_direct", "dpost_rgb", "pack_stuff_rows",
                                   "idct_planes", "post_rgb", "xbd_relayout",
                                   "transpose_u32", "pair_sum_rows",
                                   "pack_u8_quads"])
@@ -318,11 +318,21 @@ def test_dpost_kernel_matches_plain(cuda, hw):
     ("gradient", (1080, 1920), 75), ("noise", (233, 311), 75),
     ("gradient", (64, 80), 98)])
 def test_decode_on_card_matches_cpu(cuda, kind, hw, quality):
+    """The card's pixels are the CPU's; at Q98 (one block a segment) the
+    decode takes the direct route: phase C's direct instance, no phase A,
+    no fix-up."""
     frame, data = _stream(kind, *hw, quality=quality, seed=9)
     _kernels.reset_launches()
     got = gt.Decoder(device=cuda).decode(data)
-    for name in ("huffdec_scan", "huffdec_block", "dpost_rgb"):
+    direct = quality >= 97
+    ran = (("huffdec_block_direct", "dpost_rgb") if direct else
+           ("huffdec_scan", "huffdec_block", "dc_fixup", "dpost_rgb"))
+    for name in ran:
         assert _kernels.LAUNCHES[name] == 1, _kernels.LAUNCHES
+    if direct:
+        assert _kernels.LAUNCHES["huffdec_scan"] == \
+            _kernels.LAUNCHES["huffdec_block"] == \
+            _kernels.LAUNCHES["dc_fixup"] == 0
     assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
     assert got.shape == frame.shape
 
@@ -2240,3 +2250,148 @@ def test_formats_decode_on_card_matches_cpu(cuda, stream):
             want = cpu.decode(data, pi)
             assert got.shape == want.shape and np.array_equal(got, want), \
                 (req, opts)
+
+
+def _direct_both(cuda, words, nbits, nb, dcl, acl, tab,
+                 pattern=thd.NO_PATTERN, offset=0):
+    """Phase C's direct instance and its plain version on the same rows
+    (numpy words, nbits, nblocks, dc_luma, ac_luma), the plain version
+    also against decode_blocks_plain with bstart = (0, nbits): equal
+    coefficients and err, which are returned.  offset puts the card's
+    word matrix that many words past a 16-byte boundary."""
+    words = torch.from_numpy(np.ascontiguousarray(words, np.int32))
+    buf = torch.zeros(words.numel() + 4, dtype=torch.int32, device=cuda)
+    w_dev = buf[offset:offset + words.numel()].view(words.shape)
+    w_dev.copy_(words)
+    rows = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+            for a in (nbits, nb, dcl, acl)]
+    lut = torch.from_numpy(thd.block_lut(tab.numpy())).to(cuda)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="lut"):
+        thd.decode_blocks_direct(w_dev, *[r.to(cuda) for r in rows],
+                                 tab.to(cuda), pattern)
+    got = thd.decode_blocks_direct(w_dev, *[r.to(cuda) for r in rows],
+                                   tab.to(cuda), pattern, lut)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["huffdec_block_direct"] == 1
+    assert _kernels.LAUNCHES["huffdec_block"] == 0
+    want = thd.decode_blocks_direct_plain(words, *rows, tab, pattern)
+    bstart = torch.stack([torch.zeros_like(rows[0]), rows[0]], 1)
+    seg = thd.decode_blocks_plain(words, bstart, *rows[1:], tab, pattern)
+    assert torch.equal(want[0], seg[0]) and torch.equal(want[1], seg[1])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gradient", "noise"])
+def test_block_direct_matches_plain(cuda, kind):
+    """The direct instance on a Q100 stream at the auto interval (one
+    block a segment) against its plain version, and the session's decode
+    through it: no phase A, no fix-up, the CPU session's pixels."""
+    _, data = _stream(kind, 480, 640, quality=100)
+    hf, p, words, nbits = _device_frame(data, cuda)
+    assert p.direct
+    _direct_both(cuda, hf.words, hf.nbits, p.nblocks.cpu(),
+                 p.dc_luma.cpu(), p.ac_luma.cpu(), p.tables.cpu())
+    dec = gt.Decoder(device=cuda)
+    _kernels.reset_launches()
+    got = dec.decode(data)
+    counts = dict(_kernels.LAUNCHES)
+    assert counts["huffdec_block_direct"] == 1
+    assert counts["huffdec_scan"] == counts["dc_fixup"] == \
+        counts["huffdec_block"] == 0
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
+    _kernels.reset_launches()
+    coefs = dec.decode_coefficients(data)      # keeps phases A and C
+    assert _kernels.LAUNCHES["huffdec_scan"] == 1
+    want = gt.Decoder(device="cpu").decode_coefficients(data)
+    assert all(np.array_equal(a, b) for a, b in zip(coefs, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sets", [2, 4])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_block_direct_coded_rows(cuda, sets, offset):
+    """Coded rows of one block (long codes, two or four table sets, the
+    segments' selectors at random, some segments empty), the word matrix
+    off 16-byte alignment: bit for bit the plain decode, no error but in
+    the empty segments."""
+    rng = np.random.default_rng(sets + offset)
+    tabs = _scan_tabs(sets)[:2] if sets == 2 else \
+        [_scan_tabs(s)[0] for s in range(4)]
+    nseg = 700
+    nb = (rng.random(nseg) > 0.05).astype(np.int32)
+    flags = (rng.integers(0, sets if sets == 4 else 2, nseg),
+             rng.integers(0, sets if sets == 4 else 2, nseg))
+    pattern = thd.NO_PATTERN if sets == 2 else thd.NO_PATTERN_WIDE
+    rows, nb, dcl, acl = scan_rows.segment_rows(
+        rng, nseg, 1, tabs, pattern, flags, nb, long_share=0.5)
+    words, nbits = scan_rows.word_matrix(rows)
+    coefs, err = _direct_both(cuda, words, nbits, nb, dcl, acl,
+                              scan_rows.decode_tables(tabs), pattern, offset)
+    assert not bool(err.any()) and bool(coefs.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 3, 64])
+def test_block_direct_random_words(cuda, W):
+    """Random rows (mostly bad tokens) with random bit counts in [0, 32 W]
+    and nblocks 0 or 1: bit for bit the plain decode."""
+    rng = np.random.default_rng(W)
+    nseg = 1000
+    words = rng.integers(-(1 << 31), 1 << 31, (nseg, W))
+    _, err = _direct_both(cuda, words, rng.integers(0, 32 * W + 1, nseg),
+                          rng.integers(0, 2, nseg), rng.integers(0, 2, nseg),
+                          rng.integers(0, 2, nseg),
+                          scan_rows.decode_tables(_scan_tabs(W)))
+    assert bool(err.any())
+
+
+@pytest.mark.gpu
+def test_block_direct_error_kinds(cuda):
+    """Each error kind of scan_rows.block_error_rows with every block in a
+    row of its own (its bits from its first on, bounded by its length):
+    the segment-row mode's errors, bit for bit the plain decode."""
+    words, bstart, nblocks, tab, want = scan_rows.block_error_rows()
+    rows, bits, keep = [], [], []
+    for s in range(len(nblocks)):
+        row = np.unpackbits(words[s].view(np.uint8))
+        for j in range(int(nblocks[s])):
+            lo, hi = int(bstart[s, j]), int(bstart[s, j + 1])
+            rows.append(np.packbits(row[lo:]).tobytes())
+            bits.append(hi - lo)
+            keep.append(want[s][j])
+    w, _ = scan_rows.word_matrix(rows)
+    ones = np.ones(len(rows), np.int32)
+    _, err = _direct_both(cuda, w, np.asarray(bits), ones, ones, ones, tab)
+    assert err.tolist() == keep
+
+
+@pytest.mark.gpu
+def test_cli_on_card(cuda, tmp_path):
+    """The tool with -D 0 writes the bytes of an in-process Encoder on the
+    card and decodes to the pixels of a Decoder on the card, Q75 and the
+    direct route at Q100."""
+    from gpujpeg_tpu_torch import cli
+    from gpujpeg_tpu_torch.io import image as tio, pnm
+
+    frame = _frame(240, 320, 5)
+    src = tmp_path / "in.ppm"
+    src.write_bytes(pnm.save_pnm(gt.ImageParameters(width=320, height=240),
+                                 frame))
+    for q in (75, 100):
+        jpg, back = tmp_path / f"q{q}.jpg", tmp_path / f"q{q}.ppm"
+        assert cli.main(["-D", str(cuda.index or 0), "-q", str(q), str(src),
+                         str(jpg)]) == 0
+        want = gt.Encoder(device=cuda).encode(frame, gt.Parameters(
+            quality=q, restart_interval=gt.RESTART_AUTO))
+        assert jpg.read_bytes() == want
+        _kernels.reset_launches()
+        assert cli.main(["-D", str(cuda.index or 0), str(jpg),
+                         str(back)]) == 0
+        assert _kernels.LAUNCHES["huffdec_block_direct"] == (q == 100)
+        arr, _pi = tio.load(str(back))
+        assert np.array_equal(arr, gt.Decoder(device=cuda).decode(want))
+

@@ -1,14 +1,13 @@
 """PyTorch port, the sessions' options and stats against the JAX package:
 header, orientation and EXIF options give the JAX package's bytes (its
 tests/test_options.py), the flip, remap and alignment keys give its
-bytes and arrays, the unported key names its ROADMAP item, and
+bytes and arrays, the RLE TGA key sets the file writer's flag, and
 the stats classes have the JAX fields, labels and summary, with the
 phases filled under perf_stats (its tests/test_stats.py).  CPU, 64x80
 frames."""
 
 import dataclasses
 import io
-import re
 
 import numpy as np
 import pytest
@@ -89,21 +88,37 @@ def test_invalid_options():
     ("Decoder", "dec_opt_alignment_bytes", 6),
     ("Decoder", "dec_opt_tga_rle", 11),
 ])
-def test_unported_options_name_their_item(frame, session, key, item):
+def test_unported_options_name_their_item(frame, session, key, item,
+                                          tmp_path, monkeypatch):
     """The keys of ROADMAP queue 1 item 6 (done) give the JAX package's
     bytes (encoder) or array (decoder) with the option set on both
-    sessions; the key of item 11 (RLE TGA file output) still raises,
-    naming its item."""
+    sessions; the key of item 11 (RLE TGA file output, done) sets each
+    package's io.image.TGA_RLE, and the TGA files written after it are
+    the JAX package's bytes, with RLE on and off."""
     value = {"enc_opt_flipped": "true", "enc_opt_channel_remap": "2F0Z",
              "dec_opt_flipped": "true", "dec_opt_channel_remap": "1Z2F",
              "dec_opt_alignment_bytes": "64", "dec_opt_tga_rle": "true"}[key]
     if item != 6:
-        s = getattr(gt, session)(device="cpu")
-        with pytest.raises(NotImplementedError) as e:
-            s.set_option(key, value)
-        assert key in str(e.value)
-        assert {int(m) for m in re.findall(r"item (\d+)",
-                                           str(e.value))} == {item}
+        from gpujpeg_tpu.io import image as jio
+        from gpujpeg_tpu_torch.io import image as tio
+
+        monkeypatch.setattr(jio, "TGA_RLE", jio.TGA_RLE)
+        monkeypatch.setattr(tio, "TGA_RLE", tio.TGA_RLE)
+        sizes = []
+        for v in (value, "false"):
+            files = []
+            for pkg, dec, mod in (("jax", gj.Decoder(), jio),
+                                  ("port", gt.Decoder(device="cpu"), tio)):
+                dec.set_option(key, v)
+                assert mod.TGA_RLE is (v == "true")
+                path = str(tmp_path / f"{pkg}_{v}.tga")
+                mod.save(path, mod.formats.implied_parameters(
+                    mod.FileFormat.TGA).with_(width=80, height=64), frame)
+                with open(path, "rb") as f:
+                    files.append(f.read())
+            assert files[1] == files[0]
+            sizes.append(len(files[0]))
+        assert sizes[0] != sizes[1]          # RLE on and off differ
         return
     if session == "Encoder":
         want, got = _both([(key, value)], frame)
