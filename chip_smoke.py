@@ -162,7 +162,25 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
         streams decoded back, a 4K 4:2:0 Y4M of 8 frames through -B 4,
         -I and -C; every file equal to the in-process sessions' bytes and
         arrays (the conversion to the CPU's), each call's wall seconds;
- 15. prints the decomposition line of the tiled kernels (fdct_quant,
+ 15. [parallel]: parallel/ on the one card, every mesh place cuda:0
+     (parallel_phases): references first (four seeded 8K RGB Q75 frames
+     through Encoder.encode, an interleaved 4:2:0 encode, one 16K
+     15360x8640 frame through the whole-frame Encoder and Decoder), then
+     one main-path window: BatchEncoder over the four frames on a (1, 1)
+     mesh, at seg 4 (planar 4:4:4), at seg 2 (interleaved 4:2:0) and the
+     16K frame at seg 8, ShardedDecoder at seg 4 on the 8K and the 16K
+     streams, BatchDecoder over the four 8K streams on a (4, 1) mesh;
+     every stream byte for byte Encoder.encode's, every array
+     Decoder.decode's, each Huffman launch of the window a stripe's (with
+     its markers); walls a frame of the batch beside sequential
+     encode and decode; the Huffman coder with a stripe's markers (every
+     row marked) against its plain version, error 0
+     (huffman_segments:stripe_markers); encode_to_device at restart
+     interval 0 on an 8K frame in a window of its own, assembled to
+     encode()'s bytes, the token-row packer on a whole luma scan against
+     its plain version and timed (pack_stuff_rows:restart0_444); the
+     windows' launches add to the records of the kernels they launch;
+ 16. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
      coefficient 0), of phase C (planar 4:4:4, interleaved 4:2:0:
@@ -179,13 +197,13 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      counterpart of the JAX package's TPU probes tools/proto_xq.py and
      tools/profile_dpost5.py; the full stage is held against the plain
      version (error 0);
- 16. prints one JSON line of per-kernel records, every kernel and mode
+ 17. prints one JSON line of per-kernel records, every kernel and mode
      (launches during its main path, error against the plain version,
      times, the bound from this run's inputs, the PyTorch library
      yardstick where one exists; the tokens and ns a token of phases A
      and C on each of the four paths; the preprocessor in ms a frame,
      one launch a frame; a note where a record is on no path);
- 17. prints {"ok": true, "device": {...}} as its last line.
+ 18. prints {"ok": true, "device": {...}} as its last line.
 
 Launches are counted in windows around each path's three 8K frames
 (end_window); a record's launches are its kernel's sum over those
@@ -3152,6 +3170,362 @@ def tool_phases(torch, np, gt, dev, flush):
             {"huffdec_block:direct": launches})
 
 
+PAR_FRAMES = 4
+H16K, W16K = 8640, 15360
+
+
+def walls_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of reps calls of fn()."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[reps // 2]
+
+
+STAT_KEYS = ("duration_memory_to", "duration_in_gpu", "duration_memory_from",
+             "duration_stream")
+
+
+def whole16k_runs(torch, enc, frame, params, reps: int = 3,
+                  before=None) -> dict:
+    """reps whole-frame Encoder.encode calls of the 16K frame, each after
+    before() where given: each one's host-clock ms and session stats,
+    and the process's device memory reserved and host resident set
+    after them (GiB)."""
+    walls, stats = [], []
+    for _ in range(reps):
+        if before is not None:
+            before()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode(frame, params)
+        walls.append(round((time.perf_counter() - t0) * 1e3, 3))
+        st = enc.get_stats()
+        stats.append({k: round(getattr(st, k), 3) for k in STAT_KEYS})
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    return dict(walls_ms=walls, stats=stats,
+                reserved_gib=round(torch.cuda.memory_reserved() / 2**30, 3),
+                rss_gib=round(rss / 2**20, 3))
+
+
+def whole16k_child() -> int:
+    """`python3 chip_smoke.py --whole16k`: the [parallel] phase's
+    whole-frame 16K encode (the same seeded frame, after one untimed
+    call) in a process that has done nothing else; prints whole16k_runs'
+    readings as its last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import gpujpeg_tpu_torch as gt
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    enc = gt.Encoder(device=dev)
+    params = gt.Parameters(quality=QUALITY, restart_interval=gt.RESTART_AUTO)
+    big = make_frame(torch, "gradient", 610, H16K, W16K, dev).cpu().numpy()
+    enc.encode(big, params)
+    print(json.dumps(whole16k_runs(torch, enc, big, params)), flush=True)
+    return 0
+
+
+def whole16k_compare(torch, enc, big, params, be16) -> None:
+    """The whole-frame 16K encode's walls and stats in this process: back
+    to back, each after be16's seg-8 encode of the same frame, and each
+    after a pinned block of the frame's size was taken and kept, once
+    the pinned allocator's cache of such blocks was drained (takes until
+    one over 10 ms, at most 16), so that the staging's host copy needs a
+    block allocated anew (every take's ms beside); and in a fresh
+    process (whole16k_child); logged side by side."""
+    here = os.path.abspath(__file__)
+    mine = whole16k_runs(torch, enc, big, params)
+    after = whole16k_runs(torch, enc, big, params,
+                          before=lambda: be16.encode_batch(big[None]))
+    held, take_ms = [], []
+
+    def take():
+        t0 = time.perf_counter()
+        held.append(torch.empty(big.shape, dtype=torch.uint8,
+                                pin_memory=True))
+        take_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+
+    for _ in range(16):
+        take()
+        if take_ms[-1] > 10:
+            break
+    pinned = whole16k_runs(torch, enc, big, params, before=take)
+    pinned["take_pinned_ms"] = take_ms
+    del held
+    out = subprocess.run([sys.executable, here, "--whole16k"],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"chip_smoke.py --whole16k exited "
+                             f"{out.returncode}:\n{out.stderr[-4000:]}")
+    fresh = json.loads(out.stdout.strip().splitlines()[-1])
+    log("[parallel 16k] whole-frame encode, this process vs a fresh one "
+        "(host-clock ms, session stats ms, GiB): " + json.dumps(
+            {"this_process": mine, "this_process_after_seg8": after,
+             "this_process_pinned_taken": pinned,
+             "fresh_process": fresh}))
+
+
+def stripe_huffman(torch, enc, be, frame, flush):
+    """huffman_segments with a stripe's markers (stripe 3 of be's 'seg'
+    4: RST((3 * S + j) mod 8) after every row, the last included) on
+    the stripe's luma coefficients, against its plain version -> its
+    record."""
+    from gpujpeg_tpu_torch.ops import fusedpack
+
+    geo = be.geo_local
+    h = geo.param_image.height
+    planes, classes = enc._front(frame[3 * h:4 * h], geo)
+    c = geo.components[0]
+    tabs = classes[c.table_index]
+    coefs = fusedpack.fdct_quant(planes[c.index], tabs, c.segment_mcu_count)
+    markers = fusedpack.stripe_markers(coefs.shape[0], 3, coefs.device)
+    out = fusedpack.huffman_segments(coefs, c.mcu_count, tabs, markers)
+    ref, plain_ms = once_ms(torch, lambda: fusedpack.huffman_segments_plain(
+        coefs, c.mcu_count, tabs, markers))
+    err = rows_err(torch, *out, *ref)
+    rows, rb = out[0], out[1]
+    last = rows[-1, int(rb[-1]) - 2:int(rb[-1])].tolist()
+    if err or last != [0xFF, 0xD0 + (4 * coefs.shape[0] - 1) % 8]:
+        raise AssertionError(f"huffman_segments with stripe markers: error "
+                             f"{err}, last row ends {last}")
+    ms = event_ms(torch, lambda: fusedpack.huffman_segments(
+        coefs, c.mcu_count, tabs, markers), 10, flush)
+    return dict(source="gpujpeg_tpu_torch/csrc/huffman_segments.cu",
+                replaces="gpujpeg_tpu/ops/fusedpack.py:459",
+                bound_by="bytes", library_ms=None, err=err, ms=ms,
+                plain_ms=plain_ms,
+                bound_ms=huffman_bound_ms(coefs, rb),
+                note="the Huffman coder with caller-given markers, every "
+                     "row marked (parallel.BatchEncoder's stripes); "
+                     "timed on stripe 3 of 4 of an 8K planar 4:4:4 luma "
+                     "plane (1080 rows); launches: every huffman_segments "
+                     "launch of the [parallel] encode window, the one-slot "
+                     "planar stripes' and the slot-pattern interleaved "
+                     "4:2:0 stripes'")
+
+
+def restart0_rows(torch, gt, enc, frame, flush):
+    """F4: encode_to_device at restart interval 0 on an 8K planar 4:4:4
+    frame, in a window of its own: each scan one device row through the
+    token-row packer (one warp walking the scan), assembled into
+    encode()'s bytes; then the packer on the luma scan's tokens against
+    its plain version and timed -> (its record, its launches)."""
+    from gpujpeg_tpu_torch.ops import _kernels, fusedpack
+
+    p0 = gt.Parameters(quality=QUALITY, restart_interval=0)
+    want = enc.encode(frame, p0)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    geo, res, meta = enc.encode_to_device(frame, p0)
+    got = enc.assemble(geo, res, meta)
+    wall = (time.perf_counter() - t0) * 1e3
+    end_window()
+    launches = _kernels.LAUNCHES["pack_stuff_rows"]
+    if got != want or launches != geo.scan_count:
+        raise AssertionError(f"restart-0 device rows: bytes equal "
+                             f"{got == want}, {launches} packer launches")
+    strides = [int(r.shape[1]) for r in res["rows"]]
+    del res, meta
+    planes, classes = enc._front(frame, geo)
+    c = geo.components[0]
+    tabs = classes[c.table_index]
+    coefs = fusedpack.fdct_quant(planes[0], tabs, c.mcu_count)
+    bits, lens = fusedpack.scan_tokens(coefs, c.mcu_count, tabs)
+    del planes, coefs
+    n = int(bits.shape[0])
+    T = -(-n // 4) * 4
+    b = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
+    ln = torch.zeros_like(b)
+    b[0, :n], ln[0, :n] = bits, lens
+    markers = torch.zeros(1, dtype=torch.int32, device=bits.device)
+    stride = strides[0]
+    out = fusedpack.pack_stuff_rows(b, ln, markers, stride)
+    ref, plain_ms = once_ms(torch, lambda: fusedpack.pack_stuff_rows_plain(
+        b, ln, markers, stride))
+    err = rows_err(torch, *out, *ref)
+    if err:
+        raise AssertionError("pack_stuff_rows on a restart-0 scan differs "
+                             "from its plain version")
+    ms = event_ms(torch, lambda: fusedpack.pack_stuff_rows(
+        b, ln, markers, stride), 3, flush)
+    nbytes = int(out[1].sum())
+    log(f"[parallel restart0] 8K planar 4:4:4 restart 0: encode_to_device "
+        f"+ assemble {wall:.1f} ms, bytes equal to encode(), "
+        f"{launches} packer launches (a scan a launch, strides {strides} "
+        f"B); luma scan {n} tokens -> {nbytes} bytes: pack_stuff_rows "
+        f"{ms:.3f} ms a scan, plain {plain_ms:.1f} ms")
+    return dict(source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
+                replaces="gpujpeg_tpu/ops/fusedpack.py:107",
+                bound_by="bytes", library_ms=None, err=err, ms=ms,
+                plain_ms=plain_ms,
+                bound_ms=pack_bound_ms(ln, markers, nbytes),
+                tokens=n, ns_per_token=ms * 1e6 / n,
+                note="encode_to_device at restart interval 0 "
+                     "(fusedpack.scan_rows): one row of a whole scan, one "
+                     "warp walking it; ms a scan on the 8K planar 4:4:4 "
+                     "luma scan; launches: one a scan in the restart-0 "
+                     "window"), launches
+
+
+def parallel_phases(torch, np, gt, dev, flush):
+    """Step 15, [parallel]: parallel/ on one card, every mesh place
+    cuda:0 (a place may repeat a device).  References first, outside the
+    window: PAR_FRAMES seeded 8K RGB frames through Encoder.encode
+    (sequential walls), one interleaved 4:2:0 encode, one 16K
+    (15360x8640) frame through the whole-frame Encoder and Decoder.
+    Then one main-path window: BatchEncoder over the PAR_FRAMES frames
+    on a (1, 1) mesh, at seg 4 (8K planar 4:4:4), at seg 2 (interleaved
+    4:2:0) and the 16K frame at seg 8; ShardedDecoder at seg 4 on the 8K
+    and 16K streams; BatchDecoder over the 8K streams on a (4, 1) mesh.
+    Every stream must equal Encoder.encode's and every array
+    Decoder.decode's.  Then the stripe-marker Huffman coder against its
+    plain version, and F4's restart-0 device rows in a window of their
+    own.  Returns (kernel records, launches by record)."""
+    from gpujpeg_tpu_torch.ops import _kernels
+    from gpujpeg_tpu_torch.parallel import batch as pb, mesh as pm
+
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    params = gt.Parameters(quality=QUALITY, restart_interval=gt.RESTART_AUTO)
+    p420 = gt.Parameters(quality=QUALITY, restart_interval=gt.RESTART_AUTO,
+                         interleaved=True).chroma_subsampled(
+        ((2, 2), (1, 1), (1, 1)))
+    frames = [make_frame(torch, "gradient", 600 + i, H8K, W8K, dev)
+              .cpu().numpy() for i in range(PAR_FRAMES)]
+    big = make_frame(torch, "gradient", 610, H16K, W16K, dev).cpu().numpy()
+    pi8 = enc.resolve(frames[0], params).param_image
+    pi16 = enc.resolve(big, params).param_image
+    # -- references (outside the window) ---------------------------------------
+    want = [enc.encode(f, params) for f in frames]
+    seq_ms = walls_ms(lambda: [enc.encode(f, params) for f in frames])
+    want420 = enc.encode(frames[0], p420)
+    t0 = time.perf_counter()
+    want16 = enc.encode(big, params)
+    enc16_ms = (time.perf_counter() - t0) * 1e3
+    st16 = {k: round(getattr(enc.get_stats(), k), 3) for k in STAT_KEYS}
+    geo16 = enc.resolve(big, params)
+    check_stream(np, want16, geo16.segment_count - geo16.scan_count, "16K")
+    pix = [dec.decode(s) for s in want]
+    seq_dec_ms = walls_ms(lambda: [dec.decode(s) for s in want])
+    t0 = time.perf_counter()
+    pix16 = dec.decode(want16)
+    dec16_ms = (time.perf_counter() - t0) * 1e3
+    if pix16.shape != big.shape or psnr(np, pix16, big) < 25:
+        raise AssertionError(f"16K whole-frame decode: {pix16.shape}, PSNR "
+                             f"{psnr(np, pix16, big):.2f} dB")
+    log(f"[parallel 16k] 15360x8640 Q75 planar 4:4:4: whole-frame encode "
+        f"{enc16_ms:.1f} ms ({len(want16)} bytes, {geo16.segment_count} "
+        f"segments, RST markers ok; stats {st16}), decode "
+        f"{dec16_ms:.1f} ms, PSNR "
+        f"{psnr(np, pix16, big):.2f} dB")
+
+    def mesh(data, seg):
+        return pm.make_mesh(data * seg, data=data, seg=seg, device=dev)
+
+    be1 = pb.BatchEncoder(mesh(1, 1), params, pi8)
+    be4 = pb.BatchEncoder(mesh(1, 4), params, pi8)
+    be420 = pb.BatchEncoder(mesh(1, 2), p420, pi8)
+    be16 = pb.BatchEncoder(mesh(1, 8), params, pi16)
+    sd8 = pb.ShardedDecoder(mesh(1, 4), want[0])
+    sd16 = pb.ShardedDecoder(mesh(1, 4), want16)
+    bd = pb.BatchDecoder(mesh(PAR_FRAMES, 1), want[0], PAR_FRAMES)
+    be1.encode_batch(frames)                      # sessions, staging
+    # -- the main-path window ----------------------------------------------
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = be1.encode_batch(frames)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    got4 = be4.encode_batch(frames[:1])
+    il0 = _kernels.LAUNCHES["huffman_segments"]
+    got420 = be420.encode_batch(frames[:1])
+    il_huff = _kernels.LAUNCHES["huffman_segments"] - il0
+    got16 = be16.encode_batch(big[None])
+    enc_counts = dict(_kernels.LAUNCHES)
+    img8 = sd8.decode(want[0])
+    img16 = sd16.decode(want16)
+    imgs = bd.decode_batch(want)
+    end_window()
+    counts = dict(_kernels.LAUNCHES)
+    bad = [what for what, ok in (
+        ("BatchEncoder (1, 1)", got == want),
+        ("BatchEncoder seg 4", got4 == want[:1]),
+        ("BatchEncoder il 4:2:0 seg 2", got420 == [want420]),
+        ("BatchEncoder 16K seg 8", got16 == [want16]),
+        ("ShardedDecoder 8K seg 4", np.array_equal(img8, pix[0])),
+        ("ShardedDecoder 16K seg 4", np.array_equal(img16, pix16)),
+        ("BatchDecoder", all(np.array_equal(a, b)
+                             for a, b in zip(imgs, pix)))) if not ok]
+    if bad:
+        raise AssertionError(f"[parallel] differs from the sessions: {bad}")
+    # every stripe codes its scans with stripe markers: 3 a planar stripe,
+    # 1 an interleaved one
+    stripes = PAR_FRAMES * 3 + 4 * 3 + 2 * 1 + 8 * 3
+    if enc_counts["huffman_segments"] != stripes or il_huff != 2:
+        raise AssertionError(f"[parallel] {enc_counts['huffman_segments']} "
+                             f"Huffman launches, {stripes} stripe scans")
+    for name in ("pre_rgb_to_planes", "fdct_quant", "huffman_segments",
+                 "huffdec_scan", "huffdec_block", "dc_fixup", "dpost_rgb"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "[parallel] path")
+    log("[parallel] window: BatchEncoder (1, 1) x 8K x "
+        f"{PAR_FRAMES}, seg 4, il 4:2:0 seg 2, 16K seg 8; ShardedDecoder "
+        "8K and 16K seg 4; BatchDecoder (4, 1): every stream and array "
+        "equal to Encoder.encode's and Decoder.decode's; launches "
+        + str({n: c for n, c in counts.items() if c}))
+    # -- walls (after the counts were read) --------------------------------
+    b_ms = walls_ms(lambda: be1.encode_batch(frames))
+    w = dict(
+        batch_encode_ms_a_frame=b_ms / PAR_FRAMES,
+        batch_encode_frames_s=PAR_FRAMES * 1e3 / b_ms,
+        sequential_encode_ms_a_frame=seq_ms / PAR_FRAMES,
+        sequential_encode_frames_s=PAR_FRAMES * 1e3 / seq_ms,
+        first_window_batch_ms_a_frame=batch_ms / PAR_FRAMES,
+        seg4_encode_ms=walls_ms(lambda: be4.encode_batch(frames[:1])),
+        whole_encode_ms=walls_ms(lambda: enc.encode(frames[0], params)),
+        seg8_16k_encode_ms=walls_ms(lambda: be16.encode_batch(big[None]),
+                                    1),
+        whole_16k_encode_ms=walls_ms(lambda: enc.encode(big, params), 1),
+        whole_16k_encode_first_ms=enc16_ms,
+        sharded_decode_8k_ms=walls_ms(lambda: sd8.decode(want[0])),
+        whole_decode_8k_ms=walls_ms(lambda: dec.decode(want[0])),
+        sharded_decode_16k_ms=walls_ms(lambda: sd16.decode(want16), 1),
+        whole_decode_16k_ms=walls_ms(lambda: dec.decode(want16), 1),
+        whole_decode_16k_first_ms=dec16_ms,
+        batch_decode_ms_a_frame=walls_ms(
+            lambda: bd.decode_batch(want)) / PAR_FRAMES,
+        sequential_decode_ms_a_frame=seq_dec_ms / PAR_FRAMES)
+    log("[parallel] wall ms (host clock, median of 3; 16K: one run after "
+        "the first, whose ms are the _first keys): "
+        + json.dumps({k: round(v, 3) for k, v in w.items()}))
+    del got, got4, got16, img8, img16, imgs, pix, pix16
+    whole16k_compare(torch, enc, big, params, be16)
+    # -- the stripe-marker Huffman coder, then F4 --------------------------
+    stripe = stripe_huffman(torch, enc, be4, frames[0], flush)
+    rec0, launches0 = restart0_rows(torch, gt, enc, frames[0], flush)
+    log_times("parallel", {"huffman_segments:stripe_markers": stripe,
+                           "pack_stuff_rows:restart0_444": rec0})
+    launches = {name: n for name, n in counts.items()}
+    # the interleaved stripes' launches are slot-pattern ones
+    launches["huffman_segments"] -= il_huff
+    launches["huffman_segments:pattern_420"] = il_huff
+    launches["huffman_segments:stripe_markers"] = \
+        enc_counts["huffman_segments"]
+    launches["pack_stuff_rows:restart0_444"] = launches0
+    return ({"huffman_segments:stripe_markers": stripe,
+             "pack_stuff_rows:restart0_444": rec0}, launches)
+
+
 ROW_FLOOR_KEYS = ("ms_median", "ms_min", "empty_ms_median", "empty_ms_min",
                   "copy_ms_median", "copy_ms_min")
 
@@ -3188,6 +3562,8 @@ def log_times(tag, kernels):
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--whole16k"]:
+        return whole16k_child()
     import numpy as np
     import torch
 
@@ -3485,13 +3861,25 @@ def main() -> int:
     launches.update(step_launches)
     log(f"[tool_phases] {time.perf_counter() - t_step:.1f} s")
 
-    # -- 15. decomposition line -----------------------------------------------
+    # -- 15. parallel/: meshes of cuda:0, restart-0 device rows -------------
+    t_step = time.perf_counter()
+    step_kernels, step_launches = parallel_phases(torch, np, gt, dev, flush)
+    kernels.update(step_kernels)
+    for name, n in step_launches.items():
+        # the [parallel] windows' launches add to each record's count
+        if name in step_kernels:
+            launches[name] = n
+        elif name in launches:
+            launches[name] += n
+    log(f"[parallel_phases] {time.perf_counter() - t_step:.1f} s")
+
+    # -- 16. decomposition line -----------------------------------------------
     log("[probe] decomposition ms at 8K (full | loads and stores only | "
         "full without the output store; the full stage's error against "
         "the plain version): " + json.dumps(
             {name: k["probe"] for name, k in kernels.items()
              if "probe" in k}))
-    # -- 16. kernels line ----------------------------------------------------
+    # -- 17. kernels line ----------------------------------------------------
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
@@ -3503,7 +3891,7 @@ def main() -> int:
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
-    # -- 17. result ----------------------------------------------------------
+    # -- 18. result ----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

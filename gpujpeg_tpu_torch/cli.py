@@ -13,8 +13,9 @@ reference CLI (src/main.c:106-152, getopt table :485-510):
   -o (OpenGL interop) errors out: decode_to_device returns the image as
      a CUDA tensor, which is the port's way to keep it on the card;
   -B N encodes a multi-frame Y4M input N frames at a time through
-     Encoder.encode_pipelined on the one device, each frame's bytes those
-     of a single-frame encode.
+     parallel.BatchEncoder over a 'data' mesh of the largest count of
+     CUDA devices dividing N (the one device -D N names; a CPU mesh with
+     -D cpu), as tpujpegtool's -B does over its devices.
 
 The output files are byte for byte those of tpujpegtool (the JAX
 package's CLI) on the same inputs.
@@ -101,7 +102,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-B", "--batch", type=int, default=0, metavar="N",
                    help="video batch encode: read N frames per batch from "
                         "a multi-frame Y4M input and encode them through "
-                        "Encoder.encode_pipelined; output path may contain "
+                        "parallel.BatchEncoder over the CUDA devices; "
+                        "output path may contain "
                         "a printf pattern like out_%%03d.jpg")
     p.add_argument("-o", "--use-opengl", action="store_true")
     p.add_argument("-I", "--info", type=str, default=None, metavar="FILE")
@@ -259,14 +261,32 @@ def _batch_out_path(out_path: str, idx: int) -> str:
     return f"{root}_{idx:03d}{ext}"
 
 
+def batch_mesh(device, batch: int, named: bool):
+    """The 'data' mesh of -B: the largest count of CUDA devices that
+    divides the batch, as tpujpegtool's -B takes over jax.devices(); the
+    one device -D names when `named`; on the CPU (-D cpu) every place is
+    the CPU and the mesh takes the batch's size."""
+    from .parallel.mesh import make_mesh
+
+    if device.type == "cpu":
+        return make_mesh(batch, data=batch, seg=1, device="cpu")
+    if named:
+        return make_mesh(1, data=1, seg=1, device=device)
+    nd = torch.cuda.device_count()
+    data_ext = max(k for k in range(1, min(nd, batch) + 1)
+                   if batch % k == 0)
+    return make_mesh(n_devices=data_ext, data=data_ext, seg=1)
+
+
 def run_encode_y4m_batch(args, device, in_path: str, out_path: str) -> None:
     """Video-sequence batch encode: every FRAME of a Y4M file, args.batch
-    frames at a time through Encoder.encode_pipelined (the reference's
-    Y4M reader is single-frame, src/utils/y4m.c, and its CLI iterates
-    files serially).  Each frame's bytes are those of a single-frame
-    encode, as tpujpegtool's -B writes them through its BatchEncoder."""
+    frames at a time, through parallel.BatchEncoder over a 'data' mesh
+    (batch_mesh; the reference's Y4M reader is single-frame,
+    src/utils/y4m.c, and its CLI iterates files serially).  The tail
+    batch is padded with its last frame, whose extra outputs are
+    dropped.  The files are those of tpujpegtool's -B."""
     from .io import y4m
-    from .models.encoder import Encoder
+    from .parallel.batch import BatchEncoder
 
     with open(in_path, "rb") as f:
         data = f.read()
@@ -278,7 +298,9 @@ def run_encode_y4m_batch(args, device, in_path: str, out_path: str) -> None:
         pi = pi.with_(color_space=cs)
     param = _encode_params(args)
     batch = max(args.batch, 1)
-    enc = Encoder(device=device)
+    mesh = batch_mesh(device, batch, args.device is not None)
+    data_ext = mesh.shape["data"]
+    enc = BatchEncoder(mesh, param, pi)
 
     idx = 0
     t0 = time.perf_counter()
@@ -286,7 +308,11 @@ def run_encode_y4m_batch(args, device, in_path: str, out_path: str) -> None:
 
     def flush(chunk):
         nonlocal idx
-        for s in enc.encode_pipelined(chunk, param, pi):
+        real = len(chunk)
+        while len(chunk) < batch:        # pad the tail batch (outputs
+            chunk.append(chunk[-1])      # of the padding are dropped)
+        outs = enc.encode_batch(chunk)
+        for s in outs[:real]:
             p = _batch_out_path(out_path, idx)
             with open(p, "wb") as f:
                 f.write(s)
@@ -303,8 +329,8 @@ def run_encode_y4m_batch(args, device, in_path: str, out_path: str) -> None:
     if chunk:
         flush(chunk)
     dt = time.perf_counter() - t0
-    print(f"encoded {idx} frames from {in_path} in batches of {batch} on "
-          f"{enc.device} in {dt * 1000:.1f} ms "
+    print(f"encoded {idx} frames from {in_path} over a {data_ext}-device "
+          f"'data' mesh ({device.type}) in {dt * 1000:.1f} ms "
           f"({idx / dt:.1f} frames/s)", file=sys.stderr)
 
 

@@ -32,7 +32,10 @@ and a restart interval of 0 (each scan one segment) takes the JAX
 package's host-entropy route (_encode_host_entropy) with either table
 family: the preprocessor and the DCT on the device, the tokens of each
 scan there too (ops/fusedpack.scan_tokens), then the headers and each
-scan's tokens packed on the host (native.pack_tokens).  On CUDA every
+scan's tokens packed on the host (native.pack_tokens).  encode_to_device
+packs each such scan on the device instead, into one row of one segment
+(ops/fusedpack.scan_rows: the token-row packer over the whole scan), which
+assemble turns into the same bytes.  On CUDA every
 stage but the tokenizer (XLA in the JAX package, torch ops here) is a
 hand-written kernel (the DCT kernel stores an interleaved scan's MCU
 order itself); with device="cpu" every stage runs its plain PyTorch
@@ -283,6 +286,17 @@ def _plan_rate(param: Parameters) -> Fraction:
                     PLAN_WIDTH * PLAN_HEIGHT)
 
 
+def pack_scans(header: bytes, geo: Geometry, scans) -> bytes:
+    """A restart-0 stream: the header, then each scan's header and its
+    host tokens [(bits, lens)] packed in sequence (native.pack_tokens)."""
+    out = bytearray(header)
+    for k, (bits, lens) in enumerate(scans):
+        out += jwriter.write_scan_header(geo, k)
+        out += native.pack_tokens(bits, lens)
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
 def _as_tensor(image) -> torch.Tensor:
     return image if isinstance(image, torch.Tensor) \
         else torch.from_numpy(np.ascontiguousarray(image))
@@ -461,63 +475,91 @@ class Encoder:
     def encode_to_device(self, image, param: Optional[Parameters] = None,
                          param_image: Optional[ImageParameters] = None,
                          check: bool = True):
-        """Device-side encode.  Returns (geo, res): res["rows"] holds one
-        (segments, stride) uint8 tensor per scan (one for an interleaved
-        scan) and res["row_bytes"] one (segments,) int32 tensor per scan,
-        still on the device; the rest of res is the frame's clock, its row
-        counts in one tensor and the event after its kernels, which
-        assemble reads.  The work is queued, not waited for.  The rows have a worst-case stride,
-        so there is no overflow readback for check=False to skip: check is
-        taken for the JAX package's signature and not read.  Annex-K
-        tables code through tokens and the token-row packer
-        (fusedpack.entropy_tokens).  A restart interval of 0 raises
-        ValueError: encode packs such scans on the host
-        (_encode_host_entropy) and makes no device rows."""
+        """Device-side encode.  Returns (geo, res, meta): res["rows"] holds
+        one (segments, stride) uint8 tensor per scan (one for an
+        interleaved scan) and res["row_bytes"] one (segments,) int32 tensor
+        per scan, still on the device; the rest of res is the frame's
+        clock, its row counts in one tensor and the event after its
+        kernels, which assemble reads.  meta is those row counts (the
+        (segments,) int32 tensor res["rb"], on the device), or None under
+        check=False, as the JAX method's meta is None there; assemble
+        takes it and does not read it.  The work is queued, not waited
+        for.  The rows have a worst-case stride, so there is no overflow
+        readback for check to skip.  Annex-K tables code through tokens
+        and the token-row packer (fusedpack.entropy_tokens).  At restart
+        interval 0 each scan is one row of one segment with no marker
+        after it (fusedpack.scan_tokens, then the token-row packer over
+        the whole scan, fusedpack.scan_rows), which assemble turns into
+        encode()'s bytes; encode itself packs such scans on the host
+        (_encode_host_entropy)."""
         geo = self.resolve(image, param, param_image)
         check_tables(geo)
-        if geo.param.restart_interval == 0:
-            raise ValueError("restart_interval == 0: each scan is one "
-                             "segment, packed on the host by encode(); "
-                             "encode_to_device makes the rows of restart "
-                             "segments only")
-        return geo, self._device_rows(image, geo)
+        res = self._device_rows(image, geo)
+        return geo, res, (res["rb"] if check else None)
 
-    def _device_rows(self, image, geo: Geometry) -> dict:
+    def _scan_coefs(self, planes, geo: Geometry, classes,
+                    clock: Optional[Clock] = None):
+        """Each scan's (coefficient rows, real blocks, slot tables): one
+        interleaved scan in MCU order (fusedpack.interleaved_rows) or a
+        scan a component (fusedpack.fdct_quant), a row a restart segment,
+        the whole scan in one row at restart interval 0; the clock's phase
+        "dct" opens before each DCT and "huffman" after it."""
+        rst0 = geo.param.restart_interval == 0
+        if geo.interleaved:
+            if clock is not None:
+                clock.mark("dct")
+            coefs = fusedpack.interleaved_rows(planes, geo, classes)
+            if clock is not None:
+                clock.mark("huffman")
+            yield (coefs, geo.mcu_count * geo.blocks_per_mcu,
+                   fusedpack.interleaved_slots(geo, classes))
+            return
+        for c in geo.components:
+            tabs = classes[c.table_index]
+            if clock is not None:
+                clock.mark("dct")
+            coefs = fusedpack.fdct_quant(
+                planes[c.index], tabs,
+                c.mcu_count if rst0 else c.segment_mcu_count)
+            if clock is not None:
+                clock.mark("huffman")
+            yield coefs, c.mcu_count, tabs
+
+    def _device_rows(self, image, geo: Geometry,
+                     shard: Optional[int] = None) -> dict:
         """Queue a frame's upload and kernels; the clock's phases "pre",
         "dct" and "huffman" mark the stages, the event "done" their end.
         Nothing goes on the download stream yet: a copy queued there now
         would hold up the previous frame's copies behind this frame's
-        kernels."""
+        kernels.  shard None codes a whole frame: an RST marker after
+        every segment but each scan's last.  An int codes stripe `shard`
+        of a frame whose stripes have geo's geometry
+        (parallel.batch.BatchEncoder): every segment is followed by its
+        marker, numbered from the stripe's first segment in its scan
+        (fusedpack.stripe_markers).  At restart interval 0 each scan is
+        one row (fusedpack.scan_rows)."""
         clock = Clock(self.device)
         planes, classes = self._front(image, geo, clock)
         tuned = geo.param.huffman_tables == "tuned"
-        if geo.interleaved:
-            clock.mark("dct")
-            coefs = fusedpack.interleaved_rows(planes, geo, classes)
-            clock.mark("huffman")
-            nblocks = geo.mcu_count * geo.blocks_per_mcu
-            slots = fusedpack.interleaved_slots(geo, classes)
-            if tuned:
-                rows, rb, _needs = fusedpack.huffman_segments(
-                    coefs, nblocks, slots, fusedpack.segment_markers(
-                        geo.segment_count, coefs.device))
+        rows, row_bytes = [], []
+        coefs = None
+        for coefs, nblocks, st in self._scan_coefs(planes, geo, classes,
+                                                   clock):
+            if geo.param.restart_interval == 0:
+                bits, lens = fusedpack.scan_tokens(coefs, nblocks, st)
+                r, rb, _needs = fusedpack.scan_rows(
+                    bits, lens, nblocks, st,
+                    0 if shard is None else 0xD0 + (shard & 7))
+                del bits, lens
             else:
-                rows, rb, _needs = fusedpack.entropy_tokens(coefs, nblocks,
-                                                            slots)
-            rows, row_bytes = [rows], [rb]
-        else:
-            rows, row_bytes = [], []
-            for c in geo.components:
-                tabs = classes[c.table_index]
-                clock.mark("dct")
-                coefs = fusedpack.fdct_quant(planes[c.index], tabs,
-                                             c.segment_mcu_count)
-                clock.mark("huffman")
+                markers = None if shard is None else \
+                    fusedpack.stripe_markers(coefs.shape[0], shard,
+                                             coefs.device)
                 code = (fusedpack.huffman_segments if tuned
                         else fusedpack.entropy_tokens)
-                r, rb, _needs = code(coefs, c.mcu_count, tabs)
-                rows.append(r)
-                row_bytes.append(rb)
+                r, rb, _needs = code(coefs, nblocks, st, markers)
+            rows.append(r)
+            row_bytes.append(rb)
         del coefs, planes
         clock.mark("end")
         rb = torch.cat(row_bytes)
@@ -548,29 +590,30 @@ class Encoder:
         The stats: duration_in_gpu from the start to the tokens on the
         host, duration_stream the packing (host clock)."""
         t0 = time.perf_counter()
-        planes, classes = self._front(image, geo)
-        scans = []
-        if geo.interleaved:
-            scans.append(fusedpack.scan_tokens(
-                fusedpack.interleaved_rows(planes, geo, classes),
-                geo.mcu_count * geo.blocks_per_mcu,
-                fusedpack.interleaved_slots(geo, classes)))
-        else:
-            for c in geo.components:
-                tabs = classes[c.table_index]
-                scans.append(fusedpack.scan_tokens(
-                    fusedpack.fdct_quant(planes[c.index], tabs,
-                                         c.mcu_count), c.mcu_count, tabs))
-        scans = [(b.cpu().numpy(), n.cpu().numpy()) for b, n in scans]
+        scans = self._fetch_tokens(self._device_tokens(image, geo))
         t1 = time.perf_counter()
-        out = bytearray(self._header(geo))
-        for k, (bits, lens) in enumerate(scans):
-            out += jwriter.write_scan_header(geo, k)
-            out += native.pack_tokens(bits, lens)
-        out += b"\xff\xd9"
+        out = pack_scans(self._header(geo), geo, scans)
         self.stats.duration_in_gpu = (t1 - t0) * 1e3
         self.stats.duration_stream = (time.perf_counter() - t1) * 1e3
-        return bytes(out)
+        return out
+
+    def _device_tokens(self, image, geo: Geometry) -> dict:
+        """Queue a restart-0 frame's upload, preprocessor, DCT and each
+        scan's tokens (fusedpack.scan_tokens); "done" is the event after
+        them.  Nothing is waited for."""
+        planes, classes = self._front(image, geo)
+        scans = [fusedpack.scan_tokens(coefs, nblocks, st)
+                 for coefs, nblocks, st in self._scan_coefs(planes, geo,
+                                                            classes)]
+        return {"tokens": scans, "done": self._staging.event()}
+
+    def _fetch_tokens(self, res: dict) -> list:
+        """_device_tokens' scans on the host, [(bits, lens)] numpy, copied
+        on the download stream after their kernels."""
+        fetches = [(self._staging.download(b, res["done"]),
+                    self._staging.download(n, res["done"]))
+                   for b, n in res["tokens"]]
+        return [(b.get().numpy(), n.get().numpy()) for b, n in fetches]
 
     def assemble(self, geo: Geometry, res, meta=None) -> bytes:
         """Host codestream assembly: headers, then each scan's rows cut to
@@ -600,7 +643,7 @@ class Encoder:
         parts = [self._header(geo)]
         for k, f in enumerate(fetches):
             rb = rb_all[int(bounds[k]):int(bounds[k + 1])]
-            if geo.param.segment_info:
+            if geo.param.segment_info and geo.param.restart_interval > 0:
                 offs = np.concatenate([[0], np.cumsum(rb)]).astype(np.int64)
                 parts.append(jwriter.write_segment_info_headers(k, offs))
             parts.append(jwriter.write_scan_header(geo, k))

@@ -143,14 +143,17 @@ class Staging:
 
     def download(self, t: torch.Tensor, after=None,
                  clock: Optional[Clock] = None,
-                 points: Tuple[str, str] = ("d0", "d1")) -> Fetch:
-        """Copy device tensor t into a fresh pinned block on the download
-        stream once event `after` (default: everything queued on the
-        current stream so far) has passed; the clock's points bracket the
-        copy.  On the CPU the fetch is t itself."""
+                 points: Tuple[str, str] = ("d0", "d1"),
+                 out: Optional[torch.Tensor] = None) -> Fetch:
+        """Copy device tensor t into a fresh pinned block (or into `out`,
+        a pinned host tensor of t's shape) on the download stream once
+        event `after` (default: everything queued on the current stream
+        so far) has passed; the clock's points bracket the copy.  On the
+        CPU the fetch is t itself, or out holding t's values."""
         if self.down is None:
-            return Fetch(t)
-        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return Fetch(t if out is None else out.copy_(t))
+        if out is None:
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         if after is None:
             after = self.event()
         self.down.wait_event(after)

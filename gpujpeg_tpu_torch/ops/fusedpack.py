@@ -66,6 +66,10 @@ TOKEN_CHUNK_SLOTS = 1 << 22
 #: MCUs a row when a scan of one segment is cut into rows (scan_tokens)
 SCAN_ROW_MCUS = 8
 
+#: the longest row the token-row packer takes: its stride, its row lengths
+#: and its byte offsets within a row are int32 (csrc/pack_stuff_rows.cu)
+MAX_ROW_BYTES = (1 << 31) - 1
+
 
 @dataclasses.dataclass(frozen=True)
 class ClassTables:
@@ -284,6 +288,16 @@ def segment_markers(nseg: int, device) -> torch.Tensor:
     int32.  A scan of one segment (restart interval 0) gets none."""
     s = torch.arange(nseg, device=device, dtype=torch.int32)
     return torch.where(s < nseg - 1, 0xD0 + (s & 7), 0).to(torch.int32)
+
+
+def stripe_markers(nseg: int, shard: int, device) -> torch.Tensor:
+    """Second RST byte after each segment row of one scan's stripe of a
+    frame cut into stripes of nseg segments of that scan (parallel.batch):
+    0xD0 + (shard * nseg + s) % 8 after every row, the stripe's last
+    included (gpujpeg_tpu.parallel.batch numbers them so; its stitch drops
+    the frame's last), as (nseg,) int32."""
+    s = torch.arange(nseg, device=device, dtype=torch.int64) + shard * nseg
+    return (0xD0 + (s & 7)).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=16)
@@ -708,3 +722,31 @@ def scan_tokens(coefs: torch.Tensor, nblocks: int,
         bits.append(b[keep].to(torch.int32))
         lens.append(ln[keep])
     return torch.cat(bits), torch.cat(lens)
+
+
+def scan_rows(bits: torch.Tensor, lens: torch.Tensor, nblocks: int,
+              tabs: Union[ClassTables, SlotTables], marker: int = 0):
+    """One scan coded as a single segment (restart interval 0) as one
+    device row: scan_tokens' (bits, lens) of a scan of nblocks blocks ->
+    (rows (1, stride) uint8, row_bytes (1,) int32, needs) through the
+    token-row packer (pack_stuff_rows, one warp walking the whole scan),
+    at the scan's worst-case stride (SlotTables.stride of its blocks),
+    with an RST marker of second byte `marker` after the row (0 = none).
+    A stride past MAX_ROW_BYTES (from about 5.2 million blocks a scan, such
+    as a 15360x8640 interleaved 4:4:4 scan) raises ValueError: the
+    packer's offsets are int32."""
+    st = _as_slots(tabs)
+    stride = st.stride(-(-nblocks // st.bpm) * st.bpm)
+    if stride > MAX_ROW_BYTES:
+        raise ValueError(
+            f"a scan of {nblocks} blocks has a worst-case row of {stride} "
+            f"bytes, past the token-row packer's int32 offsets "
+            f"({MAX_ROW_BYTES}); encode() packs such a scan on the host")
+    n = int(bits.shape[0])
+    T = max(4, -(-n // 4) * 4)
+    b = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
+    ln = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
+    b[0, :n] = bits
+    ln[0, :n] = lens
+    markers = torch.full((1,), marker, dtype=torch.int32, device=bits.device)
+    return pack_stuff_rows(b, ln, markers, stride)

@@ -75,3 +75,61 @@ def test_port_session_method(cls, name):
     assert f"{cls}.{name}" in str(e.value)
     assert {int(m) for m in re.findall(r"item (\d+)", str(e.value))} == {
         item}
+
+
+def test_encode_to_device_arity():
+    """F3: encode_to_device returns (geo, res, meta) like the JAX method,
+    meta None under check=False on both sides."""
+    import numpy as np
+
+    frame = np.zeros((16, 16, 3), np.uint8)
+    ref = gj.Encoder().encode_to_device(frame, gj.Parameters(
+        restart_interval=8))
+    got = gt.Encoder(device="cpu").encode_to_device(frame, gt.Parameters(
+        restart_interval=8))
+    assert len(got) == len(ref) == 3
+    assert got[0].segment_count == ref[0].segment_count
+    assert (got[2] is None) == (ref[2] is None) is False
+    ref = gj.Encoder().encode_to_device(frame, gj.Parameters(
+        restart_interval=8), check=False)
+    got = gt.Encoder(device="cpu").encode_to_device(frame, gt.Parameters(
+        restart_interval=8), check=False)
+    assert len(got) == len(ref) == 3 and got[2] is None and ref[2] is None
+
+
+def _defined(mod):
+    """Public functions and classes a module defines itself."""
+    return {n: v for n, v in vars(mod).items() if not n.startswith("_")
+            and callable(v) and getattr(v, "__module__", None)
+            == mod.__name__}
+
+
+@pytest.mark.parametrize("sub", ["mesh", "batch", "dist"])
+def test_parallel_names(sub):
+    """gpujpeg_tpu_torch.parallel.<sub> defines every public function
+    and class of gpujpeg_tpu.parallel.<sub> (Mesh, which the JAX module
+    imports, included), each function taking the JAX parameters first
+    and in order, each class every public method of the JAX class with
+    its parameters."""
+    import importlib
+
+    ref = importlib.import_module(f"gpujpeg_tpu.parallel.{sub}")
+    got = importlib.import_module(f"gpujpeg_tpu_torch.parallel.{sub}")
+    want = _defined(ref)
+    if sub == "mesh":
+        want["Mesh"] = ref.Mesh
+    assert want and set(want) <= set(vars(got)), set(want) - set(vars(got))
+    for name, obj in want.items():
+        port = getattr(got, name)
+        assert isinstance(port, type) == isinstance(obj, type), name
+        if not isinstance(obj, type):
+            p = _params(obj)
+            assert _params(port)[:len(p)] == p, name
+            continue
+        if sub == "mesh":
+            continue
+        for m, fn in vars(obj).items():
+            if m.startswith("_") or not callable(fn):
+                continue
+            p = _params(fn)
+            assert _params(getattr(port, m))[:len(p)] == p, f"{name}.{m}"

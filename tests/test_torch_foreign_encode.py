@@ -5,8 +5,10 @@ in the four layouts of the port (planar 4:4:4 and 4:2:0, interleaved
 4:4:4 and 4:2:0).  Annex-K rows go through the tokenizer and the
 token-row packer (fusedpack.entropy_tokens), restart-0 scans through the
 scan tokenizer and the host packer (fusedpack.scan_tokens,
-native.pack_tokens); the scan tokenizer's cut into rows and chunks must
-not change a token."""
+native.pack_tokens), and encode_to_device's restart-0 scans through the
+token-row packer over the whole scan (fusedpack.scan_rows), whose rows
+assemble to the same bytes; the scan tokenizer's cut into rows and
+chunks must not change a token."""
 
 import numpy as np
 import pytest
@@ -81,12 +83,24 @@ def test_scan_tokens_cut_changes_nothing(layout, monkeypatch):
 
 
 def test_restart0_device_rows_raise():
-    """encode_to_device makes rows of restart segments only; encode packs
-    a restart-0 scan on the host."""
-    frame = _gradient(16, 16, 1)
-    with pytest.raises(ValueError, match="restart_interval == 0"):
-        gt.Encoder(device="cpu").encode_to_device(
-            frame, gt.Parameters(restart_interval=0))
+    """encode_to_device at restart interval 0 (it raised ValueError until
+    the port packed such scans on the device): each scan is one device
+    row of one segment with no marker (fusedpack.scan_rows), and
+    assemble turns the rows into gpujpeg_tpu.Encoder().encode's bytes in
+    the four layouts; meta is the row counts, None under check=False."""
+    frame = _gradient(96, 128, 3)
+    enc = gt.Encoder(device="cpu")
+    for layout in LAYOUTS:
+        ref = gj.Encoder().encode(frame, _params(gj, layout, "tuned", 0))
+        geo, res, meta = enc.encode_to_device(
+            frame, _params(gt, layout, "tuned", 0))
+        assert [tuple(r.shape[:1]) for r in res["rows"]] == \
+            [(1,)] * geo.scan_count
+        assert torch.equal(meta, res["rb"])
+        assert enc.assemble(geo, res, meta) == ref, layout
+        geo, res, meta = enc.encode_to_device(
+            frame, _params(gt, layout, "tuned", 0), check=False)
+        assert meta is None and enc.assemble(geo, res) == ref, layout
 
 
 def test_pack_tokens_fallback_matches_native(monkeypatch):

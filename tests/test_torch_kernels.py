@@ -2395,3 +2395,84 @@ def test_cli_on_card(cuda, tmp_path):
         arr, _pi = tio.load(str(back))
         assert np.array_equal(arr, gt.Decoder(device=cuda).decode(want))
 
+
+
+PARALLEL_LAYOUTS = {
+    "planar_444": dict(),
+    "il_420": dict(interleaved=True),
+    "annexk": dict(huffman_tables="annexk"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(PARALLEL_LAYOUTS))
+def test_parallel_on_card_matches_cpu(cuda, layout):
+    """BatchEncoder over 2 frames x 2 stripes, every place cuda:0, writes
+    the CPU Encoder's bytes; ShardedDecoder and BatchDecoder on the card
+    give the CPU Decoder's arrays."""
+    from gpujpeg_tpu_torch.parallel import batch as pb, mesh as pm
+
+    frames = np.stack([_frame(128, 192, 60 + i) for i in range(2)])
+    p = gt.Parameters(quality=80, restart_interval=4,
+                      **PARALLEL_LAYOUTS[layout])
+    if layout == "il_420":
+        p = p.chroma_subsampled(((2, 2), (1, 1), (1, 1)))
+    pi = gt.ImageParameters(width=192, height=128)
+    be = pb.BatchEncoder(pm.make_mesh(4, data=2, seg=2, device=cuda), p, pi)
+    enc = gt.Encoder(device="cpu")
+    want = [enc.encode(f, p, pi) for f in frames]
+    assert be.encode_batch(frames) == want
+    dec = gt.Decoder(device="cpu")
+    ref = [dec.decode(s) for s in want]
+    bd = pb.BatchDecoder(pm.make_mesh(2, data=2, seg=1, device=cuda),
+                         want[0], batch_size=2)
+    assert all(np.array_equal(a, b) for a, b in zip(bd.decode_batch(want),
+                                                    ref))
+    if layout != "il_420":
+        sd = pb.ShardedDecoder(pm.make_mesh(4, data=1, seg=4, device=cuda),
+                               want[0])
+        for s, r in zip(want, ref):
+            assert np.array_equal(sd.decode(s), r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("il", [False, True])
+def test_restart0_device_rows_on_card(cuda, il):
+    """encode_to_device at restart interval 0 on the card: a row a scan
+    through the token-row packer, assembled to the CPU encode's bytes."""
+    frame = _frame(96, 128, 70)
+    p = gt.Parameters(quality=75, restart_interval=0, interleaved=il)
+    enc = gt.Encoder(device=cuda)
+    geo, res, meta = enc.encode_to_device(frame, p)
+    assert [r.shape[0] for r in res["rows"]] == [1] * geo.scan_count
+    assert enc.assemble(geo, res, meta) == \
+        gt.Encoder(device="cpu").encode(frame, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("il", [False, True])
+def test_batch_encode_restart0_on_card(cuda, il):
+    """BatchEncoder at restart interval 0 on a (2, 1) mesh of cuda:0: each
+    frame's scan tokens come back and are packed on the host, the CPU
+    encode's bytes."""
+    from gpujpeg_tpu_torch.parallel import batch as pb, mesh as pm
+
+    frames = np.stack([_frame(96, 128, 72 + i) for i in range(2)])
+    p = gt.Parameters(quality=75, restart_interval=0, interleaved=il)
+    pi = gt.ImageParameters(width=128, height=96)
+    be = pb.BatchEncoder(pm.make_mesh(2, data=2, seg=1, device=cuda), p, pi)
+    enc = gt.Encoder(device="cpu")
+    assert be.encode_batch(frames) == [enc.encode(f, p, pi) for f in frames]
+
+
+def test_scan_rows_refuses_past_int32():
+    """A scan whose worst-case row passes the packer's int32 offsets
+    (15360x8640 interleaved 4:4:4: 6,220,800 blocks) raises ValueError
+    before any allocation."""
+    tabs = tfp.class_tables(75, True, "cpu")
+    st = tfp.SlotTables((tabs, tabs), (0, 1, 1), (0, 1, 2))
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        tfp.scan_rows(one, one, 3 * 2073600, st)
+    assert tfp.SlotTables((tabs, tabs), (0,), (0,)).stride(2073600) \
+        <= tfp.MAX_ROW_BYTES

@@ -127,7 +127,7 @@ def test_interleaved_stride_is_a_worst_case(samp, quality, rst):
     bpm, rstm = geo.blocks_per_mcu, geo.segment_mcu_count
     stride = tfp.interleaved_slots(geo, enc.classes(quality)).stride(
         bpm * rstm)
-    _, res = enc.encode_to_device(frame, p)
+    _, res, _meta = enc.encode_to_device(frame, p)
     assert res["rows"][0].shape[1] == stride
     assert int(res["row_bytes"][0].max()) <= stride
     luma = enc.class_tables(quality, True)
