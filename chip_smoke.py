@@ -2411,6 +2411,36 @@ FORMAT_RECORDS = {
     "dpost_rgb:rgba_420": ("dpost_rgb", None,
                            ((2, 2), (1, 1), (1, 1))),
 }
+#: the vector instance (prepost_kernel.INSTANCES)
+#: each pre and post record must launch at 8K
+FORMAT_INSTANCE = {
+    "pre_rgb_to_planes:u8": "u8_dx1", "pre_rgb_to_planes:uyvy": "uyvy_dx2",
+    "pre_rgb_to_planes:p420": "planar_half_dx2",
+    "pre_rgb_to_planes:p444": "planar_dx1",
+    "pre_rgb_to_planes:rgba": "rgba_dx1",
+    "post_rgb:rgba_444": "rgba_dx1", "post_rgb:rgba_420": "rgba_dx2",
+    "post_rgb:four": "rgba_dx1", "post_rgb:u8": "u8_dx1",
+    "post_rgb:p420": "planar_half_dx2", "post_rgb:uyvy": "uyvy_dx2"}
+#: why no one PyTorch call computes a record's function (the records
+#: without one; U8 in and out have F.pad and a slice copy)
+FORMAT_NO_LIBRARY = {
+    "pre_rgb_to_planes:uyvy": "UYVY pairs to 4:2:2 planes through the "
+    "fixed-point RGB to YCbCr transform",
+    "pre_rgb_to_planes:p420": "three planes upsampled, transformed in "
+    "fixed point and decimated",
+    "pre_rgb_to_planes:p444": "three planes transformed in fixed point",
+    "pre_rgb_to_planes:rgba": "RGBA rows to four planes, three of them "
+    "through the fixed-point transform",
+    "post_rgb:rgba_444": "the fixed-point YCbCr to RGB transform, then "
+    "RGBA rows with alpha 255",
+    "post_rgb:rgba_420": "4:2:0 chroma upsampled, the fixed-point "
+    "transform, RGBA rows",
+    "post_rgb:four": "three planes through the fixed-point transform and "
+    "a 4th raw, interleaved",
+    "post_rgb:p420": "the fixed-point transform of every kept pixel, "
+    "stored as decimated planes",
+    "post_rgb:uyvy": "the fixed-point transform, packed as u y0 v y1 "
+    "pairs"}
 #: the JAX kernels the instances replace (or, where the JAX package runs
 #: XLA for a format, the Pallas kernel of the same stage)
 FORMAT_REPLACES = {"pre_rgb_to_planes": "gpujpeg_tpu/ops/prepost_kernel.py:88",
@@ -2510,18 +2540,22 @@ class PlainCalls:
 
 
 def format_instances(torch, np, gt, dev, flush, kernels):
-    """[formats] a: each new pre, post and dpost instance at 8K against its
-    plain version (error 0), its CUDA-event ms beside its bound, the plain
+    """[formats] a: each pre, post and dpost record at 8K against its plain
+    version (error 0), its CUDA-event ms beside its bound, the plain
     version's ms and, where one PyTorch call computes the same, that
-    call's ms."""
+    call's ms.  A pre or post record must launch its vector instance
+    (FORMAT_INSTANCE, counted in _kernels.INSTANCES); the generic
+    instance runs on the same input, reached by patching the chooser,
+    and is held at error 0 and timed beside it."""
     import torch.nn.functional as F
 
-    from gpujpeg_tpu_torch.ops import prepost_kernel
+    from gpujpeg_tpu_torch.ops import _kernels, prepost_kernel
     from gpujpeg_tpu_torch.utils.geometry import get_geometry
 
     enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
     for name, (key, _lay, case) in FORMAT_RECORDS.items():
         k = kernels[name]
+        library = None
         if key == "pre_rgb_to_planes":
             kind, samp = case
             raw = torch.from_numpy(format_frame(torch, kind, 900, H8K, W8K,
@@ -2529,19 +2563,21 @@ def format_instances(torch, np, gt, dev, flush, kernels):
             p, pi = format_params(gt, kind, samp, False, H8K, W8K)
             geo = enc.resolve(raw, p, pi)
             fn = lambda: prepost_kernel.preprocess_packed(raw, geo, pi)
+            _kernels.reset_launches()
             got = fn()
+            inst = dict(_kernels.INSTANCES)
             ref, k["plain_ms"] = once_ms(
                 torch, lambda: prepost_kernel.preprocess_packed_plain(
                     raw, geo, pi))
-            k["err"] = max(diff(a, b) for a, b in zip(got, ref))
+            err_of = lambda out: max(diff(a, b) for a, b in zip(out, ref))
+            k["err"] = err_of(got)
             out_bytes = sum(g_.numel() for g_ in got)
             k["bound_ms"] = (raw.numel() + out_bytes) / PEAK_BYTES_S * 1e3
             if kind == "u8":    # one plane: the frame zero-padded
                 c0 = geo.components[0]
-                k["library_ms"] = event_ms(torch, lambda: F.pad(
-                    raw, (0, c0.data_width - W8K, 0, c0.data_height - H8K)),
-                    20, flush)
-            del got, ref
+                library = lambda: F.pad(
+                    raw, (0, c0.data_width - W8K, 0, c0.data_height - H8K))
+            del got
         elif key == "post_rgb":
             pf, samp = case
             pi = format_request(gt, pf).with_(width=W8K, height=H8K)
@@ -2555,17 +2591,20 @@ def format_instances(torch, np, gt, dev, flush, kernels):
                                     dtype=torch.uint8)
                       for c in geo.components]
             fn = lambda: prepost_kernel.postprocess_packed(planes, geo, pi)
+            _kernels.reset_launches()
             got = fn()
+            inst = dict(_kernels.INSTANCES)
             ref, k["plain_ms"] = once_ms(
                 torch, lambda: prepost_kernel.postprocess_packed_plain(
                     planes, geo, pi))
-            k["err"] = diff(got, ref) if got.shape == ref.shape else 255
+            err_of = lambda out: (diff(out, ref) if out.shape == ref.shape
+                                  else 255)
+            k["err"] = err_of(got)
             k["bound_ms"] = (sum(p_.numel() for p_ in planes)
                              + got.numel()) / PEAK_BYTES_S * 1e3
             if pf == "U8":      # one plane: its image part, copied
-                k["library_ms"] = event_ms(
-                    torch, lambda: planes[0][:H8K, :W8K].clone(), 20, flush)
-            del got, ref
+                library = lambda: planes[0][:H8K, :W8K].clone()
+            del got
         else:
             frame = make_frame(torch, "gradient", 902, H8K, W8K,
                                dev).cpu().numpy()
@@ -2595,12 +2634,52 @@ def format_instances(torch, np, gt, dev, flush, kernels):
             raise AssertionError(f"{name} differs from its plain version at "
                                  "8K")
         if key != "dpost_rgb":
-            k["ms"] = event_ms(torch, fn, 20, flush)
-        log(f"[formats a] {name}: error 0 at 8K; {k['ms']:.4f} ms (bound "
-            f"{k['bound_ms']:.4f} ms by {k['bound_by']}), plain "
-            f"{k['plain_ms']:.3f} ms, library "
-            + ("-" if k["library_ms"] is None
-               else f"{k['library_ms']:.4f}") + " ms")
+            want = {f"{key}/{FORMAT_INSTANCE[name]}": 1}
+            if inst != want:
+                raise AssertionError(f"{name}: launched {inst}, not {want}")
+            k["instance"] = FORMAT_INSTANCE[name]
+            # mean (the records' ms) and median of 20: a launch now and
+            # then takes 2-4x the others, which moves the mean
+            ts = event_times(torch, fn, 20, flush)
+            k["ms"], k["ms_median"] = sum(ts) / len(ts), ts[len(ts) // 2]
+            if library is not None:
+                ts = event_times(torch, library, 20, flush)
+                k["library_ms"] = sum(ts) / len(ts)
+                k["library_ms_median"] = ts[len(ts) // 2]
+            chooser = ("pre_instance" if key == "pre_rgb_to_planes"
+                       else "post_instance")
+            real = getattr(prepost_kernel, chooser)
+            setattr(prepost_kernel, chooser, lambda *a: 0)
+            try:
+                _kernels.reset_launches()
+                gen = fn()
+                torch.cuda.synchronize()
+                if _kernels.INSTANCES != {f"{key}/generic": 1} or err_of(
+                        gen):
+                    raise AssertionError(f"{name}: the generic instance "
+                                         "differs or did not run")
+                del gen
+                k["generic_ms"] = event_ms(torch, fn, 20, flush)
+            finally:
+                setattr(prepost_kernel, chooser, real)
+            del ref
+            if k["library_ms"] is None:
+                k["library_note"] = ("none: " + FORMAT_NO_LIBRARY[name]
+                                     + "; no one PyTorch call computes it")
+        lib = k["library_ms"]
+        log(f"[formats a] {name}: error 0 at 8K; {k['ms']:.4f} ms"
+            + (f" (median {k['ms_median']:.4f})" if "ms_median" in k
+               else "")
+            + (f" [generic {k['generic_ms']:.4f}]" if "generic_ms" in k
+               else "")
+            + f" (bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
+            f"{k['ms'] / k['bound_ms']:.2f}x), plain {k['plain_ms']:.3f} "
+            "ms, library "
+            + (k.get("library_note", "-") if lib is None
+               else f"{lib:.4f} ms ({k['ms'] / lib:.2f}x)"
+               + (f", median {k['library_ms_median']:.4f}"
+                  if "library_ms_median" in k else ""))
+            + (f"; instance {k['instance']}" if "instance" in k else ""))
 
 
 #: [formats] b: input kinds and (sampling, interleaved, options) encoded
@@ -2679,8 +2758,8 @@ def format_hd(torch, np, gt, dev):
 def format_main_path(torch, np, gt, dev):
     """[formats] c: three 8K frames of each FORMAT_LAYOUTS layout through
     Encoder.encode and their streams through Decoder.decode in main-path
-    windows: launches (the pre and post kernels ran, no plain version
-    did), the PSNR of the decoded raw output against the input, wall ms
+    windows: launches (the pre and post kernels ran, through vector
+    instances, and no plain version did), the PSNR of the decoded raw output against the input, wall ms
     (median and quartiles, FORMAT_EXTRA more frames) and a stage split
     (get_stats with perf_stats on).  Returns the launches by layout."""
     from gpujpeg_tpu_torch.ops import _kernels
@@ -2707,6 +2786,10 @@ def format_main_path(torch, np, gt, dev):
             end_window()
             ln = {n: v for n, v in _kernels.LAUNCHES.items() if v}
             launches[stage] = ln
+            inst = dict(_kernels.INSTANCES)
+            if any(k_.endswith("/generic") for k_ in inst):
+                raise AssertionError(f"[formats] {tag} {stage}: a generic "
+                                     f"instance ran at 8K: {inst}")
             if plain.calls:
                 raise AssertionError(f"[formats] {tag} {stage}: a plain "
                                      "pre/postprocessor ran on the card")
@@ -2750,7 +2833,8 @@ def format_main_path(torch, np, gt, dev):
                 else:
                     dec.decode(streams[i % 3], req)
                 walls.append((time.perf_counter() - t0) * 1e3)
-            log(f"[formats {tag} 8k {stage}] {desc}; launches {ln}; wall "
+            log(f"[formats {tag} 8k {stage}] {desc}; launches {ln}, "
+                f"instances {inst}; wall "
                 "ms per frame (" + ("host frame in, bytes out" if stage ==
                                     "enc" else "bytes in, host array out")
                 + "), " + quartiles(np, walls))
@@ -3887,7 +3971,9 @@ def main() -> int:
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"],
          **{key: k[key] for key in ROW_FLOOR_KEYS + (
-             "tokens", "ns_per_token", "paths", "note") if key in k}}
+             "tokens", "ns_per_token", "paths", "note", "instance",
+             "generic_ms", "library_note", "library_ms_median")
+             if key in k}}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

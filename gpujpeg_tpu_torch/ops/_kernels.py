@@ -19,8 +19,9 @@ tensors.  ``csrc/*.cuh`` are headers
 shared between kernels (colour transform, DCT tiles, the Huffman coders'
 warp bit buffer, the Huffman decoders' bit window).
 
-``LAUNCHES`` counts kernel launches by name; ``launch`` is the one place
-that adds to it.  ``probe`` launches the decomposition stages of a tiled
+``LAUNCHES`` counts kernel launches by name, ``INSTANCES`` those of the
+pre- and postprocessor by instance; ``launch`` is the one place that adds
+to them.  ``probe`` launches the decomposition stages of a tiled
 kernel (``PROBE_STAGES``, entry point gj_<name>_probe) for chip_smoke.py's
 probe; no codec path calls it, and it counts nothing.  ``empty`` launches
 an empty kernel as a row kernel of relayout.cu would be launched
@@ -52,8 +53,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES: Dict[str, List] = {
     # raw, H, W, geo (host int32[16]: dx, dy, data_h, data_w a plane),
     # source (host int64[16]: the input's kind and layout), params (host
-    # int32[26]), out0..3 (null past the last component), vector
-    # instance, stream
+    # int32[26]), out0..3 (null past the last component), instance
+    # (prepost_kernel.pre_instance), stream
     "pre_rgb_to_planes": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # plane, data_h, data_w, nblocks_out, then the output map (bpm, off,
     # sh, sv, mcux; 1, 0, 1, 1, blocks a row = raster order), mq, bias,
@@ -89,8 +90,9 @@ _SIGNATURES: Dict[str, List] = {
     "idct_planes": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     # planes 0..3 (null past the last component), geo (host int32[16]),
     # H, W, target (host int64[16]: a planar output's planes), params
-    # (host int32[26]), out, stream
-    "post_rgb": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # (host int32[26]), out, instance (prepost_kernel.post_instance),
+    # stream
+    "post_rgb": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P],
     # in, H, W/4, rst, out, stream
     "xbd_relayout": [_P, _I, _I, _I, _P, _P],
     # in, R, C, out, stream
@@ -125,6 +127,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 
+#: launches per instance ("<kernel>/<instance>") of the kernels whose
+#: entry point takes an instance id (the pre- and postprocessor), since
+#: the last reset_launches()
+INSTANCES: Dict[str, int] = {}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 #: ptxas resource reports of the last build, by source name
@@ -134,6 +141,7 @@ BUILD_LOG: Dict[str, str] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    INSTANCES.clear()
 
 
 def source_of(name: str) -> str:
@@ -247,12 +255,16 @@ def _call(name: str, symbol: str, lead, args) -> None:
                            f"error {err}")
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, instance: str = "") -> None:
     """Launch kernel `name` on the current stream of the first tensor's
     device with C arguments `args` (tensors pass as device pointers, numpy
-    arrays as host pointers), count it, and raise on a launch error."""
+    arrays as host pointers), count it (and, when given, its instance in
+    INSTANCES), and raise on a launch error."""
     _call(name, f"gj_{name}", (), args)
     LAUNCHES[name] += 1
+    if instance:
+        key = f"{name}/{instance}"
+        INSTANCES[key] = INSTANCES.get(key, 0) + 1
 
 
 def probe(name: str, stage: str, *args) -> None:

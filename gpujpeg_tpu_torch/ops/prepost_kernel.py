@@ -11,8 +11,8 @@ planar formats; ``pre_source`` describes the input to the kernel).  The
 JAX kernel emits planes of 4 samples packed per little-endian u32 word,
 one launch a decimation group; the port emits the same bytes as uint8
 planes, which are that memory read byte by byte, all of them in one
-launch (``pre_vector`` picks the kernel's RGB vector instance or its
-generic one).
+launch (``pre_instance`` picks the kernel's instance: RGB vector,
+``pre_vector``; a vector instance of another input kind; or generic).
 
 ``decode_post`` (coefficients -> RGB or RGBA pixels: dequantization,
 inverse DCT, colour and the interleaved store in one pass) wraps
@@ -32,7 +32,8 @@ of any output format: chroma upsampling, colour, the store) wraps
 csrc/post_rgb.cu, the counterpart of the JAX package's Pallas
 postprocessor (_post_kernel_body / postprocess_packed, RGB and RGBA from
 3 components; XLA's sample.postprocess for the rest), with no RGBX words
-and no width alignment (``post_target`` describes the output).
+and no width alignment (``post_target`` describes the output,
+``post_instance`` picks the kernel's instance).
 
 For a CPU tensor each wrapper runs its plain version
 (``preprocess_packed_plain``, which is ops/sample.preprocess;
@@ -148,10 +149,11 @@ def preprocess_packed(raw: torch.Tensor, geo: Geometry,
               zip(geo.components, torch.split(buf, sizes))]
     _kernels.require_cuda("pre_rgb_to_planes", raw, buf)
     g = pre_geometry(geo)
-    _kernels.launch("pre_rgb_to_planes", raw, pi.height, pi.width, g,
-                    pre_source(raw, geo, pi), params, *planes,
-                    *[None] * (4 - len(planes)),
-                    int(pre_vector(raw, planes, g)))
+    src = pre_source(raw, geo, pi)
+    inst = pre_instance(raw, planes, g, src)
+    _kernels.launch("pre_rgb_to_planes", raw, pi.height, pi.width, g, src,
+                    params, *planes, *[None] * (4 - len(planes)), inst,
+                    instance=INSTANCES[inst])
     return planes
 
 
@@ -168,12 +170,13 @@ def pre_geometry(geo: Geometry) -> np.ndarray:
 
 def pre_vector(raw: torch.Tensor, planes: List[torch.Tensor],
                geo_i: np.ndarray) -> bool:
-    """True when the preprocessor's vector instance takes these tensors
+    """True when the preprocessor's RGB vector instance takes these tensors
     (csrc/pre_rgb_to_planes.cu): an (H, W, 3) image to 3 planes, plane 0
     at (dx, dy) = (1, 1), planes 1 and 2 of one shape at one (dx, dy) in
     {1, 2}^2, the image 16-byte aligned with W % 16 == 0, and every
-    plane's width and address a multiple of its 16 / dx bytes; else the
-    generic instance runs.  geo_i: pre_geometry's array."""
+    plane's width and address a multiple of its 16 / dx bytes
+    (pre_instance tries the other instances where it is False).  geo_i:
+    pre_geometry's array."""
     if raw.dim() != 3 or raw.shape[2] != 3 or len(planes) != 3:
         return False
     g = np.asarray(geo_i).reshape(-1, 4)[:3]
@@ -185,6 +188,80 @@ def pre_vector(raw: torch.Tensor, planes: List[torch.Tensor],
     return all(int(w) % (16 // int(x)) == 0
                and p.data_ptr() % (16 // int(x)) == 0
                for (x, _, _, w), p in zip(g, planes))
+
+
+#: the pixel kinds of the vector instances, in the order of
+#: csrc/pre_rgb_to_planes.cu's VecSource (the input) and csrc/post_rgb.cu's
+#: VecTarget (the output): interleaved pixels of 1, 3 and 4 bytes, UYVY,
+#: three planes whose chroma repeats or steps 1 or 2 columns
+VECTOR_KINDS = ("u8", "rgb", "rgba", "uyvy", "planar", "planar_half")
+#: log2 of the chroma steps the vector instances take
+_SHIFT = {1: 0, 2: 1, 4: 2}
+#: pre_instance's and post_instance's ids -> names (_kernels.INSTANCES
+#: counts them): 0 the generic instance, 1 the RGB vector instance, 2 + 3
+#: kind + log2(chroma step) a vector instance
+INSTANCES = ("generic", "rgb_vector") + tuple(
+    f"{k}_dx{1 << s}" for k in VECTOR_KINDS for s in range(3))
+
+
+def _vector_source(raw: torch.Tensor, src: np.ndarray):
+    """The index in VECTOR_KINDS of an input the vector instances
+    read with 16-byte loads, or None: interleaved rows of 1, 3 or 4
+    channels or UYVY rows, 16-byte aligned with a pitch a multiple of 16;
+    or three planes, plane 0 the image at a width a multiple of 16, the
+    chroma planes alike at a column repeat of 1 or 2 and a row repeat of
+    1, 2 or 4, each plane's first byte and width a multiple of its 16 or 8
+    bytes a group."""
+    kind, nin, pitch = (int(v) for v in src[:3])
+    if raw.data_ptr() % 16:
+        return None
+    if kind == 0:
+        return None if nin not in (1, 3, 4) or pitch % 16 else \
+            (1, 3, 4).index(nin)
+    if kind == 1:
+        return None if pitch % 16 else 3
+    off, pw = [int(v) for v in src[4:7]], [int(v) for v in src[7:10]]
+    fy, fx = [int(v) for v in src[10:13]], [int(v) for v in src[13:16]]
+    if ((fy[0], fx[0]) != (1, 1) or fx[1] not in (1, 2)
+            or (fy[2], fx[2], pw[2]) != (fy[1], fx[1], pw[1])
+            or fy[1] not in _SHIFT or pw[0] % 16 or off[0] % 16):
+        return None
+    cb = 16 // fx[1]
+    if pw[1] % cb or off[1] % cb or off[2] % cb:
+        return None
+    return 4 if fx[1] == 1 else 5
+
+
+def pre_instance(raw: torch.Tensor, planes: List[torch.Tensor],
+                 geo_i: np.ndarray, src: np.ndarray) -> int:
+    """The preprocessor's instance for these tensors
+    (csrc/pre_rgb_to_planes.cu; INSTANCES names them): 1, the RGB vector
+    instance, where pre_vector takes them; else 2 + 3 s + log2(dx) a
+    vector instance of input kind VECTOR_KINDS[s] (_vector_source)
+    where plane 0 (and a 4th) is at (dx, dy) = (1, 1), planes 1 and 2
+    alike at dx and dy in {1, 2, 4} (dx 1 for one component), and every
+    plane's width and address are multiples of 8; else 0, the generic
+    instance.  geo_i: pre_geometry's array; src: pre_source's."""
+    if pre_vector(raw, planes, geo_i):
+        return 1
+    src = np.asarray(src)
+    s = _vector_source(raw, src)
+    ncomp = int(src[3])
+    g = np.asarray(geo_i).reshape(-1, 4)[:ncomp]
+    if (s is None or tuple(g[0, :2]) != (1, 1)
+            or (ncomp == 4 and tuple(g[3, :2]) != (1, 1))):
+        return 0
+    sx = 0
+    if ncomp >= 2:
+        dx, dy = int(g[1, 0]), int(g[1, 1])
+        if dx not in _SHIFT or dy not in _SHIFT or (
+                ncomp >= 3 and tuple(g[2]) != tuple(g[1])):
+            return 0
+        sx = _SHIFT[dx]
+    if any(int(w) % 8 or p.data_ptr() % 8
+           for (_, _, _, w), p in zip(g, planes)):
+        return 0
+    return 2 + 3 * s + sx
 
 
 def dpost_decimation(geo: Geometry) -> Tuple[int, int]:
@@ -478,6 +555,60 @@ def postprocess_packed(planes: List[torch.Tensor], geo: Geometry,
     _kernels.require_cuda("post_rgb", *planes, out)
     params = color.kernel_params(geo.param.color_space_internal,
                                  pi.color_space)
+    inst = post_instance(planes, g, dst, out, pi.width)
     _kernels.launch("post_rgb", *planes, *[None] * (4 - len(planes)), g,
-                    pi.height, pi.width, dst, params, out)
+                    pi.height, pi.width, dst, params, out, inst,
+                    instance=INSTANCES[inst])
     return out
+
+
+def post_instance(planes: List[torch.Tensor], g: np.ndarray,
+                  dst: np.ndarray, out: torch.Tensor, W: int) -> int:
+    """The postprocessor's instance for these tensors (csrc/post_rgb.cu;
+    INSTANCES names them), from post_target's g and dst: 1, the RGB
+    instance, for 3 planes to 3-byte pixels with plane 0 at (fy, fx) =
+    (1, 1), planes 1 and 2 alike in {1, 2}^2 and every plane's address and
+    width multiples of 8; else 2 + 3 t + log2(fx) a vector instance of
+    output kind VECTOR_KINDS[t] for 1, 3 or 4 planes with those
+    multiples of 8, plane 0 (and a 4th) at (1, 1), planes 1 and 2 alike
+    with fy, fx in {1, 2, 4}, and out 16-byte aligned: interleaved pixels
+    of 1, 3 or 4 bytes whose rows hold whole 16-byte vectors, UYVY at W %
+    8 == 0, or three planes with plane 0 the image, planes 1 and 2 alike
+    at column and row steps in {1, 2}, every plane's first byte and width
+    a multiple of 16; else 0, the generic instance."""
+    ncomp, kind, unit, nch = (int(v) for v in g[:4])
+    stride = [int(v) for v in g[4:8]]
+    fy, fx = [int(v) for v in g[8:12]], [int(v) for v in g[12:16]]
+    al8 = all(p.data_ptr() % 8 == 0 and w % 8 == 0
+              for p, w in zip(planes, stride))
+    if (kind == 0 and ncomp == nch == unit == 3 and al8
+            and (fy[0], fx[0]) == (1, 1) and (fy[2], fx[2]) == (fy[1], fx[1])
+            and fy[1] in (1, 2) and fx[1] in (1, 2)):
+        return 1
+    if (not al8 or out.data_ptr() % 16 or ncomp == 2
+            or (fy[0], fx[0]) != (1, 1)
+            or (ncomp == 4 and (fy[3], fx[3]) != (1, 1))):
+        return 0
+    sx = 0
+    if ncomp >= 3:
+        if (fy[1] not in _SHIFT or fx[1] not in _SHIFT
+                or (fy[2], fx[2], stride[2]) != (fy[1], fx[1], stride[1])):
+            return 0
+        sx = _SHIFT[fx[1]]
+    if kind == 0:
+        if unit not in (1, 3, 4) or W * unit % 16:
+            return 0
+        t = (1, 3, 4).index(unit)
+    elif kind == 1:
+        if W % 8:
+            return 0
+        t = 3
+    else:
+        off, pw = [int(v) for v in dst[0:3]], [int(v) for v in dst[3:6]]
+        dh, dw = [int(v) for v in dst[6:9]], [int(v) for v in dst[9:12]]
+        if ((dh[0], dw[0]) != (1, 1) or (dh[2], dw[2]) != (dh[1], dw[1])
+                or dh[1] not in (1, 2) or dw[1] not in (1, 2)
+                or any(o % 16 or w % 16 for o, w in zip(off, pw))):
+            return 0
+        t = 4 if dw[1] == 1 else 5
+    return 2 + 3 * t + sx

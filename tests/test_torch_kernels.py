@@ -2097,26 +2097,95 @@ def _format_geo(raw, pf, pad, hw, samp=None, il=False):
                                             pi)
 
 
+#: image sizes of the format tests: W % 16 == 6, 0 and 15 (an odd width:
+#: no UYVY)
+FORMAT_HW = [(233, 310), (1080, 1920), (61, 1103)]
+
+
+def _instance_run(name, fn, monkeypatch, pick):
+    """fn() on the card with the instance the wrapper picks, then with the
+    generic one (the chooser patched to 0); returns (result, the picked
+    instance's name, the generic result).  One launch each, of the
+    instance named."""
+    _kernels.reset_launches()
+    got = fn()
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[name] == 1
+    (key, n), = _kernels.INSTANCES.items()
+    assert n == 1 and key.startswith(f"{name}/")
+    inst = key.split("/", 1)[1]
+    assert inst == pick(got)
+    monkeypatch.setattr(tpre, "pre_instance" if name == "pre_rgb_to_planes"
+                        else "post_instance", lambda *a: 0)
+    _kernels.reset_launches()
+    gen = fn()
+    torch.cuda.synchronize()
+    assert _kernels.INSTANCES == {f"{name}/generic": 1}
+    monkeypatch.undo()
+    return got, inst, gen
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,samp,il", PRE_FORMAT_CASES)
-@pytest.mark.parametrize("hw", [(233, 310), (1080, 1920)])
-def test_pre_kernel_every_format(cuda, kind, samp, il, hw):
-    """The preprocessor's generic instance on every input kind (2-D, 3-D
-    and flat, padded rows, UYVY, the planar formats) at 1 to 4
-    components and 4:1:1 and subsampled-chroma layouts: one launch, bit
-    for bit the plain version."""
+@pytest.mark.parametrize("kind,samp,il,hw", [
+    c + (hw,) for hw in FORMAT_HW for c in PRE_FORMAT_CASES
+    if not (hw[1] % 2 and c[0].startswith("uyvy"))])
+def test_pre_kernel_every_format(cuda, kind, samp, il, hw, monkeypatch):
+    """The preprocessor on every input kind (2-D, 3-D and flat, padded
+    rows, UYVY, the planar formats) at 1 to 4 components and 4:1:1 and
+    subsampled-chroma layouts: one launch of the instance pre_instance
+    picks (a vector instance exactly where every row starts on a 16-byte
+    boundary: at W = 1920 unless the rows are padded off it, and UYVY
+    padded to 624 bytes at W = 310; the generic one otherwise), bit for
+    bit the plain version, and so is the generic instance on the same
+    input."""
     raw, pf, pad = fc.raw_input(kind, *hw, seed=len(kind) + hw[0])
     geo = _format_geo(raw, pf, pad, hw, samp, il)
     x = torch.from_numpy(raw).to(cuda)
-    _kernels.reset_launches()
-    got = tpre.preprocess_packed(x, geo, geo.param_image)
-    torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["pre_rgb_to_planes"] == 1
-    ref = tpre.preprocess_packed_plain(x, geo, geo.param_image)
+    pi = geo.param_image
+    pick = lambda got: tpre.INSTANCES[tpre.pre_instance(
+        x, got, tpre.pre_geometry(geo), tpre.pre_source(x, geo, pi))]
+    got, inst, gen = _instance_run(
+        "pre_rgb_to_planes", lambda: tpre.preprocess_packed(x, geo, pi),
+        monkeypatch, pick)
+    src = tpre.pre_source(x, geo, pi)
+    rows16 = (hw[1] if src[0] == 2 else int(src[2])) % 16 == 0
+    assert (inst == "generic") != rows16
+    ref = tpre.preprocess_packed_plain(x, geo, pi)
     assert len(got) == len(ref) == geo.comp_count
-    for c, a, b in zip(geo.components, got, ref):
+    for c, a, g, b in zip(geo.components, got, gen, ref):
         assert a.shape == (c.data_height, c.data_width)
         assert torch.equal(a, b), c.index
+        assert torch.equal(g, b), c.index
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["u8_flat", "rgb_pad", "rgba_pad",
+                                  "uyvy_pad"])
+@pytest.mark.parametrize("hw", [(233, 310), (61, 1103), (40, 1096)])
+def test_pre_kernel_padded_tail(cuda, kind, hw, monkeypatch):
+    """Flat rows padded to a pitch that is a multiple of 16 at W % 16 in
+    {6, 15, 8}: the vector instance takes them and loads the ragged last
+    group of each row a byte at a time; bit for bit the plain version and
+    the generic instance."""
+    if kind == "uyvy_pad" and hw[1] % 2:
+        hw = (hw[0], hw[1] - 1)
+    raw, pf, _ = fc.raw_input(kind, *hw, seed=hw[1])
+    unit = fc.UNIT[pf]
+    rows = raw.reshape(hw[0], -1)[:, :hw[1] * unit]
+    pitch = -(-rows.shape[1] // 16) * 16 + 16
+    raw = np.concatenate([rows, np.full((hw[0], pitch - rows.shape[1]), 9,
+                                        np.uint8)], 1).reshape(-1)
+    geo = _format_geo(raw, pf, pitch - rows.shape[1], hw)
+    x = torch.from_numpy(raw).to(cuda)
+    pi = geo.param_image
+    pick = lambda got: tpre.INSTANCES[tpre.pre_instance(
+        x, got, tpre.pre_geometry(geo), tpre.pre_source(x, geo, pi))]
+    got, inst, gen = _instance_run(
+        "pre_rgb_to_planes", lambda: tpre.preprocess_packed(x, geo, pi),
+        monkeypatch, pick)
+    assert inst != "generic"
+    for a, g, b in zip(got, gen, tpre.preprocess_packed_plain(x, geo, pi)):
+        assert torch.equal(a, b) and torch.equal(g, b)
 
 
 @pytest.mark.gpu
@@ -2143,26 +2212,35 @@ POST_SAMPLINGS = {"grey": ((1, 1),), "444": ((1, 1),) * 3,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pf", fc.OUTPUTS)
-@pytest.mark.parametrize("samp", list(POST_SAMPLINGS))
-@pytest.mark.parametrize("hw", [(233, 310), (1080, 1920)])
-def test_post_kernel_every_format(cuda, pf, samp, hw):
+@pytest.mark.parametrize("pf,samp,hw", [
+    (pf, samp, hw) for hw in FORMAT_HW + [(37, 1096)] for pf in fc.OUTPUTS
+    for samp in POST_SAMPLINGS
+    if not (hw[1] % 2 and pf == "P422_U8_P1020")])
+def test_post_kernel_every_format(cuda, pf, samp, hw, monkeypatch):
     """The postprocessor to every output format from 1, 3 and 4 planes at
     several samplings (RGBA alpha 255 or the raw 4th plane, UYVY, the
-    planar formats): one launch, the plain version's shape and bytes."""
+    planar formats): one launch of the instance post_instance picks (a
+    vector instance at W = 1920; at W = 1096 RGBA and UYVY store their
+    ragged last group a byte or a word at a time), the plain version's
+    shape and bytes, and so does the generic instance."""
     pi = fc.image_params(gt, pf, *hw)
     geo = get_geometry(fc.params(gt, POST_SAMPLINGS[samp], rst=8), pi)
     g = torch.Generator().manual_seed(hw[0] + len(samp))
     planes = [torch.randint(0, 256, (c.data_height, c.data_width),
                             dtype=torch.uint8, generator=g).to(cuda)
               for c in geo.components]
-    _kernels.reset_launches()
-    got = tpre.postprocess_packed(planes, geo, pi)
-    torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["post_rgb"] == 1
+    _, gi, dst = tpre.post_target(geo, pi)
+    pick = lambda got: tpre.INSTANCES[tpre.post_instance(
+        planes, gi, dst, got, hw[1])]
+    got, inst, gen = _instance_run(
+        "post_rgb", lambda: tpre.postprocess_packed(planes, geo, pi),
+        monkeypatch, pick)
+    if hw[1] == 1920:
+        assert inst != "generic"
     ref = tpre.postprocess_packed_plain(planes, geo, pi)
-    assert got.shape == ref.shape
+    assert got.shape == ref.shape == gen.shape
     assert torch.equal(got, ref)
+    assert torch.equal(gen, ref)
 
 
 @pytest.mark.gpu
