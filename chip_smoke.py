@@ -91,7 +91,11 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      C on the stream, each against its plain version; pixels equal to
      the tuned stream's of the same frame), restart interval 0 (a scan
      one segment; pixels equal to restart auto's; phases A and C against
-     their plain versions on a 128x96 restart-0 stream), three Huffman
+     their plain versions on 128x96 and 512x384 restart-0 streams; phase
+     A's sync instance, which the decoder takes there, against its serial
+     instance at 8K on the clean stream and on one with a bit flipped
+     mid-scan, timed beside it; the main-path windows run the sync
+     instance and never the serial one), three Huffman
      table sets (the Annex-K stream rewritten; the four-set kernel
      instances against their plain versions, pixels equal to the
      unmodified stream's), HD card bytes and pixels against the CPU's;
@@ -177,9 +181,13 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
      row marked) against its plain version, error 0
      (huffman_segments:stripe_markers); encode_to_device at restart
      interval 0 on an 8K frame in a window of its own, assembled to
-     encode()'s bytes, the token-row packer on a whole luma scan against
-     its plain version and timed (pack_stuff_rows:restart0_444); the
-     windows' launches add to the records of the kernels they launch;
+     encode()'s bytes, the token-row packer's scan instance (chunks of a
+     scan a CTA) on a whole luma scan against its plain version and its
+     row instance (one warp walking the scan), both timed
+     (pack_stuff_rows:restart0_444), and the 16K interleaved 4:4:4
+     restart-0 scan (a worst-case row past 2^31 bytes) through
+     encode_to_device, assembled to encode()'s bytes; the windows'
+     launches add to the records of the kernels they launch;
  16. prints the decomposition line of the tiled kernels (fdct_quant,
      dpost_rgb at 4:4:4 and 4:2:0), of the Huffman coder (one slot,
      4:4:4 and 4:2:0 slot patterns, the 4:2:0 rows also with every
@@ -469,21 +477,24 @@ def pack_times(torch, k, bits, lens, markers, stride, nbytes, flush):
     k["probe"]["sector_bound_ms"] = pack_bound_ms(lens, markers, nbytes, 8)
 
 
-def scan_call(words, nbits, p):
+def scan_call(words, nbits, p, instance=None):
     """Phase A as the decoder calls it: the plan's slot pattern and
-    lookahead table."""
+    lookahead table; the instance huffdec_kernel.scan_instance picks, or
+    `instance`."""
     from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 
     return thd.scan_segments(words, nbits, p.nblocks, p.dc_luma, p.ac_luma,
-                             p.tables, p.bps, p.pattern, p.scan_lut)
+                             p.tables, p.bps, p.pattern, p.scan_lut,
+                             instance)
 
 
-def scan_check(torch, words, nbits, p):
-    """Phase A's kernel against its plain version on the same rows:
-    (bstart, err, max_abs_err, plain ms)."""
+def scan_check(torch, words, nbits, p, instance=None):
+    """Phase A's kernel (the chooser's instance, or `instance`) against its
+    plain version on the same rows: (bstart, err, max_abs_err, plain
+    ms)."""
     from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 
-    bstart, err = scan_call(words, nbits, p)
+    bstart, err = scan_call(words, nbits, p, instance)
     (p_bstart, p_err), ms = once_ms(torch, lambda: thd.scan_segments_plain(
         words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps,
         p.pattern))
@@ -513,14 +524,29 @@ def scan_tokens(torch, coefs, p) -> int:
     return total
 
 
-def scan_times(torch, k, words, nbits, coefs, p, flush, reps=20) -> None:
+def scan_times(torch, k, words, nbits, coefs, p, flush, reps=20,
+               serial_reps=0) -> None:
     """Phase A's ms a launch (mean of reps) at the path's shapes into
     record k, its bytes bound (the words the segments' bits fill, four
     per-segment vectors, the tables and the lookahead table read once,
     bstart and err written once), and its tokens a launch and ns a
-    token."""
+    token; with serial_reps, also the serial instance's ms on the same
+    rows (its mean of serial_reps, serial_ms) and the instance the
+    chooser took."""
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
     k["ms"] = event_ms(torch, lambda: scan_call(words, nbits, p), reps,
                        flush)
+    k["instance"] = thd.scan_instance(*words.shape)
+    if k["instance"] == "sync":
+        k["sync_stats"] = {}
+        thd.scan_segments(words, nbits, p.nblocks, p.dc_luma, p.ac_luma,
+                          p.tables, p.bps, p.pattern, p.scan_lut,
+                          stats=k["sync_stats"])
+    if serial_reps:
+        k["serial_ms"] = event_ms(
+            torch, lambda: scan_call(words, nbits, p, "serial"),
+            serial_reps, flush)
     nseg = words.shape[0]
     read = (stream_word_bytes(nbits) + 4 * nseg * 4 + p.tables.numel() * 4
             + p.scan_lut.numel() * 2)
@@ -1254,7 +1280,8 @@ def main_path_8k(torch, np, gt, dev, enc, dec, params, seed0, what,
                 raise AssertionError(f"8K {what} decode: PSNR {psnrs} dB")
             log(f"[{what} 8k dec] 3 streams: PSNR vs source "
                 + ", ".join(f"{v:.2f}" for v in psnrs)
-                + f" dB, launches {launches}")
+                + f" dB, launches {launches}, instances "
+                f"{dict(_kernels.INSTANCES)}")
         for i in range(extra):
             t0 = time.perf_counter()
             if stage == "enc":
@@ -1686,12 +1713,14 @@ def decode_stages(torch, np, dec, data, what):
 #: headline) and interleaved 4:2:0 (libjpeg's default)
 FOREIGN_LAYOUTS = (("444", False, None),
                    ("420", True, ((2, 2), (1, 1), (1, 1))))
-#: 8K frames timed after the three counted ones on a restart-0 path (a
-#: decode takes about a second there: phase A walks each scan on one
-#: thread)
-RESTART0_EXTRA_FRAMES = 1
-#: launches timed for a phase-A record at restart interval 0
+#: 8K frames timed after the three counted ones on a restart-0 path
+RESTART0_EXTRA_FRAMES = 3
+#: launches of phase A's serial instance timed beside the sync instance
+#: at restart interval 0 (a thread walks a scan, about 0.85 s a launch)
 RESTART0_REPS = 3
+#: frames (h, w) whose restart-0 streams hold phase A and C against their
+#: plain versions (the plain scan steps a token of a scan at a time)
+RESTART0_PLAIN = ((96, 128), (384, 512))
 
 
 def foreign_params(gt, il, samp, tables, rst):
@@ -1792,6 +1821,89 @@ def token_encode_stages(torch, enc, frame, params, stream, tag):
     return scans[0], (None if rst0 else pin[0])
 
 
+def plain_scans(torch, gt, dev) -> dict:
+    """For each FOREIGN_LAYOUTS layout, a restart-0 stream of the last
+    RESTART0_PLAIN size, written on the card, and a child process
+    (python3 chip_smoke.py --plain-scan) that runs phase A's plain version
+    on it on the CPU while the card works -> {tag: job}."""
+    h, w = RESTART0_PLAIN[-1]
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "gpujpeg_tpu_torch", "_build", "smoke")
+    os.makedirs(d, exist_ok=True)
+    enc = gt.Encoder(device=dev)
+    jobs = {}
+    for li, (tag, il, samp) in enumerate(FOREIGN_LAYOUTS):
+        frame = make_frame(torch, "gradient", 610 + li, h, w,
+                           dev).cpu().numpy()
+        data = enc.encode(frame, foreign_params(gt, il, samp, "annexk", 0))
+        src = os.path.join(d, f"plain_{tag}.jpg")
+        with open(src, "wb") as f:
+            f.write(data)
+        out = os.path.join(d, f"plain_{tag}.npz")
+        if os.path.exists(out):
+            os.remove(out)
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--plain-scan", src,
+             out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        jobs[tag] = dict(data=data, out=out, proc=proc)
+    return jobs
+
+
+def plain_scan_result(np, job, timeout: float = 600):
+    """A plain_scans job's (bstart, err) and its CPU ms, waiting for it."""
+    log_text, _ = job["proc"].communicate(timeout=timeout)
+    if job["proc"].returncode != 0:
+        raise AssertionError(f"the plain-scan child failed:\n{log_text}")
+    z = np.load(job["out"])
+    return (z["bstart"], z["err"]), float(z["ms"])
+
+
+def plain_scan_child(src: str, out: str) -> int:
+    """--plain-scan: phase A's plain version on the CPU (one thread) on the
+    stream at src, its bstart, err and ms saved to out (.npz)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import gpujpeg_tpu_torch as gt
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+    torch.set_num_threads(1)
+    with open(src, "rb") as f:
+        hf = gt.Decoder(device="cpu").prepare(f.read())
+    p = hf.plan
+    t0 = time.perf_counter()
+    bstart, err = thd.scan_segments_plain(
+        torch.from_numpy(hf.words), torch.from_numpy(hf.nbits), p.nblocks,
+        p.dc_luma, p.ac_luma, p.tables, p.bps, p.pattern)
+    ms = (time.perf_counter() - t0) * 1e3
+    np.savez(out, bstart=bstart.numpy(), err=err.numpy(), ms=ms)
+    return 0
+
+
+def corrupt_restart0(torch, np, hf, p, dev, tries=64) -> dict:
+    """A restart-0 stream's words with one bit flipped from the middle of
+    its first scan on, the first flip (of up to `tries`, 997 bits apart)
+    that phase A reports: the sync instance's bstart and err against the
+    serial instance's on the same words -> {err, bit, tries, flags}."""
+    words0 = hf.words
+    nbits = torch.from_numpy(hf.nbits).to(dev)
+    for k in range(tries):
+        bit = int(hf.nbits[0]) // 2 + 997 * k
+        bad = words0.copy()
+        bad.view(np.uint32)[0, bit >> 5] ^= np.uint32(1) << np.uint32(
+            24 - 8 * ((bit >> 3) & 3) + 7 - (bit & 7))
+        words = torch.from_numpy(bad).to(dev)
+        got = scan_call(words, nbits, p)
+        if bool(got[1].any()):
+            want = scan_call(words, nbits, p, "serial")
+            return dict(err=max(diff(got[0], want[0]),
+                                diff(got[1], want[1])),
+                        bit=bit, tries=k + 1, flags=got[1].tolist())
+    raise AssertionError(f"no bit flip of {tries} that phase A reports")
+
+
 def foreign_phases(torch, np, gt, dev, flush):
     """Step 10, [foreign]: the streams other encoders write, at 8K, in
     planar 4:4:4 and interleaved 4:2:0 (FOREIGN_LAYOUTS); returns (kernel
@@ -1805,9 +1917,12 @@ def foreign_phases(torch, np, gt, dev, flush):
          depend on neither the tables nor the interval);
       b. restart interval 0 (a scan one segment), Annex-K: the 8K encode
          and decode, pixels equal to a.'s; phases A and C against their
-         plain versions on a 128x96 restart-0 stream (the plain phase A
-         steps a token of the longest segment at a time, about 3 ms a
-         step on the card: an 8K scan is millions of steps);
+         plain versions on 128x96 and 512x384 restart-0 streams (the
+         plain phase A steps a token of the longest segment at a time,
+         about 1 ms a step on the card: an 8K scan is millions of
+         steps); phase A's sync instance against its serial instance on
+         the 8K stream and on the same with one bit flipped mid-scan
+         (corrupt_restart0);
       c. three table sets: a.'s 8K stream rewritten (the repo's
          legacy-decode rewrite, tests/scan_rows.three_sets), decoded
          by the four-set kernel instances, pixels equal to a.'s; phases A
@@ -1820,20 +1935,24 @@ def foreign_phases(torch, np, gt, dev, flush):
          new path (EXTRA_FRAMES more timed at restart auto,
          RESTART0_EXTRA_FRAMES at 0), the three-set streams decoded; stage
          breakdowns; per-launch times of the packer and both phases on
-         each stream (RESTART0_REPS launches of phase A at restart 0)."""
+         each stream (at restart 0 the sync instance's, and
+         RESTART0_REPS launches of the serial instance as serial_ms)."""
     from gpujpeg_tpu_torch.ops import _kernels, fusedpack
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
     from tests.scan_rows import three_sets
 
     kernels = {}
 
-    def rec(name, note=None):
-        key = name.split(":")[0]
+    def rec(name, note=None, key=None):
+        key = key or name.split(":")[0]
         kernels[name] = dict(
-            key=key, source=f"gpujpeg_tpu_torch/csrc/{key}.cu",
+            key=key, source=f"gpujpeg_tpu_torch/csrc/"
+                            f"{_kernels.source_of(key)}.cu",
             replaces={"pack_stuff_rows": "gpujpeg_tpu/ops/fusedpack.py:107",
                       "huffdec_scan": "gpujpeg_tpu/ops/huffdec_kernel.py:590",
                       "huffdec_block":
-                          "gpujpeg_tpu/ops/huffdec_kernel.py:283"}[key],
+                          "gpujpeg_tpu/ops/huffdec_kernel.py:283"}[
+                              _kernels.source_of(key)],
             bound_by="bytes", library_ms=None, err=0,
             **({"note": note} if note else {}))
         return kernels[name]
@@ -1845,213 +1964,266 @@ def foreign_phases(torch, np, gt, dev, flush):
                                  f"({what})")
 
     launches = {}
-    for li, (tag, il, samp) in enumerate(FOREIGN_LAYOUTS):
-        t_layout = time.perf_counter()
-        enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
-        pa = foreign_params(gt, il, samp, "annexk", gt.RESTART_AUTO)
-        p0 = foreign_params(gt, il, samp, "annexk", 0)
-        pt = foreign_params(gt, il, samp, "tuned", gt.RESTART_AUTO)
-        pk, sk, bk = (rec(f"pack_stuff_rows:annexk_{tag}"),
-                      rec(f"huffdec_scan:annexk_{tag}"),
-                      rec(f"huffdec_block:annexk_{tag}"))
-        s0 = rec(f"huffdec_scan:restart0_{tag}",
-                 "plain_ms and max_abs_err on a 128x96 restart-0 stream "
-                 "(the plain scan steps a token of the longest segment at a "
-                 "time); ms, bound and tokens on the 8K one")
-        b0 = rec(f"huffdec_block:restart0_{tag}",
-                 "max_abs_err on the 128x96 restart-0 stream and the 8K "
-                 "one, plain_ms on the 8K one; ms, bound and tokens on the "
-                 "8K one")
-        s3, b3 = (rec(f"huffdec_scan:three_sets_{tag}",
-                      "four-set instance: the Annex-K stream rewritten to "
-                      "three AC table sets"),
-                  rec(f"huffdec_block:three_sets_{tag}",
-                      "four-set instance, CTAs of 4 warps: the Annex-K "
-                      "stream rewritten to three AC table sets"))
-        what = f"8K {'il' if il else 'planar'} {tag}"
+    plain_jobs = plain_scans(torch, gt, dev)
+    try:
+        for li, (tag, il, samp) in enumerate(FOREIGN_LAYOUTS):
+            foreign_layout(torch, np, gt, dev, flush, fusedpack, thd,
+                           three_sets, _kernels, kernels, launches, rec,
+                           record_err, plain_jobs, li, tag, il, samp)
+    finally:
+        for job in plain_jobs.values():
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+                job["proc"].wait()
+    return kernels, launches
 
-        # -- a. Annex-K, restart auto ---------------------------------------
-        frame = make_frame(torch, "gradient", 600 + li, H8K, W8K, dev)
-        frame_np = frame.cpu().numpy()
-        geo = enc.resolve(frame_np, pa)
-        planes, classes = enc._front(frame, geo)
-        coefs, n, st = token_scans(fusedpack, planes, geo, classes)[0]
-        del planes
-        bits, lens, markers, stride = token_args(fusedpack, coefs, n, st)
-        k_out = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
-        p_out, pk["plain_ms"] = once_ms(
-            torch, lambda: fusedpack.pack_stuff_rows_plain(bits, lens,
-                                                           markers, stride))
-        record_err(f"pack_stuff_rows:annexk_{tag}",
-                   rows_err(torch, *k_out, *p_out), what)
-        del k_out, p_out, bits, lens, coefs
-        data_a = enc.encode(frame_np, pa)
-        data_t = enc.encode(frame_np, pt)
-        hf = dec.prepare(data_a)
-        p = hf.plan
-        words, nbits = dec.upload(hf)
-        bstart, err_a, err, sk["plain_ms"] = scan_check(torch, words, nbits,
-                                                        p)
-        record_err(f"huffdec_scan:annexk_{tag}", err, what)
-        _c, err_c, err, bk["plain_ms"] = block_check(torch, words, bstart, p)
-        record_err(f"huffdec_block:annexk_{tag}", err, what)
-        if bool(err_a.any()) or bool(err_c.any()):
-            raise AssertionError(f"{what} Annex-K stream decodes with errors")
-        del words, bstart, _c
-        img_a = dec.decode(data_a)
-        if not np.array_equal(img_a, dec.decode(data_t)):
-            raise AssertionError(f"{what}: the Annex-K stream's pixels "
-                                 "differ from the tuned stream's")
-        log(f"[foreign] {what} Annex-K: {len(data_a)} B (tuned "
-            f"{len(data_t)} B), {p.geo.segment_count} segments; pack, scan, "
-            "block equal to plain; pixels == the tuned stream's, PSNR "
-            f"{psnr(np, img_a, frame_np):.2f} dB")
 
-        # -- b. restart interval 0 ------------------------------------------
-        data_0 = enc.encode(frame_np, p0)
-        img_0 = dec.decode(data_0)
-        if not np.array_equal(img_0, img_a):
-            raise AssertionError(f"{what}: the restart-0 stream's pixels "
-                                 "differ from the restart-auto stream's")
-        small = make_frame(torch, "gradient", 610 + li, 96, 128,
-                           dev).cpu().numpy()
-        hf0 = dec.prepare(enc.encode(small, p0))
-        w0, nb0 = dec.upload(hf0)
-        bst0, ea0, err, s0["plain_ms"] = scan_check(torch, w0, nb0,
-                                                    hf0.plan)
-        record_err(f"huffdec_scan:restart0_{tag}", err, "128x96 restart 0")
+def foreign_layout(torch, np, gt, dev, flush, fusedpack, thd, three_sets,
+                   _kernels, kernels, launches, rec, record_err, plain_jobs,
+                   li, tag, il, samp):
+    """foreign_phases' steps a. to e. for one layout."""
+    t_layout = time.perf_counter()
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    pa = foreign_params(gt, il, samp, "annexk", gt.RESTART_AUTO)
+    p0 = foreign_params(gt, il, samp, "annexk", 0)
+    pt = foreign_params(gt, il, samp, "tuned", gt.RESTART_AUTO)
+    pk, sk, bk = (rec(f"pack_stuff_rows:annexk_{tag}"),
+                  rec(f"huffdec_scan:annexk_{tag}"),
+                  rec(f"huffdec_block:annexk_{tag}"))
+    s0 = rec(f"huffdec_scan:restart0_{tag}",
+             "the sync instance (gj_huffdec_scan_sync): plain_ms and "
+             "max_abs_err on 128x96 and 512x384 restart-0 streams (the "
+             "plain scan steps a token of the longest segment at a "
+             "time; plain_ms_512x384_cpu the larger one's, run on the "
+             "CPU in a child process), max_abs_err "
+             "also against the serial instance on the clean and a "
+             "corrupt 8K stream; ms, serial_ms (the serial instance, a "
+             "thread a scan, same rows), bound and tokens on the 8K "
+             "one", key="huffdec_scan_sync")
+    b0 = rec(f"huffdec_block:restart0_{tag}",
+             "max_abs_err on the 128x96 and 512x384 restart-0 streams "
+             "and the 8K one, plain_ms on the 8K one; ms, bound and "
+             "tokens on the 8K one")
+    s3, b3 = (rec(f"huffdec_scan:three_sets_{tag}",
+                  "four-set instance: the Annex-K stream rewritten to "
+                  "three AC table sets"),
+              rec(f"huffdec_block:three_sets_{tag}",
+                  "four-set instance, CTAs of 4 warps: the Annex-K "
+                  "stream rewritten to three AC table sets"))
+    what = f"8K {'il' if il else 'planar'} {tag}"
+
+    # -- a. Annex-K, restart auto ---------------------------------------
+    frame = make_frame(torch, "gradient", 600 + li, H8K, W8K, dev)
+    frame_np = frame.cpu().numpy()
+    geo = enc.resolve(frame_np, pa)
+    planes, classes = enc._front(frame, geo)
+    coefs, n, st = token_scans(fusedpack, planes, geo, classes)[0]
+    del planes
+    bits, lens, markers, stride = token_args(fusedpack, coefs, n, st)
+    k_out = fusedpack.pack_stuff_rows(bits, lens, markers, stride)
+    p_out, pk["plain_ms"] = once_ms(
+        torch, lambda: fusedpack.pack_stuff_rows_plain(bits, lens,
+                                                       markers, stride))
+    record_err(f"pack_stuff_rows:annexk_{tag}",
+               rows_err(torch, *k_out, *p_out), what)
+    del k_out, p_out, bits, lens, coefs
+    data_a = enc.encode(frame_np, pa)
+    data_t = enc.encode(frame_np, pt)
+    hf = dec.prepare(data_a)
+    p = hf.plan
+    words, nbits = dec.upload(hf)
+    bstart, err_a, err, sk["plain_ms"] = scan_check(torch, words, nbits,
+                                                    p)
+    record_err(f"huffdec_scan:annexk_{tag}", err, what)
+    _c, err_c, err, bk["plain_ms"] = block_check(torch, words, bstart, p)
+    record_err(f"huffdec_block:annexk_{tag}", err, what)
+    if bool(err_a.any()) or bool(err_c.any()):
+        raise AssertionError(f"{what} Annex-K stream decodes with errors")
+    del words, bstart, _c
+    img_a = dec.decode(data_a)
+    if not np.array_equal(img_a, dec.decode(data_t)):
+        raise AssertionError(f"{what}: the Annex-K stream's pixels "
+                             "differ from the tuned stream's")
+    log(f"[foreign] {what} Annex-K: {len(data_a)} B (tuned "
+        f"{len(data_t)} B), {p.geo.segment_count} segments; pack, scan, "
+        "block equal to plain; pixels == the tuned stream's, PSNR "
+        f"{psnr(np, img_a, frame_np):.2f} dB")
+
+    # -- b. restart interval 0 ------------------------------------------
+    data_0 = enc.encode(frame_np, p0)
+    img_0 = dec.decode(data_0)
+    if not np.array_equal(img_0, img_a):
+        raise AssertionError(f"{what}: the restart-0 stream's pixels "
+                             "differ from the restart-auto stream's")
+    for h, w in RESTART0_PLAIN:
+        if (h, w) == RESTART0_PLAIN[0]:
+            small = make_frame(torch, "gradient", 610 + li, h, w,
+                               dev).cpu().numpy()
+            hf0 = dec.prepare(enc.encode(small, p0))
+            w0, nb0 = dec.upload(hf0)
+            bst0, ea0, err, ms = scan_check(torch, w0, nb0, hf0.plan,
+                                            "sync")
+            s0["plain_ms"] = ms
+        else:
+            # the plain scan of this stream ran on the CPU in a child
+            # process (plain_scans) while the card worked
+            hf0 = dec.prepare(plain_jobs[tag]["data"])
+            w0, nb0 = dec.upload(hf0)
+            bst0, ea0 = scan_call(w0, nb0, hf0.plan, "sync")
+            want, ms = plain_scan_result(np, plain_jobs[tag])
+            err = max(diff(bst0.cpu(), torch.from_numpy(want[0])),
+                      diff(ea0.cpu(), torch.from_numpy(want[1])))
+            s0[f"plain_ms_{w}x{h}_cpu"] = ms
+        record_err(f"huffdec_scan:restart0_{tag}", err,
+                   f"{w}x{h} restart 0")
         _c, ec0, err, _ms = block_check(torch, w0, bst0, hf0.plan)
-        record_err(f"huffdec_block:restart0_{tag}", err, "128x96 restart 0")
+        record_err(f"huffdec_block:restart0_{tag}", err,
+                   f"{w}x{h} restart 0")
         if bool(ea0.any()) or bool(ec0.any()) or w0.shape[0] != \
                 hf0.plan.geo.scan_count:
-            raise AssertionError("128x96 restart-0 stream: errors, or not "
-                                 "a segment a scan")
-        hf = dec.prepare(data_0)
-        words, nbits = dec.upload(hf)
-        bstart, err_a = scan_call(words, nbits, hf.plan)
-        _c, err_c, err, b0["plain_ms"] = block_check(torch, words, bstart,
-                                                     hf.plan)
-        record_err(f"huffdec_block:restart0_{tag}", err, what + " restart 0")
-        if bool(err_a.any()) or bool(err_c.any()):
-            raise AssertionError(f"{what} restart-0 stream decodes with "
-                                 "errors")
-        log(f"[foreign] {what} restart 0: {len(data_0)} B, "
-            f"{words.shape[0]} segments x {words.shape[1]} words, "
-            f"{hf.plan.bps} block slots a row; pixels == restart auto; "
-            "128x96: scan and block equal to plain")
-        del words, bstart, _c
+            raise AssertionError(f"{w}x{h} restart-0 stream: errors, "
+                                 "or not a segment a scan")
+        log(f"[foreign] {tag} {w}x{h} restart 0: {tuple(w0.shape)} "
+            f"words; the sync instance and phase C equal to plain "
+            f"(plain scan {ms:.1f} ms)")
+    hf = dec.prepare(data_0)
+    words, nbits = dec.upload(hf)
+    if thd.scan_instance(*words.shape) != "sync":
+        raise AssertionError(f"{what} restart 0: the chooser took the "
+                             "serial instance")
+    bstart, err_a = scan_call(words, nbits, hf.plan)
+    ser = scan_call(words, nbits, hf.plan, "serial")
+    record_err(f"huffdec_scan:restart0_{tag}",
+               max(diff(bstart, ser[0]), diff(err_a, ser[1])),
+               what + " restart 0, against the serial instance")
+    _c, err_c, err, b0["plain_ms"] = block_check(torch, words, bstart,
+                                                 hf.plan)
+    record_err(f"huffdec_block:restart0_{tag}", err, what + " restart 0")
+    if bool(err_a.any()) or bool(err_c.any()):
+        raise AssertionError(f"{what} restart-0 stream decodes with "
+                             "errors")
+    flip = corrupt_restart0(torch, np, hf, hf.plan, dev)
+    record_err(f"huffdec_scan:restart0_{tag}", flip["err"],
+               what + " corrupt restart 0, against the serial instance")
+    log(f"[foreign] {what} restart 0: {len(data_0)} B, "
+        f"{words.shape[0]} segments x {words.shape[1]} words, "
+        f"{hf.plan.bps} block slots a row; pixels == restart auto; "
+        "sync instance == serial instance; a bit flipped at "
+        f"{flip['bit']} ({flip['tries']} tries): err "
+        f"{flip['flags']} and bstart == the serial instance's")
+    del words, bstart, _c, ser
 
-        # -- c. three table sets --------------------------------------------
-        data_3 = three_sets(data_a)
-        hf = dec.prepare(data_3)
-        if tuple(hf.plan.tables.shape) != (8, 290):
-            raise AssertionError("the three-set stream took no four-set plan")
-        words, nbits = dec.upload(hf)
-        bstart, err_a, err, s3["plain_ms"] = scan_check(torch, words, nbits,
-                                                        hf.plan)
-        record_err(f"huffdec_scan:three_sets_{tag}", err, what)
-        _c, err_c, err, b3["plain_ms"] = block_check(torch, words, bstart,
-                                                     hf.plan)
-        record_err(f"huffdec_block:three_sets_{tag}", err, what)
-        if bool(err_a.any()) or bool(err_c.any()):
-            raise AssertionError(f"{what} three-set stream decodes with "
-                                 "errors")
-        if not np.array_equal(dec.decode(data_3), img_a):
-            raise AssertionError(f"{what}: the three-set stream's pixels "
-                                 "differ from the unmodified stream's")
-        log(f"[foreign] {what} three table sets: scan and block (four-set "
-            "instances) equal to plain, pixels == the unmodified stream's")
-        del words, bstart, _c, frame, img_0
+    # -- c. three table sets --------------------------------------------
+    data_3 = three_sets(data_a)
+    hf = dec.prepare(data_3)
+    if tuple(hf.plan.tables.shape) != (8, 290):
+        raise AssertionError("the three-set stream took no four-set plan")
+    words, nbits = dec.upload(hf)
+    bstart, err_a, err, s3["plain_ms"] = scan_check(torch, words, nbits,
+                                                    hf.plan)
+    record_err(f"huffdec_scan:three_sets_{tag}", err, what)
+    _c, err_c, err, b3["plain_ms"] = block_check(torch, words, bstart,
+                                                 hf.plan)
+    record_err(f"huffdec_block:three_sets_{tag}", err, what)
+    if bool(err_a.any()) or bool(err_c.any()):
+        raise AssertionError(f"{what} three-set stream decodes with "
+                             "errors")
+    if not np.array_equal(dec.decode(data_3), img_a):
+        raise AssertionError(f"{what}: the three-set stream's pixels "
+                             "differ from the unmodified stream's")
+    log(f"[foreign] {what} three table sets: scan and block (four-set "
+        "instances) equal to plain, pixels == the unmodified stream's")
+    del words, bstart, _c, frame, img_0
 
-        # -- d. HD: card == CPU ---------------------------------------------
-        hd = make_frame(torch, "gradient", 620 + li, 1080, 1920,
-                        dev).cpu().numpy()
-        hd_a = enc.encode(hd, pa)
-        hd_0 = enc.encode(hd, p0)
-        cpu = gt.Encoder(device="cpu")
-        if hd_a != cpu.encode(hd, pa) or hd_0 != cpu.encode(hd, p0):
-            raise AssertionError(f"HD {tag} Annex-K or restart-0 encode on "
-                                 "the card differs from the CPU")
-        got_a = dec.decode(hd_a)
-        if not np.array_equal(got_a, gt.Decoder(device="cpu").decode(hd_a)) \
-                or not np.array_equal(dec.decode(hd_0), got_a):
-            raise AssertionError(f"HD {tag} Annex-K or restart-0 decode on "
-                                 "the card differs")
-        log(f"[foreign hd] 1920x1080 {tag}: Annex-K {len(hd_a)} B and "
-            f"restart 0 {len(hd_0)} B card == cpu (bytes); Annex-K pixels "
-            "card == cpu, restart-0 pixels == Annex-K's")
+    # -- d. HD: card == CPU ---------------------------------------------
+    hd = make_frame(torch, "gradient", 620 + li, 1080, 1920,
+                    dev).cpu().numpy()
+    hd_a = enc.encode(hd, pa)
+    hd_0 = enc.encode(hd, p0)
+    cpu = gt.Encoder(device="cpu")
+    if hd_a != cpu.encode(hd, pa) or hd_0 != cpu.encode(hd, p0):
+        raise AssertionError(f"HD {tag} Annex-K or restart-0 encode on "
+                             "the card differs from the CPU")
+    got_a = dec.decode(hd_a)
+    if not np.array_equal(got_a, gt.Decoder(device="cpu").decode(hd_a)) \
+            or not np.array_equal(dec.decode(hd_0), got_a):
+        raise AssertionError(f"HD {tag} Annex-K or restart-0 decode on "
+                             "the card differs")
+    log(f"[foreign hd] 1920x1080 {tag}: Annex-K {len(hd_a)} B and "
+        f"restart 0 {len(hd_0)} B card == cpu (bytes); Annex-K pixels "
+        "card == cpu, restart-0 pixels == Annex-K's")
 
-        # -- e. main-path windows, stages and times -------------------------
-        tail = ("dc_fixup",) + (("idct_planes", "post_rgb") if il
-                                else ("dpost_rgb",))
-        la, frames, streams_a = main_path_8k(
-            torch, np, gt, dev, enc, dec, pa, 630 + 10 * li,
-            f"annexk {tag}", ("pre_rgb_to_planes", "fdct_quant",
-                              "pack_stuff_rows"),
-            ("huffdec_scan", "huffdec_block") + tail, ("huffman_segments",))
-        l0, _f0, streams_0 = main_path_8k(
-            torch, np, gt, dev, enc, dec, p0, 630 + 10 * li,
-            f"restart0 {tag}", ("pre_rgb_to_planes", "fdct_quant"),
-            ("huffdec_scan", "huffdec_block") + tail,
-            ("huffman_segments", "pack_stuff_rows"), RESTART0_EXTRA_FRAMES)
-        streams_3 = [three_sets(d) for d in streams_a]
-        torch.cuda.synchronize()
-        _kernels.reset_launches()
-        walls = []
-        for d, f in zip(streams_3, frames):
-            t0 = time.perf_counter()
-            out = dec.decode(d)
-            walls.append((time.perf_counter() - t0) * 1e3)
-            if psnr(np, out, f) < 20:
-                raise AssertionError(f"8K three-set {tag} decode PSNR")
-        end_window()
-        l3 = dict(_kernels.LAUNCHES)
-        log(f"[three_sets {tag} 8k dec] launches "
-            f"{ {n: l3[n] for n in ('huffdec_scan', 'huffdec_block')} }, "
-            "wall ms per frame, " + quartiles(np, walls))
-        for name, ln in ((f"pack_stuff_rows:annexk_{tag}", la),
-                         (f"huffdec_scan:annexk_{tag}", la),
-                         (f"huffdec_block:annexk_{tag}", la),
-                         (f"huffdec_scan:restart0_{tag}", l0),
-                         (f"huffdec_block:restart0_{tag}", l0),
-                         (f"huffdec_scan:three_sets_{tag}", l3),
-                         (f"huffdec_block:three_sets_{tag}", l3)):
-            launches[name] = ln[kernels[name]["key"]]
-            if launches[name] <= 0:
-                raise AssertionError(f"{name} was not launched on its path")
+    # -- e. main-path windows, stages and times -------------------------
+    tail = ("dc_fixup",) + (("idct_planes", "post_rgb") if il
+                            else ("dpost_rgb",))
+    la, frames, streams_a = main_path_8k(
+        torch, np, gt, dev, enc, dec, pa, 630 + 10 * li,
+        f"annexk {tag}", ("pre_rgb_to_planes", "fdct_quant",
+                          "pack_stuff_rows"),
+        ("huffdec_scan", "huffdec_block") + tail, ("huffman_segments",))
+    l0, _f0, streams_0 = main_path_8k(
+        torch, np, gt, dev, enc, dec, p0, 630 + 10 * li,
+        f"restart0 {tag}", ("pre_rgb_to_planes", "fdct_quant"),
+        ("huffdec_scan_sync", "huffdec_block") + tail,
+        ("huffman_segments", "pack_stuff_rows", "pack_stuff_scan",
+         "huffdec_scan"), RESTART0_EXTRA_FRAMES)
+    streams_3 = [three_sets(d) for d in streams_a]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    walls = []
+    for d, f in zip(streams_3, frames):
+        t0 = time.perf_counter()
+        out = dec.decode(d)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if psnr(np, out, f) < 20:
+            raise AssertionError(f"8K three-set {tag} decode PSNR")
+    end_window()
+    l3 = dict(_kernels.LAUNCHES)
+    log(f"[three_sets {tag} 8k dec] launches "
+        f"{ {n: l3[n] for n in ('huffdec_scan', 'huffdec_block')} }, "
+        "wall ms per frame, " + quartiles(np, walls))
+    for name, ln in ((f"pack_stuff_rows:annexk_{tag}", la),
+                     (f"huffdec_scan:annexk_{tag}", la),
+                     (f"huffdec_block:annexk_{tag}", la),
+                     (f"huffdec_scan:restart0_{tag}", l0),
+                     (f"huffdec_block:restart0_{tag}", l0),
+                     (f"huffdec_scan:three_sets_{tag}", l3),
+                     (f"huffdec_block:three_sets_{tag}", l3)):
+        launches[name] = ln[kernels[name]["key"]]
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
 
-        _sc, pin = token_encode_stages(torch, enc, frames[0], pa,
-                                       streams_a[0], f"annexk {tag} 8k enc")
-        pack_times(torch, pk, *pin, int(fusedpack.pack_stuff_rows(*pin)[1]
-                                        .sum()), flush)
-        del pin, _sc
-        token_encode_stages(torch, enc, frames[0], p0, streams_0[0],
-                            f"restart0 {tag} 8k enc")
-        stages = decode_stages if il else dpost_decode_stages
-        for data, ks, kb, name, reps in (
-                (streams_a[0], sk, bk, "annexk", 20),
-                (streams_0[0], s0, b0, "restart0", RESTART0_REPS)):
-            out = stages(torch, np, dec, data, f"{name} {tag}")
-            if il:
-                bstart, coefs, _dp, _img, words, nbits, p, _hf = out
-            else:
-                words, nbits, bstart, coefs, _img, p, _hf = out
-            scan_times(torch, ks, words, nbits, coefs, p, flush, reps)
-            block_times(torch, kb, words, nbits, bstart, p, flush,
-                        ks["tokens"])
-            del out, words, bstart, coefs
-        hf = dec.prepare(streams_3[0])
-        words, nbits = dec.upload(hf)
-        bstart, _e = scan_call(words, nbits, hf.plan)
-        coefs, _e = block_call(words, bstart, hf.plan)
-        scan_times(torch, s3, words, nbits, coefs, hf.plan, flush)
-        block_times(torch, b3, words, nbits, bstart, hf.plan, flush,
-                    s3["tokens"])
-        del words, bstart, coefs
-        log_times(f"foreign {tag} time",
-                  {k: v for k, v in kernels.items() if k.endswith(tag)})
-        log(f"[foreign {tag}] {time.perf_counter() - t_layout:.1f} s")
-    return kernels, launches
+    _sc, pin = token_encode_stages(torch, enc, frames[0], pa,
+                                   streams_a[0], f"annexk {tag} 8k enc")
+    pack_times(torch, pk, *pin, int(fusedpack.pack_stuff_rows(*pin)[1]
+                                    .sum()), flush)
+    del pin, _sc
+    token_encode_stages(torch, enc, frames[0], p0, streams_0[0],
+                        f"restart0 {tag} 8k enc")
+    stages = decode_stages if il else dpost_decode_stages
+    for data, ks, kb, name, serial in (
+            (streams_a[0], sk, bk, "annexk", 0),
+            (streams_0[0], s0, b0, "restart0", RESTART0_REPS)):
+        out = stages(torch, np, dec, data, f"{name} {tag}")
+        if il:
+            bstart, coefs, _dp, _img, words, nbits, p, _hf = out
+        else:
+            words, nbits, bstart, coefs, _img, p, _hf = out
+        scan_times(torch, ks, words, nbits, coefs, p, flush, 20, serial)
+        block_times(torch, kb, words, nbits, bstart, p, flush,
+                    ks["tokens"])
+        del out, words, bstart, coefs
+    hf = dec.prepare(streams_3[0])
+    words, nbits = dec.upload(hf)
+    bstart, _e = scan_call(words, nbits, hf.plan)
+    coefs, _e = block_call(words, bstart, hf.plan)
+    scan_times(torch, s3, words, nbits, coefs, hf.plan, flush)
+    block_times(torch, b3, words, nbits, bstart, hf.plan, flush,
+                s3["tokens"])
+    del words, bstart, coefs
+    log_times(f"foreign {tag} time",
+              {k: v for k, v in kernels.items() if k.endswith(tag)})
+    log(f"[foreign {tag}] {time.perf_counter() - t_layout:.1f} s")
 
 
 #: the [session] step's layouts: (tag, interleaved, sampling, restart)
@@ -3083,8 +3255,8 @@ def direct_phases(torch, np, gt, dev, flush):
         end_window()
         counts = dict(_kernels.LAUNCHES)
         if counts["huffdec_block_direct"] != DIRECT_FRAMES or \
-                counts["huffdec_scan"] or counts["dc_fixup"] or \
-                counts["huffdec_block"]:
+                counts["huffdec_scan"] or counts["huffdec_scan_sync"] or \
+                counts["dc_fixup"] or counts["huffdec_block"]:
             raise AssertionError(f"8K Q100 {kind} window: launches {counts}")
         launches += counts["huffdec_block_direct"]
         for i in range(EXTRA_FRAMES):
@@ -3397,12 +3569,16 @@ def stripe_huffman(torch, enc, be, frame, flush):
                      "4:2:0 stripes'")
 
 
-def restart0_rows(torch, gt, enc, frame, flush):
+def restart0_rows(torch, gt, enc, frame, flush, big=None):
     """F4: encode_to_device at restart interval 0 on an 8K planar 4:4:4
     frame, in a window of its own: each scan one device row through the
-    token-row packer (one warp walking the scan), assembled into
-    encode()'s bytes; then the packer on the luma scan's tokens against
-    its plain version and timed -> (its record, its launches)."""
+    token-row packer's scan instance (chunks of the scan a CTA, joined by
+    look-backs), assembled into encode()'s bytes; then that instance on
+    the luma scan's tokens against its plain version and against the row
+    instance (one warp walking the scan), both timed; and, given `big`
+    (a 15360x8640 frame), its interleaved 4:4:4 restart-0 scan (a
+    worst-case row past 2^31 bytes) through encode_to_device, assembled
+    to encode()'s bytes -> (the record, its launches)."""
     from gpujpeg_tpu_torch.ops import _kernels, fusedpack
 
     p0 = gt.Parameters(quality=QUALITY, restart_interval=0)
@@ -3414,10 +3590,14 @@ def restart0_rows(torch, gt, enc, frame, flush):
     got = enc.assemble(geo, res, meta)
     wall = (time.perf_counter() - t0) * 1e3
     end_window()
-    launches = _kernels.LAUNCHES["pack_stuff_rows"]
-    if got != want or launches != geo.scan_count:
+    launches = _kernels.LAUNCHES["pack_stuff_scan"]
+    inst = dict(_kernels.INSTANCES)
+    if got != want or launches != geo.scan_count or \
+            _kernels.LAUNCHES["pack_stuff_rows"] or \
+            inst.get("pack_stuff_rows/scan") != geo.scan_count:
         raise AssertionError(f"restart-0 device rows: bytes equal "
-                             f"{got == want}, {launches} packer launches")
+                             f"{got == want}, launches "
+                             f"{dict(_kernels.LAUNCHES)}, instances {inst}")
     strides = [int(r.shape[1]) for r in res["rows"]]
     del res, meta
     planes, classes = enc._front(frame, geo)
@@ -3427,38 +3607,75 @@ def restart0_rows(torch, gt, enc, frame, flush):
     bits, lens = fusedpack.scan_tokens(coefs, c.mcu_count, tabs)
     del planes, coefs
     n = int(bits.shape[0])
+    stride = strides[0]
+    out = fusedpack.pack_stuff_scan(bits, lens, 0, stride)
+    ref, plain_ms = once_ms(torch, lambda: fusedpack.pack_stuff_scan_plain(
+        bits, lens, 0, stride))
     T = -(-n // 4) * 4
     b = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
     ln = torch.zeros_like(b)
     b[0, :n], ln[0, :n] = bits, lens
     markers = torch.zeros(1, dtype=torch.int32, device=bits.device)
-    stride = strides[0]
-    out = fusedpack.pack_stuff_rows(b, ln, markers, stride)
-    ref, plain_ms = once_ms(torch, lambda: fusedpack.pack_stuff_rows_plain(
-        b, ln, markers, stride))
-    err = rows_err(torch, *out, *ref)
+    warp = fusedpack.pack_stuff_rows(b, ln, markers, stride)
+    err = max(rows_err(torch, *out, *ref), rows_err(torch, *out, *warp))
     if err:
-        raise AssertionError("pack_stuff_rows on a restart-0 scan differs "
-                             "from its plain version")
-    ms = event_ms(torch, lambda: fusedpack.pack_stuff_rows(
+        raise AssertionError("the packer's scan instance on a restart-0 "
+                             "scan differs from its plain version or the "
+                             "row instance")
+    ms = event_ms(torch, lambda: fusedpack.pack_stuff_scan(
+        bits, lens, 0, stride), 20, flush)
+    serial_ms = event_ms(torch, lambda: fusedpack.pack_stuff_rows(
         b, ln, markers, stride), 3, flush)
+    del b, ln, warp
     nbytes = int(out[1].sum())
+    # the tokens' lengths and bits read once, the row and its length
+    # written once
+    bound = (8 * n + nbytes + 4) / PEAK_BYTES_S * 1e3
     log(f"[parallel restart0] 8K planar 4:4:4 restart 0: encode_to_device "
         f"+ assemble {wall:.1f} ms, bytes equal to encode(), "
-        f"{launches} packer launches (a scan a launch, strides {strides} "
-        f"B); luma scan {n} tokens -> {nbytes} bytes: pack_stuff_rows "
-        f"{ms:.3f} ms a scan, plain {plain_ms:.1f} ms")
-    return dict(source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
-                replaces="gpujpeg_tpu/ops/fusedpack.py:107",
-                bound_by="bytes", library_ms=None, err=err, ms=ms,
-                plain_ms=plain_ms,
-                bound_ms=pack_bound_ms(ln, markers, nbytes),
-                tokens=n, ns_per_token=ms * 1e6 / n,
-                note="encode_to_device at restart interval 0 "
-                     "(fusedpack.scan_rows): one row of a whole scan, one "
-                     "warp walking it; ms a scan on the 8K planar 4:4:4 "
-                     "luma scan; launches: one a scan in the restart-0 "
-                     "window"), launches
+        f"{launches} packer launches (a scan a launch, the scan instance; "
+        f"strides {strides} B); luma scan {n} tokens -> {nbytes} bytes: "
+        f"scan instance {ms:.4f} ms a scan, row instance (one warp) "
+        f"{serial_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms")
+    rec = dict(source="gpujpeg_tpu_torch/csrc/pack_stuff_rows.cu",
+               replaces="gpujpeg_tpu/ops/fusedpack.py:107",
+               bound_by="bytes", library_ms=None, err=err, ms=ms,
+               plain_ms=plain_ms, serial_ms=serial_ms, bound_ms=bound,
+               tokens=n, ns_per_token=ms * 1e6 / n,
+               instance="scan",
+               serial_note="the row instance (gj_pack_stuff_rows, one "
+                           "warp walking the scan as one row)",
+               note="encode_to_device at restart interval 0 "
+                    "(fusedpack.scan_rows): the packer's scan instance "
+                    "(gj_pack_stuff_scan, chunks of 4096 tokens a CTA, "
+                    "look-backs over bit offsets and 0xFF counts); ms a "
+                    "scan on the 8K planar 4:4:4 luma scan; launches: one "
+                    "a scan in the restart-0 window")
+    if big is not None:
+        p16 = gt.Parameters(quality=QUALITY, restart_interval=0,
+                            interleaved=True)
+        want = enc.encode(big, p16)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        geo, res, meta = enc.encode_to_device(big, p16)
+        got = enc.assemble(geo, res, meta)
+        wall16 = (time.perf_counter() - t0) * 1e3
+        end_window()
+        stride16 = int(res["rows"][0].shape[1])
+        del res, meta
+        if got != want or _kernels.LAUNCHES["pack_stuff_scan"] != 1 \
+                or stride16 <= (1 << 31) - 1:
+            raise AssertionError(f"16K interleaved 4:4:4 restart 0: bytes "
+                                 f"equal {got == want}, stride {stride16}, "
+                                 f"launches {dict(_kernels.LAUNCHES)}")
+        launches += 1
+        log(f"[parallel restart0] 15360x8640 interleaved 4:4:4 restart 0: "
+            f"one scan of {geo.mcu_count * geo.blocks_per_mcu} blocks, "
+            f"worst-case row {stride16} B (past 2^31), encode_to_device + "
+            f"assemble {wall16:.1f} ms, {len(got)} bytes equal to "
+            "encode()")
+    return rec, launches
 
 
 def parallel_phases(torch, np, gt, dev, flush):
@@ -3596,7 +3813,7 @@ def parallel_phases(torch, np, gt, dev, flush):
     whole16k_compare(torch, enc, big, params, be16)
     # -- the stripe-marker Huffman coder, then F4 --------------------------
     stripe = stripe_huffman(torch, enc, be4, frames[0], flush)
-    rec0, launches0 = restart0_rows(torch, gt, enc, frames[0], flush)
+    rec0, launches0 = restart0_rows(torch, gt, enc, frames[0], flush, big)
     log_times("parallel", {"huffman_segments:stripe_markers": stripe,
                            "pack_stuff_rows:restart0_444": rec0})
     launches = {name: n for name, n in counts.items()}
@@ -3648,6 +3865,8 @@ def log_times(tag, kernels):
 def main() -> int:
     if sys.argv[1:] == ["--whole16k"]:
         return whole16k_child()
+    if sys.argv[1:2] == ["--plain-scan"]:
+        return plain_scan_child(*sys.argv[2:4])
     import numpy as np
     import torch
 
@@ -3972,7 +4191,9 @@ def main() -> int:
          "library_ms": k["library_ms"],
          **{key: k[key] for key in ROW_FLOOR_KEYS + (
              "tokens", "ns_per_token", "paths", "note", "instance",
-             "generic_ms", "library_note", "library_ms_median")
+             "generic_ms", "library_note", "library_ms_median",
+             "serial_ms", "serial_note", "sync_stats",
+             "plain_ms_512x384_cpu")
              if key in k}}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

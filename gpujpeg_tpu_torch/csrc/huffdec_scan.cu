@@ -60,12 +60,15 @@
 //     4.6 KB of tables and 16 KB of lookahead table in shared memory; the
 //     four-set one 9.3 KB and 32 KB (41.3 KB static).
 //
-// At restart interval 0 a scan is one segment, so 1 to 3 threads walk
-// whole scans (about 5 M tokens each at 8K 4:4:4 Q75), one token after
-// another as the reference's CPU decoder does; nothing in the walk
-// assumes a short row, and a segment that ends short of bps blocks
-// stores its tail of bstart in the loop after the walk.  Bit cursors are
-// int32: the wrapper refuses rows of 2^26 words or more.
+// A thread walks a whole row, so a long row is a long serial walk: at
+// restart interval 0 a scan is one segment (about 5 M tokens at 8K 4:4:4
+// Q75) and 1 to 3 threads would walk whole scans.  Rows that long take
+// the second instance below (gj_huffdec_scan_sync: a thread a
+// subsequence of a row, joined where Huffman codes resynchronise), which
+// ops/huffdec_kernel.scan_instance picks by the row's length; nothing in
+// this walk assumes a short row, and a segment that ends short of bps
+// blocks stores its tail of bstart in the loop after the walk.  Bit
+// cursors are int32: the wrapper refuses rows of 2^26 words or more.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -75,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include "huffdec.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -180,6 +184,468 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
     }
 }
 
+// ---- the sync instance: long segments, a thread a subsequence ---------
+//
+// The walk of a segment is cut into subsequences of sub_bits bits, one a
+// thread.  A walk's state at a token boundary is (bit cursor, block
+// position, slot in the MCU), or dead after a bad token; the walk of a
+// subsequence from an entry state decodes up to the first token boundary
+// at or past the subsequence's end and gives that exit state and the
+// blocks that ended on the way.  Within its last bits a walk takes one
+// token a step (an entry whose advance passes the end is decoded alone),
+// so the exit is a function of the entry alone, and a walk from the true
+// entry gives the true exit.
+//
+// A CTA takes kSyncThreads subsequences: its first kWarm threads replay
+// the previous chunk's last kWarm subsequences, the rest are its own
+// (kOwn).  Every thread first walks from a guess: position 0, slot 0, at
+// lead bits before its subsequence (0 at the row's start).  Huffman codes
+// resynchronise, so a walk begun at a wrong state soon falls onto the
+// true token boundaries, positions and slots: within a few hundred bits
+// in a scan of one component, a few thousand in an interleaved one (the
+// slot), so the wrapper gives the latter a longer lead and longer
+// subsequences (ops/huffdec_kernel.sync_schedule).  A guessed walk that
+// meets a bad token starts again at the next bit; one past the segment's
+// bits is dead.  Then, in rounds until no exit changes
+// (__syncthreads_or), each thread whose predecessor's exit differs from
+// its entry walks again from that exit; where its own exit changes and
+// the next thread does not walk in the round, it walks the next
+// subsequence too, and so on until an exit stands, so a change crosses
+// many subsequences in one round.  The CTA's guess of its first own
+// entry is then the warm threads' last exit, and its exit and block
+// count hold if that guess does.
+//
+// Across CTAs a decoupled look-back in ticket order (an atomic counter,
+// so that a CTA waits only on CTAs already running) resolves the chain: a
+// CTA publishes (guess, exit, blocks) as an aggregate, then reads the
+// records of up to 32 predecessors with one warp, composes the aggregates
+// from the nearest inclusive record forward while each guess equals the
+// exit before it, and so gets its true entry and the blocks before it.  A
+// guess that differs is resolved by its own CTA, which walks from its
+// true entry as a round does before it publishes; a stream that never
+// resynchronises makes the chain serial, never wrong.  Last, each own
+// thread walks once more from its entry and stores bstart at the index a
+// prefix of the counts gives; the row's last CTA sets err (the true walk
+// ended short of nblocks) and fills the entries after the last decoded
+// block, and every CTA of the row a share of those past nblocks.
+//
+// Bound: bytes, as the serial instance's.  A token is walked about three
+// times (a guessed walk with its lead, a round, the writing walk), by
+// threads whose walks are serial chains of table loads; a row shorter
+// than a few CTAs' subsequences leaves most of its threads idle, so
+// scan_instance keeps the serial instance for rows under SYNC_MIN_WORDS.
+
+constexpr int kSyncThreads = 256;     // subsequences a CTA, a thread each
+constexpr int kWarm = 8;              // threads replaying the last chunk
+constexpr int kOwn = kSyncThreads - kWarm;
+constexpr int kRecWords = 16;         // a look-back record, int32 words
+constexpr int kScratchHead = 16;      // the ticket, then the records
+constexpr unsigned kLanes = 0xFFFFFFFFu;
+
+// a walk's state: cursor, and meta = position | slot << 8, or dead; a
+// guessed entry carries kGuessMeta, which no exit does
+constexpr uint32_t kDeadMeta = 1u << 16;
+constexpr uint32_t kGuessMeta = 1u << 17;
+
+struct WalkState {
+    int cur;
+    uint32_t meta;
+};
+
+__device__ __forceinline__ bool same(WalkState a, WalkState b) {
+    return a.cur == b.cur && a.meta == b.meta;
+}
+
+// a segment's constants in a walk
+struct SegConsts {
+    const uint32_t* row;
+    int W, nbits, bpm;
+    uint32_t dm, am;
+    int dsel, asel;
+};
+
+// The walk of one subsequence: from st (an entry) up to the first token
+// boundary at or past `end`; st becomes the exit.  Returns the blocks
+// that end in the walk; with kWrite, block base + k (k-th of the walk)
+// stores its end bit at out[base + k + 1] while base + k < nb.
+template <int kSets, bool kWrite>
+__device__ __forceinline__ int walk(WalkState& st, int end,
+                                    const SegConsts& c, const int32_t* tab,
+                                    uint32_t lut_s, int32_t* out, int base,
+                                    int nb) {
+    const bool guess = st.meta & kGuessMeta;
+    if (guess && st.cur >= c.nbits) {             // a guess past the bits
+        st = WalkState{0, kDeadMeta};
+        return 0;
+    }
+    st.meta &= ~kGuessMeta;
+    if ((st.meta & kDeadMeta) || st.cur >= end) return 0;
+    int cursor = st.cur;
+    int pos = (int)(st.meta & 127u), slot = (int)((st.meta >> 8) & 255u);
+    gj::BitWindow bw;
+    int j;
+    bw.start_at(c.row, c.W, cursor, j);
+    int dcls = gj::set_of<kSets>(c.dsel, c.dm, slot);
+    int acls = kSets + gj::set_of<kSets>(c.asel, c.am, slot);
+    int count = 0;
+    bool bad = false;
+    while (cursor < end) {
+        if (bw.n < 32) bw.refill(j);
+        const bool is_dc = pos == 0;
+        const int cls = is_dc ? dcls : acls;
+        uint32_t e = ld_shared_u16(
+            lut_s + 2u * ((uint32_t)(cls << kLutBits)
+                          | (uint32_t)(bw.buf >> (64 - kLutBits))));
+        int new_pos = pos + (int)((e >> kStepShift) & 63u);
+        bool invalid = false;
+        if (e == 0 || new_pos > 64 || cursor + (int)(e & 31u) > end) {
+            int clen, sym;
+            gj::decode_one(tab + cls * gj::kTableWords,
+                           (int)(bw.buf >> 48), clen, sym);
+            invalid = clen == 0;
+            e = entry_of(clen, sym, is_dc);
+            new_pos = pos + (int)(e >> kStepShift & 63u);
+        }
+        const int adv = (int)(e & 31u);
+        const int after = cursor + adv;
+        if (!invalid && after > c.nbits) {
+            bad = true;
+            break;
+        }
+        if (invalid || new_pos > 64) {
+            if (!guess) {
+                bad = true;
+                break;
+            }
+            // a guessed walk: on from the next bit at position 0, slot 0
+            ++cursor;
+            pos = slot = 0;
+            dcls = gj::set_of<kSets>(c.dsel, c.dm, 0);
+            acls = kSets + gj::set_of<kSets>(c.asel, c.am, 0);
+            bw.start_at(c.row, c.W, cursor, j);
+            continue;
+        }
+        cursor = after;
+        bw.buf <<= adv;
+        bw.n -= adv;
+        if ((e & kEob) || new_pos == 64) {
+            if (kWrite && base + count < nb) out[base + count + 1] = after;
+            ++count;
+            if (++slot == c.bpm) slot = 0;
+            pos = 0;
+            dcls = gj::set_of<kSets>(c.dsel, c.dm, slot);
+            acls = kSets + gj::set_of<kSets>(c.asel, c.am, slot);
+        } else {
+            pos = new_pos;
+        }
+    }
+    st = bad ? WalkState{0, kDeadMeta}
+             : WalkState{cursor, (uint32_t)pos | ((uint32_t)slot << 8)};
+    return count;
+}
+
+// exclusive scan of v over the CTA; *total gets the sum
+__device__ __forceinline__ int cta_scan(int v, int* total, int* s_warp) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(kLanes, incl, d);
+        if (lane >= d) incl += up;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        int w = lane < kSyncThreads / 32 ? s_warp[lane] : 0;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int up = __shfl_up_sync(kLanes, w, d);
+            if (lane >= d) w += up;
+        }
+        if (lane < kSyncThreads / 32) s_warp[lane] = w;
+    }
+    __syncthreads();
+    const int before = warp ? s_warp[warp - 1] : 0;
+    *total = s_warp[kSyncThreads / 32 - 1];
+    __syncthreads();
+    return before + incl - v;
+}
+
+// record words: flag (0 none, 1 aggregate, 2 inclusive), then the
+// aggregate's guess (cursor, meta), exit (cursor, meta) and blocks, then
+// the inclusive exit (cursor, meta) and blocks before the next chunk
+__device__ __forceinline__ void publish(int* rec, int flag, WalkState g,
+                                        WalkState x, int blocks) {
+    if (flag == 1) {
+        __stcg(rec + 1, g.cur);
+        __stcg(rec + 2, (int)g.meta);
+        __stcg(rec + 3, x.cur);
+        __stcg(rec + 4, (int)x.meta);
+        __stcg(rec + 5, blocks);
+    } else {
+        __stcg(rec + 6, x.cur);
+        __stcg(rec + 7, (int)x.meta);
+        __stcg(rec + 8, blocks);
+    }
+    __threadfence();
+    atomicExch(rec, flag);
+}
+
+// warp 0 of chunk k > 0: the true exit of chunk k - 1 and the blocks of
+// the chunks before k, from the records of the row's chunks (recs)
+__device__ __forceinline__ void look_back(const int* recs, int k,
+                                          WalkState& E, int& B) {
+    const int lane = threadIdx.x & 31;
+    unsigned long long t_wait = 0;
+    for (;;) {
+        const int jr = k - 1 - lane;
+        const int* r = recs + (int64_t)max(jr, 0) * kRecWords;
+        const int f = jr >= 0 ? *(const volatile int*)r : 0;
+        const unsigned incl = __ballot_sync(kLanes, jr >= 0 && f == 2);
+        const unsigned none = __ballot_sync(kLanes, jr >= 0 && f == 0);
+        if (incl) {
+            const int i = __ffs(incl) - 1;
+            if ((none & ((1u << i) - 1u)) == 0) {
+                __threadfence();
+                WalkState g{0, 0}, x{0, 0};
+                int c = 0;
+                if (lane < i) {
+                    g = WalkState{__ldcg(r + 1), (uint32_t)__ldcg(r + 2)};
+                    x = WalkState{__ldcg(r + 3), (uint32_t)__ldcg(r + 4)};
+                    c = __ldcg(r + 5);
+                } else if (lane == i) {
+                    x = WalkState{__ldcg(r + 6), (uint32_t)__ldcg(r + 7)};
+                    c = __ldcg(r + 8);
+                }
+                E.cur = __shfl_sync(kLanes, x.cur, i);
+                E.meta = __shfl_sync(kLanes, x.meta, i);
+                B = __shfl_sync(kLanes, c, i);
+                bool ok = true;
+                for (int m = i - 1; m >= 0; --m) {
+                    const WalkState gm{__shfl_sync(kLanes, g.cur, m),
+                                       __shfl_sync(kLanes, g.meta, m)};
+                    const WalkState xm{__shfl_sync(kLanes, x.cur, m),
+                                       __shfl_sync(kLanes, x.meta, m)};
+                    const int cm = __shfl_sync(kLanes, c, m);
+                    if (!same(E, gm)) {
+                        ok = false;
+                        break;
+                    }
+                    E = xm;
+                    B += cm;
+                }
+                if (ok) return;
+            }
+        }
+        __nanosleep(100);
+        gj::stall_guard(t_wait);
+    }
+}
+
+// a CTA's subsequences: each thread's entry, exit and blocks, and which
+// threads walk in the current round
+struct SyncCta {
+    int en_cur[kSyncThreads], ex_cur[kSyncThreads], cnt[kSyncThreads];
+    uint32_t en_meta[kSyncThreads], ex_meta[kSyncThreads];
+    uint8_t walking[kSyncThreads];
+};
+
+template <int kSets>
+__global__ void __launch_bounds__(kSyncThreads)
+huffdec_scan_sync_kernel(const uint32_t* __restrict__ words, int W,
+                         int nchunk, int sub_bits, int lead,
+                         const int32_t* __restrict__ nbits_a,
+                         const int32_t* __restrict__ nblocks_a,
+                         const int32_t* __restrict__ dc_sel,
+                         const int32_t* __restrict__ ac_sel, int bpm,
+                         uint32_t dc_pat, uint32_t ac_pat,
+                         const int32_t* __restrict__ tables,
+                         const uint16_t* __restrict__ lut_g, int bps,
+                         int32_t* __restrict__ bstart,
+                         bool* __restrict__ err, int* __restrict__ scratch) {
+    __shared__ int32_t tab[gj::kTablesWords<kSets>];
+    __shared__ __align__(16) uint16_t lut[2 * kSets * kLutSize];
+    __shared__ SyncCta q;
+    __shared__ int s_warp[kSyncThreads / 32];
+    __shared__ int s_ticket, s_base, s_redo;
+    __shared__ WalkState s_entry;
+    const int tid = threadIdx.x;
+    if (tid == 0) s_ticket = atomicAdd(scratch, 1);
+    for (int i = tid; i < 2 * kSets * kLutSize / 8; i += blockDim.x)
+        reinterpret_cast<uint4*>(lut)[i] =
+            __ldg(reinterpret_cast<const uint4*>(lut_g) + i);
+    gj::load_tables<kSets>(tables, tab);     // ends in __syncthreads()
+    const uint32_t lut_s = (uint32_t)__cvta_generic_to_shared(lut);
+    const unsigned long long t_start = gj::global_ns();
+
+    const int ticket = s_ticket;
+    const int64_t s = ticket / nchunk;
+    const int chunk = ticket % nchunk;
+    int* const recs = scratch + kScratchHead + s * nchunk * kRecWords;
+    int32_t* const out = bstart + s * (int64_t)(bps + 1);
+    const int nb = nblocks_a[s];
+    SegConsts c;
+    c.row = words + s * (int64_t)W;
+    c.W = W;
+    c.nbits = nbits_a[s];
+    c.bpm = bpm;
+    const int sdc = dc_sel[s], sac = ac_sel[s];
+    c.dm = kSets == 2 ? (sdc ? dc_pat : 0u) : dc_pat;
+    c.am = kSets == 2 ? (sac ? ac_pat : 0u) : ac_pat;
+    c.dsel = kSets == 2 ? 1 : sdc;
+    c.asel = kSets == 2 ? 1 : sac;
+
+    // entries past nblocks hold nbits: a share a chunk
+    for (int64_t b = nb + 1 + (int64_t)chunk * kSyncThreads + tid; b <= bps;
+         b += (int64_t)nchunk * kSyncThreads)
+        out[b] = c.nbits;
+    if (chunk == 0 && tid == 0) out[0] = 0;
+
+    // thread k's subsequence ends at end_of(k); chunk 0 has no warm
+    // threads, its first own thread starts at bit 0 in the true state
+    const int64_t bits = (int64_t)W * 32;
+    const int64_t sub0 = (int64_t)chunk * kOwn - kWarm;
+    const auto end_of = [&](int k) {
+        const int64_t hi = (sub0 + k + 1) * sub_bits;
+        return (int)(hi < bits ? hi : bits);
+    };
+    const int first = chunk == 0 ? kWarm : 0;
+    {
+        const int64_t sub = sub0 + tid;
+        const int64_t lo = sub < 0 ? 0 : sub * sub_bits;
+        const int start = (int)(lo < bits ? lo : bits);
+        const bool exact = chunk == 0 && tid == first;
+        WalkState e = exact ? WalkState{0, 0u}
+            : WalkState{start > lead ? start - lead : 0, kGuessMeta};
+        q.en_cur[tid] = start;
+        q.en_meta[tid] = exact ? 0u : kGuessMeta;
+        int n = 0;
+        if (tid >= first)
+            n = walk<kSets, false>(e, end_of(tid), c, tab, lut_s, out, 0, 0);
+        q.cnt[tid] = n;
+        q.ex_cur[tid] = e.cur;
+        q.ex_meta[tid] = e.meta;
+    }
+    __syncthreads();
+    // a walking thread's walk from e, then the next subsequences' while
+    // an exit changes and the next thread does not walk in the round
+    const auto relax = [&](int k, WalkState e) {
+        bool changed = false;
+        for (int ahead = 0;; ++ahead) {
+            if (ahead) atomicAdd(scratch + 3, 1);
+            q.en_cur[k] = e.cur;
+            q.en_meta[k] = e.meta;
+            WalkState x = e;
+            q.cnt[k] = walk<kSets, false>(x, end_of(k), c, tab, lut_s, out,
+                                          0, 0);
+            if (same(x, WalkState{q.ex_cur[k], q.ex_meta[k]})) break;
+            q.ex_cur[k] = x.cur;
+            q.ex_meta[k] = x.meta;
+            changed = true;
+            if (k + 1 >= kSyncThreads || q.walking[k + 1]) break;
+            ++k;
+            e = x;
+        }
+        return changed;
+    };
+    // rounds: each thread after `from` whose predecessor's exit differs
+    // from its entry walks again
+    const auto rounds = [&](int from) {
+        for (int r = 1;; ++r) {
+            const WalkState ne = tid > from
+                ? WalkState{q.ex_cur[tid - 1], q.ex_meta[tid - 1]}
+                : WalkState{q.en_cur[tid], q.en_meta[tid]};
+            const bool w = tid > from
+                && !same(ne, WalkState{q.en_cur[tid], q.en_meta[tid]});
+            q.walking[tid] = w;
+            __syncthreads();
+            const bool changed = w && relax(tid, ne);
+            if (!__syncthreads_or(changed)) {
+                if (tid == 0) atomicAdd(scratch + 1, r);
+                break;
+            }
+        }
+    };
+    rounds(first);
+    const unsigned long long t_local = gj::global_ns();
+    if (tid == 0) atomicMax(scratch + 4, (int)((t_local - t_start) / 1000));
+    const bool own = tid >= kWarm;
+    int blocks;
+    int before = cta_scan(own ? q.cnt[tid] : 0, &blocks, s_warp);
+    const WalkState guess{q.ex_cur[kWarm - 1], q.ex_meta[kWarm - 1]};
+    const WalkState last{q.ex_cur[kSyncThreads - 1],
+                         q.ex_meta[kSyncThreads - 1]};
+    int* const rec = recs + (int64_t)chunk * kRecWords;
+    if (chunk == 0) {
+        if (tid == 0) {
+            s_base = 0;
+            publish(rec, 2, guess, last, blocks);
+        }
+    } else {
+        if (tid == 0) publish(rec, 1, guess, last, blocks);
+        if (tid < 32) {
+            WalkState E;
+            int B;
+            look_back(recs, chunk, E, B);
+            if (tid == 0) {
+                s_entry = E;
+                s_base = B;
+                s_redo = !same(E, guess);
+            }
+        }
+        q.walking[tid] = 0;
+        __syncthreads();
+        if (s_redo) {
+            // the guess was wrong: walk from the true entry, then rounds
+            if (tid == 0) atomicAdd(scratch + 2, 1);
+            if (tid == kWarm) relax(kWarm, s_entry);
+            __syncthreads();
+            rounds(kWarm);
+            before = cta_scan(own ? q.cnt[tid] : 0, &blocks, s_warp);
+        }
+        if (tid == 0)
+            publish(rec, 2, guess, WalkState{q.ex_cur[kSyncThreads - 1],
+                                              q.ex_meta[kSyncThreads - 1]},
+                    s_base + blocks);
+    }
+    __syncthreads();
+    const unsigned long long t_chain = gj::global_ns();
+    if (tid == 0) atomicMax(scratch + 5, (int)((t_chain - t_local) / 1000));
+    const int base = s_base + before;
+    if (own && base < nb) {
+        WalkState x{q.en_cur[tid], q.en_meta[tid]};
+        walk<kSets, true>(x, end_of(tid), c, tab, lut_s, out, base, nb);
+    }
+    __syncthreads();
+    if (tid == 0)
+        atomicMax(scratch + 6, (int)((gj::global_ns() - t_chain) / 1000));
+    if (chunk == nchunk - 1) {
+        // the row's last chunk: err, and the entries the walk left
+        const int total = s_base + blocks;
+        if (tid == 0) err[s] = total < nb;
+        for (int b = total + 1 + tid; b <= nb; b += kSyncThreads)
+            out[b] = c.nbits;
+    }
+}
+
+template <int kSets>
+void run_sync(const void* words, int64_t nseg, int W, int nchunk,
+              int sub_bits, int lead, const void* nbits,
+              const void* nblocks, const void* dc_sel, const void* ac_sel,
+              int bpm, int dc_pat, int ac_pat, const void* tables,
+              const void* lut, int bps, void* bstart, void* err,
+              void* scratch, void* stream) {
+    huffdec_scan_sync_kernel<kSets><<<(unsigned)(nseg * nchunk),
+                                      kSyncThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        (const uint32_t*)words, W, nchunk, sub_bits, lead,
+        (const int32_t*)nbits, (const int32_t*)nblocks,
+        (const int32_t*)dc_sel, (const int32_t*)ac_sel, bpm,
+        (uint32_t)dc_pat, (uint32_t)ac_pat, (const int32_t*)tables,
+        (const uint16_t*)lut, bps, (int32_t*)bstart, (bool*)err,
+        (int*)scratch);
+}
+
 template <int kSets>
 void run(const void* words, int64_t nseg, int W, const void* nbits,
          const void* nblocks, const void* dc_sel, const void* ac_sel,
@@ -217,5 +683,44 @@ extern "C" int gj_huffdec_scan(const void* words, int64_t nseg, int W,
     else if (nseg > 0)
         run<4>(words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat,
                ac_pat, tables, lut, bps, bstart, err, stream);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int gj_huffdec_scan_sync(const void* words, int64_t nseg, int W,
+                                    const void* nbits, const void* nblocks,
+                                    const void* dc_sel, const void* ac_sel,
+                                    int bpm, int dc_pat, int ac_pat,
+                                    int nsets, const void* tables,
+                                    const void* lut, int bps, void* bstart,
+                                    void* err, int sub_bits, int lead,
+                                    void* scratch, void* stream) {
+    // the arguments of gj_huffdec_scan, W >= 1; sub_bits (>= 32) and lead
+    // (>= 0) the bits of a subsequence and of a guessed walk's lead
+    // (ops/huffdec_kernel.sync_schedule); scratch: int32 [kScratchHead +
+    // nseg * nchunk * kRecWords], nchunk the chunks of a row
+    // (ops/huffdec_kernel.sync_chunks), zeroed here; after the launch its
+    // words 1-3 hold the rounds of all CTAs, the CTAs that walked again
+    // from a true entry their guess missed, and the subsequences walked by
+    // running ahead; words 4-6 the longest CTA's local walks, look-back and
+    // writing walk in microseconds
+    if ((nsets != 2 && nsets != 4) || W < 1 || (int64_t)W * 32 > INT_MAX
+            || sub_bits < 32 || lead < 0)
+        return (int)cudaErrorInvalidValue;
+    const int64_t nsub = ((int64_t)W * 32 + sub_bits - 1) / sub_bits;
+    const int64_t nchunk = (nsub + kOwn - 1) / kOwn;
+    if (nseg <= 0) return (int)cudaGetLastError();
+    if (nseg * nchunk > INT_MAX) return (int)cudaErrorInvalidValue;
+    const cudaError_t z = cudaMemsetAsync(
+        scratch, 0, (size_t)(kScratchHead + nseg * nchunk * kRecWords) * 4,
+        (cudaStream_t)stream);
+    if (z != cudaSuccess) return (int)z;
+    if (nsets == 2)
+        run_sync<2>(words, nseg, W, (int)nchunk, sub_bits, lead, nbits,
+                    nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat, tables,
+                    lut, bps, bstart, err, scratch, stream);
+    else
+        run_sync<4>(words, nseg, W, (int)nchunk, sub_bits, lead, nbits,
+                    nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat, tables,
+                    lut, bps, bstart, err, scratch, stream);
     return (int)cudaGetLastError();
 }

@@ -54,13 +54,20 @@
 // kNoStore codes and stuffs but writes no byte); the codec's entry point,
 // gj_pack_stuff_rows, always launches the full kernel.
 //
+// A warp walks a row, so one long row is a long serial walk: a scan coded
+// as one segment (restart interval 0) takes the scan instance below
+// (gj_pack_stuff_scan, chunks of the row a CTA), which
+// ops/fusedpack.scan_rows launches.
+//
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "bitbuf.cuh"
+#include "lookback.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -256,6 +263,306 @@ pack_stuff_rows_kernel(const int32_t* __restrict__ bits,
         atomicMax(&needs[threadIdx.x], cta_needs[threadIdx.x]);
 }
 
+// ---- the scan instance: one long row of dense tokens, many CTAs ------
+//
+// A scan coded as one segment (restart interval 0) is one row of millions
+// of tokens (fusedpack.scan_rows).  The instance cuts it into chunks of
+// kChunkTok tokens, a CTA each, kScanTok a thread, in ticket order (an
+// atomic counter, so that a CTA waits only on CTAs already running):
+//   1. a CTA scan of its tokens' bit counts, and a decoupled look-back
+//      over the chunks' sums gives the chunk's first bit off (64-bit);
+//   2. the chunk packs MSB first into a shared bit buffer that starts at
+//      word off / 32: the bits of that word before off are the previous
+//      chunk's last tokens, read again here (warp 0, 32 tokens a step
+//      back), so no word is shared between CTAs and nothing is zeroed in
+//      device memory; a thread ORs only its first and last words, and
+//      stores the words between; the last chunk adds the 1-bit pad;
+//   3. the chunk owns the whole words of its buffer (the last chunk, every
+//      byte): a CTA scan of each thread's bytes plus its 0xFF count places
+//      every byte, with a 0x00 after each 0xFF, in a shared staging row,
+//      and a second look-back over the chunks' 0xFF counts gives the
+//      staging row's place in the output, 4 (off / 32) + the 0xFF bytes
+//      before; a 0xFF made across two chunks' tokens is whole in one
+//      owned word;
+//   4. the last chunk writes the unstuffed marker, row_bytes and needs.
+// Records: int64 [bits flag, bits aggregate, bits inclusive, 0xFF flag,
+// 0xFF aggregate, 0xFF inclusive, -, -] a chunk (flag 1 aggregate, 2
+// inclusive), read back 32 chunks a step by warp 0.
+//
+// Bound: bytes.  The tokens' lengths and bits are read once (8 bytes a
+// token; the previous chunk's last tokens again, up to 31 bits of them)
+// and the stream written once.
+
+constexpr int kScanThreads = 256;
+constexpr int kScanTok = 16;                         // tokens a thread
+constexpr int kChunkTok = kScanThreads * kScanTok;   // tokens a CTA
+// the buffer: up to 31 bits of the previous chunk, 27 bits a token, the
+// pad, a word of slack
+constexpr int kChunkWords = (31 + kChunkTok * 27 + 7 + 31) / 32 + 1;
+constexpr int kStageBytes = 8 * kChunkWords;         // every byte 0xFF
+constexpr int kScanRec = 8;                          // int64 a record
+constexpr int kScanHead = 8;                         // the ticket
+
+// warp 0: the sum of the aggregates of the chunks before c from field
+// fld (0: bits, 3: 0xFF bytes) of the records
+__device__ __forceinline__ long long scan_look_back(const long long* recs,
+                                                    int64_t c, int fld) {
+    const int lane = threadIdx.x & 31;
+    long long acc = 0;
+    int64_t j = c - 1;
+    unsigned long long t_wait = 0;
+    for (;;) {
+        const int64_t jr = j - lane;
+        const long long* r = recs + (jr < 0 ? 0 : jr) * kScanRec + fld;
+        const long long f = jr >= 0 ? *(const volatile long long*)r : 2;
+        const unsigned incl = __ballot_sync(kAll, f == 2);
+        const unsigned none = __ballot_sync(kAll, f == 0);
+        const int i = incl ? __ffs(incl) - 1 : 32;
+        const unsigned below = i == 32 ? kAll : (1u << i) - 1u;
+        if ((none & below) == 0) {
+            __threadfence();
+            long long v = 0;
+            if (lane < i)
+                v = jr >= 0 ? __ldcg(r + 1) : 0;
+            else if (lane == i)
+                v = jr >= 0 ? __ldcg(r + 2) : 0;
+#pragma unroll
+            for (int d = 16; d >= 1; d >>= 1)
+                v += __shfl_xor_sync(kAll, v, d);
+            acc += v;
+            if (i < 32) return acc;
+            j -= 32;                              // 32 aggregates: on
+        } else {
+            __nanosleep(64);
+            gj::stall_guard(t_wait);
+        }
+    }
+}
+
+__device__ __forceinline__ void scan_publish(long long* rec, int fld,
+                                             long long flag, long long v) {
+    __stcg(rec + fld + flag, v);
+    __threadfence();
+    atomicExch(reinterpret_cast<unsigned long long*>(rec + fld),
+               (unsigned long long)flag);
+}
+
+// exclusive CTA scan of v; *total gets the sum
+__device__ __forceinline__ int scan_cta(int v, int* total, int* s_warp) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(kAll, incl, d);
+        if (lane >= d) incl += up;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        int w = lane < kScanThreads / 32 ? s_warp[lane] : 0;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int up = __shfl_up_sync(kAll, w, d);
+            if (lane >= d) w += up;
+        }
+        if (lane < kScanThreads / 32) s_warp[lane] = w;
+    }
+    __syncthreads();
+    const int before = warp ? s_warp[warp - 1] : 0;
+    *total = s_warp[kScanThreads / 32 - 1];
+    __syncthreads();
+    return before + incl - v;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+pack_stuff_scan_kernel(const int32_t* __restrict__ bits,
+                       const int32_t* __restrict__ lens, int64_t n,
+                       int64_t nchunk, int marker, uint8_t* __restrict__ out,
+                       int32_t* __restrict__ row_bytes,
+                       int32_t* __restrict__ needs,
+                       long long* __restrict__ scratch) {
+    __shared__ uint32_t buf[kChunkWords];
+    __shared__ uint8_t stage[kStageBytes];
+    __shared__ int s_warp[kScanThreads / 32];
+    __shared__ long long s_off, s_ff;
+    __shared__ int64_t s_chunk;
+    const int tid = threadIdx.x, lane = tid & 31;
+    if (tid == 0)
+        s_chunk = (int64_t)atomicAdd(
+            reinterpret_cast<unsigned long long*>(scratch), 1ull);
+    for (int i = tid; i < kChunkWords; i += kScanThreads) buf[i] = 0;
+    __syncthreads();
+    const int64_t c = s_chunk;
+    const bool last = c == nchunk - 1;
+    long long* const recs = scratch + kScanHead;
+
+    // 1. this thread's tokens, masked, and the chunk's first bit
+    const int64_t t0 = c * kChunkTok + (int64_t)tid * kScanTok;
+    int ln[kScanTok];
+    uint32_t v[kScanTok];
+    if (t0 + kScanTok <= n && ((uintptr_t)(lens + t0) & 15) == 0
+            && ((uintptr_t)(bits + t0) & 15) == 0) {
+#pragma unroll
+        for (int q = 0; q < kScanTok / 4; ++q) {
+            const int4 l4 = __ldg(reinterpret_cast<const int4*>(lens + t0)
+                                  + q);
+            const int4 b4 = __ldg(reinterpret_cast<const int4*>(bits + t0)
+                                  + q);
+            ln[4 * q] = l4.x;
+            ln[4 * q + 1] = l4.y;
+            ln[4 * q + 2] = l4.z;
+            ln[4 * q + 3] = l4.w;
+            v[4 * q] = (uint32_t)b4.x;
+            v[4 * q + 1] = (uint32_t)b4.y;
+            v[4 * q + 2] = (uint32_t)b4.z;
+            v[4 * q + 3] = (uint32_t)b4.w;
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < kScanTok; ++k) {
+            const bool in = t0 + k < n;
+            ln[k] = in ? __ldg(lens + t0 + k) : 0;
+            v[k] = in ? (uint32_t)__ldg(bits + t0 + k) : 0u;
+        }
+    }
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < kScanTok; ++k) {
+        v[k] &= (1u << ln[k]) - 1u;
+        mine += ln[k];
+    }
+    int cta_bits;
+    const int excl = scan_cta(mine, &cta_bits, s_warp);
+    long long* const rec = recs + c * kScanRec;
+    if (c == 0) {
+        if (tid == 0) {
+            s_off = 0;
+            scan_publish(rec, 0, 2, cta_bits);
+        }
+    } else {
+        if (tid == 0) scan_publish(rec, 0, 1, cta_bits);
+        if (tid < 32) {
+            const long long off = scan_look_back(recs, c, 0);
+            if (tid == 0) {
+                s_off = off;
+                scan_publish(rec, 0, 2, off + cta_bits);
+            }
+        }
+    }
+    __syncthreads();
+    const long long off = s_off;
+    const int hb = (int)(off & 31);
+
+    // 2. the previous chunk's bits in word off / 32, then this chunk's
+    if (c > 0 && hb > 0 && tid < 32) {
+        int after = 0;                  // bits between a token and off
+        for (int64_t g = c * kChunkTok - 1; g >= 0 && after < hb; g -= 32) {
+            const int64_t ti = g - lane;
+            const int l = ti >= 0 ? __ldg(lens + ti) : 0;
+            const uint32_t bv = ti >= 0
+                ? (uint32_t)__ldg(bits + ti) & ((1u << l) - 1u) : 0u;
+            int incl = l;
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+                const int up = __shfl_up_sync(kAll, incl, d);
+                if (lane >= d) incl += up;
+            }
+            const int hi = hb - (after + incl - l);   // the token's end
+            if (l > 0 && hi > 0) {
+                const int lo = hi - l > 0 ? hi - l : 0;
+                const int nb = hi - lo;                // its bits in the word
+                gj::put_bits(buf, lo, bv & ((1u << nb) - 1u), nb);
+            }
+            after += __shfl_sync(kAll, incl, 31);
+        }
+    }
+    {
+        int w = (hb + excl) >> 5, na = (hb + excl) & 31;
+        uint64_t acc = 0;
+        bool first = true;
+#pragma unroll
+        for (int k = 0; k < kScanTok; ++k) {
+            if (ln[k] == 0) continue;
+            acc |= (uint64_t)v[k] << (64 - na - ln[k]);
+            na += ln[k];
+            if (na >= 32) {
+                const uint32_t word = (uint32_t)(acc >> 32);
+                if (first) atomicOr(buf + w, word);
+                else buf[w] = word;               // wholly this thread's
+                first = false;
+                ++w;
+                acc <<= 32;
+                na -= 32;
+            }
+        }
+        if (na > 0) atomicOr(buf + w, (uint32_t)(acc >> 32));
+    }
+    __syncthreads();
+    int end = hb + cta_bits;                      // the buffer's bits
+    if (last && (end & 7)) {                      // F.1.2.3: 1-bits
+        const int pl = 8 - (end & 7);
+        if (tid == 0) gj::put_bits(buf, end, (1u << pl) - 1u, pl);
+        end += pl;
+        __syncthreads();
+    }
+
+    // 3. the owned bytes, stuffed, into the staging row
+    const int owned = last ? end >> 3 : 4 * (end >> 5);
+    const int nw = (owned + 3) >> 2;
+    const int per = (nw + kScanThreads - 1) / kScanThreads;
+    const int w_lo = min(tid * per, nw), w_hi = min(w_lo + per, nw);
+    int nbytes = 0, nff = 0;
+    for (int w = w_lo; w < w_hi; ++w) {
+        const int nb = min(4, owned - 4 * w);
+        const uint32_t inb = ~0u << (32 - 8 * nb);
+        nff += __popc(__vcmpeq4(buf[w], ~0u) & inb) >> 3;
+        nbytes += nb;
+    }
+    int cta_out;
+    int o = scan_cta(nbytes + nff, &cta_out, s_warp);
+    for (int w = w_lo; w < w_hi; ++w) {
+        const int nb = min(4, owned - 4 * w);
+        const uint32_t word = buf[w];
+        for (int q = 0; q < nb; ++q) {
+            const uint8_t b = (uint8_t)(word >> (24 - 8 * q));
+            stage[o++] = b;
+            if (b == 0xFF) stage[o++] = 0;
+        }
+    }
+    const int cta_ff = cta_out - owned;
+    if (c == 0) {
+        if (tid == 0) {
+            s_ff = 0;
+            scan_publish(rec, 3, 2, cta_ff);
+        }
+    } else {
+        if (tid == 0) scan_publish(rec, 3, 1, cta_ff);
+        if (tid < 32) {
+            const long long ff = scan_look_back(recs, c, 3);
+            if (tid == 0) {
+                s_ff = ff;
+                scan_publish(rec, 3, 2, ff + cta_ff);
+            }
+        }
+    }
+    __syncthreads();
+    const long long at = 4 * (off >> 5) + s_ff;   // the staging row's place
+    for (int i = tid; i < cta_out; i += kScanThreads) out[at + i] = stage[i];
+
+    // 4. the marker, the row's length and needs
+    if (last && tid == 0) {
+        long long total = at + cta_out;
+        if (marker) {                             // not stuffed; 0 = none
+            out[total] = 0xFF;
+            out[total + 1] = (uint8_t)marker;
+            total += 2;
+        }
+        row_bytes[0] = (int32_t)total;
+        atomicMax(needs, (int32_t)(s_ff + cta_ff));
+        atomicMax(needs + 1, (int32_t)total);
+    }
+}
+
 template <int kStage>
 int run(const void* bits, const void* lens, int64_t R, int T,
         const void* markers, int stride, void* rows, void* row_bytes,
@@ -308,4 +615,29 @@ extern "C" int gj_pack_stuff_rows_probe(int stage, const void* bits,
                                         void* needs, void* stream) {
     return launch(stage, bits, lens, R, T, markers, stride, rows, row_bytes,
                   needs, stream);
+}
+
+// One row of n dense tokens (the scan of one segment): bits, lens (n,)
+// i32, lens in [0, 27]; marker the RST marker's second byte after the row
+// (0 = none); out: at least the row's worst case (fusedpack.scan_rows'
+// stride); row_bytes (1,) i32; needs (2,) i32, zeroed by the caller;
+// scratch: int64 [kScanHead + kScanRec * nchunk], nchunk the chunks
+// (fusedpack.scan_chunks), zeroed here.
+extern "C" int gj_pack_stuff_scan(const void* bits, const void* lens,
+                                  int64_t n, int marker, void* out,
+                                  void* row_bytes, void* needs,
+                                  void* scratch, void* stream) {
+    if (n < 0) return (int)cudaErrorInvalidValue;
+    const int64_t nchunk = n ? (n + kChunkTok - 1) / kChunkTok : 1;
+    if (nchunk > INT_MAX) return (int)cudaErrorInvalidValue;
+    const cudaError_t z = cudaMemsetAsync(
+        scratch, 0, (size_t)(kScanHead + kScanRec * nchunk) * 8,
+        (cudaStream_t)stream);
+    if (z != cudaSuccess) return (int)z;
+    pack_stuff_scan_kernel<<<(unsigned)nchunk, kScanThreads, 0,
+                             (cudaStream_t)stream>>>(
+        (const int32_t*)bits, (const int32_t*)lens, n, nchunk, marker,
+        (uint8_t*)out, (int32_t*)row_bytes, (int32_t*)needs,
+        (long long*)scratch);
+    return (int)cudaGetLastError();
 }

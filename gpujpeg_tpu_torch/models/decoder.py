@@ -53,8 +53,9 @@ the stream's canonical tables and their lookahead tables; up to two
 table sets a class take the kernels' two-set instances, three or four
 their four-set instances (huffdec_kernel's module docstring), which the
 JAX package decodes on its legacy path.  A restart interval of 0 makes
-each scan one segment: one thread of phase A walks it, phase C decodes
-its blocks in parallel from phase A's cursors.
+each scan one segment: phase A's sync instance walks it in
+subsequences, many threads a scan (huffdec_kernel.scan_instance), and
+phase C decodes its blocks in parallel from phase A's cursors.
 
 The direct route (Plan.direct) is taken for every non-interleaved stream
 of one block a restart segment, which is what the auto restart interval

@@ -34,8 +34,8 @@ family: the preprocessor and the DCT on the device, the tokens of each
 scan there too (ops/fusedpack.scan_tokens), then the headers and each
 scan's tokens packed on the host (native.pack_tokens).  encode_to_device
 packs each such scan on the device instead, into one row of one segment
-(ops/fusedpack.scan_rows: the token-row packer over the whole scan), which
-assemble turns into the same bytes.  On CUDA every
+(ops/fusedpack.scan_rows: the token-row packer's scan instance, chunks of
+the scan a CTA), which assemble turns into the same bytes.  On CUDA every
 stage but the tokenizer (XLA in the JAX package, torch ops here) is a
 hand-written kernel (the DCT kernel stores an interleaved scan's MCU
 order itself); with device="cpu" every stage runs its plain PyTorch
@@ -488,8 +488,8 @@ class Encoder:
         readback for check to skip.  Annex-K tables code through tokens
         and the token-row packer (fusedpack.entropy_tokens).  At restart
         interval 0 each scan is one row of one segment with no marker
-        after it (fusedpack.scan_tokens, then the token-row packer over
-        the whole scan, fusedpack.scan_rows), which assemble turns into
+        after it (fusedpack.scan_tokens, then the token-row packer's scan
+        instance, fusedpack.scan_rows), which assemble turns into
         encode()'s bytes; encode itself packs such scans on the host
         (_encode_host_entropy)."""
         geo = self.resolve(image, param, param_image)

@@ -4,8 +4,10 @@ Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, at first use, into a build
 directory that ``.gitignore`` lists (``native.build_dir("kernels")``); all
 sources compile in parallel.  A kernel's source is ``csrc/<name>.cu``
-unless ``SOURCES`` names another (``relayout.cu`` holds four kernels,
-``huffdec_block.cu`` two: phase C and its direct instance).  A
+unless ``SOURCES`` names another (``relayout.cu`` holds four kernels;
+``huffdec_block.cu`` two, phase C and its direct instance;
+``huffdec_scan.cu`` two, phase A's serial and sync instances;
+``pack_stuff_rows.cu`` two, the packer's row and scan instances).  A
 library's file name carries a hash of its source and of the shared
 headers (``csrc/*.cuh``), so an edited kernel is rebuilt.  The libraries
 are loaded with ctypes: every pointer and the stream pass as
@@ -19,9 +21,11 @@ tensors.  ``csrc/*.cuh`` are headers
 shared between kernels (colour transform, DCT tiles, the Huffman coders'
 warp bit buffer, the Huffman decoders' bit window).
 
-``LAUNCHES`` counts kernel launches by name, ``INSTANCES`` those of the
-pre- and postprocessor by instance; ``launch`` is the one place that adds
-to them.  ``probe`` launches the decomposition stages of a tiled
+``LAUNCHES`` counts kernel launches by entry point, ``INSTANCES`` those
+of the kernels whose wrapper picks an instance (the pre- and
+postprocessor, phase A, the token-row packer) by the source's name and
+the instance; ``launch`` is the one place that adds to them.  ``probe``
+launches the decomposition stages of a tiled
 kernel (``PROBE_STAGES``, entry point gj_<name>_probe) for chip_smoke.py's
 probe; no codec path calls it, and it counts nothing.  ``empty`` launches
 an empty kernel as a row kernel of relayout.cu would be launched
@@ -67,10 +71,18 @@ _SIGNATURES: Dict[str, List] = {
                          _I64, _P, _I, _P, _P, _P, _P],
     # bits, lens, R, T, markers, stride, rows, row_bytes, needs, stream
     "pack_stuff_rows": [_P, _P, _I64, _I, _P, _I, _P, _P, _P, _P],
+    # the packer's scan instance: bits, lens, n, marker, out, row_bytes,
+    # needs, scratch (fusedpack.pack_stuff_scan), stream
+    "pack_stuff_scan": [_P, _P, _I64, _I, _P, _P, _P, _P, _P],
     # words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat,
     # table sets, tables, lookahead table, bps, bstart, err, stream
     "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                      _I, _P, _P, _P],
+    # phase A's sync instance: huffdec_scan's arguments, then bits a
+    # subsequence, lead (huffdec_kernel.sync_schedule), scratch
+    # (huffdec_kernel.sync_scratch_words), stream
+    "huffdec_scan_sync": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                          _P, _I, _P, _P, _I, _I, _P, _P],
     # words, nseg, W, bstart, bps, nblocks, dc_sel, ac_sel, bpm, dc_pat,
     # ac_pat, table sets, tables, lookahead table, coefs, err, stream
     "huffdec_block": [_P, _I64, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
@@ -109,6 +121,8 @@ _SIGNATURES: Dict[str, List] = {
 SOURCES: Dict[str, str] = {name: "relayout" for name in (
     "xbd_relayout", "transpose_u32", "pair_sum_rows", "pack_u8_quads")}
 SOURCES["huffdec_block_direct"] = "huffdec_block"
+SOURCES["huffdec_scan_sync"] = "huffdec_scan"
+SOURCES["pack_stuff_scan"] = "pack_stuff_rows"
 
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
@@ -127,9 +141,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 
-#: launches per instance ("<kernel>/<instance>") of the kernels whose
-#: entry point takes an instance id (the pre- and postprocessor), since
-#: the last reset_launches()
+#: launches per instance ("<source>/<instance>") of the kernels whose
+#: wrapper picks an instance (the pre- and postprocessor: an instance id;
+#: phase A and the token-row packer: an entry point each), since the last
+#: reset_launches()
 INSTANCES: Dict[str, int] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -263,7 +278,7 @@ def launch(name: str, *args, instance: str = "") -> None:
     _call(name, f"gj_{name}", (), args)
     LAUNCHES[name] += 1
     if instance:
-        key = f"{name}/{instance}"
+        key = f"{source_of(name)}/{instance}"
         INSTANCES[key] = INSTANCES.get(key, 0) + 1
 
 

@@ -31,7 +31,10 @@ bit buffer and its stuffing (csrc/bitbuf.cuh).  A scan coded as one
 segment (restart interval 0) is tokenized the same way, a piece of the
 scan a row with each component's DC predictor carried from piece to
 piece (``scan_tokens``), and packed on the host (native.pack_tokens), as
-the JAX package's _encode_host_entropy does.
+the JAX package's _encode_host_entropy does; encode_to_device packs it on
+the card instead, through the packer's scan instance (``scan_rows``,
+``pack_stuff_scan``: chunks of a scan's tokens a CTA, joined by
+look-backs).
 
 For CPU tensors each wrapper runs its plain version (ops/dct.py;
 ``segment_tokens`` plus ``pack_rows`` below); for CUDA tensors it launches
@@ -66,9 +69,13 @@ TOKEN_CHUNK_SLOTS = 1 << 22
 #: MCUs a row when a scan of one segment is cut into rows (scan_tokens)
 SCAN_ROW_MCUS = 8
 
-#: the longest row the token-row packer takes: its stride, its row lengths
-#: and its byte offsets within a row are int32 (csrc/pack_stuff_rows.cu)
-MAX_ROW_BYTES = (1 << 31) - 1
+#: the token-row packer's scan instance (csrc/pack_stuff_rows.cu; the same
+#: constants there): a CTA packs a chunk of SCAN_CHUNK_TOKENS tokens; its
+#: scratch is SCAN_HEAD int64 words (the ticket) and a look-back record of
+#: SCAN_REC words a chunk
+SCAN_CHUNK_TOKENS = 4096
+SCAN_REC = 8
+SCAN_HEAD = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -627,8 +634,60 @@ def pack_stuff_rows(bits: torch.Tensor, lens: torch.Tensor,
     if bits.device.type == "cpu":
         return pack_stuff_rows_plain(bits, lens, markers, stride)
     out, args = _pack_args(bits, lens, markers, stride)
-    _kernels.launch("pack_stuff_rows", *args)
+    _kernels.launch("pack_stuff_rows", *args, instance="rows")
     return out
+
+
+def scan_chunks(n: int) -> int:
+    """Chunks (CTAs) of the packer's scan instance for n tokens."""
+    return max(1, -(-n // SCAN_CHUNK_TOKENS))
+
+
+def pack_stuff_scan_plain(bits: torch.Tensor, lens: torch.Tensor,
+                          marker: int, stride: int):
+    """Plain version of pack_stuff_scan, on any device: the tokens as one
+    padded (1, T) row through pack_stuff_rows_plain."""
+    n = int(bits.shape[0])
+    T = max(4, -(-n // 4) * 4)
+    b = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
+    ln = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
+    b[0, :n] = bits
+    ln[0, :n] = lens
+    markers = torch.full((1,), marker, dtype=torch.int32,
+                         device=bits.device)
+    return pack_stuff_rows_plain(b, ln, markers, stride)
+
+
+def pack_stuff_scan(bits: torch.Tensor, lens: torch.Tensor, marker: int,
+                    stride: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One row of n tokens (a scan coded as one segment): bits/lens (n,)
+    int32 right-aligned tokens of at most 27 bits and their lengths (0 =
+    no token), `marker` the second RST byte after the row (0 = none),
+    stride at least the row's worst case -> (rows (1, stride) uint8,
+    row_bytes (1,) int32, needs (2,) int32), as pack_stuff_rows gives them
+    for the tokens as one row.  On CUDA the packer's scan instance
+    (csrc/pack_stuff_rows.cu, chunks of SCAN_CHUNK_TOKENS tokens a CTA,
+    64-bit offsets: any scan that fits on the card); for CPU tensors its
+    plain version."""
+    if bits.dim() != 1 or tuple(lens.shape) != tuple(bits.shape):
+        raise ValueError("pack_stuff_scan: bits and lens must be (n,)")
+    if bits.device.type == "cpu":
+        return pack_stuff_scan_plain(bits, lens, marker, stride)
+    if bits.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise ValueError("pack_stuff_scan takes int32 tensors")
+    n = int(bits.shape[0])
+    dev = bits.device
+    rows = torch.empty((1, stride), dtype=torch.uint8, device=dev)
+    row_bytes = torch.empty(1, dtype=torch.int32, device=dev)
+    needs = torch.zeros(2, dtype=torch.int32, device=dev)
+    scratch = torch.empty(SCAN_HEAD + SCAN_REC * scan_chunks(n),
+                          dtype=torch.int64, device=dev)
+    _kernels.require_cuda("pack_stuff_rows", bits, lens, rows, row_bytes,
+                          needs, scratch)
+    _kernels.launch("pack_stuff_scan", bits, lens, n, int(marker), rows,
+                    row_bytes, needs, scratch, instance="scan")
+    return rows, row_bytes, needs
 
 
 def pack_stuff_rows_probe(bits: torch.Tensor, lens: torch.Tensor,
@@ -729,24 +788,10 @@ def scan_rows(bits: torch.Tensor, lens: torch.Tensor, nblocks: int,
     """One scan coded as a single segment (restart interval 0) as one
     device row: scan_tokens' (bits, lens) of a scan of nblocks blocks ->
     (rows (1, stride) uint8, row_bytes (1,) int32, needs) through the
-    token-row packer (pack_stuff_rows, one warp walking the whole scan),
-    at the scan's worst-case stride (SlotTables.stride of its blocks),
-    with an RST marker of second byte `marker` after the row (0 = none).
-    A stride past MAX_ROW_BYTES (from about 5.2 million blocks a scan, such
-    as a 15360x8640 interleaved 4:4:4 scan) raises ValueError: the
-    packer's offsets are int32."""
+    token-row packer's scan instance (pack_stuff_scan: chunks of the scan
+    a CTA), at the scan's worst-case stride (SlotTables.stride of its
+    blocks), with an RST marker of second byte `marker` after the row (0 =
+    none)."""
     st = _as_slots(tabs)
     stride = st.stride(-(-nblocks // st.bpm) * st.bpm)
-    if stride > MAX_ROW_BYTES:
-        raise ValueError(
-            f"a scan of {nblocks} blocks has a worst-case row of {stride} "
-            f"bytes, past the token-row packer's int32 offsets "
-            f"({MAX_ROW_BYTES}); encode() packs such a scan on the host")
-    n = int(bits.shape[0])
-    T = max(4, -(-n // 4) * 4)
-    b = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
-    ln = torch.zeros((1, T), dtype=torch.int32, device=bits.device)
-    b[0, :n] = bits
-    ln[0, :n] = lens
-    markers = torch.full((1,), marker, dtype=torch.int32, device=bits.device)
-    return pack_stuff_rows(b, ln, markers, stride)
+    return pack_stuff_scan(bits, lens, marker, stride)

@@ -4,7 +4,8 @@ C (coefficients), the decoder's two entropy kernels.
 Counterparts of the JAX package's Pallas kernels in
 gpujpeg_tpu.ops.huffdec_kernel:
 
-  scan_segments   csrc/huffdec_scan.cu   _scan_kernel_body (phase A)
+  scan_segments   csrc/huffdec_scan.cu   _scan_kernel_body (phase A;
+                                         two instances, scan_instance)
   decode_blocks   csrc/huffdec_block.cu  _block_kernel_body, segment-row
                                          mode (with_cursor=True)
   decode_blocks_  csrc/huffdec_block.cu  _block_kernel_body, buffer mode
@@ -78,6 +79,26 @@ import torch
 
 from ..utils import tables
 from . import _kernels
+
+#: phase A's sync instance (csrc/huffdec_scan.cu; the same constants
+#: there): a CTA walks SYNC_THREADS subsequences, a thread each, the first
+#: SYNC_WARM replaying the previous chunk's last ones; its scratch is
+#: SYNC_SCRATCH_HEAD words (the ticket) and a look-back record of
+#: SYNC_REC_WORDS words a chunk
+SYNC_THREADS = 256
+SYNC_WARM = 8
+SYNC_REC_WORDS = 16
+SYNC_SCRATCH_HEAD = 16
+#: (bits a subsequence, bits a guessed walk starts before it) of a scan
+#: of one component, and of an interleaved scan (sync_schedule)
+SYNC_SCHEDULE = (512, 512)
+SYNC_SCHEDULE_PATTERN = (4096, 4096)
+
+#: scan_instance takes the sync instance for rows of at least this many
+#: words (PERF.md, phase A: at 8K Q75 the two instances tie near 700 words
+#: a row in planar 4:4:4 and the sync one wins from about 1,600 in il
+#: 4:2:0)
+SYNC_MIN_WORDS = 1024
 
 #: phase C decodes at most this many AC tokens per block (63 AC + slack),
 #: as the JAX package's block kernel (huffdec_kernel.MAX_AC_STEPS)
@@ -445,11 +466,51 @@ def _check_cursors(name: str, words) -> None:
                          "bits than the kernels' int32 cursors address")
 
 
+def sync_schedule(pattern: Tuple[int, int, int]) -> Tuple[int, int]:
+    """(bits a subsequence, lead) of the sync instance for a slot pattern.
+    A walk begun at a guessed state (position 0, slot 0) `lead` bits
+    before its subsequence falls onto the true tokens and positions within
+    a few hundred bits in a scan of one component (SYNC_SCHEDULE); in an
+    interleaved scan the slot in the MCU takes longer (about 500 bits,
+    past 2,000 in one walk of ten on a 512x384 stream, and stretches of an
+    8K frame stay out of phase for thousands of bits, which then walk one
+    subsequence after another), so its walks start further back and
+    cover more bits (SYNC_SCHEDULE_PATTERN; PERF.md, phase A: 0.84 ms at 8K
+    4:2:0 against 7.1 with (1024, 4096) and 21 with (4096, 2048))."""
+    return SYNC_SCHEDULE if pattern[0] == 1 else SYNC_SCHEDULE_PATTERN
+
+
+def sync_chunks(W: int, sub_bits: int = SYNC_SCHEDULE[0]) -> int:
+    """Chunks (CTAs) of the sync instance a row of W words."""
+    nsub = -(-32 * W // sub_bits)
+    return max(1, -(-nsub // (SYNC_THREADS - SYNC_WARM)))
+
+
+def sync_scratch_words(nseg: int, W: int,
+                       sub_bits: int = SYNC_SCHEDULE[0]) -> int:
+    """int32 words of the sync instance's scratch (the ticket and a
+    look-back record a chunk of every row); the kernel zeroes it."""
+    return SYNC_SCRATCH_HEAD + nseg * sync_chunks(W, sub_bits) \
+        * SYNC_REC_WORDS
+
+
+def scan_instance(nseg: int, W: int) -> str:
+    """Phase A's instance for nseg segment rows of W words: "sync" (many
+    threads a row: subsequences of sync_schedule's bits walked from guessed
+    states and joined where Huffman codes resynchronise) for rows of at
+    least SYNC_MIN_WORDS words, such as a scan of one segment (restart
+    interval 0); else "serial" (a thread walks a row).  Restart auto
+    (about 20 words a row at 8K Q75) keeps the serial instance."""
+    return "sync" if nseg > 0 and W >= SYNC_MIN_WORDS else "serial"
+
+
 def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
                   nblocks: torch.Tensor, dc_luma: torch.Tensor,
                   ac_luma: torch.Tensor, tab: torch.Tensor, bps: int,
                   pattern: Tuple[int, int, int] = NO_PATTERN,
-                  lut: Optional[torch.Tensor] = None
+                  lut: Optional[torch.Tensor] = None,
+                  instance: Optional[str] = None,
+                  stats: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase A: (words (nseg, W) int32 host-order rows; nbits, nblocks,
     dc_luma, ac_luma (nseg,) int32, the segments' table selectors: luma
@@ -468,7 +529,14 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
     tokens through (the decoder passes the one cached on its plan); a
     CUDA call raises without it, and for rows of 2^26 words or more (the
     kernels' bit cursors are int32).  The plain version does not use
-    it."""
+    it.  The CUDA call launches the instance scan_instance picks, or
+    `instance` ("serial" or "sync") where given; both give the same
+    bstart and err (_kernels.INSTANCES counts them).  Given a dict
+    `stats`, a launch of the sync instance waits for the card and fills
+    it with the launch's rounds (summed over its CTAs), the chunks that
+    walked again from a true entry their guess missed ("redo"), the
+    subsequences walked by running ahead ("ahead") and the longest CTA's
+    microseconds in its local walks, look-back and writing walk."""
     _check("scan_segments", words, tab, nbits, nblocks, dc_luma, ac_luma)
     _check_pattern(pattern, tab)
     if words.device.type == "cpu":
@@ -488,9 +556,24 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
                          device=words.device)
     err = torch.empty(nseg, dtype=torch.bool, device=words.device)
     _kernels.require_cuda("huffdec_scan", words, lut, bstart, err)
-    _kernels.launch("huffdec_scan", words, nseg, W, nbits, nblocks,
-                    dc_luma, ac_luma, *pattern, table_sets(tab), tab, lut,
-                    bps, bstart, err)
+    inst = instance or scan_instance(nseg, W)
+    args = (words, nseg, W, nbits, nblocks, dc_luma, ac_luma, *pattern,
+            table_sets(tab), tab, lut, bps, bstart, err)
+    if inst == "serial":
+        _kernels.launch("huffdec_scan", *args, instance="serial")
+    elif inst == "sync":
+        sub_bits, lead = sync_schedule(pattern)
+        scratch = torch.empty(sync_scratch_words(nseg, max(W, 1), sub_bits),
+                              dtype=torch.int32, device=words.device)
+        _kernels.launch("huffdec_scan_sync", *args, sub_bits, lead, scratch,
+                        instance="sync")
+        if stats is not None:
+            d = scratch[:7].tolist()
+            stats.update(rounds=d[1], redo=d[2], ahead=d[3], local_us=d[4],
+                         look_back_us=d[5], write_us=d[6],
+                         chunks=nseg * sync_chunks(max(W, 1), sub_bits))
+    else:
+        raise ValueError(f"scan_segments: no instance {inst!r}")
     return bstart, err
 
 

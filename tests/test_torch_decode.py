@@ -61,10 +61,13 @@ def test_port_round_trip_q90():
 
 def _refused(kind):
     """A stream the port refused before it took every layout: PIL's
-    greyscale, the JAX package's 4:1:1 (non-interleaved and
-    interleaved) and its four components."""
+    greyscale, 4:1:1 (non-interleaved and interleaved) and four
+    components, written by the port's encoder (the JAX package's bytes:
+    tests/test_torch_formats_layouts.py and _planar.py hold them equal;
+    the port's CPU encode takes a tenth of a second where a cold JAX
+    encode compiles for ten)."""
     frame = _gradient(48, 64, 2)
-    p = gj.Parameters(quality=75, restart_interval=4)
+    p = gt.Parameters(quality=75, restart_interval=4)
     s411 = ((4, 1), (1, 1), (1, 1))
     if kind == "pil_grey":
         from PIL import Image
@@ -78,7 +81,7 @@ def _refused(kind):
         p = p.with_(interleaved=True).chroma_subsampled(s411)
     else:
         frame = np.concatenate([frame, frame[..., :1]], axis=2)
-    return bytes(gj.Encoder().encode(frame, p))
+    return gt.Encoder(device="cpu").encode(frame, p)
 
 
 @pytest.mark.parametrize("kind,items", [

@@ -205,8 +205,10 @@ class _FailingLib:
         return lambda *args: 98          # cudaErrorInvalidDeviceFunction
 
 
-@pytest.mark.parametrize("name", ["huffdec_scan", "huffdec_block",
-                                  "huffdec_block_direct", "dpost_rgb", "pack_stuff_rows",
+@pytest.mark.parametrize("name", ["huffdec_scan", "huffdec_scan_sync",
+                                  "huffdec_block",
+                                  "huffdec_block_direct", "dpost_rgb",
+                                  "pack_stuff_rows", "pack_stuff_scan",
                                   "idct_planes", "post_rgb", "xbd_relayout",
                                   "transpose_u32", "pair_sum_rows",
                                   "pack_u8_quads"])
@@ -637,11 +639,12 @@ def test_huffdec_kernels_pattern_mode(cuda, samp, kind):
 
 
 def _scan_both(cuda, rows_args, tab, bps, pattern=thd.NO_PATTERN,
-               offset=0):
+               offset=0, instance=None):
     """The scan kernel and the plain scan on the same rows (words, nbits,
     nblocks, dc_luma, ac_luma as numpy arrays): equal bstart and err,
     which are returned.  offset puts the card's word matrix that many
-    words past a 16-byte boundary."""
+    words past a 16-byte boundary; the kernel's instance is the one
+    scan_instance picks, or `instance`."""
     words, nbits, nb, dcl, acl = (torch.from_numpy(np.ascontiguousarray(
         a, np.int32)) for a in rows_args)
     buf = torch.zeros(words.numel() + 4, dtype=torch.int32, device=cuda)
@@ -651,9 +654,13 @@ def _scan_both(cuda, rows_args, tab, bps, pattern=thd.NO_PATTERN,
     args = [a.to(cuda) for a in (nbits, nb, dcl, acl)]
     _kernels.reset_launches()
     lut = torch.from_numpy(thd.scan_lut(tab.numpy())).to(cuda)
-    got = thd.scan_segments(w_dev, *args, tab.to(cuda), bps, pattern, lut)
+    got = thd.scan_segments(w_dev, *args, tab.to(cuda), bps, pattern, lut,
+                            instance)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["huffdec_scan"] == 1
+    inst = instance or thd.scan_instance(*words.shape)
+    assert _kernels.INSTANCES == {f"huffdec_scan/{inst}": 1}
+    assert _kernels.LAUNCHES["huffdec_scan" if inst == "serial"
+                             else "huffdec_scan_sync"] == 1
     want = thd.scan_segments_plain(words, nbits, nb, dcl, acl, tab, bps,
                                    pattern)
     assert torch.equal(got[0].cpu(), want[0])
@@ -1932,7 +1939,12 @@ def test_three_table_sets_on_card(cuda, layout, rst):
     assert tuple(dec.prepare(data).plan.tables.shape) == (8, 290)
     _kernels.reset_launches()
     got = dec.decode(data)
-    assert _kernels.LAUNCHES["huffdec_scan"] == 1
+    # one phase A launch, the instance scan_instance picks for the rows
+    # (at restart 0 the scan's row may be long enough for the sync one)
+    inst = thd.scan_instance(*dec.prepare(data).words.shape)
+    assert _kernels.INSTANCES[f"huffdec_scan/{inst}"] == 1
+    assert _kernels.LAUNCHES["huffdec_scan"] + \
+        _kernels.LAUNCHES["huffdec_scan_sync"] == 1
     assert _kernels.LAUNCHES["huffdec_block"] == 1
     assert np.array_equal(got, gt.Decoder(device="cpu").decode(data))
     assert np.array_equal(got, dec.decode(base))
@@ -2543,14 +2555,172 @@ def test_batch_encode_restart0_on_card(cuda, il):
     assert be.encode_batch(frames) == [enc.encode(f, p, pi) for f in frames]
 
 
-def test_scan_rows_refuses_past_int32():
-    """A scan whose worst-case row passes the packer's int32 offsets
-    (15360x8640 interleaved 4:4:4: 6,220,800 blocks) raises ValueError
-    before any allocation."""
+@pytest.mark.gpu
+def test_scan_rows_refuses_past_int32(cuda):
+    """A scan whose worst-case row passes 2^31 bytes (15360x8640
+    interleaved 4:4:4: 6,220,800 blocks) packs on the card through the
+    packer's scan instance (64-bit offsets), and encode_to_device's rows
+    assemble to encode()'s bytes."""
+    frame = _frame(8640, 15360, 90)
+    p = gt.Parameters(quality=75, restart_interval=0, interleaved=True)
+    enc = gt.Encoder(device=cuda)
     tabs = tfp.class_tables(75, True, "cpu")
-    st = tfp.SlotTables((tabs, tabs), (0, 1, 1), (0, 1, 2))
-    one = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="int32"):
-        tfp.scan_rows(one, one, 3 * 2073600, st)
-    assert tfp.SlotTables((tabs, tabs), (0,), (0,)).stride(2073600) \
-        <= tfp.MAX_ROW_BYTES
+    assert tfp.SlotTables((tabs, tabs), (0, 1, 1), (0, 1, 2)).stride(
+        3 * 2073600) > (1 << 31) - 1
+    _kernels.reset_launches()
+    geo, res, meta = enc.encode_to_device(frame, p)
+    got = enc.assemble(geo, res, meta)
+    assert {k: v for k, v in _kernels.INSTANCES.items()
+            if k.startswith("pack_stuff_rows/")} == {"pack_stuff_rows/scan": 1}
+    assert res["rows"][0].shape[1] > (1 << 31) - 1
+    assert got == enc.encode(frame, p)
+
+
+def _sync_rows(seed, nsets, bpm, nseg=3, bps=900, long_share=0.3):
+    """Long coded rows (900 blocks, rows of unequal length) of two table
+    sets (long codes, Annex K) or four (three long-code sets and Annex
+    K), with a slot pattern of bpm slots: (words, nbits, nblocks, dc_sel,
+    ac_sel), tables, pattern."""
+    rng = np.random.default_rng(seed)
+    if nsets == 2:
+        tabs = _scan_tabs(seed)
+        pattern = (bpm, int(rng.integers(1, 1 << bpm)),
+                   int(rng.integers(1, 1 << bpm)))
+        flags = (rng.integers(0, 2, nseg), rng.integers(0, 2, nseg))
+    else:
+        tabs = [scan_rows.long_code_tables(seed + i) for i in range(3)] + \
+            [scan_rows.annexk_tables()[1]]
+        pattern = (bpm, int(rng.integers(0, 1 << 2 * bpm)),
+                   int(rng.integers(0, 1 << 2 * bpm)))
+        flags = (rng.integers(0, 4, nseg), rng.integers(0, 4, nseg))
+    nblocks = np.asarray([bps, bps // 3, bps - 7][:nseg])
+    rows, nb, dcl, acl = scan_rows.segment_rows(
+        rng, nseg, bps, tabs, pattern, flags, nblocks,
+        long_share=long_share)
+    words, nbits = scan_rows.word_matrix(rows)
+    return (words, nbits, nb, dcl, acl), scan_rows.decode_tables(tabs), \
+        pattern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nsets,bpm,seed", [(2, 1, 0), (2, 3, 1), (2, 6, 2),
+                                            (4, 1, 3), (4, 3, 4)])
+def test_scan_sync_matches_serial_and_plain(cuda, nsets, bpm, seed):
+    """Phase A's sync instance on long rows (hundreds of subsequences, a
+    few chunks), two and four table sets, slot patterns of 1-6 slots: bit
+    for bit the serial instance and the plain version, no error."""
+    args, tab, pattern = _sync_rows(seed, nsets, bpm)
+    want = _scan_both(cuda, args, tab, 900, pattern, instance="sync")
+    _scan_both(cuda, args, tab, 900, pattern, instance="serial")
+    assert not bool(want[1].any())
+
+
+@pytest.mark.gpu
+def test_scan_sync_corrupt_and_truncated(cuda):
+    """Rows with 32 one bits mid-row, a bit count ending mid-block and a
+    row a block short: err and bstart as the serial instance and the
+    plain version."""
+    (words, nbits, nb, dcl, acl), tab, pattern = _sync_rows(5, 2, 3)
+    words[0, words.shape[1] // 2] = -1
+    nbits = nbits.copy()
+    nbits[1] = nbits[1] // 2 + 5
+    nb = nb.copy()
+    nb[2] += 1
+    args = (words, nbits, nb, dcl, acl)
+    want = _scan_both(cuda, args, tab, 901, pattern, instance="sync")
+    _scan_both(cuda, args, tab, 901, pattern, instance="serial")
+    assert want[1].tolist() == [True, True, True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nblocks", [5000, 300_000])
+def test_scan_sync_never_resynchronises(cuda, nblocks):
+    """A row that never resynchronises (tests/test_torch_scan_sync.py's
+    _unsyncable: every block 4 zero bits after a 7-bit first block, so
+    every guess stays out of phase): the chain of chunks resolves one
+    after another, equal to the plain version (5,000 blocks) and to the
+    serial instance (300,000 blocks, ten chunks; the plain version would
+    step 600,000 tokens)."""
+    dc = scan_rows._dht([2, 3, 3, 3, 3, 4, 4, 5, 5, 6, 6, 7],
+                        list(range(12)))
+    ac = scan_rows._dht([2] + [4] * 4 + [6] * 10,
+                        [0x00, 0x01, 0x02, 0x11, 0xF0, 0x03, 0x04, 0x05,
+                         0x12, 0x21, 0x31, 0x41, 0x13, 0x51, 0x61])
+    bits = "01111" + "00" + "0000" * (nblocks - 1)
+    bits += "1" * (-len(bits) % 8)
+    data = int(bits, 2).to_bytes(len(bits) // 8, "big")
+    words, nbits = scan_rows.word_matrix([data])
+    tab = scan_rows.decode_tables([(dc, ac), (dc, ac)])
+    one = np.ones(1, np.int32)
+    args = (words, nbits, one * nblocks, one, one)
+    if nblocks <= 5000:
+        want = _scan_both(cuda, args, tab, nblocks, instance="sync")
+        assert not bool(want[1].any())
+        return
+    w_dev = torch.from_numpy(words).to(cuda)
+    rows = [torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+            for a in args[1:]]
+    lut = torch.from_numpy(thd.scan_lut(tab.numpy())).to(cuda)
+    stats = {}
+    got = thd.scan_segments(w_dev, *rows, tab.to(cuda), nblocks,
+                            thd.NO_PATTERN, lut, "sync", stats)
+    want = thd.scan_segments(w_dev, *rows, tab.to(cuda), nblocks,
+                             thd.NO_PATTERN, lut, "serial")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(got[1].any())
+    assert stats["chunks"] >= 9 and stats["redo"] == stats["chunks"] - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rst,inst", [(0, "sync"), (gt.RESTART_AUTO,
+                                                    "serial")])
+def test_scan_instance_on_decode(cuda, rst, inst):
+    """A 1920x1080 decode launches the sync instance at restart interval
+    0 and the serial one at restart auto (_kernels.INSTANCES): restart
+    0's pixels equal restart auto's, and those the CPU's (the CPU's plain
+    phase A would walk a restart-0 scan for minutes)."""
+    frame = _frame(1080, 1920, 91)
+    data = gt.Encoder(device="cpu").encode(frame, gt.Parameters(
+        quality=75, restart_interval=rst))
+    auto = gt.Encoder(device="cpu").encode(frame, gt.Parameters(
+        quality=75, restart_interval=gt.RESTART_AUTO))
+    _kernels.reset_launches()
+    got = gt.Decoder(device=cuda).decode(data)
+    assert {k: v for k, v in _kernels.INSTANCES.items()
+            if k.startswith("huffdec_scan/")} == {f"huffdec_scan/{inst}": 1}
+    hf = gt.Decoder(device="cpu").prepare(data)
+    assert thd.scan_instance(*hf.words.shape) == inst
+    assert np.array_equal(got, gt.Decoder(device="cpu").decode(auto))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ff_bias,marker", [
+    (0, False, 0xD1), (1, False, 0), (4095, False, 0xD2), (4096, True, 0),
+    (4097, False, 0xD3), (1_000_003, False, 0), (1_000_003, True, 0xD4),
+    (9_000_000, False, 0)])
+def test_pack_stuff_scan_matches_plain(cuda, n, ff_bias, marker):
+    """The packer's scan instance on one long row of n tokens (chunks of
+    4096 tokens a CTA; all-ones tokens for runs of 0xFF across chunk
+    edges): equal to the plain version (the tokens as one row) and to the
+    host packer."""
+    from gpujpeg_tpu_torch import native
+
+    rng = np.random.default_rng(n + ff_bias)
+    lens = rng.integers(1, 28, n).astype(np.int32)
+    bits = rng.integers(0, 1 << 27, n)
+    if ff_bias:
+        bits = np.where(rng.random(n) < 0.8, (1 << 27) - 1, bits)
+    bits = (bits & ((1 << lens) - 1)).astype(np.int32)
+    stride = _pack_stride(max(n, 1))
+    b, ln = torch.from_numpy(bits).to(cuda), torch.from_numpy(lens).to(cuda)
+    _kernels.reset_launches()
+    rows, rb, needs = tfp.pack_stuff_scan(b, ln, marker, stride)
+    torch.cuda.synchronize()
+    assert _kernels.INSTANCES == {"pack_stuff_rows/scan": 1}
+    p_rows, p_rb, p_needs = tfp.pack_stuff_scan_plain(b, ln, marker, stride)
+    assert torch.equal(needs, p_needs)
+    assert _rows_equal(rows, rb, p_rows, p_rb)
+    if n <= 1_000_003:
+        host = native.pack_tokens(bits.view(np.uint32), lens)
+        nbytes = int(rb[0]) - (2 if marker else 0)
+        assert bytes(rows[0, :nbytes].cpu().numpy()) == host
