@@ -2,8 +2,14 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent DIR    # DIR: a checkout of the parent
 
-Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
+Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card.
+Given --parent, it also builds DIR's csrc/huffdec_block.cu and times the
+parent's phase C instances on the same words as this tree's, the direct
+instance at 8K Q100 and the four-set one on the three-set streams
+(ParentBlock, parent_ms in their records); with no argument those times
+are not taken.  The steps:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from gpujpeg_tpu_torch/csrc and prints the
@@ -160,7 +166,14 @@ Drives gpujpeg_tpu_torch only (never the JAX package) on one CUDA card:
         frames of each layout through Decoder.decode in main-path windows
         with 0 phase-A and 0 fix-up launches; the direct phase C's ms
         beside its bound and phases A + C + fix-up's ms on the same
-        stream; wall ms a frame (median and quartiles);
+        stream, its probe stages (rows staged and every block's first
+        words loaded with no token decoded; the decode without the
+        coefficient store), the tokens of the gradient and noise
+        streams by the path each takes in the segment-row walk's
+        9-bit table and in the direct table's two levels (token_paths),
+        and, given --parent DIR, the parent tree's direct instance
+        timed on the same words (ParentBlock); wall ms a frame (median
+        and quartiles);
      b. tpujpegtool_torch in processes of its own on the card: an 8K PPM,
         an 8K PGM and 7680x4320.random_7.tst encoded at Q75 and the
         streams decoded back, a 4K 4:2:0 Y4M of 8 frames through -B 4,
@@ -605,6 +618,165 @@ def block_times(torch, k, words, nbits, bstart, p, flush, tokens,
     k["bound_ms"] = (read + L * 64 * 2 + L * 4) / PEAK_BYTES_S * 1e3
     k["tokens"] = tokens
     k["ns_per_token"] = k["ms"] * 1e6 / tokens
+
+
+class ParentBlock:
+    """Phase C's kernels as a parent tree has them (chip_smoke.py --parent
+    DIR, DIR the root of a checkout of the parent commit): its
+    csrc/huffdec_block.cu built by nvcc into a library of its own beside
+    the package's kernels, its two entry points called with the arguments
+    the parent's wrappers passed (the canonical tables and block_lut),
+    never counted in _kernels.LAUNCHES; the parent's instances timed on
+    the same words as this tree's, in the same call."""
+
+    #: gj_huffdec_block_direct's arguments in the parent: words, nseg, W,
+    #: nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat, table sets,
+    #: tables, block_lut, coefs, err, stream
+    DIRECT_ARGS = "P q i P P P P i i i i P P P P P"
+
+    def __init__(self, root):
+        from gpujpeg_tpu_torch.ops import _kernels
+
+        self.src = os.path.join(root, "gpujpeg_tpu_torch", "csrc",
+                                "huffdec_block.cu")
+        if not os.path.isfile(self.src):
+            raise FileNotFoundError(f"--parent: no {self.src}")
+        out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "gpujpeg_tpu_torch", "_build", "parent")
+        os.makedirs(out, exist_ok=True)
+        self.path = os.path.join(out, "libhuffdec_block_parent.so")
+        self.proc = subprocess.Popen(
+            [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o", self.path,
+             self.src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        self.lib = None
+
+    def load(self):
+        """Wait for the build (started with the package's) and load it."""
+        import ctypes
+        from gpujpeg_tpu_torch.ops import _kernels
+
+        text, _ = self.proc.communicate()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's "
+                               f"huffdec_block.cu:\n{text}")
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"[build] parent huffdec_block: {line.strip()}")
+        self.lib = ctypes.CDLL(self.path)
+        kinds = {"P": ctypes.c_void_p, "q": ctypes.c_int64,
+                 "i": ctypes.c_int}
+        self.lib.gj_huffdec_block.argtypes = \
+            _kernels._SIGNATURES["huffdec_block"]
+        self.lib.gj_huffdec_block_direct.argtypes = [
+            kinds[c] for c in self.DIRECT_ARGS.split()]
+        return self
+
+    def _call(self, fn, torch, *args):
+        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        rc = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's phase C failed to launch: "
+                               f"error {rc}")
+
+    def direct(self, torch, words, nbits, p):
+        """The parent's direct instance: (coefs, err)."""
+        from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+        nseg = words.shape[0]
+        coefs = torch.empty((64, nseg), dtype=torch.int16,
+                            device=words.device)
+        err = torch.empty(nseg, dtype=torch.int32, device=words.device)
+        self._call(self.lib.gj_huffdec_block_direct, torch, words, nseg,
+                   words.shape[1], nbits, p.nblocks, p.dc_luma, p.ac_luma,
+                   *p.pattern, thd.table_sets(p.tables), p.tables,
+                   p.block_lut, coefs, err)
+        return coefs, err
+
+    def block(self, torch, words, bstart, p):
+        """The parent's segment-row instance: (coefs, err)."""
+        from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+        nseg, bps = words.shape[0], bstart.shape[1] - 1
+        coefs = torch.empty((64, nseg * bps), dtype=torch.int16,
+                            device=words.device)
+        err = torch.empty(nseg * bps, dtype=torch.int32,
+                          device=words.device)
+        self._call(self.lib.gj_huffdec_block, torch, words, nseg,
+                   words.shape[1], bstart, bps, p.nblocks, p.dc_luma,
+                   p.ac_luma, *p.pattern, thd.table_sets(p.tables),
+                   p.tables, p.block_lut, coefs, err)
+        return coefs, err
+
+
+#: the parent tree's phase C (ParentBlock), when chip_smoke.py is given
+#: --parent DIR; else None and no parent time is taken
+PARENT = None
+
+
+def token_paths(torch, words, nbits, p) -> dict:
+    """The tokens of a direct-route frame (each segment row one block, from
+    bit 0 to its bit count) by the path each takes in phase C's
+    instances, replayed with the plain decode's steps (huffdec_kernel.
+    _peek32, _decode_token) on the card; for DC and AC apart: "fit",
+    code and value within the segment-row walk's 9-bit table
+    (block_lut's value in the entry), "window", the code within it and
+    the value from the bit window, "long", a code of more than 9 bits
+    (its canonical decode), and "second_level", a code of more than
+    DIRECT_LUT_BITS bits (the direct table's second load); "blocks" and
+    the most tokens a block."""
+    from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
+
+    tab = p.tables.to(torch.int64)
+    ns = thd.table_sets(tab)
+    L = words.shape[0]
+    dev = words.device
+    seg = torch.arange(L, device=dev)
+    zero = torch.zeros(L, dtype=torch.int64, device=dev)
+    bend = nbits.to(torch.int64)
+    valid = p.nblocks.to(dev) > 0
+    out = {k: dict(tokens=0, fit=0, window=0, long=0, second_level=0)
+           for k in ("dc", "ac")}
+
+    def count(key, clen, size):
+        c = out[key]
+        c["tokens"] += int(clen.numel())
+        c["fit"] += int(((clen >= 1) & (clen + size <= thd.BLOCK_LUT_BITS))
+                        .sum())
+        c["window"] += int(((clen <= thd.BLOCK_LUT_BITS)
+                            & (clen + size > thd.BLOCK_LUT_BITS)).sum())
+        c["long"] += int((clen > thd.BLOCK_LUT_BITS).sum())
+        c["second_level"] += int((clen > thd.DIRECT_LUT_BITS).sum())
+
+    live = torch.nonzero(valid)[:, 0]
+    clen, sym = thd._decode_token(
+        tab, thd._slot_class(p.dc_luma.to(dev)[live], p.pattern[1],
+                             zero[live], 0, ns),
+        thd._peek32(words, seg[live], zero[live]) >> 16)
+    count("dc", clen, sym & 15)
+    cur = zero.clone()
+    cur[live] = clen + (sym & 15)
+    per_block = valid.to(torch.int64)
+    act = thd._slot_class(p.ac_luma.to(dev), p.pattern[2], zero, ns, ns)
+    pos = torch.ones(L, dtype=torch.int64, device=dev)
+    live = live[(clen >= 1) & (cur[live] < bend[live])]
+    for _ in range(thd.MAX_AC_STEPS):
+        if not live.numel():
+            break
+        c = cur[live]
+        clen, sym = thd._decode_token(tab, act[live],
+                                      thd._peek32(words, seg[live], c) >> 16)
+        count("ac", clen, sym & 15)
+        per_block[live] += 1
+        nxt = torch.where(sym == 0, 64, torch.where(
+            sym == 0xF0, pos[live] + 16, pos[live] + (sym >> 4) + 1))
+        cur[live] = c + clen + (sym & 15)
+        pos[live] = nxt
+        live = live[(clen >= 1) & (cur[live] <= bend[live]) & (nxt < 64)]
+    out["blocks"] = int(valid.sum())
+    out["max_tokens_a_block"] = int(per_block.max())
+    return out
 
 
 def planar_encode_stages(torch, enc, frame, params, stream, tag):
@@ -2008,8 +2180,12 @@ def foreign_layout(torch, np, gt, dev, flush, fusedpack, thd, three_sets,
                   "four-set instance: the Annex-K stream rewritten to "
                   "three AC table sets"),
               rec(f"huffdec_block:three_sets_{tag}",
-                  "four-set instance, CTAs of 4 warps: the Annex-K "
-                  "stream rewritten to three AC table sets"))
+                  "four-set instance, CTAs of 8 warps, its tables in "
+                  "dynamic shared memory: the Annex-K stream rewritten "
+                  "to three AC table sets; two_set_ms the two-set "
+                  "instance on the same tokens (the Annex-K stream, "
+                  "huffdec_block:annexk_*'s ms), parent_ms the parent "
+                  "tree's four-set instance on the same words (--parent)"))
     what = f"8K {'il' if il else 'planar'} {tag}"
 
     # -- a. Annex-K, restart auto ---------------------------------------
@@ -2220,6 +2396,24 @@ def foreign_layout(torch, np, gt, dev, flush, fusedpack, thd, three_sets,
     scan_times(torch, s3, words, nbits, coefs, hf.plan, flush)
     block_times(torch, b3, words, nbits, bstart, hf.plan, flush,
                 s3["tokens"])
+    b3["two_set_ms"] = bk["ms"]
+    if PARENT is not None:
+        got = PARENT.block(torch, words, bstart, hf.plan)
+        b3["parent_err"] = max(diff(got[0], coefs), diff(got[1], _e))
+        if b3["parent_err"]:
+            raise AssertionError(f"{what} three sets: the parent's four-set "
+                                 "instance differs from this tree's")
+        b3["parent_ms"] = event_ms(
+            torch, lambda: PARENT.block(torch, words, bstart, hf.plan), 20,
+            flush)
+        b3["ms_again"] = event_ms(
+            torch, lambda: block_call(words, bstart, hf.plan), 20, flush)
+        del got
+    log(f"[foreign] {what} three sets: phase C four-set instance "
+        f"{b3['ms']:.4f} ms"
+        + (f" [parent {b3['parent_ms']:.4f}, again {b3['ms_again']:.4f}]"
+           if PARENT is not None else "")
+        + f", the two-set instance on the same tokens {bk['ms']:.4f} ms")
     del words, bstart, coefs
     log_times(f"foreign {tag} time",
               {k: v for k, v in kernels.items() if k.endswith(tag)})
@@ -3193,19 +3387,24 @@ def direct_phases(torch, np, gt, dev, flush):
                note="the direct instance (the JAX kernel's buffer mode, "
                     "with_cursor=False, sites :543/:552), phase C of one "
                     "block a segment from bit 0 to the segment's bit "
-                    "count; ms, bound, plain and tokens of the planar "
-                    "4:4:4 frame, greyscale's in paths; launches over both "
-                    "layouts' windows of three frames")
+                    "count, a kernel of its own (rows staged a tile ahead, "
+                    "the two-level direct_lut); ms, bound, plain and "
+                    "tokens of the planar 4:4:4 frame, greyscale's in "
+                    "paths, each with its probe stages, its token paths "
+                    "(gradient and noise) and, given --parent, the parent "
+                    "tree's instance on the same words (parent_ms); "
+                    "launches over both layouts' windows of three frames")
     launches = 0
 
     def direct_call(words, nbits, p):
         return thd.decode_blocks_direct(words, nbits, p.nblocks, p.dc_luma,
                                         p.ac_luma, p.tables, p.pattern,
-                                        p.block_lut)
+                                        p.direct_lut)
 
     for kind in ("rgb", "grey"):
         frames, streams = direct_streams(torch, np, gt, dev, enc, kind,
                                          params)
+        paths = {}
         # -- the kernel against its plain version, gradient and noise -----
         for what, data in (("gradient", streams[0]), ("noise", streams[-1])):
             hf = dec.prepare(data)
@@ -3234,10 +3433,12 @@ def direct_phases(torch, np, gt, dev, flush):
                 raise AssertionError(f"8K Q100 {kind} {what}: the direct "
                                      "route's pixels differ from phases "
                                      "A+C's")
+            paths[what] = token_paths(torch, words, nbits, p)
             log(f"[tool direct] 8K Q100 {kind} {what}: {len(data)} bytes, "
                 f"{words.shape[0]} segments x {words.shape[1]} words; "
                 "direct instance equal to plain (plain once "
-                f"{ms:.1f} ms), pixels equal to phases A+C's")
+                f"{ms:.1f} ms), pixels equal to phases A+C's; token paths "
+                f"{json.dumps(paths[what])}")
             if what == "gradient":
                 plain_ms = ms
             del coefs, p_coefs, c_ac, via_ac, words
@@ -3286,29 +3487,59 @@ def direct_phases(torch, np, gt, dev, flush):
         p = hf.plan
         words, nbits = dec.upload(hf)
         coefs, _e = direct_call(words, nbits, p)
+        args = (words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
+                p.pattern)
         ms = event_ms(torch, lambda: direct_call(words, nbits, p), 20, flush)
+        extra = {}
+        if PARENT is not None:
+            # the parent tree's instance on the same words, then this
+            # tree's again (parent, change in turns)
+            got = PARENT.direct(torch, words, nbits, p)
+            extra["parent_err"] = max(diff(got[0], coefs), diff(got[1], _e))
+            if extra["parent_err"]:
+                raise AssertionError(f"8K Q100 {kind}: the parent's direct "
+                                     "instance differs from this tree's")
+            extra["parent_ms"] = event_ms(
+                torch, lambda: PARENT.direct(torch, words, nbits, p), 20,
+                flush)
+            extra["ms_again"] = event_ms(
+                torch, lambda: direct_call(words, nbits, p), 20, flush)
+            del got
+        probe = probe_ms(
+            torch, lambda st: thd.decode_blocks_direct_probe(
+                *args, p.direct_lut, st),
+            lambda: thd.decode_blocks_direct_plain(*args), flush,
+            lambda out, ref: max(diff(out[0], ref[0]), diff(out[1], ref[1])))
         ac_ms = event_ms(torch, lambda: dec._coefficients(p, words, nbits),
                          10, flush)
         L = words.shape[0]
-        read = (stream_word_bytes(nbits) + 4 * L * 4 + p.tables.numel() * 4
-                + p.block_lut.numel() * 4)
+        read = (stream_word_bytes(nbits) + 4 * L * 4
+                + p.direct_lut.numel() * 2)
         tokens = scan_tokens(torch, coefs, p)
         path = dict(ms=ms, plain_ms=plain_ms,
                     bound_ms=(read + L * 64 * 2 + L * 4) / PEAK_BYTES_S * 1e3,
-                    a_c_fixup_ms=ac_ms, segments=L, tokens=tokens,
-                    ns_per_token=ms * 1e6 / tokens,
+                    **extra, a_c_fixup_ms=ac_ms, segments=L,
+                    words_a_row=words.shape[1], tokens=tokens,
+                    ns_per_token=ms * 1e6 / tokens, probe=probe,
+                    token_paths=paths,
                     wall_ms_median=float(np.median(walls)), stages=stages)
         rec["paths"][kind] = path
         log(f"[tool direct] 8K Q100 {kind}: direct phase C {ms:.4f} ms "
-            f"(bound {path['bound_ms']:.4f} ms by bytes, "
+            + (f"[parent {extra['parent_ms']:.4f}, again "
+               f"{extra['ms_again']:.4f}] " if extra else "")
+            + f"(bound {path['bound_ms']:.4f} ms by bytes, "
             f"{stream_word_bytes(nbits) / 1e6:.1f} MB of words, "
             f"{L * 128 / 1e6:.1f} MB of coefficients), phases A + C + "
             f"fix-up on the same stream {ac_ms:.4f} ms; {tokens} tokens, "
-            f"{path['ns_per_token']:.4f} ns a token")
+            f"{path['ns_per_token']:.4f} ns a token; probe stages (full | "
+            f"loads, staged rows, zero tiles | no coefficient store) "
+            f"{probe['full']:.4f} | {probe['load_store']:.4f} | "
+            f"{probe['no_store']:.4f}")
         del words, coefs, frames, streams
     rec.update({k: rec["paths"]["rgb"][k]
                 for k in ("ms", "plain_ms", "bound_ms", "tokens",
-                          "ns_per_token")})
+                          "ns_per_token", "parent_ms", "probe")
+                if k in rec["paths"]["rgb"]})
     return rec, launches
 
 
@@ -3863,10 +4094,18 @@ def log_times(tag, kernels):
 
 
 def main() -> int:
+    global PARENT
     if sys.argv[1:] == ["--whole16k"]:
         return whole16k_child()
     if sys.argv[1:2] == ["--plain-scan"]:
         return plain_scan_child(*sys.argv[2:4])
+    parent_root = None
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        parent_root = sys.argv[2]
+    elif sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or "
+              "--parent DIR)", file=sys.stderr)
+        return 2
     import numpy as np
     import torch
 
@@ -3894,8 +4133,14 @@ def main() -> int:
         f"python {sys.version.split()[0]} device {kind}")
 
     # -- 2. build --------------------------------------------------------------
+    if parent_root is not None:
+        PARENT = ParentBlock(parent_root)      # nvcc runs beside the build
     build_s = _kernels.build()
-    log(f"[build] kernels built in {build_s:.1f} s")
+    if PARENT is not None:
+        PARENT.load()
+    log(f"[build] kernels built in {build_s:.1f} s"
+        + (f", and the parent's huffdec_block.cu ({parent_root})"
+           if PARENT is not None else ""))
     for name, text in _kernels.BUILD_LOG.items():
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
@@ -4193,7 +4438,8 @@ def main() -> int:
              "tokens", "ns_per_token", "paths", "note", "instance",
              "generic_ms", "library_note", "library_ms_median",
              "serial_ms", "serial_note", "sync_stats",
-             "plain_ms_512x384_cpu")
+             "plain_ms_512x384_cpu", "two_set_ms", "parent_ms",
+             "parent_err", "ms_again")
              if key in k}}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -117,34 +117,53 @@ enum Stage : int {
 };
 
 // CTAs of `kernel` that fit on the card at once (the persistent grid),
-// with `smem` bytes of dynamic shared memory allowed to it; worked out
-// once per kernel and device, so that a launch costs the host no more
-// than the launch itself.  0 after a CUDA error.
+// with `smem` bytes of dynamic shared memory a CTA; worked out once per
+// kernel, device and size, so that a launch costs the host no more than
+// the launch itself.  A kernel given dynamic shared memory is allowed all
+// the card offers a CTA, so that a launch of any size that fits stays
+// valid whatever size was asked before (the direct instance of
+// huffdec_block.cu sizes its rows to each launch).  0 when smem does not
+// fit, and after a CUDA error.
 template <typename K>
 inline int resident_ctas(K kernel, int threads, int smem) {
     struct Known {
         const void* fn;
-        int dev, ctas;
+        int dev, smem, ctas;
     };
-    static Known known[64];
+    constexpr int kKnown = 256;
+    static Known known[kKnown];
     static int n = 0;
     static std::mutex mu;
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess) return 0;
     const void* const fn = reinterpret_cast<const void*>(kernel);
     const std::lock_guard<std::mutex> lock(mu);
-    for (int i = 0; i < n; ++i)
-        if (known[i].fn == fn && known[i].dev == dev) return known[i].ctas;
+    for (int i = 0; i < n && i < kKnown; ++i)
+        if (known[i].fn == fn && known[i].dev == dev
+                && known[i].smem == smem)
+            return known[i].ctas;
+    int allow = 0;
+    if (smem > 0) {
+        cudaFuncAttributes fa;
+        int optin = 0;
+        if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess
+                || cudaDeviceGetAttribute(
+                       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                       dev) != cudaSuccess)
+            return 0;
+        allow = optin - (int)fa.sharedSizeBytes;
+        if (smem > allow) return 0;
+    }
     int sms = 0, per_sm = 0;
     if (cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem) != cudaSuccess
+                             allow) != cudaSuccess
             || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev) != cudaSuccess
             || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                    &per_sm, kernel, threads, smem) != cudaSuccess)
         return 0;
-    if (n < 64) known[n++] = Known{fn, dev, sms * per_sm};
+    known[n++ % kKnown] = Known{fn, dev, smem, sms * per_sm};
     return sms * per_sm;
 }
 

@@ -380,6 +380,9 @@ class Plan:
     # the same for the DC fix-up's kernel: (bpm, the component of slot
     # j % bpm in 2 bits a slot, components)
     comp_pattern: Tuple[int, int, int] = (1, 0, 1)
+    # (2 * sets, stride) int16, the direct instance's two-level table
+    # (huffdec_kernel.direct_lut) on a plan of the direct route, else None
+    direct_lut: Optional[torch.Tensor] = None
 
     @property
     def direct(self) -> bool:
@@ -458,7 +461,9 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
                 scan_lut=dev(lut, np.int16), block_lut=dev(blut),
                 qtabs=dev(qtabs, np.float32),
                 pattern=(huffdec_kernel.NO_PATTERN if nsets == 2
-                         else huffdec_kernel.NO_PATTERN_WIDE))
+                         else huffdec_kernel.NO_PATTERN_WIDE),
+                direct_lut=(dev(huffdec_kernel.direct_lut(tab), np.int16)
+                            if bps == 1 else None))
 
 
 @dataclasses.dataclass
@@ -814,7 +819,7 @@ class Decoder:
         if plan.direct:
             coefs_t, err_c = huffdec_kernel.decode_blocks_direct(
                 words, nbits, plan.nblocks, plan.dc_luma, plan.ac_luma,
-                plan.tables, plan.pattern, plan.block_lut)
+                plan.tables, plan.pattern, plan.direct_lut)
             bad = err_c.any()
         else:
             coefs_t, err_a, err_c = self._coefficients(plan, words, nbits)

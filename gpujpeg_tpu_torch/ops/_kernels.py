@@ -5,7 +5,7 @@ own shared library with a plain C interface, at first use, into a build
 directory that ``.gitignore`` lists (``native.build_dir("kernels")``); all
 sources compile in parallel.  A kernel's source is ``csrc/<name>.cu``
 unless ``SOURCES`` names another (``relayout.cu`` holds four kernels;
-``huffdec_block.cu`` two, phase C and its direct instance;
+``huffdec_block.cu`` two, phase C's segment-row and direct instances;
 ``huffdec_scan.cu`` two, phase A's serial and sync instances;
 ``pack_stuff_rows.cu`` two, the packer's row and scan instances).  A
 library's file name carries a hash of its source and of the shared
@@ -89,9 +89,10 @@ _SIGNATURES: Dict[str, List] = {
                       _P, _P, _P, _P],
     # phase C's direct instance (one block a segment): words, nseg, W,
     # nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat, table sets,
-    # tables, lookahead table, coefs, err, stream
+    # its two-level table (huffdec_kernel.direct_lut), the table's stride,
+    # coefs, err, stream
     "huffdec_block_direct": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _P, _P, _P, _P, _P],
+                             _P, _I, _P, _P, _P],
     # coefs, L, offsets (host int64[3]), luma blocks, luma blocks per row,
     # dx, dy, H, W, bytes a pixel (3 or 4), qtabs, idct matrix, params
     # (host int32[26]), out, stream
@@ -127,7 +128,7 @@ SOURCES["pack_stuff_scan"] = "pack_stuff_rows"
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
 PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments", "huffdec_block",
-          "pack_stuff_rows")
+          "huffdec_block_direct", "pack_stuff_rows")
 PROBE_STAGES = {"full": 0, "load_store": 1, "no_store": 2}
 
 #: kernels with a gj_<name>_empty entry point: an empty kernel on the

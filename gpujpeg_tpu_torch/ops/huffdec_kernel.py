@@ -9,8 +9,8 @@ gpujpeg_tpu.ops.huffdec_kernel:
   decode_blocks   csrc/huffdec_block.cu  _block_kernel_body, segment-row
                                          mode (with_cursor=True)
   decode_blocks_  csrc/huffdec_block.cu  _block_kernel_body, buffer mode
-    direct        (direct instance)      (with_cursor=False), the JAX
-                                         decoder's _decode_direct
+    direct        (the direct instance,  (with_cursor=False), the JAX
+                  a kernel of its own)   decoder's _decode_direct
 
 decode_blocks_direct is phase C for scans of one block a restart segment:
 the segment row is the block's buffer, decoded from bit 0 up to the
@@ -55,9 +55,12 @@ checks all 65,536 peeks.  Each kernel also takes a lookahead table built here fr
 the canonical tables: phase A's scan_lut (the tokens inside the next 11
 bits, summed) and phase C's block_lut (one token of the next 9 bits
 with its value where the value bits fit too); what a table cannot
-resolve the kernel decodes from the canonical tables.
-tests/test_torch_scan_lut.py and tests/test_torch_block_lut.py hold
-every entry against independent decodes.
+resolve the kernel decodes from the canonical tables.  The direct
+instance reads every token through direct_lut, a two-level table that
+resolves every code of a 16-bit peek, and no canonical table.
+tests/test_torch_scan_lut.py, tests/test_torch_block_lut.py and
+tests/test_torch_direct_lut.py hold every entry against independent
+decodes.
 
 Words are the host-order rows of stream/segments.pack_segments_matrix
 (stream byte k is byte k of the row) as int32; the kernels and the plain
@@ -123,6 +126,19 @@ BLOCK_LUT_BITS = 9
 #: 5-9 the code length, 10-13 the run, bit 14 an AC end of block, bit 15
 #: "the value is in bits 16-31" (a signed 16-bit value)
 BLOCK_FIT = 1 << 15
+
+#: the direct instance's table (direct_lut) is indexed by the next
+#: DIRECT_LUT_BITS bits, then, for a longer or mixed prefix, by the
+#: 16 - DIRECT_LUT_BITS bits after them
+DIRECT_LUT_BITS = 11
+
+#: direct_entry's fields: bits 0-4 the code length, 5-9 the advance (code
+#: plus value bits), 12-15 the run; DIRECT_SPECIAL marks an AC end of
+#: block, and with code length 0 an invalid code or a DC symbol above 15
+#: (the entry DIRECT_SPECIAL itself); DIRECT_SUB marks a first-level entry
+#: whose bits 0-8 index its second-level table
+DIRECT_SPECIAL = 1 << 10
+DIRECT_SUB = 1 << 11
 
 
 def decode_tables(*tabs) -> np.ndarray:
@@ -252,6 +268,66 @@ def block_lut(tab: np.ndarray) -> np.ndarray:
         e = block_entry(clen, sym, is_dc, value, fits)
         out[t] = np.where(fast, e, 0).astype(np.uint32).view(np.int32)
     return out
+
+
+def direct_entry(clen, sym, is_dc):
+    """The direct instance's summary of one decoded token (numpy or torch
+    integers), the layout of a direct_lut entry: code length, advance,
+    run and, for an AC end of block, DIRECT_SPECIAL.  The kernel finds the
+    run in the entry's top bits and the value's size as advance minus
+    code length."""
+    eob = 0 if is_dc else (sym == 0) * 1
+    return (clen | ((clen + (sym & 15)) << 5) | (eob * DIRECT_SPECIAL)
+            | ((sym >> 4) << 12))
+
+
+def direct_lut(tab: np.ndarray) -> np.ndarray:
+    """The direct instance's two-level table of the canonical tables `tab`
+    (n, DECODE_TABLE_WORDS), n = 4 or 8 (decode_tables): (n, stride)
+    int16 of direct_entry layout, every token of a 16-bit peek without
+    the canonical decode.
+
+    Table t's first 1 << K entries (K = DIRECT_LUT_BITS) are indexed by
+    the next K bits.  Where every 16-bit peek of those K bits decodes
+    alike (_decode_token: a code of at most K bits, or an invalid code),
+    the entry is that token (DIRECT_SPECIAL for an invalid code and for a
+    DC symbol above 15).  Else (a code longer than K bits, or codes of
+    several lengths) it is DIRECT_SUB | i, and second-level table i, at
+    entry (1 << K) + i * (1 << (16 - K)), indexed by the peek's next
+    16 - K bits, holds the tokens of the 16-bit peeks.  So a lookup gives
+    the canonical decode of every 16-bit peek.  Second-level tables follow
+    the first level in the order of their prefixes; stride is the longest
+    table's entries, rounded up to a multiple of 8 (16 bytes).
+
+    A pure function of the tables; the decoder caches it on a plan of the
+    direct route (models/decoder.Plan.direct_lut)."""
+    K = DIRECT_LUT_BITS
+    t64 = torch.from_numpy(np.asarray(tab, np.int64))
+    peeks = torch.arange(1 << 16, dtype=torch.int64)
+    nt = t64.shape[0]
+    levels = []
+    for t in range(nt):
+        is_dc = t < nt // 2
+        clen, sym = (x.numpy() for x in _decode_token(
+            t64, torch.full((1 << 16,), t, dtype=torch.int64), peeks))
+        ok = (clen >= 1) & ((sym <= 15) | (not is_dc))
+        e = np.where(ok, direct_entry(clen, sym, is_dc),
+                     DIRECT_SPECIAL).reshape(1 << K, 1 << (16 - K))
+        same = (e == e[:, :1]).all(axis=1)
+        first = e[:, 0].copy()
+        mixed = np.flatnonzero(~same)
+        # an entry indexes its second level in 9 bits; a table of at most
+        # 256 codes has at most 257 such prefixes
+        if len(mixed) > 511:
+            raise ValueError("direct_lut: more second-level tables than "
+                             "an entry indexes")
+        first[mixed] = DIRECT_SUB | np.arange(len(mixed))
+        levels.append(np.concatenate([first, e[mixed].reshape(-1)]))
+    stride = -(-max(len(x) for x in levels) // 8) * 8
+    out = np.zeros((nt, stride), np.int64)
+    for t, x in enumerate(levels):
+        out[t, :len(x)] = x
+    return out.astype(np.uint16).view(np.int16)
 
 
 # --- plain versions -----------------------------------------------------------
@@ -633,48 +709,70 @@ def decode_blocks_direct(words: torch.Tensor, nbits: torch.Tensor,
     block may consume up to 7 padding bits without an error, as in the
     JAX decoder's _decode_direct.  DC is as coded, which is absolute at
     one block a segment.  Slots with nblocks[s] == 0 are zero with err 0.
-    The selectors, tab, pattern and lut as decode_blocks; the CUDA call
-    launches csrc/huffdec_block.cu's direct instance, which reads no
-    bstart."""
+    The selectors, tab and pattern as decode_blocks.
+
+    lut is direct_lut(tab) on the words' device (the decoder passes the
+    one cached on its plan), which the CUDA call's kernel, csrc/
+    huffdec_block.cu's direct instance, reads every token through; it
+    reads no bstart and no canonical table.  A CUDA call raises without
+    it, and for rows of 2^26 words or more.  The plain version does not
+    use it."""
     _check("decode_blocks_direct", words, tab, nbits, nblocks, dc_luma,
            ac_luma)
     _check_pattern(pattern, tab)
     if words.device.type == "cpu":
         return decode_blocks_direct_plain(words, nbits, nblocks, dc_luma,
                                           ac_luma, tab, pattern)
-    coefs, err, args = _block_args(words, nbits, 1, nblocks, dc_luma,
-                                   ac_luma, tab, pattern, lut,
-                                   "huffdec_block_direct")
+    coefs, err, args = _direct_args(words, nbits, nblocks, dc_luma, ac_luma,
+                                    tab, pattern, lut)
     _kernels.launch("huffdec_block_direct", *args)
     return coefs, err
 
 
-def _block_args(words, bounds, bps, nblocks, dc_luma, ac_luma, tab, pattern,
-                lut, kernel="huffdec_block"):
+def _block_args(words, bstart, bps, nblocks, dc_luma, ac_luma, tab, pattern,
+                lut):
     """The outputs and the C arguments of csrc/huffdec_block.cu's entry
-    point gj_<kernel>: bounds is bstart (nseg, bps + 1), or nbits (nseg,)
-    for the direct instance, whose arguments have no bps."""
-    _kernels.require_cuda(kernel, words, bounds, nblocks, dc_luma, ac_luma,
-                          tab)
-    name = ("decode_blocks_direct" if kernel == "huffdec_block_direct"
-            else "decode_blocks")
-    _check_cursors(name, words)
+    point gj_huffdec_block."""
+    _kernels.require_cuda("huffdec_block", words, bstart, nblocks, dc_luma,
+                          ac_luma, tab)
+    _check_cursors("decode_blocks", words)
     nt = tab.shape[0]
     if lut is None or tuple(lut.shape) != (nt, 1 << BLOCK_LUT_BITS) or \
             lut.dtype != torch.int32 or lut.data_ptr() % 16:
-        raise ValueError(f"{name}: lut must be ({nt}, "
+        raise ValueError(f"decode_blocks: lut must be ({nt}, "
                          f"{1 << BLOCK_LUT_BITS}) int32 (block_lut), "
                          "16-byte aligned")
     nseg = words.shape[0]
     L = nseg * bps
     coefs = torch.empty((64, L), dtype=torch.int16, device=words.device)
     err = torch.empty(L, dtype=torch.int32, device=words.device)
-    _kernels.require_cuda(kernel, words, lut, coefs, err)
-    lead = ((words, nseg, words.shape[1], bounds)
-            if kernel == "huffdec_block_direct"
-            else (words, nseg, words.shape[1], bounds, bps))
-    return coefs, err, (*lead, nblocks, dc_luma, ac_luma, *pattern,
-                        table_sets(tab), tab, lut, coefs, err)
+    _kernels.require_cuda("huffdec_block", words, lut, coefs, err)
+    return coefs, err, (words, nseg, words.shape[1], bstart, bps, nblocks,
+                        dc_luma, ac_luma, *pattern, table_sets(tab), tab,
+                        lut, coefs, err)
+
+
+def _direct_args(words, nbits, nblocks, dc_luma, ac_luma, tab, pattern, lut):
+    """The outputs and the C arguments of csrc/huffdec_block.cu's entry
+    point gj_huffdec_block_direct: the tables reach the kernel as lut
+    alone, (2 * sets, stride) int16 (direct_lut)."""
+    _kernels.require_cuda("huffdec_block_direct", words, nbits, nblocks,
+                          dc_luma, ac_luma, tab)
+    _check_cursors("decode_blocks_direct", words)
+    nt = tab.shape[0]
+    if lut is None or lut.dim() != 2 or lut.shape[0] != nt or \
+            lut.shape[1] < 1 << DIRECT_LUT_BITS or lut.shape[1] % 8 or \
+            lut.shape[1] > 1 << 15 or lut.dtype != torch.int16 or \
+            lut.data_ptr() % 16:
+        raise ValueError(f"decode_blocks_direct: lut must be ({nt}, stride) "
+                         "int16 (direct_lut), 16-byte aligned")
+    nseg = words.shape[0]
+    coefs = torch.empty((64, nseg), dtype=torch.int16, device=words.device)
+    err = torch.empty(nseg, dtype=torch.int32, device=words.device)
+    _kernels.require_cuda("huffdec_block_direct", words, lut, coefs, err)
+    return coefs, err, (words, nseg, words.shape[1], nbits, nblocks, dc_luma,
+                        ac_luma, *pattern, table_sets(tab), lut,
+                        lut.shape[1], coefs, err)
 
 
 def decode_blocks_probe(words: torch.Tensor, bstart: torch.Tensor,
@@ -693,4 +791,25 @@ def decode_blocks_probe(words: torch.Tensor, bstart: torch.Tensor,
                                    nblocks, dc_luma, ac_luma, tab, pattern,
                                    lut)
     _kernels.probe("huffdec_block", stage, *args)
+    return coefs, err
+
+
+def decode_blocks_direct_probe(words: torch.Tensor, nbits: torch.Tensor,
+                               nblocks: torch.Tensor, dc_luma: torch.Tensor,
+                               ac_luma: torch.Tensor, tab: torch.Tensor,
+                               pattern: Tuple[int, int, int],
+                               lut: torch.Tensor, stage: str
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """decode_blocks_direct's kernel cut to a decomposition stage
+    (_kernels.PROBE_STAGES: the full kernel; every tile's rows staged and
+    every block's first three words loaded with no token decoded, the
+    zero tiles stored; the decode without the coefficient store) for
+    chip_smoke.py's probe; no codec path calls it.  Only the "full"
+    stage's output is the coefficients."""
+    _check("decode_blocks_direct", words, tab, nbits, nblocks, dc_luma,
+           ac_luma)
+    _check_pattern(pattern, tab)
+    coefs, err, args = _direct_args(words, nbits, nblocks, dc_luma, ac_luma,
+                                    tab, pattern, lut)
+    _kernels.probe("huffdec_block_direct", stage, *args)
     return coefs, err

@@ -1526,6 +1526,7 @@ def test_probes_take_cuda_tensors_only():
                                   64, "load_store")
     assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb",
                                     "huffman_segments", "huffdec_block",
+                                    "huffdec_block_direct",
                                     "pack_stuff_rows"}
 
 
@@ -1818,10 +1819,10 @@ def test_scan_kernel_four_sets(cuda, nsets, bpm, how):
 @pytest.mark.gpu
 @pytest.mark.parametrize("nsets,bpm,how", FOUR_SET_CASES)
 def test_block_kernel_four_sets(cuda, nsets, bpm, how):
-    """The four-set instance of phase C (CTAs of 4 warps, the tables of
-    four sets in shared memory) on the same kind of rows, from the plain
-    scan's boundaries, and on shifted boundaries (garbage): bit for bit
-    the plain decode."""
+    """The four-set instance of phase C (CTAs of 8 warps, the tables of
+    four sets in dynamic shared memory) on the same kind of rows, from
+    the plain scan's boundaries, and on shifted boundaries (garbage): bit
+    for bit the plain decode."""
     words, nbits, nb, dsel, asel, tab, pattern = _four_set_rows(
         70 + 10 * nsets + bpm, nsets, 150, 4 * bpm, bpm, how)
     bstart, err = thd.scan_segments_plain(
@@ -2355,7 +2356,7 @@ def _direct_both(cuda, words, nbits, nb, dcl, acl, tab,
     w_dev.copy_(words)
     rows = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
             for a in (nbits, nb, dcl, acl)]
-    lut = torch.from_numpy(thd.block_lut(tab.numpy())).to(cuda)
+    lut = torch.from_numpy(thd.direct_lut(tab.numpy())).to(cuda)
     _kernels.reset_launches()
     with pytest.raises(ValueError, match="lut"):
         thd.decode_blocks_direct(w_dev, *[r.to(cuda) for r in rows],
