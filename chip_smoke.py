@@ -238,6 +238,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -498,7 +499,7 @@ def scan_call(words, nbits, p, instance=None):
 
     return thd.scan_segments(words, nbits, p.nblocks, p.dc_luma, p.ac_luma,
                              p.tables, p.bps, p.pattern, p.scan_lut,
-                             instance)
+                             instance, sets=p.sets)
 
 
 def scan_check(torch, words, nbits, p, instance=None):
@@ -567,6 +568,52 @@ def scan_times(torch, k, words, nbits, coefs, p, flush, reps=20,
         / PEAK_BYTES_S * 1e3
     k["tokens"] = scan_tokens(torch, coefs, p)
     k["ns_per_token"] = k["ms"] * 1e6 / k["tokens"]
+    if PARENT is not None and k["instance"] == "serial":
+        # the parent tree's serial instance on the same rows, then this
+        # tree's again (parent, change in turns)
+        got, mine = PARENT.scan(torch, words, nbits, p), scan_call(words,
+                                                                   nbits, p)
+        k["parent_err"] = max(diff(got[0], mine[0]), diff(got[1], mine[1]))
+        if k["parent_err"]:
+            raise AssertionError("phase A: the parent's serial instance "
+                                 "differs from this tree's")
+        k["parent_ms"] = event_ms(
+            torch, lambda: PARENT.scan(torch, words, nbits, p), reps, flush)
+        k["ms_again"] = event_ms(torch, lambda: scan_call(words, nbits, p),
+                                 reps, flush)
+
+
+def scan_resources() -> dict:
+    """Phase A's serial instances as built (gj_huffdec_scan_resources),
+    by table sets loaded: registers a thread, static and dynamic shared
+    bytes, local (spilled) bytes a thread and CTAs an SM; given --parent,
+    the parent's ptxas line of each of its serial instances."""
+    import ctypes
+
+    from gpujpeg_tpu_torch.ops import _kernels
+
+    fn = _kernels._lib("huffdec_scan").gj_huffdec_scan_resources
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = {}
+    for sets in (2, 3, 4):
+        v = (ctypes.c_int * 5)()
+        rc = fn(sets, ctypes.addressof(v))
+        if rc:
+            raise RuntimeError(f"gj_huffdec_scan_resources({sets}): {rc}")
+        out[f"sets_{sets}"] = dict(zip(
+            ("registers", "static_smem", "local_bytes", "dynamic_smem",
+             "ctas_an_sm"), list(v)))
+    if PARENT is not None:
+        # ptxas prints each entry function's name, then its resources
+        name = None
+        for line in PARENT.build_log["huffdec_scan"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            elif "Used" in line and name and "huffdec_scan_kernel" in name:
+                out[f"parent_{name}"] = line.split("ptxas info    :")[-1] \
+                    .strip()
+    return out
 
 
 def block_call(words, bstart, p):
@@ -620,56 +667,82 @@ def block_times(torch, k, words, nbits, bstart, p, flush, tokens,
     k["ns_per_token"] = k["ms"] * 1e6 / tokens
 
 
-class ParentBlock:
-    """Phase C's kernels as a parent tree has them (chip_smoke.py --parent
-    DIR, DIR the root of a checkout of the parent commit): its
-    csrc/huffdec_block.cu built by nvcc into a library of its own beside
-    the package's kernels, its two entry points called with the arguments
-    the parent's wrappers passed (the canonical tables and block_lut),
-    never counted in _kernels.LAUNCHES; the parent's instances timed on
-    the same words as this tree's, in the same call."""
+class ParentKernels:
+    """The kernels this tree redesigned, as the parent tree has them
+    (chip_smoke.py --parent DIR, DIR the root of a checkout of the parent
+    commit): its csrc/huffdec_block.cu, huffdec_scan.cu and dc_fixup.cu,
+    each built by nvcc into a library of its own beside the package's
+    kernels (the three at once, while the package builds), their entry
+    points called with the arguments the parent's wrappers passed, never
+    counted in _kernels.LAUNCHES; the parent's instances timed on the
+    same inputs as this tree's, in the same call."""
 
-    #: gj_huffdec_block_direct's arguments in the parent: words, nseg, W,
-    #: nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat, table sets,
-    #: tables, block_lut, coefs, err, stream
-    DIRECT_ARGS = "P q i P P P P i i i i P P P P P"
+    SOURCES = ("huffdec_block", "huffdec_scan", "dc_fixup")
+    #: the parent's entry points whose arguments this tree changed (P
+    #: pointer, q int64, i int; the stream last): gj_huffdec_scan: words,
+    #: nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat, table
+    #: sets (2 or 4), tables, scan_lut, bps, bstart, err; gj_dc_fixup: the
+    #: DC row, nseg, bps, bpm, component pattern, components, the tiles'
+    #: sums (null for rows of kShortSlots or fewer), tiles.  Phase C's two
+    #: take this tree's arguments (_kernels._SIGNATURES).
+    ARGS = {"gj_huffdec_scan": "P q i P P P P i i i i P P i P P",
+            "gj_dc_fixup": "P q q i q i P i"}
 
     def __init__(self, root):
         from gpujpeg_tpu_torch.ops import _kernels
 
-        self.src = os.path.join(root, "gpujpeg_tpu_torch", "csrc",
-                                "huffdec_block.cu")
-        if not os.path.isfile(self.src):
-            raise FileNotFoundError(f"--parent: no {self.src}")
         out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "gpujpeg_tpu_torch", "_build", "parent")
         os.makedirs(out, exist_ok=True)
-        self.path = os.path.join(out, "libhuffdec_block_parent.so")
-        self.proc = subprocess.Popen(
-            [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o", self.path,
-             self.src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-        self.lib = None
+        self.src, self.path, self.proc = {}, {}, {}
+        for name in self.SOURCES:
+            src = os.path.join(root, "gpujpeg_tpu_torch", "csrc",
+                               f"{name}.cu")
+            if not os.path.isfile(src):
+                raise FileNotFoundError(f"--parent: no {src}")
+            self.src[name] = src
+            self.path[name] = os.path.join(out, f"lib{name}_parent.so")
+            self.proc[name] = subprocess.Popen(
+                [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o",
+                 self.path[name], src], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        self.lib = {}
+        self.build_log = {}
+        # the parent fix-up's wrapper: rows of more than kShortSlots slots
+        # take tiles of kTile (kScanThreads * kPer) and a sums scratch
+        with open(self.src["dc_fixup"]) as f:
+            text = f.read()
+        const = {k: int(re.search(rf"constexpr int {k} = (\d+);", text)
+                        .group(1))
+                 for k in ("kShortSlots", "kScanThreads", "kPer")}
+        self.fixup_short = const["kShortSlots"]
+        self.fixup_tile = const["kScanThreads"] * const["kPer"]
 
     def load(self):
-        """Wait for the build (started with the package's) and load it."""
+        """Wait for the builds (started with the package's) and load
+        them."""
         import ctypes
         from gpujpeg_tpu_torch.ops import _kernels
 
-        text, _ = self.proc.communicate()
-        if self.proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the parent's "
-                               f"huffdec_block.cu:\n{text}")
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] parent huffdec_block: {line.strip()}")
-        self.lib = ctypes.CDLL(self.path)
         kinds = {"P": ctypes.c_void_p, "q": ctypes.c_int64,
                  "i": ctypes.c_int}
-        self.lib.gj_huffdec_block.argtypes = \
-            _kernels._SIGNATURES["huffdec_block"]
-        self.lib.gj_huffdec_block_direct.argtypes = [
-            kinds[c] for c in self.DIRECT_ARGS.split()]
+        for name in self.SOURCES:
+            text, _ = self.proc[name].communicate()
+            if self.proc[name].returncode != 0:
+                raise RuntimeError(f"nvcc failed for the parent's "
+                                   f"{name}.cu:\n{text}")
+            self.build_log[name] = text
+            for line in text.splitlines():
+                if "Used" in line or "spill" in line:
+                    log(f"[build] parent {name}: {line.strip()}")
+            self.lib[name] = ctypes.CDLL(self.path[name])
+        for entry in ("huffdec_block", "huffdec_block_direct"):
+            getattr(self.lib["huffdec_block"], f"gj_{entry}").argtypes = \
+                _kernels._SIGNATURES[entry]
+        for name, sym in (("huffdec_scan", "gj_huffdec_scan"),
+                          ("dc_fixup", "gj_dc_fixup")):
+            getattr(self.lib[name], sym).argtypes = [
+                kinds[c] for c in self.ARGS[sym].split()] + [kinds["P"]]
         return self
 
     def _call(self, fn, torch, *args):
@@ -677,21 +750,18 @@ class ParentBlock:
                   for a in args]
         rc = fn(*c_args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"the parent's phase C failed to launch: "
-                               f"error {rc}")
+            raise RuntimeError(f"the parent's {fn.__name__} failed to "
+                               f"launch: error {rc}")
 
     def direct(self, torch, words, nbits, p):
         """The parent's direct instance: (coefs, err)."""
         from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 
-        nseg = words.shape[0]
-        coefs = torch.empty((64, nseg), dtype=torch.int16,
-                            device=words.device)
-        err = torch.empty(nseg, dtype=torch.int32, device=words.device)
-        self._call(self.lib.gj_huffdec_block_direct, torch, words, nseg,
-                   words.shape[1], nbits, p.nblocks, p.dc_luma, p.ac_luma,
-                   *p.pattern, thd.table_sets(p.tables), p.tables,
-                   p.block_lut, coefs, err)
+        coefs, err, args = thd._direct_args(
+            words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
+            p.pattern, p.direct_lut)
+        self._call(self.lib["huffdec_block"].gj_huffdec_block_direct, torch,
+                   *args)
         return coefs, err
 
     def block(self, torch, words, bstart, p):
@@ -703,15 +773,45 @@ class ParentBlock:
                             device=words.device)
         err = torch.empty(nseg * bps, dtype=torch.int32,
                           device=words.device)
-        self._call(self.lib.gj_huffdec_block, torch, words, nseg,
-                   words.shape[1], bstart, bps, p.nblocks, p.dc_luma,
+        self._call(self.lib["huffdec_block"].gj_huffdec_block, torch, words,
+                   nseg, words.shape[1], bstart, bps, p.nblocks, p.dc_luma,
                    p.ac_luma, *p.pattern, thd.table_sets(p.tables),
                    p.tables, p.block_lut, coefs, err)
         return coefs, err
 
+    def scan(self, torch, words, nbits, p):
+        """The parent's serial phase A (its two- or four-set instance, as
+        the table count picks): (bstart, err)."""
+        from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 
-#: the parent tree's phase C (ParentBlock), when chip_smoke.py is given
-#: --parent DIR; else None and no parent time is taken
+        nseg = words.shape[0]
+        bstart = torch.empty((nseg, p.bps + 1), dtype=torch.int32,
+                             device=words.device)
+        err = torch.empty(nseg, dtype=torch.bool, device=words.device)
+        self._call(self.lib["huffdec_scan"].gj_huffdec_scan, torch, words,
+                   nseg, words.shape[1], nbits, p.nblocks, p.dc_luma,
+                   p.ac_luma, *p.pattern, thd.table_sets(p.tables), p.tables,
+                   p.scan_lut, p.bps, bstart, err)
+        return bstart, err
+
+    def fixup(self, torch, coefs, p):
+        """The parent's DC fix-up on coefs, in place, with the scratch its
+        wrapper allocated a call; -> its launches (1, or 2 for rows longer
+        than kShortSlots)."""
+        nseg = coefs.shape[1] // p.bps
+        bpm, pat, ncomp = p.comp_pattern
+        tiles = -(-p.bps // self.fixup_tile) \
+            if p.bps > self.fixup_short else 0
+        sums = (torch.empty((nseg * tiles, 4), dtype=torch.int32,
+                            device=coefs.device) if tiles else None)
+        self._call(self.lib["dc_fixup"].gj_dc_fixup, torch, coefs, nseg,
+                   p.bps, bpm, pat, ncomp, sums, tiles)
+        return 2 if tiles else 1
+
+
+#: the parent tree's redesigned kernels (ParentKernels), when
+#: chip_smoke.py is given --parent DIR; else None and no parent time is
+#: taken
 PARENT = None
 
 
@@ -2177,8 +2277,14 @@ def foreign_layout(torch, np, gt, dev, flush, fusedpack, thd, three_sets,
              "and the 8K one, plain_ms on the 8K one; ms, bound and "
              "tokens on the 8K one")
     s3, b3 = (rec(f"huffdec_scan:three_sets_{tag}",
-                  "four-set instance: the Annex-K stream rewritten to "
-                  "three AC table sets"),
+                  "four-set instance loading three sets' lookahead rows "
+                  "(dynamic shared memory sized to the launch): the "
+                  "Annex-K stream rewritten to three AC table sets; "
+                  "two_set_ms the two-set instance on the same tokens "
+                  "(the Annex-K stream, huffdec_scan:annexk_*'s ms), "
+                  "parent_ms the parent tree's instance on the same words "
+                  "(--parent), resources each serial instance's "
+                  "registers, shared memory and CTAs an SM"),
               rec(f"huffdec_block:three_sets_{tag}",
                   "four-set instance, CTAs of 8 warps, its tables in "
                   "dynamic shared memory: the Annex-K stream rewritten "
@@ -2397,6 +2503,8 @@ def foreign_layout(torch, np, gt, dev, flush, fusedpack, thd, three_sets,
     block_times(torch, b3, words, nbits, bstart, hf.plan, flush,
                 s3["tokens"])
     b3["two_set_ms"] = bk["ms"]
+    s3["two_set_ms"] = sk["ms"]
+    s3["resources"] = scan_resources()
     if PARENT is not None:
         got = PARENT.block(torch, words, bstart, hf.plan)
         b3["parent_err"] = max(diff(got[0], coefs), diff(got[1], _e))
@@ -2409,6 +2517,12 @@ def foreign_layout(torch, np, gt, dev, flush, fusedpack, thd, three_sets,
         b3["ms_again"] = event_ms(
             torch, lambda: block_call(words, bstart, hf.plan), 20, flush)
         del got
+    log(f"[foreign] {what} three sets: phase A four-set instance "
+        f"{s3['ms']:.4f} ms"
+        + (f" [parent {s3['parent_ms']:.4f}, again {s3['ms_again']:.4f}]"
+           if PARENT is not None else "")
+        + f", the two-set instance on the same tokens {sk['ms']:.4f} ms; "
+        f"resources {s3['resources']}")
     log(f"[foreign] {what} three sets: phase C four-set instance "
         f"{b3['ms']:.4f} ms"
         + (f" [parent {b3['parent_ms']:.4f}, again {b3['ms_again']:.4f}]"
@@ -2437,19 +2551,68 @@ def session_params(gt, tag):
                           gt.RESTART_AUTO if rst < 0 else rst)
 
 
+def graph_nodes(torch, fn) -> dict:
+    """The device operations one call of fn() queues, counted in a CUDA
+    graph that captures it (kept after capture, its nodes read with
+    libcuda's cuGraphGetNodes and cuGraphNodeGetType): {"kernels": n,
+    "memsets": m, "nodes": all}, or {"not_measured": why}.  fn runs once
+    on the capture stream first, so that nothing it makes once (a kept
+    scratch) is captured."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        cu = ctypes.CDLL("libcuda.so.1")
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g, stream=stream):
+            fn()
+        graph = ctypes.c_void_p(g.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        rc = cu.cuGraphGetNodes(graph, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        rc = rc or cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+        kinds = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            rc = rc or cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                             ctypes.byref(kind))
+            kinds.append(kind.value)
+        del g
+    except (AttributeError, RuntimeError, OSError, TypeError) as e:
+        torch.cuda.synchronize()
+        return {"not_measured": f"{type(e).__name__}: {e}"[:200]}
+    torch.cuda.synchronize()
+    if rc:
+        return {"not_measured": f"libcuda error {rc}"}
+    # CUgraphNodeType: 0 kernel, 2 memset
+    return {"kernels": kinds.count(0), "memsets": kinds.count(2),
+            "nodes": len(kinds)}
+
+
 def fixup_times(torch, np, gt, dev, enc, dec, frame, flush) -> dict:
     """[session] a: the DC fix-up kernel against _dc_fixup_t on each
     layout's differential coefficients (phases A and C of an 8K stream of
-    the frame), error 0, and its ms beside its bound, the plain version
-    once and the torch cumsum chain; -> the dc_fixup record."""
+    the frame), error 0; its ms beside its bound, the plain version once
+    and the torch cumsum chain (library_ms); its launches a call
+    (_kernels.LAUNCHES) and the device operations a call queues
+    (graph_nodes); its probe stages (full, loads and stores alone, no
+    store); given --parent, the parent tree's fix-up on the same
+    coefficients, equal to this tree's, timed in turns (parent_ms, then
+    this tree's ms_again); -> the dc_fixup record."""
     from gpujpeg_tpu_torch.models import decoder as tdec
+    from gpujpeg_tpu_torch.ops import _kernels
 
     rec = dict(source="gpujpeg_tpu_torch/csrc/dc_fixup.cu",
                replaces="gpujpeg_tpu/models/decoder.py:390",
                bound_by="bytes", err=0, paths={},
                note="port-only (the JAX package integrates DC in XLA, no "
                     "pallas_call); ms, bound, plain and library of the "
-                    "planar 4:4:4 tuned frame, every layout's in paths; "
+                    "planar 4:4:4 tuned frame, every layout's in paths "
+                    "(with the parent's ms given --parent, the launches "
+                    "and device operations a call, the probe stages); "
                     "library_ms is the torch cumsum chain it replaces "
                     "(_dc_fixup_t, timed here, never used); launches over "
                     "every decode window")
@@ -2463,7 +2626,9 @@ def fixup_times(torch, np, gt, dev, enc, dec, frame, flush) -> dict:
         del words, bstart
         nseg = coefs.shape[1] // p.bps
         got, ref = coefs.clone(), coefs.clone()
+        _kernels.reset_launches()
         tdec.dc_fixup(got, p)
+        launches = _kernels.LAUNCHES["dc_fixup"]
         _, plain_ms = once_ms(torch, lambda: tdec._dc_fixup_t(
             ref, nseg, p.bps, p.comp_slots))
         err = diff(got, ref)
@@ -2471,23 +2636,61 @@ def fixup_times(torch, np, gt, dev, enc, dec, frame, flush) -> dict:
         if err:
             raise AssertionError(f"dc_fixup differs from _dc_fixup_t "
                                  f"({tag})")
-        ms = event_ms(torch, lambda: tdec.dc_fixup(coefs, p), 20, flush)
-        lib = event_ms(torch, lambda: tdec._dc_fixup_t(
+        # the probe's full stage on the same coefficients
+        pr = coefs.clone()
+        tdec.dc_fixup_probe(pr, p, "full")
+        probe_err = diff(pr, got)
+        if probe_err:
+            raise AssertionError(f"dc_fixup {tag}: the probe's full stage "
+                                 "differs from the kernel")
+        del pr
+        tile, tiles, vecs, mode = tdec.fixup_layout(
+            nseg, p.bps, coefs.data_ptr() % 16 == 0)
+        path = dict(rows=nseg, slots_a_row=p.bps, layout=mode,
+                    vectors_a_thread=vecs, tile_slots=tile, tiles=tiles,
+                    launches_a_call=launches, plain_ms=plain_ms)
+        if PARENT is not None:
+            # the parent's fix-up of the same differential coefficients
+            pg = coefs.clone()
+            path["parent_launches_a_call"] = PARENT.fixup(torch, pg, p)
+            path["parent_err"] = diff(pg, got)
+            if path["parent_err"]:
+                raise AssertionError(f"dc_fixup {tag}: the parent's fix-up "
+                                     "differs from this tree's")
+            del pg
+        # from here on each launch integrates coefs again, in place
+        path["ms"] = event_ms(torch, lambda: tdec.dc_fixup(coefs, p), 20,
+                              flush)
+        path["device_ops_a_call"] = graph_nodes(
+            torch, lambda: tdec.dc_fixup(coefs, p))
+        if PARENT is not None:
+            path["parent_ms"] = event_ms(
+                torch, lambda: PARENT.fixup(torch, coefs, p), 20, flush)
+            path["ms_again"] = event_ms(
+                torch, lambda: tdec.dc_fixup(coefs, p), 20, flush)
+            path["parent_device_ops_a_call"] = graph_nodes(
+                torch, lambda: PARENT.fixup(torch, coefs, p))
+        path["probe"] = {st: event_ms(
+            torch, lambda: tdec.dc_fixup_probe(coefs, p, st), 20, flush)
+            for st in _kernels.PROBE_STAGES}
+        path["probe"]["max_abs_err"] = probe_err
+        path["library_ms"] = event_ms(torch, lambda: tdec._dc_fixup_t(
             coefs, nseg, p.bps, p.comp_slots), 10, flush)
-        tiles = -(-p.bps // tdec.DC_TILE) if p.bps > tdec.DC_SHORT_SLOTS \
-            else 0
-        # the DC row read and written once, and the tiles' totals written
-        # once and read once
-        nbytes = 4 * coefs.shape[1] + 2 * 16 * nseg * tiles
-        rec["paths"][tag] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib,
-            bound_ms=nbytes / PEAK_BYTES_S * 1e3, rows=nseg,
-            slots_a_row=p.bps)
+        # the DC row read once and written once
+        path["bound_ms"] = 4 * coefs.shape[1] / PEAK_BYTES_S * 1e3
+        rec["paths"][tag] = path
         log(f"[session] dc_fixup {tag}: {nseg} rows x {p.bps} slots "
-            f"({'tiles of ' + str(tdec.DC_TILE) if tiles else 'a thread a row and component'}); "
-            f"equal to _dc_fixup_t; {ms:.4f} ms (bound "
-            f"{rec['paths'][tag]['bound_ms']:.4f}), torch cumsum chain "
-            f"{lib:.4f} ms, plain once {plain_ms:.3f} ms")
+            f"(layout {mode}, {vecs} vectors a thread, {tiles} tiles of "
+            f"{tile} slots), {launches} launch a call, "
+            f"device operations {path['device_ops_a_call']}; equal to "
+            f"_dc_fixup_t; {path['ms']:.4f} ms (bound "
+            f"{path['bound_ms']:.4f})"
+            + (f" [parent {path['parent_ms']:.4f} in "
+               f"{path['parent_launches_a_call']} launches, device "
+               f"operations {path['parent_device_ops_a_call']}; again "
+               f"{path['ms_again']:.4f}]" if PARENT is not None else "")
+            + f", probe {path['probe']}, torch cumsum chain "
+            f"{path['library_ms']:.4f} ms, plain once {plain_ms:.3f} ms")
         del coefs, got, ref
     rec.update({k: rec["paths"]["planar_444"][k]
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
@@ -4134,12 +4337,13 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------------
     if parent_root is not None:
-        PARENT = ParentBlock(parent_root)      # nvcc runs beside the build
+        PARENT = ParentKernels(parent_root)    # nvcc runs beside the build
     build_s = _kernels.build()
     if PARENT is not None:
         PARENT.load()
     log(f"[build] kernels built in {build_s:.1f} s"
-        + (f", and the parent's huffdec_block.cu ({parent_root})"
+        + (f", and the parent's {', '.join(ParentKernels.SOURCES)} "
+           f"({parent_root})"
            if PARENT is not None else ""))
     for name, text in _kernels.BUILD_LOG.items():
         for line in text.splitlines():
@@ -4439,7 +4643,7 @@ def main() -> int:
              "generic_ms", "library_note", "library_ms_median",
              "serial_ms", "serial_note", "sync_stats",
              "plain_ms_512x384_cpu", "two_set_ms", "parent_ms",
-             "parent_err", "ms_again")
+             "parent_err", "ms_again", "resources")
              if key in k}}
         for name, k in kernels.items()]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Design steps of phase C's direct instance, timed on one CUDA card.
+"""Design steps of phase C's direct instance and of the DC fix-up, timed
+on one CUDA card.
 
     python3 chip_variants.py [OUT.json]
 
-Builds csrc/huffdec_block.cu as it stands and as each variant below
-rewrites it (a source edit a step, each built by nvcc into a library of
-its own under gpujpeg_tpu_torch/_build/variants/), and times every
-library's direct instance (gj_huffdec_block_direct) on the same words: the
-8K Q100 streams of chip_smoke.py's [tool] step (planar 4:4:4 and grey, a
-gradient and its noise twin), in turns (each variant, then each again in
-reverse order).  Every variant's coefficients and error flags are held
-against the tree's (max_abs_err, 0).  Prints a JSON line a stream
-and, given OUT.json, writes them there.  It imports nothing of JAX and
-exits non-zero without a card.
+Builds csrc/huffdec_block.cu and csrc/dc_fixup.cu as they stand and as
+each variant below rewrites them (a source edit a step, each built by
+nvcc into a library of its own under gpujpeg_tpu_torch/_build/variants/),
+and times every library on the same inputs, in turns (each variant, then
+each again in reverse order): the direct instance
+(gj_huffdec_block_direct) on the 8K Q100 streams of chip_smoke.py's
+[tool] step (planar 4:4:4 and grey, a gradient and its noise twin), the
+fix-up (gj_dc_fixup, FIXUP_VARIANTS) on the differential DC of the six
+[session] layouts.  Every variant's output is held against the tree's
+(max_abs_err, 0).  Prints a JSON line a stream or layout and, given
+OUT.json, writes them there.  It imports nothing of JAX and exits
+non-zero without a card.
 
 The variants take one step of the design out at a time:
   double_buffered      rows double-buffered at every width (the launch
@@ -83,31 +86,51 @@ VARIANTS = {
 LUT_BITS = {"lut_10_bits": 10}
 
 
-def build(_kernels):
-    """{variant: loaded library}, "tree" the source as it stands; every
-    nvcc at once."""
+#: the DC fix-up's design steps (csrc/dc_fixup.cu), each taken out:
+#:   tile_rows_everywhere  no thread layout: rows of 6 and 8 slots take
+#:                         the warp and CTA scan of tiles of whole rows;
+#:   chain_one_vector      chained tiles of one vector a thread (2,048
+#:                         slots, twice the tiles);
+#:   long_pauses           the look-back's pause between polls grows to
+#:                         1,024 ns, not 128
+FIXUP_VARIANTS = {
+    "tile_rows_everywhere": [("        if (vec && (kVecSlots * vecs) % bps "
+                              "== 0) {",
+                              "        if (false) {")],
+    "chain_one_vector": [("constexpr int kChainVecs = 2;",
+                          "constexpr int kChainVecs = 1;")],
+    "long_pauses": [("pause = pause < 128 ? 2 * pause : pause;",
+                     "pause = pause < 1024 ? 2 * pause : pause;")],
+}
+
+
+def build(_kernels, source="huffdec_block", variants=None):
+    """{variant: loaded library} of csrc/<source>.cu, "tree" the source as
+    it stands and each of `variants` (default VARIANTS) with its edits;
+    every nvcc at once."""
+    variants = VARIANTS if variants is None else variants
     csrc = os.path.join(HERE, "gpujpeg_tpu_torch", "csrc")
-    base = open(os.path.join(csrc, "huffdec_block.cu")).read()
+    base = open(os.path.join(csrc, f"{source}.cu")).read()
     procs = {}
-    for name, edits in [("tree", [])] + list(VARIANTS.items()):
+    for name, edits in [("tree", [])] + list(variants.items()):
         src = base
         for old, new in edits:
             if old not in src:
                 raise RuntimeError(f"variant {name}: its edit no longer "
-                                   "applies to csrc/huffdec_block.cu")
+                                   f"applies to csrc/{source}.cu")
             src = src.replace(old, new)
         d = os.path.join(HERE, "gpujpeg_tpu_torch", "_build", "variants",
-                         name)
+                         source, name)
         os.makedirs(d, exist_ok=True)
         for f in os.listdir(csrc):
             if f.endswith(".cuh"):
                 shutil.copy(os.path.join(csrc, f), d)
-        with open(os.path.join(d, "huffdec_block.cu"), "w") as f:
+        with open(os.path.join(d, f"{source}.cu"), "w") as f:
             f.write(src)
-        lib = os.path.join(d, "libhuffdec_block.so")
+        lib = os.path.join(d, f"lib{source}.so")
         procs[name] = (lib, subprocess.Popen(
             [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o", lib,
-             os.path.join(d, "huffdec_block.cu")],
+             os.path.join(d, f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, p) in procs.items():
@@ -115,10 +138,62 @@ def build(_kernels):
         if p.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{text}")
         cdll = ctypes.CDLL(lib)
-        cdll.gj_huffdec_block_direct.argtypes = \
-            _kernels._SIGNATURES["huffdec_block_direct"]
+        entry = "huffdec_block_direct" if source == "huffdec_block" \
+            else source
+        getattr(cdll, f"gj_{entry}").argtypes = _kernels._SIGNATURES[entry]
         libs[name] = cdll
     return libs
+
+
+def fixup(torch, lib, coefs, p, scratch, gen):
+    """One library's DC fix-up of coefs in place, with the look-back
+    records `scratch` (big enough for any variant's tiles) and generation
+    gen."""
+    bpm, pat, _n = p.comp_pattern
+    rc = lib.gj_dc_fixup(coefs.data_ptr(), coefs.shape[1] // p.bps, p.bps,
+                         bpm, pat, scratch.data_ptr(), scratch.numel(), gen,
+                         torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"gj_dc_fixup failed: error {rc}")
+
+
+def fixup_variants(torch, cs, gt, dev, flush, _kernels) -> dict:
+    """The fix-up's design steps (FIXUP_VARIANTS) on the six layouts of
+    chip_smoke.py's [session] step (an 8K gradient frame's differential
+    DC after phases A and C), in turns; each variant's DC held against the
+    tree's."""
+    from gpujpeg_tpu_torch.models import decoder as tdec
+
+    libs = build(_kernels, "dc_fixup", FIXUP_VARIANTS)
+    enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
+    frame = cs.make_frame(torch, "gradient", 700, cs.H8K, cs.W8K,
+                          dev).cpu().numpy()
+    gens = iter(range(1, 1 << 30))
+    out = {}
+    for tag, *_ in cs.SESSION_LAYOUTS:
+        hf = dec.prepare(enc.encode(frame, cs.session_params(gt, tag)))
+        p = hf.plan
+        words, nbits = dec.upload(hf)
+        bstart, _e = cs.scan_call(words, nbits, p)
+        coefs, _e = cs.block_call(words, bstart, p)
+        del words, bstart
+        tiles = -(-coefs.shape[1] // tdec.DC_TILE)
+        scratch = torch.zeros(tdec.fixup_scratch_words(tiles),
+                              dtype=torch.int32, device=dev)
+        ref = coefs.clone()
+        fixup(torch, libs["tree"], ref, p, scratch, next(gens))
+        row = {}
+        for name in list(libs) + list(libs)[::-1]:
+            got = coefs.clone()
+            fixup(torch, libs[name], got, p, scratch, next(gens))
+            row[f"{name}_err"] = cs.diff(got, ref)
+            row.setdefault(f"{name}_ms", []).append(cs.event_ms(
+                torch, lambda: fixup(torch, libs[name], got, p, scratch,
+                                     next(gens)), 20, flush))
+        out[f"dc_fixup_{tag}"] = row
+        cs.log(f"[variants] dc_fixup 8K {tag}: " + json.dumps(row))
+        del coefs, ref, got
+    return out
 
 
 def direct(torch, thd, lib, words, nbits, p, lut):
@@ -169,11 +244,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     cs.log(smi)
-    libs = build(_kernels)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    out = {"device": smi}
+    out.update(fixup_variants(torch, cs, gt, dev, flush, _kernels))
+    libs = build(_kernels)
     enc, dec = gt.Encoder(device=dev), gt.Decoder(device=dev)
     params = gt.Parameters(quality=100, restart_interval=gt.RESTART_AUTO)
-    out = {"device": smi}
     for kind in ("rgb", "grey"):
         for what, seed in (("gradient", 300), ("noise", 303)):
             frame = cs.make_frame(torch, what, seed, cs.H8K, cs.W8K, dev)

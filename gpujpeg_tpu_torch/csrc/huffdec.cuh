@@ -68,6 +68,11 @@ __device__ __forceinline__ int set_of(int sel, uint32_t pat, int slot) {
         return (sel + (int)((pat >> (2 * slot)) & 3u)) & 3;
 }
 
+// The canonical tables packed (the four-set instances of both kernels):
+// a table's mono[17] | valoff[17] as int32 (kPackedWords) and its 256
+// symbols as bytes, 3.1 KB for eight tables instead of 9.3 KB.
+constexpr int kPackedWords = 34;
+
 // One token from canonical table t (the layout above) and a left-aligned
 // 16-bit peek: (clen, sym), the code length found by a binary search of
 // the monotone mono[1..15].
@@ -83,6 +88,23 @@ __device__ __forceinline__ void decode_one(const int32_t* t, int p16,
     sym = t[34 + idx];
     clen = p16 > t[16] ? 0 : l;
 }
+
+// decode_one on a packed table: mv its mono | valoff, hv its symbols
+struct Packed {
+    const int32_t* mv;
+    const uint8_t* hv;
+    __device__ __forceinline__ void decode(int p16, int& clen,
+                                           int& sym) const {
+        int c = 0;                     // decode_one's search
+#pragma unroll
+        for (int half = 8; half >= 1; half >>= 1)
+            if (c + half <= 15 && p16 > mv[c + half]) c += half;
+        const int l = c + 1;
+        const int idx = min(max((p16 >> (16 - l)) + mv[17 + l], 0), 255);
+        sym = hv[idx];
+        clen = p16 > mv[16] ? 0 : l;
+    }
+};
 
 // The bits of one segment row, MSB first: 64 bits (buf) with at least 32
 // valid at each step of a walk that refills when n < 32, fed a 32-bit

@@ -207,29 +207,12 @@ __device__ __forceinline__ uint32_t lookup(uint32_t t, uint64_t buf) {
 }
 
 // The canonical decode of a segment-row block's slow tokens: the tables
-// as they come (int32[290] each, huffdec.cuh), or packed (Packed: mono
-// and valoff as int32[34] a table, the 256 symbols as bytes)
+// as they come (int32[290] each, huffdec.cuh), or packed (gj::Packed)
 struct Wide {
     const int32_t* t;
     __device__ __forceinline__ void decode(int p16, int& clen,
                                            int& sym) const {
         gj::decode_one(t, p16, clen, sym);
-    }
-};
-
-struct Packed {
-    const int32_t* mv;    // mono[17] | valoff[17]
-    const uint8_t* hv;    // huffval[256]
-    __device__ __forceinline__ void decode(int p16, int& clen,
-                                           int& sym) const {
-        int c = 0;                     // gj::decode_one's search
-#pragma unroll
-        for (int half = 8; half >= 1; half >>= 1)
-            if (c + half <= 15 && p16 > mv[c + half]) c += half;
-        const int l = c + 1;
-        const int idx = min(max((p16 >> (16 - l)) + mv[17 + l], 0), 255);
-        sym = hv[idx];
-        clen = p16 > mv[16] ? 0 : l;
     }
 };
 
@@ -350,7 +333,7 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
     uint32_t* lut;
     int16_t* tiles;
     // the canonical tables: two sets as they come (int32[290] a table),
-    // four packed (Packed, 34 words and 256 bytes a table)
+    // four packed (gj::Packed, 34 words and 256 bytes a table)
     int32_t* tab;
     uint8_t* hv = nullptr;
     if constexpr (kSets == 2) {
@@ -390,7 +373,7 @@ huffdec_block_kernel(const uint32_t* __restrict__ words, int W,
         if constexpr (kSets == 2)
             return Wide{tab + i * gj::kTableWords};
         else
-            return Packed{tab + i * 34, hv + i * 256};
+            return gj::Packed{tab + i * 34, hv + i * 256};
     };
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

@@ -56,9 +56,25 @@
 //     a warp's rows in shared memory to store them coalesced was slower
 //     on three of the four 8K paths (PERF.md, PR 8).  err is one byte a
 //     lane, contiguous.
-//   - the table sets a template argument: the two-set instance keeps
-//     4.6 KB of tables and 16 KB of lookahead table in shared memory; the
-//     four-set one 9.3 KB and 32 KB (41.3 KB static).
+//   - the table sets an instance each, one walk (walk_row) over their
+//     classes: the two-set instance keeps 4.6 KB of tables and 16 KB of
+//     lookahead table in static shared memory, 6 CTAs of 8 warps an SM at
+//     40 registers.  The four-set instances read dynamic shared memory
+//     sized to the launch: the lookahead rows of the sets the stream uses
+//     (24 KB for three sets, whose fourth is a copy of the third on the
+//     decoder's plans and is never loaded; 32 KB for four) and the eight
+//     canonical tables packed, their symbols as bytes (3.1 KB, huffdec.cuh
+//     gj::Packed); a segment's selector is added to its slot pattern once
+//     (add_fields), so the walk keeps the two-set instance's registers,
+//     bounded to its 6 CTAs an SM.  Its prologue starts every copy at
+//     once (the rows by cp.async, the tables by loads before their
+//     stores), one round trip to L2 where a loop of loads and stores took
+//     one a row and a word.  A three-set launch maps set 3 to a
+//     zero row, so a block of set 3 (no plan makes one) still decodes,
+//     each token through the canonical tables.  Before, one instance
+//     held 9.3 KB of tables and 32 KB of lookahead table statically at 46
+//     registers: 5 CTAs an SM, 6.5-11.4% slower than the two-set instance
+//     on the same tokens (PERF.md).
 //
 // A thread walks a whole row, so a long row is a long serial walk: at
 // restart interval 0 a scan is one segment (about 5 M tokens at 8K 4:4:4
@@ -79,6 +95,7 @@
 
 #include "huffdec.cuh"
 #include "lookback.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -101,7 +118,119 @@ __device__ __forceinline__ uint32_t ld_shared_u16(uint32_t addr) {
     return v;
 }
 
-template <int kSets>
+// The table classes of the two-set instance: a block's lookahead row is
+// its canonical table's index (DC sets 0-1, AC 2-3); each segment flag
+// folds into its mask once (gj::set_of)
+struct TwoSets {
+    const int32_t* tab;          // the 4 tables as they come
+    uint32_t dm, am;
+    __device__ __forceinline__ int dc(int slot) const {
+        return gj::set_of<2>(1, dm, slot);
+    }
+    __device__ __forceinline__ int ac(int slot) const {
+        return 2 + gj::set_of<2>(1, am, slot);
+    }
+    __device__ __forceinline__ void decode(int cls, bool, int, int p16,
+                                           int& clen, int& sym) const {
+        gj::decode_one(tab + cls * gj::kTableWords, p16, clen, sym);
+    }
+};
+
+// (sel + field) & 3 in each 2-bit field of pat: a segment's four-set
+// selector added to its slot pattern once (gj::set_of<4>)
+__device__ __forceinline__ uint32_t add_fields(uint32_t pat, int sel) {
+    constexpr uint32_t kLo = 0x55555555u;
+    const uint32_t y = (uint32_t)(sel & 3) * kLo;
+    return ((pat & kLo) + (y & kLo)) ^ (pat & ~kLo) ^ (y & ~kLo);
+}
+
+// The table classes of the four-set instance that loads the lookahead
+// rows of sets 0 .. kLoad - 1 (DC rows 0 .. kLoad - 1, AC rows kLoad ..
+// 2 kLoad - 1) and, when kLoad < 4, a zero row 2 kLoad for set 3, whose
+// tokens then all take the canonical decode; the canonical tables of all
+// eight, packed (gj::Packed)
+template <int kLoad>
+struct FourSets {
+    const int32_t* mv;
+    const uint8_t* hv;
+    uint32_t dm, am;             // a slot's set (selector added), 2 bits
+    __device__ __forceinline__ int dc(int slot) const {
+        const int set = (int)((dm >> (2 * slot)) & 3u);
+        return set < kLoad ? set : 2 * kLoad;
+    }
+    __device__ __forceinline__ int ac(int slot) const {
+        const int set = (int)((am >> (2 * slot)) & 3u);
+        return set < kLoad ? kLoad + set : 2 * kLoad;
+    }
+    __device__ __forceinline__ void decode(int, bool is_dc, int slot,
+                                           int p16, int& clen,
+                                           int& sym) const {
+        const int t = is_dc ? (int)((dm >> (2 * slot)) & 3u)
+                            : 4 + (int)((am >> (2 * slot)) & 3u);
+        gj::Packed{mv + t * gj::kPackedWords, hv + t * 256}.decode(
+            p16, clen, sym);
+    }
+};
+
+// The walk of segment row s (a thread a row): its bstart (out, bps + 1
+// entries) and err; the classes' lookahead rows at shared address lut_s
+template <class Classes>
+__device__ __forceinline__ void walk_row(const uint32_t* __restrict__ row,
+                                         int W, int nbits, int nb, int bps,
+                                         int bpm, const Classes& cls,
+                                         uint32_t lut_s, int32_t* out,
+                                         bool* err) {
+    gj::BitWindow bw;
+    int j;
+    bw.init(row, W, j);
+    out[0] = 0;
+    int cursor = 0, blk = 0, pos = 0, slot = 0;   // slot = blk % bpm
+    bool bad = false;
+    int dcls = cls.dc(0), acls = cls.ac(0);
+    while (blk < nb) {
+        if (bw.n < 32) bw.refill(j);
+        const bool is_dc = pos == 0;
+        const int c = is_dc ? dcls : acls;
+        uint32_t e = ld_shared_u16(
+            lut_s + 2u * ((uint32_t)(c << kLutBits)
+                          | (uint32_t)(bw.buf >> (64 - kLutBits))));
+        int new_pos = pos + (int)((e >> kStepShift) & 63u);
+        if (e == 0 || new_pos > 64) {
+            int clen, sym;
+            cls.decode(c, is_dc, slot, (int)(bw.buf >> 48), clen, sym);
+            if (clen == 0) {
+                bad = true;
+                break;
+            }
+            e = entry_of(clen, sym, is_dc);
+            new_pos = pos + (int)(e >> kStepShift & 63u);
+        }
+        const int adv = (int)(e & 31u);
+        const int after = cursor + adv;
+        if (after > nbits || new_pos > 64) {
+            bad = true;
+            break;
+        }
+        cursor = after;
+        bw.buf <<= adv;
+        bw.n -= adv;
+        if ((e & kEob) || new_pos == 64) {
+            ++blk;
+            if (++slot == bpm) slot = 0;
+            out[blk] = after;
+            pos = 0;
+            dcls = cls.dc(slot);
+            acls = cls.ac(slot);
+        } else {
+            pos = new_pos;
+        }
+    }
+    for (int b = blk + 1; b <= bps; ++b) out[b] = nbits;
+    *err = bad || blk < nb;
+}
+
+// the two-set instance: 4.6 KB of tables and 16 KB of lookahead table in
+// static shared memory
 __global__ void __launch_bounds__(kThreads)
 huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                     const int32_t* __restrict__ nbits_a,
@@ -112,76 +241,110 @@ huffdec_scan_kernel(const uint32_t* __restrict__ words, int64_t nseg, int W,
                     const int32_t* __restrict__ tables,
                     const uint16_t* __restrict__ lut_g, int bps,
                     int32_t* __restrict__ bstart, bool* __restrict__ err) {
-    __shared__ int32_t tab[gj::kTablesWords<kSets>];
-    __shared__ __align__(16) uint16_t lut[2 * kSets * kLutSize];
-    for (int i = threadIdx.x; i < 2 * kSets * kLutSize / 8; i += blockDim.x)
+    __shared__ int32_t tab[gj::kTablesWords<2>];
+    __shared__ __align__(16) uint16_t lut[2 * 2 * kLutSize];
+    for (int i = threadIdx.x; i < 2 * 2 * kLutSize / 8; i += blockDim.x)
         reinterpret_cast<uint4*>(lut)[i] =
             __ldg(reinterpret_cast<const uint4*>(lut_g) + i);
-    gj::load_tables<kSets>(tables, tab);     // ends in __syncthreads()
+    gj::load_tables<2>(tables, tab);         // ends in __syncthreads()
     // the table's shared-window address, computed once
     const uint32_t lut_s = (uint32_t)__cvta_generic_to_shared(lut);
 
     const int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (s < nseg) {
-        int32_t* out = bstart + s * (int64_t)(bps + 1);
-        const int nbits = nbits_a[s];
-        const int nb = nblocks_a[s];
-        const int sdc = dc_sel[s], sac = ac_sel[s];
-        gj::BitWindow bw;
-        int j;
-        bw.init(words + s * (int64_t)W, W, j);
-        out[0] = 0;
-        int cursor = 0, blk = 0, pos = 0, slot = 0;   // slot = blk % bpm
-        bool bad = false;
-        // a slot's tables (gj::set_of): with two sets each segment flag
-        // folds into its mask once
-        const uint32_t dm = kSets == 2 ? (sdc ? dc_pat : 0u) : dc_pat;
-        const uint32_t am = kSets == 2 ? (sac ? ac_pat : 0u) : ac_pat;
-        const int dsel = kSets == 2 ? 1 : sdc, asel = kSets == 2 ? 1 : sac;
-        int dcls = gj::set_of<kSets>(dsel, dm, 0);
-        int acls = kSets + gj::set_of<kSets>(asel, am, 0);
-        while (blk < nb) {
-            if (bw.n < 32) bw.refill(j);
-            const bool is_dc = pos == 0;
-            const int cls = is_dc ? dcls : acls;
-            uint32_t e = ld_shared_u16(
-                lut_s + 2u * ((uint32_t)(cls << kLutBits)
-                              | (uint32_t)(bw.buf >> (64 - kLutBits))));
-            int new_pos = pos + (int)((e >> kStepShift) & 63u);
-            if (e == 0 || new_pos > 64) {
-                int clen, sym;
-                gj::decode_one(tab + cls * gj::kTableWords,
-                           (int)(bw.buf >> 48), clen, sym);
-                if (clen == 0) {
-                    bad = true;
-                    break;
-                }
-                e = entry_of(clen, sym, is_dc);
-                new_pos = pos + (int)(e >> kStepShift & 63u);
-            }
-            const int adv = (int)(e & 31u);
-            const int after = cursor + adv;
-            if (after > nbits || new_pos > 64) {
-                bad = true;
-                break;
-            }
-            cursor = after;
-            bw.buf <<= adv;
-            bw.n -= adv;
-            if ((e & kEob) || new_pos == 64) {
-                ++blk;
-                if (++slot == bpm) slot = 0;
-                out[blk] = after;
-                pos = 0;
-                dcls = gj::set_of<kSets>(dsel, dm, slot);
-                acls = kSets + gj::set_of<kSets>(asel, am, slot);
-            } else {
-                pos = new_pos;
-            }
+    if (s < nseg)
+        walk_row(words + s * (int64_t)W, W, nbits_a[s], nblocks_a[s], bps,
+                 bpm, TwoSets{tab, dc_sel[s] ? dc_pat : 0u,
+                              ac_sel[s] ? ac_pat : 0u},
+                 lut_s, bstart + s * (int64_t)(bps + 1), err + s);
+}
+
+// The four-set instance, kLoad sets' lookahead rows (FourSets): from
+// dynamic shared memory sized to the launch, the rows first (4 KB each),
+// then the packed canonical tables; 6 CTAs of 8 warps an SM, as the
+// two-set instance (kSetsCtas bounds its registers to 40)
+constexpr int kSetsCtas = 6;
+constexpr int kTableBatch = 4;   // table words a thread loads together
+constexpr int kRowBytes = kLutSize * 2;
+constexpr int kPackedBytes = 8 * (34 * 4 + 256);   // 8 gj::Packed tables
+static_assert(kPackedBytes == 8 * (gj::kPackedWords * 4 + 256),
+              "mono | valoff as int32 and 256 symbol bytes a table");
+
+__host__ __device__ constexpr int sets_rows(int load) {
+    return 2 * load + (load < 4 ? 1 : 0);
+}
+__host__ __device__ constexpr int sets_smem(int load) {
+    return sets_rows(load) * kRowBytes + kPackedBytes;
+}
+
+// the 8 tables of src (int32[kTableWords] each) packed into mv (8 *
+// kPackedWords int32) and hv (8 * 256 bytes), each thread issuing
+// kTableBatch loads before their stores (a round trip to L2 a batch, not
+// a word); ends in __syncthreads()
+__device__ __forceinline__ void load_packed(const int32_t* __restrict__ src,
+                                            int32_t* mv, uint8_t* hv) {
+    constexpr int kWords = 8 * gj::kTableWords;
+    for (int i0 = threadIdx.x; i0 < kWords; i0 += kTableBatch * kThreads) {
+        int32_t x[kTableBatch];
+#pragma unroll
+        for (int b = 0; b < kTableBatch; ++b) {
+            const int i = i0 + b * kThreads;
+            x[b] = i < kWords ? __ldg(src + i) : 0;
         }
-        for (int b = blk + 1; b <= bps; ++b) out[b] = nbits;
-        err[s] = bad || blk < nb;
+#pragma unroll
+        for (int b = 0; b < kTableBatch; ++b) {
+            const int i = i0 + b * kThreads;
+            const int t = i / gj::kTableWords, w = i - t * gj::kTableWords;
+            if (i >= kWords) break;
+            if (w < gj::kPackedWords)
+                mv[t * gj::kPackedWords + w] = x[b];
+            else
+                hv[t * 256 + w - gj::kPackedWords] = (uint8_t)x[b];
+        }
     }
+    __syncthreads();
+}
+
+template <int kLoad>
+__global__ void __launch_bounds__(kThreads, kSetsCtas)
+huffdec_scan_sets_kernel(const uint32_t* __restrict__ words, int64_t nseg,
+                         int W, const int32_t* __restrict__ nbits_a,
+                         const int32_t* __restrict__ nblocks_a,
+                         const int32_t* __restrict__ dc_sel,
+                         const int32_t* __restrict__ ac_sel, int bpm,
+                         uint32_t dc_pat, uint32_t ac_pat,
+                         const int32_t* __restrict__ tables,
+                         const uint16_t* __restrict__ lut_g, int bps,
+                         int32_t* __restrict__ bstart,
+                         bool* __restrict__ err) {
+    extern __shared__ __align__(16) unsigned char dyn[];
+    constexpr int kVecs = kRowBytes / 16;      // 16-byte copies a row
+    static_assert(kVecs == kThreads, "a copy a thread a row");
+    uint4* rows = reinterpret_cast<uint4*>(dyn);
+    const uint4* src = reinterpret_cast<const uint4*>(lut_g);
+    // the rows by asynchronous copies, all in flight together: shared DC
+    // row r < kLoad is set r's, AC row kLoad + r set r's
+#pragma unroll
+    for (int r = 0; r < 2 * kLoad; ++r) {
+        const int g = r < kLoad ? r : 4 + r - kLoad;
+        gj::cp_async<16>(rows + r * kVecs + threadIdx.x,
+                         src + g * kVecs + threadIdx.x, true);
+    }
+    gj::cp_async_commit();
+    if (kLoad < 4)
+        rows[2 * kLoad * kVecs + threadIdx.x] = make_uint4(0, 0, 0, 0);
+    int32_t* mv = reinterpret_cast<int32_t*>(dyn + sets_rows(kLoad)
+                                             * kRowBytes);
+    uint8_t* hv = reinterpret_cast<uint8_t*>(mv + 8 * gj::kPackedWords);
+    gj::cp_async_wait<0>();
+    load_packed(tables, mv, hv);             // ends in __syncthreads()
+    const uint32_t lut_s = (uint32_t)__cvta_generic_to_shared(dyn);
+
+    const int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+    if (s < nseg)
+        walk_row(words + s * (int64_t)W, W, nbits_a[s], nblocks_a[s], bps,
+                 bpm, FourSets<kLoad>{mv, hv, add_fields(dc_pat, dc_sel[s]),
+                                      add_fields(ac_pat, ac_sel[s])},
+                 lut_s, bstart + s * (int64_t)(bps + 1), err + s);
 }
 
 // ---- the sync instance: long segments, a thread a subsequence ---------
@@ -646,19 +809,20 @@ void run_sync(const void* words, int64_t nseg, int W, int nchunk,
         (int*)scratch);
 }
 
-template <int kSets>
-void run(const void* words, int64_t nseg, int W, const void* nbits,
-         const void* nblocks, const void* dc_sel, const void* ac_sel,
-         int bpm, int dc_pat, int ac_pat, const void* tables,
-         const void* lut, int bps, void* bstart, void* err, void* stream) {
-    const int64_t grid = (nseg + kThreads - 1) / kThreads;
-    huffdec_scan_kernel<kSets><<<(unsigned)grid, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const uint32_t*)words, nseg, W, (const int32_t*)nbits,
-        (const int32_t*)nblocks, (const int32_t*)dc_sel,
-        (const int32_t*)ac_sel, bpm, (uint32_t)dc_pat, (uint32_t)ac_pat,
-        (const int32_t*)tables, (const uint16_t*)lut, bps, (int32_t*)bstart,
-        (bool*)err);
+// the serial instance of `sets` table sets (2, or 3 and 4 of eight
+// tables: FourSets<sets>) and its dynamic shared memory
+using ScanKernel = void (*)(const uint32_t*, int64_t, int, const int32_t*,
+                            const int32_t*, const int32_t*, const int32_t*,
+                            int, uint32_t, uint32_t, const int32_t*,
+                            const uint16_t*, int, int32_t*, bool*);
+
+ScanKernel serial_instance(int sets, int& smem) {
+    smem = 0;
+    if (sets == 2) return huffdec_scan_kernel;
+    if (sets != 3 && sets != 4) return nullptr;
+    smem = sets_smem(sets);
+    return sets == 3 ? huffdec_scan_sets_kernel<3>
+                     : huffdec_scan_sets_kernel<4>;
 }
 
 }  // namespace
@@ -671,19 +835,48 @@ extern "C" int gj_huffdec_scan(const void* words, int64_t nseg, int W,
                                void* bstart, void* err, void* stream) {
     // words: (nseg, W) host-order u32 rows, 4-byte aligned, 32 W < 2^31;
     // nbits, nblocks, dc_sel, ac_sel: (nseg,) i32 with nblocks <= bps;
-    // bpm, dc_pat, ac_pat: the slot pattern, nsets: 2 or 4 table sets
-    // (huffdec.cuh); tables: (2 nsets, 290) i32; lut: (2 nsets, 2048) u16
-    // (ops/huffdec_kernel.scan_lut), 16-byte aligned; bstart: (nseg,
-    // bps+1) i32; err: (nseg,) bool
-    if ((nsets != 2 && nsets != 4) || (int64_t)W * 32 > INT_MAX)
+    // bpm, dc_pat, ac_pat: the slot pattern (huffdec.cuh); nsets: 2 (4
+    // tables), or 3 or 4 (8 tables: the sets whose lookahead rows the
+    // launch loads, FourSets); tables: (4 or 8, 290) i32; lut: (4 or 8,
+    // 2048) u16 (ops/huffdec_kernel.scan_lut), 16-byte aligned; bstart:
+    // (nseg, bps+1) i32; err: (nseg,) bool
+    int smem;
+    const ScanKernel kernel = serial_instance(nsets, smem);
+    if (kernel == nullptr || (int64_t)W * 32 > INT_MAX)
         return (int)cudaErrorInvalidValue;
-    if (nseg > 0 && nsets == 2)
-        run<2>(words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat,
-               ac_pat, tables, lut, bps, bstart, err, stream);
-    else if (nseg > 0)
-        run<4>(words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat,
-               ac_pat, tables, lut, bps, bstart, err, stream);
+    if (nseg > 0) {
+        const int64_t grid = (nseg + kThreads - 1) / kThreads;
+        kernel<<<(unsigned)grid, kThreads, smem, (cudaStream_t)stream>>>(
+            (const uint32_t*)words, nseg, W, (const int32_t*)nbits,
+            (const int32_t*)nblocks, (const int32_t*)dc_sel,
+            (const int32_t*)ac_sel, bpm, (uint32_t)dc_pat,
+            (uint32_t)ac_pat, (const int32_t*)tables, (const uint16_t*)lut,
+            bps, (int32_t*)bstart, (bool*)err);
+    }
     return (int)cudaGetLastError();
+}
+
+// The serial instance of nsets (gj_huffdec_scan's) as built: out[0]
+// registers a thread, out[1] static shared bytes, out[2] local (spill)
+// bytes a thread, out[3] the dynamic shared bytes of its launch, out[4]
+// its CTAs an SM (the occupancy calculator); chip_smoke.py's record
+extern "C" int gj_huffdec_scan_resources(int nsets, int* out) {
+    int smem;
+    const ScanKernel kernel = serial_instance(nsets, smem);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes fa;
+    int ctas = 0;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                          kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.sharedSizeBytes;
+    out[2] = (int)fa.localSizeBytes;
+    out[3] = smem;
+    out[4] = ctas;
+    return 0;
 }
 
 extern "C" int gj_huffdec_scan_sync(const void* words, int64_t nseg, int W,

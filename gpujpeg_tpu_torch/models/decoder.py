@@ -91,6 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import logging
 import math
 import sys
@@ -114,11 +115,15 @@ log = logging.getLogger("gpujpeg_tpu_torch")
 #: the reused segment-matrix buffer grows in steps of this many bytes
 SCRATCH_STEP = 1 << 20
 
-#: rows of the DC fix-up's kernel up to this many block slots take a
-#: thread a (row, component), longer ones are cut into tiles of DC_TILE
-#: slots (csrc/dc_fixup.cu kShortSlots, kTile)
-DC_SHORT_SLOTS = 64
-DC_TILE = 8192
+#: the DC fix-up's kernel (csrc/dc_fixup.cu kVecSlots, kTile,
+#: kMaxThreadVecs, kChainVecs; fixup_layout): a thread takes vectors of
+#: DC_PER slots of the DC row, up to DC_THREAD_VECS of them where its
+#: slots hold whole rows, else one in tiles of up to DC_TILE slots of
+#: whole rows, or DC_CHAIN_VECS in chained tiles
+DC_PER = 8
+DC_TILE = 2048
+DC_THREAD_VECS = 3
+DC_CHAIN_VECS = 2
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -383,6 +388,16 @@ class Plan:
     # (2 * sets, stride) int16, the direct instance's two-level table
     # (huffdec_kernel.direct_lut) on a plan of the direct route, else None
     direct_lut: Optional[torch.Tensor] = None
+    # the table sets the stream's blocks take: 2 (four tables), 3 or 4
+    # (eight; with 3 the fourth set is a copy of the third, and phase A
+    # loads the lookahead rows of the first three alone)
+    sets: int = 2
+    # the DC fix-up's look-back records where rows are longer than its
+    # tile (restart interval 0), made at the first launch on a (device,
+    # stream) and kept there with the count of its launches' generations
+    # (dc_fixup)
+    fixup_scratch: Dict[tuple, tuple] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def direct(self) -> bool:
@@ -398,6 +413,7 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
     docstring)."""
     comp_dc, comp_ac, dc_ids, ac_ids = _table_ids(ps, geo.comp_count)
     nsets = 2 if len(dc_ids) <= 2 and len(ac_ids) <= 2 else 4
+    used = 2 if nsets == 2 else max(len(dc_ids), len(ac_ids))
 
     def pick(tabs, ids, i):
         return tabs[ids[min(i, len(ids) - 1)]]
@@ -449,7 +465,7 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
                     comp_slots=comp_slots,
                     comp_pattern=(bpm, sum(e << 2 * j
                                            for j, e in enumerate(ent)),
-                                  geo.comp_count))
+                                  geo.comp_count), sets=used)
     nb, dcl, acl = [], [], []
     for c in geo.components:
         S, rst = c.segment_count, c.segment_mcu_count
@@ -463,7 +479,7 @@ def _make_plan(ps: reader.ParsedStream, geo: Geometry, device) -> Plan:
                 pattern=(huffdec_kernel.NO_PATTERN if nsets == 2
                          else huffdec_kernel.NO_PATTERN_WIDE),
                 direct_lut=(dev(huffdec_kernel.direct_lut(tab), np.int16)
-                            if bps == 1 else None))
+                            if bps == 1 else None), sets=used)
 
 
 @dataclasses.dataclass
@@ -502,29 +518,94 @@ def _dc_fixup_t(coefs_t: torch.Tensor, nseg: int, bps: int,
     return coefs_t
 
 
-def dc_fixup(coefs_t: torch.Tensor, plan: Plan) -> torch.Tensor:
-    """Differential DC -> absolute in place, along each segment row of the
-    (64, nseg * plan.bps) int16 coefficients, each component of an
-    interleaved row over its own slots: csrc/dc_fixup.cu on CUDA (a
-    thread a row and component for rows of up to DC_SHORT_SLOTS slots,
-    a CTA a tile of DC_TILE slots for longer ones, with the tiles'
-    per-component totals in a scratch array), _dc_fixup_t on the CPU."""
-    bps = plan.bps
+def fixup_layout(nseg: int, bps: int, aligned: bool = True
+                 ) -> Tuple[int, int, int, str]:
+    """(slots a tile, tiles, vectors a thread, mode) of the DC fix-up's
+    kernel over nseg rows of bps slots (csrc/dc_fixup.cu layout): "thread"
+    where a thread's 8, 16 or 24 slots hold whole rows (16-byte aligned
+    rows only: it loads whole vectors), "tile" where a tile of at most
+    DC_TILE slots holds whole rows (lcm(bps, DC_PER) <= DC_TILE), so no
+    sum crosses a tile, else "chained": tiles of DC_CHAIN_VECS * DC_TILE
+    slots that pass their sums on by a look-back."""
+    for vecs in range(1, DC_THREAD_VECS + 1):
+        if aligned and DC_PER * vecs % bps == 0:
+            tile = DC_TILE * vecs
+            return tile, -(-nseg * bps // tile), vecs, "thread"
+    lcm = bps * DC_PER // math.gcd(bps, DC_PER)
+    if lcm <= DC_TILE:
+        tile, vecs, mode = DC_TILE // lcm * lcm, 1, "tile"
+    else:
+        tile, vecs, mode = DC_TILE * DC_CHAIN_VECS, DC_CHAIN_VECS, "chained"
+    return tile, -(-nseg * bps // tile), vecs, mode
+
+
+def fixup_scratch_words(tiles: int) -> int:
+    """uint32 words of the chained fix-up's records: a status word a
+    tile (padded to 16 bytes), then a tile's aggregate and inclusive sums
+    (4 words each)."""
+    return -(-tiles // 4) * 4 + 8 * tiles
+
+
+def _check_fixup(coefs_t: torch.Tensor, bps: int) -> int:
+    """The rows of (64, nseg * bps) int16 coefficients: nseg."""
     if coefs_t.dim() != 2 or coefs_t.shape[0] != 64 or \
             coefs_t.dtype != torch.int16 or coefs_t.shape[1] % bps:
         raise ValueError(f"dc_fixup takes (64, nseg * {bps}) int16 "
                          "coefficients")
-    nseg = coefs_t.shape[1] // bps
-    if coefs_t.device.type == "cpu":
-        return _dc_fixup_t(coefs_t, nseg, bps, plan.comp_slots)
+    return coefs_t.shape[1] // bps
+
+
+def _fixup_args(coefs_t: torch.Tensor, plan: Plan) -> tuple:
+    """The C arguments of a fix-up launch on coefs_t (CUDA): the chained
+    layout's records, kept on the plan for the current stream (launches on
+    one stream run in order), grown when a launch needs more, zeroed once
+    when made, and the launch's generation, one the records' count has not
+    given before (its records never match an earlier launch's)."""
+    bps = plan.bps
+    nseg = _check_fixup(coefs_t, bps)
     _kernels.require_cuda("dc_fixup", coefs_t)
-    bpm, pat, ncomp = plan.comp_pattern
-    tiles = -(-bps // DC_TILE) if bps > DC_SHORT_SLOTS else 0
-    sums = (torch.empty((nseg * tiles, 4), dtype=torch.int32,
-                        device=coefs_t.device) if tiles else None)
-    _kernels.launch("dc_fixup", coefs_t, nseg, bps, bpm, pat, ncomp, sums,
-                    tiles)
+    bpm, pat, _ncomp = plan.comp_pattern
+    _tile, tiles, _vecs, mode = fixup_layout(nseg, bps)
+    scratch, words, gen = None, 0, 1
+    if mode == "chained" and nseg:
+        dev = coefs_t.device
+        key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        entry = plan.fixup_scratch.get(key)
+        if entry is None or entry[0].numel() < fixup_scratch_words(tiles):
+            with torch.cuda.device(dev):
+                entry = (torch.zeros(fixup_scratch_words(tiles),
+                                     dtype=torch.int32, device=dev),
+                         itertools.count())
+            plan.fixup_scratch[key] = entry
+        scratch, gens = entry
+        words = scratch.numel()
+        gen = next(gens) % ((1 << 30) - 1) + 1
+    return (coefs_t, nseg, bps, bpm, pat, scratch, words, gen)
+
+
+def dc_fixup(coefs_t: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """Differential DC -> absolute in place, along each segment row of the
+    (64, nseg * plan.bps) int16 coefficients, each component of an
+    interleaved row over its own slots: csrc/dc_fixup.cu on CUDA (one
+    launch on every shape: whole rows a thread or a tile, or, for rows
+    longer than a tile, tiles chained by a look-back over records kept on
+    the plan, fixup_layout), _dc_fixup_t on the CPU."""
+    nseg = _check_fixup(coefs_t, plan.bps)
+    if coefs_t.device.type == "cpu":
+        return _dc_fixup_t(coefs_t, nseg, plan.bps, plan.comp_slots)
+    _kernels.launch("dc_fixup", *_fixup_args(coefs_t, plan))
     return coefs_t
+
+
+def dc_fixup_probe(coefs_t: torch.Tensor, plan: Plan, stage: str) -> None:
+    """Decomposition stage `stage` (_kernels.PROBE_STAGES) of the fix-up's
+    kernel on coefs_t, in place, as dc_fixup launches it (chip_smoke.py's
+    probe; never a codec path, never counted in _kernels.LAUNCHES)."""
+    _check_fixup(coefs_t, plan.bps)
+    if coefs_t.device.type != "cuda":
+        raise ValueError("dc_fixup_probe: the probe takes CUDA tensors "
+                         "only")
+    _kernels.probe("dc_fixup", stage, *_fixup_args(coefs_t, plan))
 
 
 @dataclasses.dataclass
@@ -762,7 +843,7 @@ class Decoder:
         p = plan
         bstart, err_a = huffdec_kernel.scan_segments(
             words, nbits, p.nblocks, p.dc_luma, p.ac_luma, p.tables, p.bps,
-            p.pattern, p.scan_lut)
+            p.pattern, p.scan_lut, sets=p.sets)
         coefs_t, err_c = huffdec_kernel.decode_blocks(
             words, bstart, p.nblocks, p.dc_luma, p.ac_luma, p.tables,
             p.pattern, p.block_lut)

@@ -75,7 +75,9 @@ _SIGNATURES: Dict[str, List] = {
     # needs, scratch (fusedpack.pack_stuff_scan), stream
     "pack_stuff_scan": [_P, _P, _I64, _I, _P, _P, _P, _P, _P],
     # words, nseg, W, nbits, nblocks, dc_sel, ac_sel, bpm, dc_pat, ac_pat,
-    # table sets, tables, lookahead table, bps, bstart, err, stream
+    # table sets (2, or 3 and 4 of eight tables: the sets whose lookahead
+    # rows the launch loads), tables, lookahead table, bps, bstart, err,
+    # stream
     "huffdec_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                      _I, _P, _P, _P],
     # phase A's sync instance: huffdec_scan's arguments, then bits a
@@ -113,9 +115,10 @@ _SIGNATURES: Dict[str, List] = {
     # in, R, C, out, stream
     "pair_sum_rows": [_P, _I64, _I, _P, _P],
     "pack_u8_quads": [_P, _I64, _I, _P, _P],
-    # DC row, nseg, bps, bpm, component pattern, components, tile sums
-    # (null for short rows), tiles, stream
-    "dc_fixup": [_P, _I64, _I64, _I, _I64, _I, _P, _I, _P],
+    # DC row, nseg, bps, bpm, component pattern, the chained tiles'
+    # look-back records (null where a tile holds whole rows), their words,
+    # the launch's generation (models/decoder.fixup_layout), stream
+    "dc_fixup": [_P, _I64, _I64, _I, _I64, _P, _I64, _I, _P],
 }
 
 #: kernels whose source is not csrc/<name>.cu: kernel name -> source name
@@ -128,7 +131,7 @@ SOURCES["pack_stuff_scan"] = "pack_stuff_rows"
 #: kernels with a gj_<name>_probe entry point: (stage, *the kernel's
 #: arguments), stage one of PROBE_STAGES' values (csrc/tile.cuh gj::Stage)
 PROBES = ("fdct_quant", "dpost_rgb", "huffman_segments", "huffdec_block",
-          "huffdec_block_direct", "pack_stuff_rows")
+          "huffdec_block_direct", "pack_stuff_rows", "dc_fixup")
 PROBE_STAGES = {"full": 0, "load_store": 1, "no_store": 2}
 
 #: kernels with a gj_<name>_empty entry point: an empty kernel on the

@@ -586,7 +586,8 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
                   pattern: Tuple[int, int, int] = NO_PATTERN,
                   lut: Optional[torch.Tensor] = None,
                   instance: Optional[str] = None,
-                  stats: Optional[dict] = None
+                  stats: Optional[dict] = None,
+                  sets: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase A: (words (nseg, W) int32 host-order rows; nbits, nblocks,
     dc_luma, ac_luma (nseg,) int32, the segments' table selectors: luma
@@ -612,9 +613,21 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
     it with the launch's rounds (summed over its CTAs), the chunks that
     walked again from a true entry their guess missed ("redo"), the
     subsequences walked by running ahead ("ahead") and the longest CTA's
-    microseconds in its local walks, look-back and writing walk."""
+    microseconds in its local walks, look-back and writing walk.
+
+    sets, with eight tables, is 3 or 4 (default table_sets(tab)): the
+    serial instance loads the lookahead rows of sets 0 .. sets - 1 alone
+    (the decoder passes Plan.sets, 3 where its fourth set is a copy of
+    the third), and a block of a set past them decodes each token from
+    the canonical tables, with the same result."""
     _check("scan_segments", words, tab, nbits, nblocks, dc_luma, ac_luma)
     _check_pattern(pattern, tab)
+    nsets = table_sets(tab)
+    if sets is None:
+        sets = nsets
+    elif sets != nsets and not (nsets == 4 and sets == 3):
+        raise ValueError(f"scan_segments: {sets} sets of {tab.shape[0]} "
+                         "tables (3 or 4 of eight, 2 of four)")
     if words.device.type == "cpu":
         return scan_segments_plain(words, nbits, nblocks, dc_luma, ac_luma,
                                    tab, bps, pattern)
@@ -634,9 +647,10 @@ def scan_segments(words: torch.Tensor, nbits: torch.Tensor,
     _kernels.require_cuda("huffdec_scan", words, lut, bstart, err)
     inst = instance or scan_instance(nseg, W)
     args = (words, nseg, W, nbits, nblocks, dc_luma, ac_luma, *pattern,
-            table_sets(tab), tab, lut, bps, bstart, err)
+            nsets, tab, lut, bps, bstart, err)
     if inst == "serial":
-        _kernels.launch("huffdec_scan", *args, instance="serial")
+        _kernels.launch("huffdec_scan", *args[:10], sets, *args[11:],
+                        instance="serial")
     elif inst == "sync":
         sub_bits, lead = sync_schedule(pattern)
         scratch = torch.empty(sync_scratch_words(nseg, max(W, 1), sub_bits),

@@ -1524,10 +1524,13 @@ def test_probes_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         tfp.pack_stuff_rows_probe(z, z, torch.zeros(4, dtype=torch.int32),
                                   64, "load_store")
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.dc_fixup_probe(torch.zeros((64, 16), dtype=torch.int16),
+                            fixup_plan(8, (0,)), "load_store")
     assert set(_kernels.PROBES) == {"fdct_quant", "dpost_rgb",
                                     "huffman_segments", "huffdec_block",
                                     "huffdec_block_direct",
-                                    "pack_stuff_rows"}
+                                    "pack_stuff_rows", "dc_fixup"}
 
 
 @pytest.mark.gpu
@@ -1971,8 +1974,9 @@ def test_decode_kernels_refuse_int32_cursor_overflow(cuda):
 
 #: (rows, slots a row, the component of each slot of an MCU): the tuned
 #: paths' short rows (planar, interleaved 4:2:0, interleaved 4:4:4 of two
-#: MCUs), rows at and just past the short path's limit, and restart 0's
-#: long rows of one tile and more (planar, interleaved with a pattern)
+#: MCUs), rows that tile whole (64 slots; 65, 3 rows a tile), and restart
+#: 0's long rows of one tile and more, chained tiles (planar, interleaved
+#: with a pattern)
 FIXUP_CASES = [(5000, 8, (0,)), (3000, 6, (0, 0, 0, 0, 1, 2)),
                (3000, 6, (0, 1, 2)), (9, 64, (0, 1)), (7, 65, (0,)),
                (3, 20000, (0,)), (1, 8193, (0,)),
@@ -1982,7 +1986,7 @@ FIXUP_CASES = [(5000, 8, (0,)), (3000, 6, (0, 0, 0, 0, 1, 2)),
 def fixup_plan(bps, ent, device="cpu"):
     """The fields of a decoder Plan that dc_fixup reads, for rows of bps
     slots whose MCU's slots belong to components ent, as _make_plan sets
-    them."""
+    them, and the plan's cache of the fix-up's look-back records."""
     bpm = len(ent)
     slot_comp = np.tile(np.asarray(ent), bps // bpm)
     slots = None if bpm == 1 else tuple(
@@ -1991,7 +1995,7 @@ def fixup_plan(bps, ent, device="cpu"):
     return types.SimpleNamespace(
         bps=bps, comp_slots=slots,
         comp_pattern=(bpm, sum(e << 2 * j for j, e in enumerate(ent)),
-                      len(set(ent))))
+                      len(set(ent))), fixup_scratch={})
 
 
 def dc_coefs(seed, nseg, bps, amp=2047):
