@@ -108,6 +108,9 @@ are not taken.  The steps:
      then three 8K frames encoded and decoded on each path (launches
      counted; the packer must run on the Annex-K encodes), their wall ms
      and stages, and the packer's and both phases' ms on these streams;
+     last, the streams whose restart interval exceeds a scan's MCU count
+     (restart_long_streams: every segment shorter than the interval),
+     decoded on the card and held against the CPU's decode at error 0;
  11. [session]: the session surface at 8K (session_phases): the DC
      fix-up kernel (csrc/dc_fixup.cu, which every decode path launches
      and every decode window checks) against its plain version
@@ -2208,7 +2211,9 @@ def foreign_phases(torch, np, gt, dev, flush):
          RESTART0_EXTRA_FRAMES at 0), the three-set streams decoded; stage
          breakdowns; per-launch times of the packer and both phases on
          each stream (at restart 0 the sync instance's, and
-         RESTART0_REPS launches of the serial instance as serial_ms)."""
+         RESTART0_REPS launches of the serial instance as serial_ms);
+      f. the streams whose restart interval exceeds a scan's MCU count
+         (restart_long_streams), outside the main-path windows."""
     from gpujpeg_tpu_torch.ops import _kernels, fusedpack
     from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
     from tests.scan_rows import three_sets
@@ -2247,7 +2252,66 @@ def foreign_phases(torch, np, gt, dev, flush):
             if job["proc"].poll() is None:
                 job["proc"].kill()
                 job["proc"].wait()
+    restart_long_streams(np, gt, dev)
     return kernels, launches
+
+
+def restart_long_streams(np, gt, dev) -> None:
+    """[foreign] f.: the streams whose restart interval exceeds a scan's
+    MCU count (ROADMAP Q13, tests/scan_rows.RESTART_LONG: 8x8 RGB at
+    interval 2, 7x13 at 3, 1x16 interleaved 4:2:0 at 5, 2x30 planar
+    4:1:1 at 5), where every segment's nblocks is below the interval's
+    blocks.  Each is decoded on the card: decode_coefficients through
+    phases A and C and the DC fix-up, decode through its route (the
+    direct instance at one block a segment); coefficients and pixels
+    are held against the port's CPU decode at error 0
+    (tests/test_torch_restart_long.py holds that against the JAX
+    package).  Logs one JSON line, {name: record} with the interval,
+    the plan's bps and nblocks, the launches of each call and the two
+    errors; raises on any error, or on a phase not launched once."""
+    from gpujpeg_tpu_torch.ops import _kernels
+    from tests import scan_rows
+
+    def launched():
+        got = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+        _kernels.reset_launches()
+        return got
+
+    phases = ("huffdec_scan", "huffdec_block", "dc_fixup")
+    out = {}
+    for name, (_hw, rst, _il, _samp) in scan_rows.RESTART_LONG.items():
+        frame, params = scan_rows.restart_long(gt, name)
+        data = gt.Encoder(device="cpu").encode(frame, params)
+        dec, cpu = gt.Decoder(device=dev), gt.Decoder(device="cpu")
+        plan = dec.prepare(data).plan
+        bpm = plan.pattern[0] if plan.geo.interleaved else 1
+        _kernels.reset_launches()
+        coefs = dec.decode_coefficients(data)
+        coef_launches = launched()
+        pixels = dec.decode(data)
+        pixel_launches = launched()
+        want_c, want = cpu.decode_coefficients(data), cpu.decode(data)
+        nblocks = plan.nblocks.tolist()
+        rec = out[name] = dict(
+            interval=rst, blocks_per_mcu=bpm, bps=plan.bps,
+            nblocks=nblocks, direct=plan.direct,
+            coefs_launches=coef_launches, pixels_launches=pixel_launches,
+            coef_err=max(int(np.abs(a.astype(np.int32)
+                                    - b.astype(np.int32)).max())
+                         for a, b in zip(coefs, want_c)),
+            pixel_err=int(np.abs(pixels.astype(np.int32)
+                                 - want.astype(np.int32)).max()))
+        route = ("huffdec_block_direct",) if plan.direct else phases
+        if (rec["coef_err"] or rec["pixel_err"]
+                or any(a.shape != b.shape for a, b in zip(coefs, want_c))
+                or pixels.shape != want.shape
+                or max(nblocks) >= rst * bpm
+                or any(coef_launches.get(k) != 1 for k in phases)
+                or any(pixel_launches.get(k) != 1 for k in route)):
+            raise AssertionError(f"restart interval past the scan: {name} "
+                                 f"differs from the CPU decode: {rec}")
+    log(f"[foreign] restart interval past the scan (card == cpu): "
+        f"{json.dumps(out)}")
 
 
 def foreign_layout(torch, np, gt, dev, flush, fusedpack, thd, three_sets,

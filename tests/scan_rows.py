@@ -4,9 +4,10 @@ on the card): canonical tables with codes of up to 16 bits and seeded
 token streams coded with them, packed as the decoder's word matrix
 (stream/segments.pack_segments_matrix: byte k of a row is stream byte k,
 host-order int32 words, nbits = 8 x bytes), hand-coded rows with
-block boundaries for each of phase C's error kinds, and the rewrite of a
-stream into one of three Huffman table sets.  Imports neither JAX nor the
-JAX package."""
+block boundaries for each of phase C's error kinds, the rewrite of a
+stream into one of three Huffman table sets, and the frames of the
+streams whose restart interval is longer than a scan (RESTART_LONG).
+Imports neither JAX nor the JAX package."""
 
 import numpy as np
 import torch
@@ -262,3 +263,26 @@ def three_sets(data: bytes) -> bytes:
         else:
             j += 1
     return bytes(data)
+
+
+#: streams whose restart interval exceeds a scan's MCU count (ROADMAP
+#: Q13; the JAX decoder raises on them, the port decodes them, so every
+#: segment's block count is below the interval): name -> ((height,
+#: width), interval, interleaved, sampling) of an RGB frame at Q75
+RESTART_LONG = {
+    "rgb_8x8_rst2": ((8, 8), 2, False, None),
+    "rgb_7x13_rst3": ((7, 13), 3, False, None),
+    "il420_1x16_rst5": ((1, 16), 5, True, ((2, 2), (1, 1), (1, 1))),
+    "planar411_2x30_rst5": ((2, 30), 5, False, ((4, 1), (1, 1), (1, 1))),
+}
+
+
+def restart_long(mod, name, rst=None):
+    """(frame, mod.Parameters) of a RESTART_LONG case, at its interval or
+    at `rst`; mod is either package (or its types module)."""
+    (h, w), interval, il, samp = RESTART_LONG[name]
+    rng = np.random.default_rng(list(RESTART_LONG).index(name))
+    frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    p = mod.Parameters(quality=75, interleaved=il,
+                       restart_interval=interval if rst is None else rst)
+    return frame, (p.chroma_subsampled(samp) if samp else p)

@@ -13,6 +13,7 @@ import pytest
 import gpujpeg_tpu as gj
 
 import gpujpeg_tpu_torch as gt
+from tests import torch_threads  # noqa: F401
 
 #: public names of the JAX package, submodules aside
 NAMES = sorted(n for n in dir(gj) if not n.startswith("_")

@@ -24,6 +24,7 @@ from gpujpeg_tpu.types import ColorSpace, ImageParameters, PixelFormat
 
 import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch import cli as tcli
+from tests import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, FRAMES = 48, 64, 16

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from gpujpeg_tpu.models import decoder as jdec
 from gpujpeg_tpu_torch.models import decoder as tdec
 from tests.test_torch_kernels import FIXUP_CASES, dc_coefs, fixup_plan
+from tests import torch_threads  # noqa: F401
 
 SOURCE = os.path.join(os.path.dirname(tdec.__file__), os.pardir, "csrc",
                       "dc_fixup.cu")

@@ -13,6 +13,7 @@ from gpujpeg_tpu.ops import dct as jdct
 from gpujpeg_tpu.utils import tables as jt
 
 from gpujpeg_tpu_torch.ops import dct as tdct, fusedpack as tfp
+from tests import torch_threads  # noqa: F401
 
 
 def _plane(kind, h, w, seed=7):

@@ -14,6 +14,7 @@ import gpujpeg_tpu as gj
 import gpujpeg_tpu_torch as gt
 
 from .test_torch_encode import FRAMES, _gradient
+from tests import torch_threads  # noqa: F401
 
 
 def _encode(frame, quality=75, rst=gt.RESTART_AUTO):
@@ -33,17 +34,26 @@ STREAMS = dict(
 _JDEC = gj.Decoder()
 
 
+@pytest.fixture(scope="module")
+def jax_decodes():
+    """name -> (stream, the JAX package's pixels, its coefficients) of
+    every STREAMS entry, from the module's JAX session."""
+    def one(data):
+        return data, np.asarray(_JDEC.decode(data)), [
+            np.asarray(c) for c in _JDEC.decode_coefficients(data)]
+
+    return {name: one(make()) for name, make in STREAMS.items()}
+
+
 @pytest.mark.parametrize("name", list(STREAMS))
-def test_decode_matches_jax(name):
+def test_decode_matches_jax(jax_decodes, name):
     """Pixels and quantized coefficients equal the JAX package's (whose
     decode_coefficients runs scan -> split -> block)."""
-    data = STREAMS[name]()
-    ref = np.asarray(_JDEC.decode(data))
+    data, ref, ref_c = jax_decodes[name]
     dec = gt.Decoder(device="cpu")
     got = dec.decode(data)
     assert got.dtype == np.uint8 and got.shape == ref.shape
     assert np.array_equal(got, ref)
-    ref_c = _JDEC.decode_coefficients(data)
     got_c = dec.decode_coefficients(data)
     assert len(got_c) == len(ref_c) == 3
     for a, b in zip(got_c, ref_c):
@@ -84,15 +94,23 @@ def _refused(kind):
     return gt.Encoder(device="cpu").encode(frame, p)
 
 
-@pytest.mark.parametrize("kind,items", [
-    ("pil_grey", (6,)), ("planar_411", (6,)), ("il_411", (6,)),
-    ("four_components", (6,))])
-def test_outside_the_slice_raises(kind, items):
+REFUSED = ["pil_grey", "planar_411", "il_411", "four_components"]
+
+
+@pytest.fixture(scope="module")
+def jax_refused():
+    """kind -> (stream, the JAX package's pixels) of every REFUSED kind,
+    from the module's JAX session."""
+    return {kind: (data, np.asarray(_JDEC.decode(data)))
+            for kind, data in ((k, _refused(k)) for k in REFUSED)}
+
+
+@pytest.mark.parametrize("kind,items", [(k, (6,)) for k in REFUSED])
+def test_outside_the_slice_raises(jax_refused, kind, items):
     """Streams once outside the slice (they named ROADMAP item 6, now
     done): each decodes to the JAX package's array, shape and pixels
     (greyscale to (H, W), four components to (H, W, 4))."""
-    data = _refused(kind)
-    ref = np.asarray(_JDEC.decode(data))
+    data, ref = jax_refused[kind]
     got = gt.Decoder(device="cpu").decode(data)
     assert got.shape == ref.shape and np.array_equal(got, ref), items
 

@@ -20,6 +20,7 @@ from gpujpeg_tpu_torch.stream import reader as treader
 from gpujpeg_tpu_torch.stream import segments as tseg
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 
 def _stream(kind, segment_info):

@@ -25,6 +25,7 @@ from gpujpeg_tpu_torch.models import decoder as tdec
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from gpujpeg_tpu_torch.stream import reader as treader
 from tests import scan_rows
+from tests import torch_threads  # noqa: F401
 
 
 def _gradient(h, w, seed, ch=3):
@@ -55,20 +56,30 @@ def _flip(data, pos, mask):
     return bytes(bad)
 
 
-def _ends(data):
-    """(end bit of each segment's block by phase A, its error, nbits)."""
-    hf = gt.Decoder(device="cpu").prepare(data)
+#: one CPU session for the helpers' prepares: a session keeps its plans,
+#: and a direct-route plan holds the direct instance's table
+#: (huffdec_kernel.direct_lut, a decode of every 16-bit peek)
+_DEC = gt.Decoder(device="cpu")
+
+
+def _ends(data, s=None):
+    """(end bit of each segment's block by phase A, its error, nbits), of
+    every segment, or of segment s alone: phase A's plain version on its
+    one row (the rows decode independently)."""
+    hf = _DEC.prepare(data)
     p = hf.plan
-    words = torch.from_numpy(hf.words)
-    nbits = torch.from_numpy(hf.nbits)
-    bstart, err = thd.scan_segments_plain(words, nbits, p.nblocks, p.dc_luma,
-                                          p.ac_luma, p.tables, 1, p.pattern)
-    return bstart[:, 1].numpy(), err.numpy(), hf.nbits
+    rows = slice(None) if s is None else slice(s, s + 1)
+    words = torch.from_numpy(hf.words)[rows]
+    nbits = torch.from_numpy(hf.nbits)[rows]
+    bstart, err = thd.scan_segments_plain(
+        words, nbits, p.nblocks[rows], p.dc_luma[rows], p.ac_luma[rows],
+        p.tables, 1, p.pattern)
+    return bstart[:, 1].numpy(), err.numpy(), hf.nbits[rows]
 
 
 def _direct_err(data):
     """The direct route's error flag of each segment's block."""
-    hf = gt.Decoder(device="cpu").prepare(data)
+    hf = _DEC.prepare(data)
     p = hf.plan
     return thd.decode_blocks_direct(
         torch.from_numpy(hf.words), torch.from_numpy(hf.nbits), p.nblocks,
@@ -79,7 +90,8 @@ def _padding_flip(data):
     """(segment, byte, mask) of one bit near the end of a segment's block
     whose flip leaves the block decoding with no error but ending inside
     the segment's 1-padding, past its true end: the corruption the
-    direct route's byte-aligned bound cannot see."""
+    direct route's byte-aligned bound cannot see.  A trial flip changes
+    its segment's row alone, so phase A judges it on that row."""
     end0, err0, nbits = _ends(data)
     assert not err0.any()
     for s, (st, en) in enumerate(_segments(data)):
@@ -92,8 +104,8 @@ def _padding_flip(data):
             pos, mask = st + bit // 8, 0x80 >> (bit % 8)
             if data[pos] ^ mask == 0xFF:
                 continue
-            end1, err1, _ = _ends(_flip(data, pos, mask))
-            if not err1[s] and end1[s] > end0[s]:
+            end1, err1, _ = _ends(_flip(data, pos, mask), s)
+            if not err1[0] and end1[0] > end0[s]:
                 return s, pos, mask
     raise AssertionError("no flip lands in a block's padding bits")
 
@@ -124,16 +136,27 @@ S420 = ((2, 2), (1, 1), (1, 1))
 
 
 @pytest.fixture(scope="module")
-def streams():
+def q97():
     rng = np.random.default_rng(97)
-    q97 = _encode(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8), 97,
-                  rst=1)
+    return _encode(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8), 97,
+                   rst=1)
+
+
+@pytest.fixture(scope="module")
+def corrupt_case(q97):
+    """_corrupt of the q97_rst1 stream, (stream, padding segment, middle
+    segment): the search runs once a module."""
+    return _corrupt(q97)
+
+
+@pytest.fixture(scope="module")
+def streams(q97, corrupt_case):
     return dict(
         q97_rst1=q97,
         q100_444=_encode(_gradient(48, 64, 1), 100),
         q100_420=_encode(_gradient(48, 64, 2), 100, samp=S420),
         q100_grey=_encode(_gradient(32, 48, 3, ch=1), 100),
-        corrupt=_corrupt(q97)[0],
+        corrupt=corrupt_case[0],
     )
 
 
@@ -202,7 +225,7 @@ def test_q100_auto_interval_is_one_block(streams):
     assert plan.geo.interleaved and plan.bps == 3 and not plan.direct
 
 
-def test_corruptions_of_the_corrupt_case(streams, caplog):
+def test_corruptions_of_the_corrupt_case(streams, corrupt_case, caplog):
     """The corrupt case differs from its clean stream in one padding-bit
     flip, whose block decodes with no error on the direct route (bounded
     by the byte-aligned segment length), and in the middle segment,
@@ -211,7 +234,7 @@ def test_corruptions_of_the_corrupt_case(streams, caplog):
     rows.  The pixels equal the JAX direct route's
     (test_direct_pixels_match_jax)."""
     clean = streams["q97_rst1"]
-    bad, s_pad, mid = _corrupt(clean)
+    bad, s_pad, mid = corrupt_case
     assert bad == streams["corrupt"]
     coefs, errs = [], []
     for data in (clean, bad):

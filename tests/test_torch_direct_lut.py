@@ -13,6 +13,8 @@ whose token-path counts PERF.md reports, against the decoded tokens.
 The kernel itself is held against the plain decode on the card
 (tests/test_torch_kernels_phase_c.py)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from gpujpeg_tpu_torch.utils import tables as tt
 from tests import scan_rows
+from tests import torch_threads  # noqa: F401
 
 K = thd.DIRECT_LUT_BITS
 PEEKS = np.arange(1 << 16, dtype=np.int64)
@@ -51,6 +54,15 @@ TABLES = {
                            scan_rows.long_code_tables(4)[1]),
                           scan_rows.annexk_tables()[0]],
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _lut(name):
+    """(decode tables, direct_lut) of a TABLES entry, built once a module:
+    the table is a canonical decode of all 65,536 peeks of each of its
+    tables, and several tests read it."""
+    tab = scan_rows.decode_tables(TABLES[name]())
+    return tab, thd.direct_lut(tab.numpy())
 
 
 def _lookup(lut, t, peek16):
@@ -79,8 +91,7 @@ def test_lut_matches_canonical_decode(name):
     at most K bits itself, a second level is marked only where a prefix
     holds a longer code, the stride is a multiple of 8, and every entry
     past a table's second levels is 0."""
-    tab = scan_rows.decode_tables(TABLES[name]())
-    lut = thd.direct_lut(tab.numpy())
+    tab, lut = _lut(name)
     nt = tab.shape[0]
     assert lut.dtype == np.int16 and lut.shape[0] == nt
     assert lut.shape[1] % 8 == 0 and lut.shape[1] >= 1 << K
@@ -111,8 +122,7 @@ def test_lut_matches_canonical_codes(name):
     huffman_canonical, independent of the decode tables) looks up that
     code's token, and every peek no code covers the invalid entry."""
     sets = TABLES[name]()
-    tab = thd.decode_tables(*[d for d, _ in sets], *[a for _, a in sets])
-    lut = thd.direct_lut(tab)
+    lut = _lut(name)[1]
     for t, dht in enumerate([d for d, _ in sets] + [a for _, a in sets]):
         is_dc = t < len(sets)
         got, _ = _lookup(lut, t, PEEKS)

@@ -23,6 +23,7 @@ from gpujpeg_tpu.utils.geometry import get_geometry as jget_geometry
 import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import dct as tdct
 from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
+from tests import torch_threads  # noqa: F401
 
 
 def _frame(h, w, seed, amp=40):

@@ -10,6 +10,7 @@ import torch
 import gpujpeg_tpu as gj
 
 import gpujpeg_tpu_torch as gt
+from tests import torch_threads  # noqa: F401
 
 
 def _gradient(h, w, seed):

@@ -20,6 +20,7 @@ from gpujpeg_tpu_torch.ops import fusedpack as tfp
 from gpujpeg_tpu_torch.ops import sample as tsample
 
 from .test_torch_kernels import _edge_blocks
+from tests import torch_threads  # noqa: F401
 
 
 def _frame(h, w, seed, amp=40):

@@ -23,6 +23,7 @@ from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 from gpujpeg_tpu_torch.ops import tokens as ttok
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 
 def _rows_bytes(rows_u32):

@@ -15,6 +15,7 @@ import gpujpeg_tpu as gj
 import gpujpeg_tpu_torch as gt
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 #: one JAX session for the module, as a server would keep one
 _JDEC = gj.Decoder()

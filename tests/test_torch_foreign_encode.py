@@ -21,6 +21,7 @@ from gpujpeg_tpu_torch import native
 from gpujpeg_tpu_torch.ops import fusedpack as tfp
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 S420 = ((2, 2), (1, 1), (1, 1))
 LAYOUTS = {"planar_444": (False, None), "planar_420": (False, S420),

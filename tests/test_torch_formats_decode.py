@@ -18,6 +18,7 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.types import PixelFormatRequest as TRequest
 
 from tests import format_cases as fc
+from tests import torch_threads  # noqa: F401
 
 #: every request: the seven formats, then the pseudo formats
 REQUESTS = fc.OUTPUTS + [r.name for r in TRequest]

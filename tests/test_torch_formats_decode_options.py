@@ -12,6 +12,7 @@ import pytest
 from tests import format_cases as fc
 
 from .test_torch_formats_decode import decode_both, make_stream
+from tests import torch_threads  # noqa: F401
 
 STREAMS = {"il_422": ("rgb", ((2, 1), (1, 1), (1, 1)), True)}
 

@@ -10,6 +10,7 @@ import pytest
 from tests import format_cases as fc
 
 from .test_torch_formats_decode import REQUESTS, decode_both, make_stream
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

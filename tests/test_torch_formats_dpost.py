@@ -18,6 +18,7 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 
 from .test_torch_dpost import _decoded, _frame
+from tests import torch_threads  # noqa: F401
 
 SAMP = {"444": ((1, 1),) * 3, "420": ((2, 2), (1, 1), (1, 1))}
 

@@ -15,6 +15,7 @@ import gpujpeg_tpu as gj
 import gpujpeg_tpu_torch as gt
 
 from tests import format_cases as fc
+from tests import torch_threads  # noqa: F401
 
 #: at most 192 x 112 and an even width (UYVY)
 HW = (48, 64)

@@ -8,6 +8,7 @@ subsampled chroma ((2, 2), (2, 1), (2, 1): 8 blocks an MCU)."""
 import pytest
 
 from .test_torch_formats_encode import encode_both, jenc  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 S411 = ((4, 1), (1, 1), (1, 1))
 

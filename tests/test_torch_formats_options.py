@@ -10,6 +10,7 @@ its TPU preprocessor kernel would not: ROADMAP queue 3)."""
 import pytest
 
 from .test_torch_formats_encode import encode_both, jenc  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 CASES = {
     "flip_rgb": ("rgb", [("enc_opt_flipped", "true")]),

@@ -6,6 +6,7 @@ scans, on the CPU: the bytes equal the JAX package's, tolerance 0."""
 import pytest
 
 from .test_torch_formats_encode import encode_both, jenc  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("kind,hw", [("p444", (48, 64)), ("p422", (48, 64)),

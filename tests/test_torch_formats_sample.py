@@ -23,6 +23,7 @@ from gpujpeg_tpu_torch.ops import sample as tsample
 from gpujpeg_tpu_torch.utils.geometry import get_geometry as tget_geometry
 
 from tests import format_cases as fc
+from tests import torch_threads  # noqa: F401
 
 #: ragged MCUs and odd chroma plane sizes; an even width for UYVY
 HW = (37, 46)

@@ -17,6 +17,7 @@ from gpujpeg_tpu_torch.ops import sample as tsample
 from gpujpeg_tpu_torch.utils.geometry import get_geometry
 
 from tests import format_cases as fc
+from tests import torch_threads  # noqa: F401
 
 HW = (48, 64)
 

@@ -18,6 +18,7 @@ from gpujpeg_tpu_torch.models import encoder as tenc
 from gpujpeg_tpu_torch.stream import writer as twriter
 from gpujpeg_tpu_torch.utils import geometry as tgeo
 from gpujpeg_tpu_torch.utils import tables as tt
+from tests import torch_threads  # noqa: F401
 
 QUALITIES = [10, 50, 75, 90, 100]
 
@@ -130,15 +131,13 @@ def test_encoder_without_cuda_raises(monkeypatch):
     assert gt.Encoder(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("case", ["interleaved", "subsampled",
-                                  "planar_411", "channel_remap", "grey",
-                                  "rgba", "option"])
-def test_outside_main_path_raises(case):
-    """Layouts and options beyond the first slices' RGB path, which the
-    port refused until it took every format: each now gives the JAX
-    package's bytes (interleaved 4:1:1, subsampled chroma planes, planar
-    4:1:1, a channel remap, greyscale, RGBA with 4 components, a vertical
-    flip)."""
+#: test_outside_main_path_raises' cases
+OUTSIDE = ["interleaved", "subsampled", "planar_411", "channel_remap", "grey",
+           "rgba", "option"]
+
+
+def _outside(mod, case):
+    """(frame, options, mod.Parameters) of an OUTSIDE case."""
     rng = np.random.default_rng(17)
     frame = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
     samp, interleaved, opts = None, False, []
@@ -156,37 +155,72 @@ def test_outside_main_path_raises(case):
         opts = [("enc_opt_flipped", "true")]
     elif case == "channel_remap":
         opts = [("enc_opt_channel_remap", "210")]
-    out = []
-    for mod, enc in ((gj, gj.Encoder()), (gt, gt.Encoder(device="cpu"))):
-        for key, value in opts:
-            enc.set_option(key, value)
-        p = mod.Parameters(quality=75, restart_interval=mod.RESTART_AUTO,
-                           interleaved=interleaved)
-        out.append(bytes(enc.encode(frame, p.chroma_subsampled(samp)
-                                    if samp else p)))
-    assert out[1] == out[0]
+    p = mod.Parameters(quality=75, restart_interval=mod.RESTART_AUTO,
+                       interleaved=interleaved)
+    return frame, opts, p.chroma_subsampled(samp) if samp else p
+
+
+def _bytes(enc, frame, opts, p):
+    for key, value in opts:
+        enc.set_option(key, value)
+    return bytes(enc.encode(frame, p))
+
+
+@pytest.fixture(scope="module")
+def jax_outside():
+    """The JAX package's bytes of every OUTSIDE case, from one JAX
+    encoder an option set (options stay on a session)."""
+    encs = {}
+    out = {}
+    for case in OUTSIDE:
+        frame, opts, p = _outside(gj, case)
+        enc = encs.get(tuple(opts))
+        if enc is None:
+            enc = encs[tuple(opts)] = gj.Encoder()
+            for key, value in opts:
+                enc.set_option(key, value)
+        out[case] = _bytes(enc, frame, [], p)
+    return out
+
+
+@pytest.mark.parametrize("case", OUTSIDE)
+def test_outside_main_path_raises(jax_outside, case):
+    """Layouts and options beyond the first slices' RGB path, which the
+    port refused until it took every format: each now gives the JAX
+    package's bytes (interleaved 4:1:1, subsampled chroma planes, planar
+    4:1:1, a channel remap, greyscale, RGBA with 4 components, a vertical
+    flip)."""
+    assert _bytes(gt.Encoder(device="cpu"), *_outside(gt, case)) == \
+        jax_outside[case]
+
+
+#: test_encode_options_match_jax's cases: Parameters keywords, enums by name
+OPTION_CASES = [dict(segment_info=True),
+                dict(header_type="SPIFF", quality=90, restart_interval=3),
+                dict(header_type="EXIF", color_space_internal="YCBCR_BT709",
+                     quality=40)]
+
+
+def _option_params(mod, kw):
+    k = dict(kw)
+    if "header_type" in k:
+        k["header_type"] = mod.HeaderType[k["header_type"]]
+    if "color_space_internal" in k:
+        k["color_space_internal"] = mod.ColorSpace[k["color_space_internal"]]
+    k.setdefault("restart_interval", mod.RESTART_AUTO)
+    return mod.Parameters(**k)
 
 
 def test_encode_options_match_jax():
     """Parameters the main path honours besides the defaults, down to the
     headers: APP13 segment info, explicit header types (SPIFF, Exif), an
-    explicit restart interval, other qualities and colour spaces."""
+    explicit restart interval, other qualities and colour spaces.  One
+    JAX session for the cases."""
     rng = np.random.default_rng(5)
     frame = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
-    cases = [dict(segment_info=True),
-             dict(header_type="SPIFF", quality=90, restart_interval=3),
-             dict(header_type="EXIF", color_space_internal="YCBCR_BT709",
-                  quality=40)]
-    for kw in cases:
-        def params(mod):
-            k = dict(kw)
-            if "header_type" in k:
-                k["header_type"] = mod.HeaderType[k["header_type"]]
-            if "color_space_internal" in k:
-                k["color_space_internal"] = \
-                    mod.ColorSpace[k["color_space_internal"]]
-            k.setdefault("restart_interval", mod.RESTART_AUTO)
-            return mod.Parameters(**k)
-        ref = gj.Encoder().encode(frame, params(gj))
-        got = gt.Encoder(device="cpu").encode(frame, params(gt.types))
+    jenc = gj.Encoder()
+    for kw in OPTION_CASES:
+        ref = jenc.encode(frame, _option_params(gj, kw))
+        got = gt.Encoder(device="cpu").encode(
+            frame, _option_params(gt.types, kw))
         assert got == ref, kw

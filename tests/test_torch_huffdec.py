@@ -20,6 +20,7 @@ from gpujpeg_tpu.utils.geometry import get_geometry as jget_geometry
 import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from gpujpeg_tpu_torch.utils import tables as tt
+from tests import torch_threads  # noqa: F401
 
 
 def _gradient(h, w, seed):

@@ -13,6 +13,7 @@ import gpujpeg_tpu_torch as gt
 
 from .test_torch_encode import _gradient
 from .test_torch_interleaved_decode import check_decode
+from tests import torch_threads  # noqa: F401
 
 
 def _noise(h, w, seed):

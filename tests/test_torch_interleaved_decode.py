@@ -27,6 +27,7 @@ from gpujpeg_tpu_torch.models import decoder as tdec
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 SAMP = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
         "440": ((1, 2), (1, 1), (1, 1)), "444": ((1, 1), (1, 1), (1, 1))}

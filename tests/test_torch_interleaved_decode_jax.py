@@ -12,6 +12,7 @@ import gpujpeg_tpu_torch as gt
 
 from .test_torch_encode import _gradient
 from .test_torch_interleaved_decode import _JDEC, _params, check_decode
+from tests import torch_threads  # noqa: F401
 
 
 def _jax(frame, samp, quality=75, rst=-1):

@@ -16,14 +16,17 @@ from gpujpeg_tpu_torch.ops import fusedpack as tfp
 from gpujpeg_tpu_torch.ops import prepost_kernel as tpre, tokens as ttok
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 S420 = ((2, 2), (1, 1), (1, 1))
+S411 = ((4, 1), (1, 1), (1, 1))
 
 FRAMES = {
     "gradient_320x240": lambda: _gradient(240, 320, 0),
     "odd_311x233": lambda: _gradient(233, 311, 1),
     "noise_64x64": lambda: np.random.default_rng(2).integers(
         0, 256, (64, 64, 3), dtype=np.uint8),
+    "gradient_48x32": lambda: _gradient(32, 48, 5),
 }
 
 #: (frame, quality, restart interval): Q75 auto (1 MCU a segment at
@@ -34,24 +37,44 @@ CASES = [("gradient_320x240", 75, -1), ("odd_311x233", 75, -1),
          ("odd_311x233", 90, 2), ("noise_64x64", 75, -1)]
 
 
-def _params(mod, samp, quality, rst):
+def _params(mod, samp, quality, rst, interleaved=True):
     return mod.Parameters(quality=quality, restart_interval=rst,
-                          interleaved=True).chroma_subsampled(samp)
+                          interleaved=interleaved).chroma_subsampled(samp)
 
 
-def check_bytes(samp, name, quality, rst):
+def jax_encodes(keys):
+    """{(samp, frame name, quality, rst[, interleaved]): the JAX encoder's
+    bytes}, from one JAX session."""
+    enc = gj.Encoder()
+    return {k: bytes(enc.encode(FRAMES[k[1]](), _params(gj, k[0], *k[2:])))
+            for k in keys}
+
+
+def check_bytes(jax_bytes, samp, name, quality, rst):
+    """The port's bytes of a case equal the JAX bytes of jax_encodes."""
     frame = FRAMES[name]()
-    ref = bytes(gj.Encoder().encode(frame, _params(gj, samp, quality, rst)))
     got = gt.Encoder(device="cpu").encode(frame,
                                           _params(gt, samp, quality, rst))
     assert got[:2] == b"\xff\xd8" and got[-2:] == b"\xff\xd9"
-    assert got == ref
+    assert got == jax_bytes[samp, name, quality, rst]
     return got
 
 
+#: test_outside_the_slice_raises' cases: jax_encodes keys
+OUTSIDE = {"planar_411": (S411, "gradient_48x32", 75, -1, False),
+           "il_subsampled_chroma": (((2, 2), (2, 1), (2, 1)), "noise_64x64",
+                                    75, -1),
+           "il_411": (S411, "noise_64x64", 75, 2)}
+
+
+@pytest.fixture(scope="module")
+def jax_bytes():
+    return jax_encodes([(S420, *c) for c in CASES] + list(OUTSIDE.values()))
+
+
 @pytest.mark.parametrize("name,quality,rst", CASES)
-def test_interleaved_420_bytes_match_jax(name, quality, rst):
-    check_bytes(S420, name, quality, rst)
+def test_interleaved_420_bytes_match_jax(jax_bytes, name, quality, rst):
+    check_bytes(jax_bytes, S420, name, quality, rst)
 
 
 def test_interleaved_420_token_layout():
@@ -85,22 +108,17 @@ def test_interleaved_420_token_layout():
             assert torch.equal(part.reshape(6, -1).long(), ref.long())
 
 
-@pytest.mark.parametrize("case", ["planar_411", "il_subsampled_chroma",
-                                  "il_411"])
-def test_outside_the_slice_raises(case):
+@pytest.mark.parametrize("case", list(OUTSIDE))
+def test_outside_the_slice_raises(jax_bytes, case):
     """Non-interleaved and interleaved 4:1:1 and an interleaved scan with
     subsampled chroma, which the port refused before it took every
     sampling: each now gives the JAX package's bytes (its non-megakernel
     path), the interleaved ones through the slot-pattern Huffman coder
     (6 and 8 blocks an MCU)."""
-    frame = _gradient(32, 48, 5)
-    s411 = ((4, 1), (1, 1), (1, 1))
+    key = OUTSIDE[case]
     if case == "planar_411":
-        p = {m: m.Parameters(quality=75, restart_interval=m.RESTART_AUTO)
-             .chroma_subsampled(s411) for m in (gj, gt)}
-        ref = bytes(gj.Encoder().encode(frame, p[gj]))
-        assert gt.Encoder(device="cpu").encode(frame, p[gt]) == ref
-    elif case == "il_subsampled_chroma":
-        check_bytes(((2, 2), (2, 1), (2, 1)), "noise_64x64", 75, -1)
+        samp, name, quality, rst, il = key
+        assert gt.Encoder(device="cpu").encode(FRAMES[name](), _params(
+            gt, samp, quality, rst, il)) == jax_bytes[key]
     else:
-        check_bytes(s411, "noise_64x64", 75, 2)
+        check_bytes(jax_bytes, *key)

@@ -4,15 +4,22 @@ test_torch_interleaved_encode.py)."""
 
 import pytest
 
-from .test_torch_interleaved_encode import CASES, check_bytes
+from .test_torch_interleaved_encode import CASES, check_bytes, jax_encodes
+from tests import torch_threads  # noqa: F401
 
 SAMPLINGS = {"422": ((2, 1), (1, 1), (1, 1)),
              "440": ((1, 2), (1, 1), (1, 1))}
 
+SAMPLED = [c for c in CASES if c[1:] != (75, -1) or c[0] != "odd_311x233"]
+
+
+@pytest.fixture(scope="module")
+def jax_bytes():
+    return jax_encodes([(samp, *c) for samp in SAMPLINGS.values()
+                        for c in SAMPLED])
+
 
 @pytest.mark.parametrize("samp", list(SAMPLINGS))
-@pytest.mark.parametrize("name,quality,rst",
-                         [c for c in CASES if c[1:] != (75, -1)
-                          or c[0] != "odd_311x233"])
-def test_interleaved_bytes_match_jax(samp, name, quality, rst):
-    check_bytes(SAMPLINGS[samp], name, quality, rst)
+@pytest.mark.parametrize("name,quality,rst", SAMPLED)
+def test_interleaved_bytes_match_jax(jax_bytes, samp, name, quality, rst):
+    check_bytes(jax_bytes, SAMPLINGS[samp], name, quality, rst)

@@ -23,6 +23,7 @@ from gpujpeg_tpu_torch.io import formats as tfmt, image as timg, pnm as tpnm
 from gpujpeg_tpu_torch.io import tst as ttst, y4m as ty4m
 from gpujpeg_tpu_torch.ops import color as tcolor
 from gpujpeg_tpu_torch.stream import reformat as tref
+from tests import torch_threads  # noqa: F401
 
 
 def _pi(pi):

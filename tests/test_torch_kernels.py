@@ -2406,6 +2406,41 @@ def test_block_direct_matches_plain(cuda, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", list(scan_rows.RESTART_LONG))
+def test_restart_long_on_card_matches_cpu(cuda, name):
+    """Streams whose restart interval exceeds a scan's MCU count (ROADMAP
+    Q13, scan_rows.RESTART_LONG), so that every segment's nblocks is
+    below the interval's blocks: decode_coefficients through phases A
+    and C and the DC fix-up, and decode through the same or, at one block
+    a segment, the direct instance, give the CPU session's coefficients
+    and pixels exactly (tests/test_torch_restart_long.py holds the CPU
+    session against the JAX package)."""
+    frame, p = scan_rows.restart_long(gt, name)
+    data = gt.Encoder(device="cpu").encode(frame, p)
+    dec, cpu = gt.Decoder(device=cuda), gt.Decoder(device="cpu")
+    plan = dec.prepare(data).plan
+    bpm = plan.pattern[0] if plan.geo.interleaved else 1
+    assert (plan.nblocks.cpu() < scan_rows.RESTART_LONG[name][1] * bpm).all()
+    _kernels.reset_launches()
+    coefs = dec.decode_coefficients(data)
+    for k in ("huffdec_scan", "huffdec_block", "dc_fixup"):
+        assert _kernels.LAUNCHES[k] == 1, _kernels.LAUNCHES
+    want = cpu.decode_coefficients(data)
+    assert len(coefs) == len(want) == 3
+    for a, b in zip(coefs, want):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    _kernels.reset_launches()
+    got = dec.decode(data)
+    ran = (("huffdec_block_direct",) if plan.direct else
+           ("huffdec_scan", "huffdec_block", "dc_fixup"))
+    for k in ran:
+        assert _kernels.LAUNCHES[k] == 1, _kernels.LAUNCHES
+    want = cpu.decode(data)
+    assert got.shape == want.shape == frame.shape
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sets", [2, 4])
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_block_direct_coded_rows(cuda, sets, offset):

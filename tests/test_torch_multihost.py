@@ -21,6 +21,7 @@ from gpujpeg_tpu.types import ColorSpace, ImageParameters, PixelFormat
 from gpujpeg_tpu_torch.parallel import dist
 from gpujpeg_tpu_torch.parallel.batch import BatchEncoder
 from gpujpeg_tpu_torch.parallel.mesh import make_mesh
+from tests import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

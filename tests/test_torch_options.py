@@ -19,6 +19,7 @@ from gpujpeg_tpu.models import encoder as jenc
 import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.models import decoder as tdec
 from gpujpeg_tpu_torch.models import encoder as tenc
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

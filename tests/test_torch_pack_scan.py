@@ -26,6 +26,7 @@ import torch
 
 from gpujpeg_tpu_torch import native
 from gpujpeg_tpu_torch.ops import fusedpack as tfp
+from tests import torch_threads  # noqa: F401
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "gpujpeg_tpu_torch", "csrc", "pack_stuff_rows.cu")

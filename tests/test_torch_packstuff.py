@@ -14,6 +14,7 @@ from gpujpeg_tpu.ops import fusedpack as jfp
 
 import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import fusedpack as tfp
+from tests import torch_threads  # noqa: F401
 
 
 def _tokens(rng, R, T, max_len=27, density=0.5, ff_bias=False):

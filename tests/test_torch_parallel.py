@@ -26,6 +26,7 @@ from gpujpeg_tpu_torch.parallel import batch as tbatch, mesh as tmesh
 from gpujpeg_tpu_torch.utils.geometry import get_geometry
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 S420 = ((2, 2), (1, 1), (1, 1))
 

@@ -11,6 +11,7 @@ from gpujpeg_tpu_torch.parallel import batch as tbatch, mesh as tmesh
 
 from .test_encode import smooth_image
 from .test_torch_parallel_decode import _jax_decode, _jax_stream
+from tests import torch_threads  # noqa: F401
 
 
 def test_batch_decoder_matches_jax():

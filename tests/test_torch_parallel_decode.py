@@ -16,6 +16,7 @@ from gpujpeg_tpu_torch.parallel import batch as tbatch, mesh as tmesh
 
 from .test_encode import smooth_image
 from .test_torch_parallel import S420, _params, _pi
+from tests import torch_threads  # noqa: F401
 
 
 #: one session of each JAX class for the file: a session keeps its

@@ -10,6 +10,7 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.parallel import batch as tbatch, mesh as tmesh
 
 from .test_torch_parallel import S420, _frames, _jax_encodes, _params, _pi
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("layout", [

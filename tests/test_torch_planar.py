@@ -11,6 +11,7 @@ import gpujpeg_tpu as gj
 import gpujpeg_tpu_torch as gt
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 SAMP = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
         "440": ((1, 2), (1, 1), (1, 1))}

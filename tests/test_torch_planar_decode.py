@@ -14,6 +14,7 @@ from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 
 from .test_torch_interleaved_decode import _JDEC
 from .test_torch_planar import SAMP, SIZES, _frame, _params
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("samp", list(SAMP))

@@ -16,6 +16,7 @@ from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 
 from .test_torch_dpost import _decoded, _frame
 from .test_torch_planar import SAMP
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("samp", ["420", "422"])

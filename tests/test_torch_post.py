@@ -23,6 +23,7 @@ from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 from gpujpeg_tpu_torch.ops import sample as tsample
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 SAMP = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
         "440": ((1, 2), (1, 1), (1, 1)), "444": ((1, 1), (1, 1), (1, 1))}

@@ -19,6 +19,7 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.models.encoder import adjust_params as t_adjust
 from gpujpeg_tpu_torch.ops import color as tcolor, prepost_kernel as tpre
 from gpujpeg_tpu_torch.utils import geometry as tgeo
+from tests import torch_threads  # noqa: F401
 
 
 def _geos(w, h, cs_name):

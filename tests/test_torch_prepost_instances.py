@@ -24,6 +24,7 @@ from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 from gpujpeg_tpu_torch.utils.geometry import get_geometry
 
 from tests import format_cases as fc
+from tests import torch_threads  # noqa: F401
 
 H = 24
 

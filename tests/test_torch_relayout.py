@@ -37,6 +37,7 @@ from gpujpeg_tpu_torch.ops import prepost_kernel as tpre
 from gpujpeg_tpu_torch.ops import relayout as trel
 
 from .test_torch_encode import _gradient
+from tests import torch_threads  # noqa: F401
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools")

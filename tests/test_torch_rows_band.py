@@ -17,6 +17,7 @@ import re
 
 import numpy as np
 import pytest
+from tests import torch_threads  # noqa: F401
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "gpujpeg_tpu_torch", "csrc", "relayout.cu")

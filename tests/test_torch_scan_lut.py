@@ -22,6 +22,7 @@ from gpujpeg_tpu.utils import tables as jt
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from gpujpeg_tpu_torch.utils import tables as tt
 from tests import scan_rows
+from tests import torch_threads  # noqa: F401
 
 K = thd.SCAN_LUT_BITS
 PEEKS = torch.arange(1 << 16, dtype=torch.int64)

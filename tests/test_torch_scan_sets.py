@@ -23,6 +23,7 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from tests import scan_rows
 from tests.test_torch_table_sets import _case, _sets
+from tests import torch_threads  # noqa: F401
 
 CSRC = os.path.join(os.path.dirname(thd.__file__), os.pardir, "csrc")
 K = thd.SCAN_LUT_BITS

@@ -36,6 +36,7 @@ from gpujpeg_tpu.utils.geometry import get_geometry as jget_geometry
 import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from tests import scan_rows
+from tests import torch_threads  # noqa: F401
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "gpujpeg_tpu_torch", "csrc", "huffdec_scan.cu")

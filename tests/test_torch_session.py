@@ -17,6 +17,7 @@ import gpujpeg_tpu_torch as gt
 from gpujpeg_tpu_torch.models import decoder as tdec
 from gpujpeg_tpu_torch.stream import reader as treader
 from gpujpeg_tpu_torch.utils.geometry import get_geometry as tget_geometry
+from tests import torch_threads  # noqa: F401
 
 H, W = 48, 64
 LAYOUTS = {
@@ -47,14 +48,17 @@ def _params(layout, rst=4, quality=85):
 @pytest.fixture(scope="module")
 def sequences():
     """Per layout: (frames, the JAX package's streams of them, its decoded
-    pixels); a noise frame mid-sequence."""
+    pixels); a noise frame mid-sequence.  One JAX encoder and one decoder
+    a layout: a JAX session keeps its compiled programs (Encoder._fns),
+    so a new session a frame traced and compiled the same programs
+    again."""
     rng = np.random.default_rng(13)
     out = {}
     for layout in LAYOUTS:
         frames = [_smooth(rng), _smooth(rng), _noise(rng), _smooth(rng)]
         p = _params(layout)
-        streams = [bytes(gj.Encoder().encode(f, p)) for f in frames]
-        jd = gj.Decoder()
+        je, jd = gj.Encoder(), gj.Decoder()
+        streams = [bytes(je.encode(f, p)) for f in frames]
         pixels = [np.asarray(jd.decode(s)) for s in streams]
         out[layout] = (frames, streams, pixels)
     return out
@@ -76,7 +80,8 @@ def test_encode_pipelined_restart0_equals_jax():
     frames = [_smooth(rng), _noise(rng)]
     got = list(gt.Encoder(device="cpu").encode_pipelined(
         frames, gt.from_reference(p)))
-    assert got == [bytes(gj.Encoder().encode(f, p)) for f in frames]
+    je = gj.Encoder()
+    assert got == [bytes(je.encode(f, p)) for f in frames]
 
 
 def test_encode_pipelined_refuses_and_empty():

@@ -17,6 +17,7 @@ from gpujpeg_tpu_torch.ops import huffdec_kernel as thd
 from tests import scan_rows
 from tests.test_torch_block_lut import _check_walk as _block_walk
 from tests.test_torch_scan_lut import _check_walk as _scan_walk
+from tests import torch_threads  # noqa: F401
 
 
 def _sets(n, seed):
